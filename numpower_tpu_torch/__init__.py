@@ -1,0 +1,22 @@
+"""numpower_tpu_torch — the PyTorch + CUDA port of numpower_tpu.
+
+The JAX package ``numpower_tpu`` is the reference; this package mirrors its
+layout and names and is held against it by tests/test_torch_*.py. It imports
+torch and numpy, never jax.
+
+- ``numpower_tpu_torch.models``  — plants, condensed MPC, box-QP solvers
+                                   (FISTA, PG, ADMM) and the serving controller
+- ``numpower_tpu_torch.kernels`` — hand-written CUDA kernels for Hopper
+                                   (``csrc/*.cu``, built at first use)
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+# The 1e-4 parity bound needs fp32 matmuls: keep TF32 off for matmuls and
+# convolutions (the counterpart of numpower_tpu's "highest" default precision).
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+
+from numpower_tpu_torch import kernels, models  # noqa: E402, F401

@@ -1,0 +1,10 @@
+"""Hand-written CUDA kernels for the hot paths, each with its wrapper and its
+plain PyTorch version (sources in numpower_tpu_torch/csrc, built at first
+use by kernels/_build.py)."""
+
+from numpower_tpu_torch.kernels.boxqp_fista import (  # noqa: F401
+    fista_mpc_res, fista_mpc_res_reference,
+)
+from numpower_tpu_torch.kernels.boxqp_admm import (  # noqa: F401
+    admm_mpc_res, admm_mpc_res_reference, minv_factor,
+)

@@ -1,0 +1,109 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``numpower_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface, at first use,
+into ``build/numpower_tpu_torch/`` at the repository root. The library's name
+carries a hash of the sources and flags, so an edited source builds anew and
+an unchanged one loads the library already there. It is loaded with
+``ctypes``: every pointer and the stream are ``ctypes.c_void_p``, and every
+launch function returns ``cudaGetLastError()``, which :func:`check` turns into
+an exception.
+
+A missing ``nvcc`` or a failed build raises with the compiler's output; there
+is no fallback. Each build writes the compiler's output (``-Xptxas -v``:
+registers, shared memory and spills per kernel) beside the library, as
+``<library>.log``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "numpower_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Limits of the tile layout in csrc/boxqp_tile.cuh (kMaxD, kMaxN): a warp of
+# 32 lanes x 4 columns spans d <= 128, and the d x d matrix twice (fp32 and
+# its bf16 copy) plus the operand tile, the fold and x0 then fill at most
+# 164 KiB of the 227 KiB of shared memory a block may have.
+MAX_D = 128
+MAX_N = 32
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # Ht, W, x0, U0, lipschitz, U, resid, N, n, d, iters, coarse, lo, hi, stream
+    "npt_fista_mpc_res": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
+    # rMt, Wc, x0, U0, rho, z, rp, rd, N, n, d, iters, coarse, lo, hi, alpha, stream
+    "npt_admm_mpc_res": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P),
+}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [Path(cuda_home) / "bin" / "nvcc"] if cuda_home else []
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(Path(found))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for path in candidates:
+        if path.is_file():
+            return str(path)
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, $PATH, /usr/local/cuda/bin): "
+        "the CUDA kernels of numpower_tpu_torch cannot be built")
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"libnumpower_tpu_torch_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless the library for their hash exists."""
+    out = library_path()
+    if out.is_file():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n{log}")
+    out.with_suffix(".so.log").write_text(log)
+    os.replace(tmp, out)  # atomic: a concurrent build never loads a half-written file
+    return out
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at the first call."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.npt_error_string.argtypes = (ctypes.c_int,)
+    lib.npt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a launch function returned a CUDA error."""
+    if code != 0:
+        text = library().npt_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({text})")

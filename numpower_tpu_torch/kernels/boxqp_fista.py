@@ -1,0 +1,129 @@
+"""Fused FISTA box-QP kernel for condensed MPC (port of
+numpower_tpu/kernels/boxqp_fista.py ``fista_mpc_pallas_res``).
+
+The kernel is CUDA C++ in ``csrc/boxqp_fista.cu`` (its note says what bounds
+it on the H100 and how the design answers that). This module holds its
+wrapper, :func:`fista_mpc_res`, and its plain PyTorch version,
+:func:`fista_mpc_res_reference`, which computes the same function with the
+same bf16 rounding of the coarse-phase operands. The wrapper takes the plain
+version for a tensor on the CPU only; for a CUDA tensor it launches the
+kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from numpower_tpu_torch.kernels import _build
+from numpower_tpu_torch.kernels._build import MAX_D, MAX_N
+from numpower_tpu_torch.kernels.precision import bf16_round
+
+
+def _fista_betas(iters: int) -> list[float]:
+    """Static FISTA momentum schedule: t_{k+1} = (1 + sqrt(1 + 4 t_k^2)) / 2,
+    beta_k = (t_k - 1) / t_{k+1}."""
+    betas = []
+    t = 1.0
+    for _ in range(iters):
+        t_next = 0.5 * (1.0 + (1.0 + 4.0 * t * t) ** 0.5)
+        betas.append((t - 1.0) / t_next)
+        t = t_next
+    return betas
+
+
+def fista_mpc_res_reference(H, SxT, SuTQT, x0s, lo: float, hi: float, lipschitz,
+                            iters: int = 40, coarse_iters: int = 0,
+                            U0: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of the kernel: returns (U (N, d), resid).
+
+    g = x0s @ (SxT @ SuTQT); static-beta FISTA from U0 (not clipped; zeros
+    when None), whose first ``coarse_iters`` products round both operands to
+    bf16; the momentum restarts at the switch to the fp32 tail. resid is the
+    projected-gradient residual max over the N x d entries. Works in the
+    dtype of its inputs (float64 for a reference run at coarse_iters=0)."""
+    coarse_iters = min(coarse_iters, iters)
+    g = x0s @ (SxT @ SuTQT)
+    Ht = H.T
+    Ht_coarse = bf16_round(Ht)
+    step = 1.0 / lipschitz
+    betas = _fista_betas(coarse_iters) + _fista_betas(iters - coarse_iters)
+    U = torch.zeros_like(g) if U0 is None else U0
+    Y = U
+    for k in range(iters):
+        gemm = bf16_round(Y) @ Ht_coarse if k < coarse_iters else Y @ Ht
+        U_new = torch.clamp(Y - step * (gemm + g), lo, hi)
+        beta = 0.0 if k == coarse_iters - 1 else betas[k]
+        Y = U_new + beta * (U_new - U)
+        U = U_new
+    grad = U @ Ht + g
+    resid = torch.abs(U - torch.clamp(U - step * grad, lo, hi)).max()
+    return U, resid
+
+
+def _check_operand(name: str, t: torch.Tensor, device: torch.device, shape) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launch_shape(H, x0s, iters: int, coarse_iters: int):
+    """(device, N, n, d, coarse_iters) of a launch on x0s's CUDA device, or a
+    ValueError for what the kernels do not take."""
+    if x0s.device.type != "cuda":
+        raise ValueError(f"x0s is on {x0s.device}: the kernel needs a CUDA tensor")
+    N, n = x0s.shape
+    d = H.shape[0]
+    if not (1 <= d <= MAX_D and 1 <= n <= MAX_N and N >= 1):
+        raise ValueError(f"(N, n, d) = ({N}, {n}, {d}) is outside the kernel's "
+                         f"envelope: N >= 1, n <= {MAX_N}, d <= {MAX_D}")
+    if iters < 0 or coarse_iters < 0:
+        raise ValueError("iters and coarse_iters must be non-negative")
+    return x0s.device, N, n, d, min(coarse_iters, iters)
+
+
+def fista_mpc_res(H, SxT, SuTQT, x0s, lo: float, hi: float, lipschitz,
+                  iters: int = 40, coarse_iters: int = 0,
+                  U0: Optional[torch.Tensor] = None):
+    """Fused FISTA MPC solve: returns (U (N, d), resid scalar).
+
+    H (d, d); SxT (n, T n) = Sx'; SuTQT (T n, d) = (Su' Qbar)'; x0s (N, n);
+    lipschitz a scalar tensor (or float); U0 (N, d) warm start. The fold
+    W = SxT @ SuTQT is one host-side matmul; g = x0s @ W, the whole iteration
+    loop and the residual run in the kernel. On a CPU tensor this is
+    :func:`fista_mpc_res_reference`. Each kernel launch adds one to
+    ``fista_mpc_res.launches``."""
+    if x0s.device.type == "cpu":
+        return fista_mpc_res_reference(H, SxT, SuTQT, x0s, lo, hi, lipschitz,
+                                       iters, coarse_iters, U0)
+    device, N, n, d, coarse_iters = _launch_shape(H, x0s, iters, coarse_iters)
+    Ht = H.T.contiguous()
+    W = (SxT @ SuTQT).contiguous()
+    lip = torch.as_tensor(lipschitz, dtype=torch.float32, device=device).reshape(())
+    for name, t, shape in (("H'", Ht, (d, d)), ("W", W, (n, d)), ("x0s", x0s, (N, n)),
+                           ("lipschitz", lip, ())):
+        _check_operand(name, t, device, shape)
+    if U0 is not None:
+        _check_operand("U0", U0, device, (N, d))
+    U = torch.empty((N, d), dtype=torch.float32, device=device)
+    resid = torch.zeros((), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = _build.library().npt_fista_mpc_res(
+            Ht.data_ptr(), W.data_ptr(), x0s.data_ptr(),
+            None if U0 is None else U0.data_ptr(), lip.data_ptr(),
+            U.data_ptr(), resid.data_ptr(), N, n, d, iters, coarse_iters,
+            ctypes.c_float(float(lo)), ctypes.c_float(float(hi)), stream)
+    _build.check(code, "fista_mpc_res kernel launch")
+    fista_mpc_res.launches += 1
+    return U, resid
+
+
+fista_mpc_res.launches = 0

@@ -1,0 +1,15 @@
+"""Plants + condensed-MPC box-QP solvers and the serving controller."""
+
+from numpower_tpu_torch.models.plants import (  # noqa: F401
+    LTIPlant, double_integrator, quadrotor12,
+)
+from numpower_tpu_torch.models.condensed import (  # noqa: F401
+    CondensedQP, prediction_matrices, condense, gradient_offset,
+)
+from numpower_tpu_torch.models.boxqp import (  # noqa: F401
+    BoxQPResult, solve_boxqp_pg, solve_boxqp_fista, solve_mpc_boxqp,
+)
+from numpower_tpu_torch.models.admm import (  # noqa: F401
+    ADMMResult, solve_boxqp_admm, solve_mpc_boxqp_admm,
+)
+from numpower_tpu_torch.models.mpc import MPCController, MPCState  # noqa: F401

@@ -1,0 +1,155 @@
+"""Box-constrained QP solvers: projected gradient and FISTA (port of
+numpower_tpu/models/boxqp.py).
+
+BASELINE config #4: quadrotor 12-state trajopt, 4096 scenarios,
+box-constrained QP:
+
+    U <- clip(U - (1/L) (U H' + g), lo, hi)        [PG]
+    plus Nesterov momentum with adaptive restart    [FISTA]
+
+solve_boxqp_pg and solve_boxqp_fista are plain PyTorch, the counterpart of the
+JAX package's XLA scan path. solve_mpc_boxqp routes a batched solve on a CUDA
+tensor to the fused FISTA kernel (kernels/boxqp_fista.py).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from numpower_tpu_torch.kernels import boxqp_fista
+from numpower_tpu_torch.kernels.precision import bf16_round
+from numpower_tpu_torch.models.condensed import (
+    CondensedQP, default_coarse_iters, gradient_offset,
+)
+
+K3_NOT_PORTED = (
+    "the two-step box-QP kernels that take g (K3: fista_boxqp_pallas and "
+    "admm_boxqp_pallas, for x_ref and single-vector solves) are not ported "
+    "yet (ROADMAP.md, queue 2, first item)")
+
+
+class BoxQPResult(NamedTuple):
+    U: torch.Tensor         # (N, Tm) or (Tm,) solutions
+    iterations: int         # iterations executed
+    residual: torch.Tensor  # max projected-gradient residual across batch
+
+
+def _product(U: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
+    """U H' for a batch (N, d) of rows, H U for one vector (d,)."""
+    return U @ H.T if U.ndim == 2 else H @ U
+
+
+def _step_size(H: torch.Tensor, L):
+    return 1.0 / (torch.linalg.matrix_norm(H, ord=2) if L is None else L)
+
+
+def solve_boxqp_pg(H, g, lo, hi, L=None, iters: int = 60, U0=None) -> BoxQPResult:
+    """Plain projected gradient with fixed step 1/L. g may be batched (N, d)."""
+    step = _step_size(H, L)
+    U = torch.zeros_like(g) if U0 is None else U0
+    for _ in range(iters):
+        U = torch.clamp(U - step * (_product(U, H) + g), lo, hi)
+    grad = _product(U, H) + g
+    resid = torch.abs(U - torch.clamp(U - step * grad, lo, hi)).max()
+    return BoxQPResult(U=U, iterations=iters, residual=resid)
+
+
+def solve_boxqp_fista(H, g, lo, hi, L=None, iters: int = 40, U0=None,
+                      coarse_iters: int = 0) -> BoxQPResult:
+    """FISTA (accelerated PG) with gradient-based adaptive restart.
+
+    coarse_iters > 0 runs that many leading iterations with both operands of
+    the product rounded to bf16 (accumulating in fp32); the remaining
+    iterations run in fp32 and contract to the same fixed point, after a
+    momentum restart at the switch.
+    """
+    step = _step_size(H, L)
+    H_coarse = bf16_round(H)
+    U = torch.zeros_like(g) if U0 is None else U0
+    Y = U
+    t = torch.ones((), dtype=g.dtype, device=g.device)
+    coarse_iters = min(coarse_iters, iters)
+    for k in range(iters):
+        if k == coarse_iters and k > 0:
+            # restart momentum at the precision switch
+            Y, t = U, torch.ones_like(t)
+        coarse = k < coarse_iters
+        gemm = _product(bf16_round(Y), H_coarse) if coarse else _product(Y, H)
+        grad = gemm + g
+        U_new = torch.clamp(Y - step * grad, lo, hi)
+        t_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * t * t))
+        beta = (t - 1.0) / t_new
+        # Adaptive restart (per scenario): if momentum points uphill, reset.
+        dU = U_new - U
+        uphill = torch.sum(grad * dU, dim=-1, keepdim=True) > 0
+        Y = U_new + torch.where(uphill, 0.0, beta) * dU
+        t = torch.where(uphill.any(), 1.0, t_new)
+        U = U_new
+    grad = _product(U, H) + g
+    resid = torch.abs(U - torch.clamp(U - step * grad, lo, hi)).max()
+    return BoxQPResult(U=U, iterations=iters, residual=resid)
+
+
+def route_mpc_boxqp(device_type: str, d: int, has_x_ref: bool, x0_ndim: int,
+                    method: str = "auto") -> str:
+    """The solver solve_mpc_boxqp runs: "kernel", "fista" or "pg".
+
+    "auto" takes the fused FISTA kernel for a tensor on a CUDA device whose d
+    fits the kernel's shared-memory envelope (d <= boxqp_fista.MAX_D = 128),
+    and plain FISTA otherwise: on the CPU, as the JAX package does off the
+    TPU, and above the envelope, as it does above its VMEM bound of d = 1024
+    (boxqp.py:156-161). The kernel solves batched regulation problems; an
+    x_ref or a single x0 needs the two-step kernel, which is not ported and
+    raises NotImplementedError rather than running plain FISTA unasked."""
+    if method == "auto":
+        method = "kernel" if device_type == "cuda" and d <= boxqp_fista.MAX_D else "fista"
+    if method not in ("kernel", "fista", "pg"):
+        raise ValueError(f"unknown method {method!r} (auto|kernel|fista|pg)")
+    if method == "kernel" and (has_x_ref or x0_ndim != 2):
+        raise NotImplementedError(K3_NOT_PORTED)
+    return method
+
+
+def solve_mpc_boxqp(
+    qp: CondensedQP,
+    x0s: torch.Tensor,
+    u_lo: float,
+    u_hi: float,
+    x_ref: Optional[torch.Tensor] = None,
+    iters: int = 40,
+    method: str = "auto",
+    U0: Optional[torch.Tensor] = None,
+    coarse_iters: Optional[int] = None,
+) -> BoxQPResult:
+    """Batched-scenario MPC solve on a condensed QP.
+
+    x0s (N, n) initial states -> controls (N, T*m) clipped to [u_lo, u_hi].
+    H is shared; only g varies per scenario. U0 warm-starts the iterate
+    (shifted previous solution in receding-horizon use).
+
+    method (see route_mpc_boxqp): "kernel" is the fused FISTA kernel (the JAX
+    package's "pallas"): g formed from x0 in the kernel, static momentum
+    schedule, residual reduced in the kernel. "fista" is plain FISTA with
+    adaptive restart, "pg" plain projected gradient.
+
+    Precision: the leading coarse_iters iterations round the product's
+    operands to bf16; the fp32 tail of ceil(6.5 sqrt(kappa)) iterations
+    (condensed.default_coarse_iters) contracts to the fp32 fixed point. Pass
+    coarse_iters=0 for all-fp32.
+    """
+    if coarse_iters is None:
+        coarse_iters = default_coarse_iters(qp, iters)
+    method = route_mpc_boxqp(x0s.device.type, qp.H.shape[0], x_ref is not None,
+                             x0s.ndim, method)
+    if method == "kernel":
+        U, resid = boxqp_fista.fista_mpc_res(
+            qp.H, qp.Sx.T, qp.SuTQ.T, x0s, u_lo, u_hi, qp.lipschitz,
+            iters=iters, coarse_iters=coarse_iters, U0=U0)
+        return BoxQPResult(U=U, iterations=iters, residual=resid)
+    g = gradient_offset(qp, x0s, x_ref)
+    if method == "fista":
+        return solve_boxqp_fista(qp.H, g, u_lo, u_hi, L=qp.lipschitz, iters=iters,
+                                 U0=U0, coarse_iters=coarse_iters)
+    return solve_boxqp_pg(qp.H, g, u_lo, u_hi, L=qp.lipschitz, iters=iters, U0=U0)
