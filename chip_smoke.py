@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the condensed box-QP MPC serving path of BASELINE config #4 (the
-12-state quadrotor linearised about hover, horizon 30, 4096 scenarios,
-controls boxed to +-1, so d = 120 controls per scenario) through the port's
-entry points, and fails unless every phase passes:
+Drives two paths of the port through their entry points and fails unless
+every phase passes. The condensed box-QP MPC serving path of BASELINE config
+#4 (the 12-state quadrotor linearised about hover, horizon 30, 4096
+scenarios, controls boxed to +-1, so d = 120 controls per scenario):
 
 0. device: a CUDA device is required; the kernels are built from
    numpower_tpu_torch/csrc with nvcc (timed);
@@ -21,9 +21,33 @@ entry points, and fails unless every phase passes:
 4. times from CUDA events (median): each kernel and its plain version per
    4096-scenario solve, and one serving tick per solver.
 
-The launch counters are zeroed just before phases 2-3 (the main path) and
-read just after them. The last lines are one JSON object per kernel, the
-card's name and power limit from nvidia-smi, and {"ok": true, "device": ...}.
+The Riccati/LQR family (BASELINE configs #1, #2, #5 and the per-scenario
+Riccati of bench.py:341-372):
+
+5. each kernel against its plain PyTorch version on the card: the fused
+   Riccati (K5) on the quadrotor recipe of bench.py:345-355 at N = 4096 and
+   at a ragged N = 1003, T = 30 (rtol 1e-3, atol 1e-4 on Ks, 1e-3 on P0);
+   the batched SPD solve (K6b) at the Riccati inner shape (4096, 4, 4) x
+   (4096, 4, 12) and at (4096, 12, 12) x (4096, 12, 4) (rtol 2e-3, atol
+   2e-4; residual |AX - B| <= 2e-3); the batched Cholesky (K6a) at
+   (4096, 12, 12) against its plain version and torch.linalg.cholesky (1e-4)
+   with a strictly upper triangle of exact zeros;
+6. the path through its public entry points: riccati_scan_per_scenario at
+   N = 4096, T = 30 by "auto" (one K5 launch) and by "psd" (one K6b launch
+   per stage), both against the plain route run in float64 on the card; the
+   batched Cholesky (the package's kernels API, as bench.py:1246 calls it)
+   of the 4096 cost-to-go matrices; config #1 (lqr_solve) and config #2
+   (lqr_solve_batched, 256 scenarios) against float64, driving the state to
+   the origin; riccati_associative (pivoted and nopivot) against
+   riccati_scan at T = 4096; tube_mpc_solve at N = 65,536, T = 30;
+7. times from CUDA events (median): each kernel and its plain version, one
+   config #1 solve, one config #2 batch, the T = 4096 sequential and
+   associative Riccati, one tube sweep and lqr_infinite_gain's share of it.
+
+The launch counters of each path are zeroed just before it is driven
+(phases 2-3 and phase 6) and read just after. The last lines are the total
+wall time, one JSON object listing every kernel, the card's name and power
+limit from nvidia-smi, and {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -39,6 +63,8 @@ import torch
 
 T, N, N_E2E, N_TICKS = 30, 4096, 256, 20
 LO, HI = -1.0, 1.0
+N_RAGGED = 1003  # not a multiple of K5's 8-scenario or K6's 32-matrix blocks
+N_CONFIG2, N_TUBE, T_LONG = 256, 65536, 4096
 
 
 def log(msg: str) -> None:
@@ -69,7 +95,205 @@ def cuda_ms(fn, reps: int = 7, inner: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (a.double() - b.double()).abs().max().item()
+
+
+def close(a: torch.Tensor, b: torch.Tensor, rtol: float, atol: float) -> bool:
+    """|a - b| <= atol + rtol |b| everywhere (torch.allclose, in float64)."""
+    return torch.allclose(a.double(), b.double(), rtol=rtol, atol=atol)
+
+
+def spd_batch(N: int, n: int, seed: int, dev) -> torch.Tensor:
+    a = np.random.default_rng(seed).standard_normal((N, n, n)).astype(np.float32)
+    return torch.as_tensor(a @ a.transpose(0, 2, 1) + n * np.eye(n, dtype=np.float32),
+                           device=dev)
+
+
+def riccati_family(dev, smi: str) -> list:
+    """Phases 5-7: the Riccati/LQR family and its three kernels. Returns the
+    kernels' entries of the JSON line."""
+    from numpower_tpu_torch.kernels import cholesky, riccati
+    from numpower_tpu_torch.models import (
+        condense, double_integrator, lqr_infinite_gain, lqr_solve, lqr_solve_batched,
+        quadrotor12, riccati_associative, riccati_scan, riccati_scan_per_scenario,
+        tube_mpc_solve,
+    )
+    from numpower_tpu_torch.utils.smallmat import cholesky_unrolled, psd_solve_unrolled
+
+    A, B = quadrotor12(0.02)
+    n, m = 12, 4
+    Q = np.eye(n, dtype=np.float32)
+    R = np.eye(m, dtype=np.float32) * 0.1
+    QF = np.eye(n, dtype=np.float32) * 5.0
+    rng = np.random.default_rng(4)  # the recipe of bench.py:345-355
+    As = torch.as_tensor(np.tile(A, (N, 1, 1))
+                         + 0.01 * rng.standard_normal((N, n, n)).astype(np.float32), device=dev)
+    Bs = torch.as_tensor(B, device=dev).expand(N, n, m)  # broadcast, as the bench passes it
+
+    # -- phase 5: kernels against their plain versions -------------------------
+    err = {"riccati": 0.0, "psd": 0.0, "chol": 0.0}
+    for N_k in (N, N_RAGGED):
+        Ks, P0 = riccati.riccati_batched_fused(As[:N_k], Bs[:N_k], Q, R, QF, T)
+        Ks_p, P0_p = riccati.riccati_batched_reference(As[:N_k], Bs[:N_k], Q, R, QF, T)
+        dk, dp = max_err(Ks, Ks_p), max_err(P0, P0_p)
+        log(f"K5 riccati N={N_k} T={T}: max|dKs| {dk:.3e} max|dP0| {dp:.3e} "
+            f"(|Ks| {Ks.abs().max().item():.3e}, |P0| {P0.abs().max().item():.3e})")
+        require(close(Ks, Ks_p, 1e-3, 1e-4) and close(P0, P0_p, 1e-3, 1e-3),
+                f"K5 at N={N_k} vs plain")
+        err["riccati"] = max(err["riccati"], dk)
+    for dim, r, seed in ((m, n, 1), (n, m, 2)):
+        a = spd_batch(N, dim, seed, dev)
+        b = torch.as_tensor(np.random.default_rng(seed + 10).standard_normal((N, dim, r)),
+                            dtype=torch.float32, device=dev)
+        X = cholesky.psd_solve_batched(a, b)
+        dx, res = max_err(X, psd_solve_unrolled(a, b)), max_err(a @ X, b)
+        log(f"K6b psd_solve ({N},{dim},{dim})x({N},{dim},{r}): max|dX| {dx:.3e} "
+            f"residual {res:.3e}")
+        require(close(X, psd_solve_unrolled(a, b), 2e-3, 2e-4) and res <= 2e-3,
+                f"K6b at n={dim} r={r} vs plain")
+        err["psd"] = max(err["psd"], dx)
+    a = spd_batch(N, n, 3, dev)
+    L = cholesky.cholesky_batched(a)
+    d_plain, d_lib = max_err(L, cholesky_unrolled(a)), max_err(L, torch.linalg.cholesky(a))
+    upper = torch.count_nonzero(torch.triu(L, 1)).item()
+    log(f"K6a cholesky ({N},{n},{n}): max|dL| {d_plain:.3e} vs plain, {d_lib:.3e} vs "
+        f"torch.linalg.cholesky; nonzeros above the diagonal {upper}")
+    require(close(L, cholesky_unrolled(a), 1e-4, 1e-4)
+            and close(L, torch.linalg.cholesky(a), 1e-4, 1e-4) and upper == 0,
+            "K6a vs plain and torch.linalg.cholesky")
+    err["chol"] = d_plain
+
+    # -- phase 6: the Riccati/LQR path, counted --------------------------------
+    counters = {"riccati": riccati.riccati_batched_fused, "psd": cholesky.psd_solve_batched,
+                "chol": cholesky.cholesky_batched}
+    for counter in counters.values():
+        counter.launches = 0
+
+    Ks_f, P0_f = riccati_scan_per_scenario(As, Bs, Q, R, QF, T)
+    Ks_s, P0_s = riccati_scan_per_scenario(As, Bs, Q, R, QF, T, method="psd")
+    Ks_64, P0_64 = riccati_scan_per_scenario(As.double(), Bs.double(), Q, R, QF, T,
+                                             method="plain")
+    for route, Ks, P0 in (("auto (K5)", Ks_f, P0_f), ("psd (K6b)", Ks_s, P0_s)):
+        log(f"riccati_scan_per_scenario {route} N={N} T={T} vs float64: "
+            f"max|dKs| {max_err(Ks, Ks_64):.3e} max|dP0| {max_err(P0, P0_64):.3e}")
+        require(close(Ks, Ks_64, 1e-3, 1e-4) and close(P0, P0_64, 1e-3, 1e-3),
+                f"riccati_scan_per_scenario {route} vs float64")
+    L = cholesky.cholesky_batched(P0_f)
+    d_rec = max_err(L @ L.transpose(1, 2), P0_f) / P0_f.abs().max().item()
+    log(f"cholesky_batched of the {N} cost-to-go matrices: |LL' - P0| / |P0| {d_rec:.3e}")
+    require(d_rec <= 1e-5 and torch.count_nonzero(torch.triu(L, 1)).item() == 0,
+            "cholesky_batched of P0")
+
+    Ad, Bd = double_integrator(0.1)
+    Qd, Rd, QFd = (np.eye(2, dtype=np.float32), np.eye(1, dtype=np.float32) * 0.1,
+                   np.eye(2, dtype=np.float32) * 100.0)  # bench.py:316-319
+    di32 = [torch.as_tensor(x, device=dev) for x in (Ad, Bd, Qd, Rd, QFd)]
+    di64 = [x.double() for x in di32]
+    x0 = torch.tensor([1.0, 0.0], device=dev)
+    us1, xs1 = lqr_solve(*di32, x0, T)
+    us1_64, _ = lqr_solve(*di64, x0.double(), T)
+    x0s = torch.as_tensor(np.random.default_rng(1).standard_normal((N_CONFIG2, 2)),
+                          dtype=torch.float32, device=dev)  # bench.py:330
+    us2, xs2 = lqr_solve_batched(*di32, x0s, T)
+    us2_64, _ = lqr_solve_batched(*di64, x0s.double(), T)
+    shrink = (xs2[:, -1].norm(dim=-1) / xs2[:, 0].norm(dim=-1)).max().item()
+    log(f"config #1 lqr_solve T={T}: max|du| vs float64 {max_err(us1, us1_64):.3e}, "
+        f"|x_T| {xs1[-1].norm().item():.3e}; config #2 lqr_solve_batched {N_CONFIG2} "
+        f"scenarios: max|du| {max_err(us2, us2_64):.3e}, max |x_T|/|x_0| {shrink:.3e}")
+    require(close(us1, us1_64, 1e-3, 1e-4) and xs1[-1].norm().item() < 5e-2,
+            "config #1 vs float64, driven to the origin")
+    require(close(us2, us2_64, 1e-3, 1e-4) and shrink < 5e-2,
+            "config #2 vs float64, driven to the origin")
+
+    quad = [torch.as_tensor(x, device=dev) for x in (A, B, Q, R, QF)]
+    Ks_seq, Ps_seq = riccati_scan(*quad, T_LONG)
+    for nopivot in (False, True):
+        Ks_par, Ps_par = riccati_associative(*quad, T_LONG, nopivot=nopivot)
+        log(f"riccati_associative T={T_LONG} nopivot={nopivot} vs riccati_scan: "
+            f"max|dKs| {max_err(Ks_par, Ks_seq):.3e} max|dPs| {max_err(Ps_par, Ps_seq):.3e}")
+        require(close(Ks_par, Ks_seq, 1e-3, 1e-4) and close(Ps_par, Ps_seq, 1e-3, 1e-3),
+                f"riccati_associative nopivot={nopivot} vs riccati_scan")
+
+    qp = condense(A, B, Q, R, QF, T, device=dev)
+    trng = np.random.default_rng(2)
+    w = torch.as_tensor(0.001 * trng.standard_normal((N_TUBE, T, n)), dtype=torch.float32,
+                        device=dev)
+    x0_nom = torch.as_tensor(0.2 * trng.standard_normal(n), dtype=torch.float32, device=dev)
+    tube = tube_mpc_solve(qp, A, B, Q, R, x0_nom, w, LO, HI)
+    finite = all(bool(torch.isfinite(f).all()) for f in tube)
+    log(f"tube_mpc_solve N={N_TUBE} T={T}: radius[0] {tube.tube_radius[0].item():.3e}, "
+        f"max radius {tube.tube_radius.max().item():.3e}, max violation "
+        f"{tube.max_violation.item():.3e}, finite {finite}")
+    require(tube.xs_scenarios.shape == (N_TUBE, T + 1, n) and finite
+            and tube.tube_radius[0].item() == 0.0 and tube.max_violation.item() <= 1e-6,
+            "tube sweep statistics")
+
+    launches = {name: counter.launches for name, counter in counters.items()}
+    log(f"Riccati-path launches: {launches}")
+    require(launches == {"riccati": 1, "psd": T, "chol": 1},
+            "the Riccati path went through K5 once, K6b once per stage, K6a once")
+
+    # -- phase 7: times ----------------------------------------------------------
+    a4 = spd_batch(N, m, 1, dev)
+    b4 = torch.as_tensor(np.random.default_rng(11).standard_normal((N, m, n)),
+                         dtype=torch.float32, device=dev)
+    a12 = spd_batch(N, n, 3, dev)
+    slow = {"reps": 3, "inner": 1, "warmup": 1}
+    costs = quad[2:]  # Q, R, QF on the card: numpy ones would add three host copies per call
+    ms = {
+        "riccati": cuda_ms(lambda: riccati.riccati_batched_fused(As, Bs, *costs, T)),
+        "psd": cuda_ms(lambda: cholesky.psd_solve_batched(a4, b4)),
+        "chol": cuda_ms(lambda: cholesky.cholesky_batched(a12)),
+    }
+    plain_ms = {
+        "riccati": cuda_ms(lambda: riccati.riccati_batched_reference(As, Bs, *costs, T)),
+        "psd": cuda_ms(lambda: psd_solve_unrolled(a4, b4)),
+        "chol": cuda_ms(lambda: cholesky_unrolled(a12)),
+    }
+    lib_chol_ms = cuda_ms(lambda: torch.linalg.cholesky(a12))
+    path_ms = {
+        "config #1 lqr_solve (T=30)": cuda_ms(lambda: lqr_solve(*di32, x0, T)),
+        f"config #2 lqr_solve_batched ({N_CONFIG2} scenarios, T=30)":
+            cuda_ms(lambda: lqr_solve_batched(*di32, x0s, T)),
+        f"riccati_scan T={T_LONG}": cuda_ms(lambda: riccati_scan(*quad, T_LONG), **slow),
+        f"riccati_associative T={T_LONG}":
+            cuda_ms(lambda: riccati_associative(*quad, T_LONG), **slow),
+        f"riccati_associative T={T_LONG} nopivot":
+            cuda_ms(lambda: riccati_associative(*quad, T_LONG, nopivot=True), **slow),
+        f"tube_mpc_solve N={N_TUBE} T={T}":
+            cuda_ms(lambda: tube_mpc_solve(qp, A, B, Q, R, x0_nom, w, LO, HI), reps=5, inner=2,
+                    warmup=1),
+        "lqr_infinite_gain (200 iterations)":
+            cuda_ms(lambda: lqr_infinite_gain(*quad[:4]), reps=5, inner=2, warmup=1),
+    }
+    flop = N * T * (4 * n**3 + 4 * m * n * n + 4 * m * m * n + m**3)  # utils/flops.py:262-268
+    log(f"time K5 riccati N={N} T={T}: kernel {ms['riccati']:.4f} ms "
+        f"({flop / ms['riccati'] / 1e9:.3f} TFLOP/s of 67 fp32), plain {plain_ms['riccati']:.4f} ms "
+        f"[{smi}]")
+    log(f"time K6b psd_solve ({N},{m},{m})x({N},{m},{n}): kernel {ms['psd']:.4f} ms, plain "
+        f"{plain_ms['psd']:.4f} ms [{smi}]")
+    log(f"time K6a cholesky ({N},{n},{n}): kernel {ms['chol']:.4f} ms, plain "
+        f"{plain_ms['chol']:.4f} ms, torch.linalg.cholesky {lib_chol_ms:.4f} ms [{smi}]")
+    for what, t_ms in path_ms.items():
+        log(f"time {what}: {t_ms:.4f} ms [{smi}]")
+
+    source = "numpower_tpu_torch/csrc/"
+    return [
+        {"name": "riccati_batched_fused", "route": "cuda", "source": source + "riccati.cu",
+         "replaces": "numpower_tpu/kernels/riccati.py:172", "launches": launches["riccati"],
+         "max_abs_err": err["riccati"], "ms": ms["riccati"], "plain_ms": plain_ms["riccati"]},
+        {"name": "cholesky_batched", "route": "cuda", "source": source + "cholesky.cu",
+         "replaces": "numpower_tpu/kernels/cholesky.py:107", "launches": launches["chol"],
+         "max_abs_err": err["chol"], "ms": ms["chol"], "plain_ms": plain_ms["chol"]},
+        {"name": "psd_solve_batched", "route": "cuda", "source": source + "cholesky.cu",
+         "replaces": "numpower_tpu/kernels/cholesky.py:135", "launches": launches["psd"],
+         "max_abs_err": err["psd"], "ms": ms["psd"], "plain_ms": plain_ms["psd"]},
+    ]
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this run needs a GPU",
               file=sys.stderr)
@@ -242,6 +466,8 @@ def main() -> int:
          "launches": launches["admm"], "max_abs_err": err["admm"],
          "ms": ms["admm"], "plain_ms": plain_ms["admm"]},
     ]
+    kernels += riccati_family(dev, smi)
+    log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

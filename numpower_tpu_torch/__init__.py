@@ -4,10 +4,14 @@ The JAX package ``numpower_tpu`` is the reference; this package mirrors its
 layout and names and is held against it by tests/test_torch_*.py. It imports
 torch and numpy, never jax.
 
-- ``numpower_tpu_torch.models``  — plants, condensed MPC, box-QP solvers
-                                   (FISTA, PG, ADMM) and the serving controller
+- ``numpower_tpu_torch.models``  — plants, LQR/Riccati (sequential,
+                                   associative, per-scenario), condensed MPC,
+                                   box-QP solvers (FISTA, PG, ADMM), tube MPC
+                                   and the serving controller
 - ``numpower_tpu_torch.kernels`` — hand-written CUDA kernels for Hopper
                                    (``csrc/*.cu``, built at first use)
+- ``numpower_tpu_torch.utils``   — unrolled small-matrix linear algebra and
+                                   the associative scan
 """
 
 __version__ = "0.1.0"
@@ -19,4 +23,4 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
-from numpower_tpu_torch import kernels, models  # noqa: E402, F401
+from numpower_tpu_torch import kernels, models, utils  # noqa: E402, F401

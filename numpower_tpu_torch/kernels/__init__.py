@@ -8,3 +8,10 @@ from numpower_tpu_torch.kernels.boxqp_fista import (  # noqa: F401
 from numpower_tpu_torch.kernels.boxqp_admm import (  # noqa: F401
     admm_mpc_res, admm_mpc_res_reference, minv_factor,
 )
+from numpower_tpu_torch.kernels.cholesky import (  # noqa: F401
+    cholesky_batched, cholesky_batched_reference, psd_solve_batched,
+    psd_solve_batched_reference,
+)
+from numpower_tpu_torch.kernels.riccati import (  # noqa: F401
+    riccati_batched_fused, riccati_batched_reference,
+)

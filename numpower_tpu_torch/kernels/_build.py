@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Every ``numpower_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, at first use,
+(``sm_90a``), one ``nvcc`` per source, all started together, and the objects
+are linked into one shared library with a plain C interface, at first use,
 into ``build/numpower_tpu_torch/`` at the repository root. The library's name
 carries a hash of the sources and flags, so an edited source builds anew and
 an unchanged one loads the library already there. It is loaded with
@@ -28,7 +29,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "numpower_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Limits of the tile layout in csrc/boxqp_tile.cuh (kMaxD, kMaxN): a warp of
 # 32 lanes x 4 columns spans d <= 128, and the d x d matrix twice (fp32 and
@@ -45,6 +46,12 @@ _SIGNATURES = {
     "npt_fista_mpc_res": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
     # rMt, Wc, x0, U0, rho, z, rp, rd, N, n, d, iters, coarse, lo, hi, alpha, stream
     "npt_admm_mpc_res": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P),
+    # a, L, N, n, stream
+    "npt_cholesky_batched": (_P, _P, _I, _I, _P),
+    # a, b, x, N, n, r, stream
+    "npt_psd_solve_batched": (_P, _P, _P, _I, _I, _I, _P),
+    # As, Bs, Q, R, QF, Ks, P0, N, n, m, T, stream
+    "npt_riccati_fused": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 
@@ -71,6 +78,15 @@ def library_path() -> Path:
     return BUILD_DIR / f"libnumpower_tpu_torch_{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> tuple[list[int], str]:
+    """Run the commands side by side; their exit codes and one log of all."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    log = "".join(f"$ {' '.join(cmd)}\n{out}" for cmd, out in zip(cmds, outs))
+    return [proc.returncode for proc in procs], log
+
+
 def build() -> Path:
     """Compile the sources unless the library for their hash exists."""
     out = library_path()
@@ -78,12 +94,23 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-    if proc.returncode != 0:
+    nvcc = _nvcc()
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in srcs]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for obj, src in zip(objs, srcs)]
+    link = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp), *map(str, objs)]
+    try:
+        codes, log = _run_all(compiles)
+        if not any(codes):
+            link_codes, link_log = _run_all([link])
+            codes, log = codes + link_codes, log + link_log
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    if any(codes):
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n{log}")
+        raise RuntimeError(f"nvcc failed (exit codes {codes}):\n{log}")
     out.with_suffix(".so.log").write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent build never loads a half-written file
     return out

@@ -1,0 +1,90 @@
+"""Fused per-scenario backward Riccati kernel (K5; port of
+numpower_tpu/kernels/riccati.py ``riccati_batched_fused``).
+
+The kernel is CUDA C++ in ``csrc/riccati.cu`` (its note says what bounds it on
+the H100 and how the design answers that): 16 lanes per scenario, lane i
+owning row i of P, the whole T loop in one launch. This module holds its
+wrapper, :func:`riccati_batched_fused`, and its plain PyTorch version,
+:func:`riccati_batched_reference`, which is also the loop of
+models/lqr.riccati_scan_per_scenario's "plain" and "psd" routes. The wrapper
+takes the plain version for a tensor on the CPU only; for a CUDA tensor it
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from numpower_tpu_torch.kernels import _build
+from numpower_tpu_torch.kernels.boxqp_fista import _check_operand
+from numpower_tpu_torch.utils.smallmat import psd_solve_unrolled
+
+# The kernel's envelope (csrc/riccati.cu kMaxN, kMaxM): a scenario's rows fit
+# its 16 lanes and S's factor a lane's registers. It covers every plant in the
+# repo (quadrotor 12/4, planar quadrotor 6/2, cartpole 4/1, unicycle 3/2,
+# pendulum and double integrator 2/1).
+MAX_N = 16
+MAX_M = 8
+
+
+def riccati_batched_reference(As, Bs, Q, R, QF, horizon: int, spd_solve=psd_solve_unrolled):
+    """Plain PyTorch version of the kernel: As (N, n, n), Bs (N, n, m), shared
+    Q (n, n), R (m, m), QF (n, n) -> Ks (N, T, m, n) in forward time, P0
+    (N, n, n). Per backward step, batched over the scenarios:
+
+        S = R + B'PB;  K = spd_solve(sym(S), B'PA);  P' = sym(Q + A'PA - (B'PA)'K)
+
+    spd_solve(S, rhs) solves the (N, m, m) x (N, m, n) SPD systems. Works in
+    As's dtype and device (float64 for a reference run)."""
+    N, n, _ = As.shape
+    m = Bs.shape[-1]
+    Q, R, QF = (torch.as_tensor(x, dtype=As.dtype, device=As.device) for x in (Q, R, QF))
+    Ks = torch.empty((N, horizon, m, n), dtype=As.dtype, device=As.device)
+    P = QF.expand(N, n, n)
+    Bt, At = Bs.transpose(1, 2), As.transpose(1, 2)
+    for t in range(horizon - 1, -1, -1):
+        BtP = Bt @ P
+        S = R + BtP @ Bs
+        BtPA = BtP @ As
+        K = spd_solve(0.5 * (S + S.transpose(1, 2)), BtPA)
+        P_new = Q + At @ P @ As - BtPA.transpose(1, 2) @ K
+        P = 0.5 * (P_new + P_new.transpose(1, 2))
+        Ks[:, t] = K
+    return Ks, P.contiguous()
+
+
+def riccati_batched_fused(As, Bs, Q, R, QF, horizon: int):
+    """Fused per-scenario Riccati: As (N, n, n), Bs (N, n, m), shared Q, R,
+    QF -> (Ks (N, T, m, n), P0 (N, n, n)), the kernel writing both in this
+    layout. Bs may be a broadcast view (it is made contiguous); Q, R, QF may
+    be numpy arrays or tensors anywhere (they are copied to As's device as
+    fp32). Envelope: n <= MAX_N, m <= MAX_M (ValueError beyond).
+    On a CPU tensor this is :func:`riccati_batched_reference`. Each kernel
+    launch adds one to ``riccati_batched_fused.launches``."""
+    if As.device.type == "cpu":
+        return riccati_batched_reference(As, Bs, Q, R, QF, horizon)
+    device = As.device
+    N, n = As.shape[0], As.shape[-1]
+    m = Bs.shape[-1]
+    if not (N >= 1 and 1 <= n <= MAX_N and 1 <= m <= MAX_M and horizon >= 0):
+        raise ValueError(f"(N, n, m, T) = ({N}, {n}, {m}, {horizon}) is outside the kernel's "
+                         f"envelope: N >= 1, n <= {MAX_N}, m <= {MAX_M}, T >= 0")
+    As, Bs = As.contiguous(), Bs.contiguous()  # a broadcast Bs is copied
+    Q, R, QF = (torch.as_tensor(x, dtype=torch.float32, device=device).contiguous()
+                for x in (Q, R, QF))
+    for name, t, shape in (("As", As, (N, n, n)), ("Bs", Bs, (N, n, m)), ("Q", Q, (n, n)),
+                           ("R", R, (m, m)), ("QF", QF, (n, n))):
+        _check_operand(name, t, device, shape)
+    Ks = torch.empty((N, horizon, m, n), dtype=torch.float32, device=device)
+    P0 = torch.empty((N, n, n), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = _build.library().npt_riccati_fused(
+            As.data_ptr(), Bs.data_ptr(), Q.data_ptr(), R.data_ptr(), QF.data_ptr(),
+            Ks.data_ptr(), P0.data_ptr(), N, n, m, horizon, stream)
+    _build.check(code, "riccati_batched_fused kernel launch")
+    riccati_batched_fused.launches += 1
+    return Ks, P0
+
+
+riccati_batched_fused.launches = 0

@@ -1,7 +1,12 @@
-"""Plants + condensed-MPC box-QP solvers and the serving controller."""
+"""Plants, LQR/Riccati, condensed-MPC box-QP solvers, tube MPC and the serving
+controller."""
 
 from numpower_tpu_torch.models.plants import (  # noqa: F401
     LTIPlant, double_integrator, quadrotor12,
+)
+from numpower_tpu_torch.models.lqr import (  # noqa: F401
+    riccati_scan, riccati_associative, riccati_scan_per_scenario,
+    lqr_infinite_gain, lqr_solve, lqr_solve_batched, lqt_solve,
 )
 from numpower_tpu_torch.models.condensed import (  # noqa: F401
     CondensedQP, prediction_matrices, condense, gradient_offset,
@@ -12,4 +17,5 @@ from numpower_tpu_torch.models.boxqp import (  # noqa: F401
 from numpower_tpu_torch.models.admm import (  # noqa: F401
     ADMMResult, solve_boxqp_admm, solve_mpc_boxqp_admm,
 )
+from numpower_tpu_torch.models.tube import TubeMPCResult, tube_mpc_solve  # noqa: F401
 from numpower_tpu_torch.models.mpc import MPCController, MPCState  # noqa: F401
