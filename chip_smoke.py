@@ -44,10 +44,34 @@ Riccati of bench.py:341-372):
    config #1 solve, one config #2 batch, the T = 4096 sequential and
    associative Riccati, one tube sweep and lqr_infinite_gain's share of it.
 
+The two-step box-QP kernels (reference tracking and single-x0 solves):
+
+8. K3b fista_boxqp and K3a admm_boxqp against their plain versions at
+   N = 4096, d = 120 on the flagship QP with g of an x_ref, cold and warm,
+   all-fp32 (<= 1e-5) and the default schedules (<= 1e-4); then the path:
+   solve_mpc_boxqp with x_ref and with one x0, solve_mpc_boxqp_admm with
+   x_ref, each one K3 launch, against float64 (<= 1e-4), and 20 serving
+   ticks of MPCController(x_ref=...), one K3b launch each.
+
+The iLQR / AL-iLQR family (BASELINE config #3, its batched form #3b and the
+AL-iLQR bench configuration, bench.py:408-451 and 524-544):
+
+9. K7 ilqr_backward_fused and K8 ilqr_forward_fused against their plain
+   versions at config #3b's shape (cartpole, N = 256, T = 50, six alphas)
+   and at N = 4096 (K7 rtol 1e-3, atol 1e-4; K8 us/xs 1e-4, costs rtol
+   1e-5), K8 also on the pendulum; then the path: config #3 (ilqr_solve,
+   finite differences, h = 50, 10 iterations), config #3b
+   (ilqr_solve_batched, 256 scenarios, backend="fused": 10 launches each of
+   K7 and K8) against the plain backend, and the AL-iLQR configuration
+   (pendulum, 256 scenarios, h = 40, 4 x 6 iterations, box +-2, fused: 24
+   launches each);
+10. times from CUDA events: K3a/K3b at N = 4096, K7 and K8 at N = 256 and
+   4096, each beside its plain version, and the three solves.
+
 The launch counters of each path are zeroed just before it is driven
-(phases 2-3 and phase 6) and read just after. The last lines are the total
-wall time, one JSON object listing every kernel, the card's name and power
-limit from nvidia-smi, and {"ok": true, "device": ...}.
+(phases 2-3, 6, the path of 8 and the path of 9) and read just after. The
+last lines are the total wall time, one JSON object listing every kernel,
+the card's name and power limit from nvidia-smi, and {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -65,6 +89,7 @@ T, N, N_E2E, N_TICKS = 30, 4096, 256, 20
 LO, HI = -1.0, 1.0
 N_RAGGED = 1003  # not a multiple of K5's 8-scenario or K6's 32-matrix blocks
 N_CONFIG2, N_TUBE, T_LONG = 256, 65536, 4096
+T_ILQR, N_ILQR, T_AL = 50, 256, 40  # configs #3/#3b and the AL-iLQR bench (bench.py:408-451, 524-544)
 
 
 def log(msg: str) -> None:
@@ -102,6 +127,26 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 def close(a: torch.Tensor, b: torch.Tensor, rtol: float, atol: float) -> bool:
     """|a - b| <= atol + rtol |b| everywhere (torch.allclose, in float64)."""
     return torch.allclose(a.double(), b.double(), rtol=rtol, atol=atol)
+
+
+def ptxas_lines(build_log: str) -> list:
+    """(kernel, line) for each register and spill line of the build log's
+    ptxas output, the kernel's name demangled by c++filt where it is found
+    and cut before its argument list."""
+    pairs, entry = [], "?"
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "registers" in line or "spill" in line:
+            pairs.append((entry, line.replace("ptxas info    :", "").strip()))
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(e for e, _ in pairs),
+                               capture_output=True, text=True, check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        names = [e for e, _ in pairs]
+    if len(names) != len(pairs):
+        names = [e for e, _ in pairs]
+    return [(name.split("(")[0], line) for name, (_, line) in zip(names, pairs)]
 
 
 def spd_batch(N: int, n: int, seed: int, dev) -> torch.Tensor:
@@ -292,6 +337,334 @@ def riccati_family(dev, smi: str) -> list:
     ]
 
 
+def boxqp_two_step(dev, smi: str, qp, x0s, rho) -> list:
+    """Phase 8 and its times: K3b/K3a and the x_ref / single-x0 path.
+    Returns the kernels' entries of the JSON line."""
+    from numpower_tpu_torch.kernels import boxqp_admm, boxqp_fista
+    from numpower_tpu_torch.models import (
+        MPCController, gradient_offset, quadrotor12, solve_mpc_boxqp, solve_mpc_boxqp_admm,
+    )
+    from numpower_tpu_torch.models.condensed import admm_coarse_iters, default_coarse_iters
+
+    iters, n, m = 40, 12, 4
+    fista_ci, admm_ci = default_coarse_iters(qp, iters), admm_coarse_iters(qp, iters)
+    x_ref = torch.as_tensor(0.2 * np.random.default_rng(5).standard_normal(n),
+                            dtype=torch.float32, device=dev)
+    g = gradient_offset(qp, x0s, x_ref).contiguous()
+    U0 = torch.cat([g[:, m:], g[:, -m:]], dim=1).clamp(LO, HI).contiguous()  # a warm start in the box
+
+    # -- phase 8: kernels against their plain versions ---------------------------
+    err = {"fista": 0.0, "admm": 0.0}
+    f0, a0 = boxqp_fista.fista_boxqp.launches, boxqp_admm.admm_boxqp.launches
+    for coarse_f, coarse_a, tol in ((0, 0, 1e-5), (fista_ci, admm_ci, 1e-4)):
+        for start, u0 in (("cold", None), ("warm", U0)):
+            Uk = boxqp_fista.fista_boxqp(qp.H, g, LO, HI, qp.lipschitz, iters, coarse_f, u0)
+            Up = boxqp_fista.fista_boxqp_reference(qp.H, g, LO, HI, qp.lipschitz, iters,
+                                                   coarse_f, u0)
+            zk, yk = boxqp_admm.admm_boxqp(qp.H, g, LO, HI, rho, iters, coarse_a, U0=u0)
+            zp, yp = boxqp_admm.admm_boxqp_reference(qp.H, g, LO, HI, rho, iters, coarse_a,
+                                                     U0=u0)
+            du, dz, dy = max_err(Uk, Up), max_err(zk, zp), max_err(yk, yp)
+            log(f"K3b fista_boxqp {coarse_f}+{iters - coarse_f} {start}: max|dU| {du:.3e}; "
+                f"K3a admm_boxqp {coarse_a}+{iters - coarse_a}: max|dz| {dz:.3e} "
+                f"max|dy| {dy:.3e} (tol {tol:g})")
+            require(du <= tol and dz <= tol and dy <= tol, f"K3 {start} {coarse_f} vs plain")
+            err["fista"], err["admm"] = max(err["fista"], du), max(err["admm"], dz, dy)
+    require(boxqp_fista.fista_boxqp.launches - f0 == 4 and boxqp_admm.admm_boxqp.launches - a0 == 4,
+            "K3 launched once per call")
+
+    # -- phase 8: the x_ref / single-x0 path, counted ---------------------------
+    boxqp_fista.fista_boxqp.launches = 0
+    boxqp_admm.admm_boxqp.launches = 0
+    xs = x0s[:N_E2E]
+    res_r = solve_mpc_boxqp(qp, xs, LO, HI, x_ref=x_ref, iters=iters)
+    res_1 = solve_mpc_boxqp(qp, xs[0], LO, HI, iters=iters)
+    res_a = solve_mpc_boxqp_admm(qp, xs, LO, HI, x_ref=x_ref, iters=iters)
+    require(boxqp_fista.fista_boxqp.launches == 2 and boxqp_admm.admm_boxqp.launches == 1,
+            "the x_ref and single-x0 solves went through K3b (twice) and K3a (once)")
+    qp64 = type(qp)(H=qp.H.double(), Sx=qp.Sx.double(), Su=qp.Su.double(),
+                    SuTQ=qp.SuTQ.double(), lipschitz=qp.lipschitz.double(), mu=qp.mu.double(),
+                    T=qp.T, n=qp.n, m=qp.m, kappa=qp.kappa)
+    g_r = gradient_offset(qp64, xs.double(), x_ref.double())
+    g_1 = gradient_offset(qp64, xs[0].double())[None]
+    U_r64 = boxqp_fista.fista_boxqp_reference(qp64.H, g_r, LO, HI, qp64.lipschitz, iters, 0)
+    U_164 = boxqp_fista.fista_boxqp_reference(qp64.H, g_1, LO, HI, qp64.lipschitz, iters,
+                                                  0)[0]
+    rho64 = torch.sqrt(qp64.lipschitz * torch.clamp(qp64.mu, min=1e-12))
+    z_r64, _ = boxqp_admm.admm_boxqp_reference(qp64.H, g_r, LO, HI, rho64, iters, 0)
+    e_r, e_1, e_a = max_err(res_r.U, U_r64), max_err(res_1.U, U_164), max_err(res_a.U, z_r64)
+    log(f"x_ref path vs float64: solve_mpc_boxqp(x_ref) {e_r:.3e} (resid "
+        f"{res_r.residual.item():.3e}), one x0 {e_1:.3e} (shape {tuple(res_1.U.shape)}), "
+        f"solve_mpc_boxqp_admm(x_ref) {e_a:.3e} (r_prim {res_a.primal_residual.item():.3e}, "
+        f"r_dual {res_a.dual_residual.item():.3e}); tol 1e-4")
+    require(e_r <= 1e-4 and e_1 <= 1e-4 and e_a <= 1e-4 and res_1.U.shape == (T * m,),
+            "the x_ref and single-x0 solves against float64")
+    A, B = quadrotor12(0.02)
+    Q = np.eye(n, dtype=np.float32)
+    R = np.eye(m, dtype=np.float32) * 0.1
+    QF = np.eye(n, dtype=np.float32) * 5.0
+    ctrl = MPCController(A, B, Q, R, QF, T, LO, HI, iters=30, x_ref=x_ref, device=dev)
+    A_t, B_t = torch.as_tensor(A, device=dev), torch.as_tensor(B, device=dev)
+    state, x = ctrl.init(N), x0s.clone()
+    resids = []
+    for _ in range(N_TICKS):
+        before = boxqp_fista.fista_boxqp.launches
+        u0, state, resid = ctrl.step_with_residual(state, x)
+        require(boxqp_fista.fista_boxqp.launches == before + 1, "x_ref tick launched K3b once")
+        resids.append(resid)
+        require(bool(((u0 >= LO) & (u0 <= HI)).all()), "x_ref tick u0 within the box")
+        x = x @ A_t.T + u0 @ B_t.T
+    resids = torch.stack(resids).cpu()
+    dist = (x - x_ref).norm(dim=-1).mean().item()
+    log(f"serving fista x_ref: {N_TICKS} ticks x {N} scenarios, residual first "
+        f"{resids[0].item():.3e} last {resids[-1].item():.3e}, mean |x - x_ref| "
+        f"{(x0s - x_ref).norm(dim=-1).mean().item():.3e} -> {dist:.3e}")
+    require(bool(torch.isfinite(resids).all()) and bool(torch.isfinite(x).all())
+            and state.tick == N_TICKS, "x_ref serving finite")
+    launches = {"fista": boxqp_fista.fista_boxqp.launches,
+                "admm": boxqp_admm.admm_boxqp.launches}
+    log(f"x_ref-path launches: {launches}")
+    require(launches == {"fista": 2 + N_TICKS, "admm": 1}, "the x_ref path went through K3")
+
+    # -- phase 10 (box-QP part): times --------------------------------------------
+    Minv = boxqp_admm.minv_factor(qp.H, rho)
+    ms = {
+        "fista": cuda_ms(lambda: boxqp_fista.fista_boxqp(qp.H, g, LO, HI, qp.lipschitz, iters,
+                                                         fista_ci)),
+        "admm": cuda_ms(lambda: boxqp_admm.admm_boxqp(qp.H, g, LO, HI, rho, iters, admm_ci,
+                                                      Minv=Minv)),
+    }
+    plain_ms = {
+        "fista": cuda_ms(lambda: boxqp_fista.fista_boxqp_reference(qp.H, g, LO, HI, qp.lipschitz,
+                                                                   iters, fista_ci)),
+        "admm": cuda_ms(lambda: boxqp_admm.admm_boxqp_reference(qp.H, g, LO, HI, rho, iters,
+                                                                admm_ci, Minv=Minv)),
+    }
+    holder = [ctrl.init(N)]
+
+    def tick():
+        _, holder[0] = ctrl.step(holder[0], x0s)
+
+    tick_ms = cuda_ms(tick)
+    for solver, name in (("fista", "K3b fista_boxqp"), ("admm", "K3a admm_boxqp (Minv given)")):
+        log(f"time {name} {iters} iters, {N} scenarios: kernel {ms[solver]:.4f} ms, plain "
+            f"{plain_ms[solver]:.4f} ms [{smi}]")
+    log(f"time serving tick with x_ref (FISTA, 30 iters, {N} scenarios): {tick_ms:.4f} ms [{smi}]")
+    source = "numpower_tpu_torch/csrc/"
+    return [
+        {"name": "fista_boxqp", "route": "cuda", "source": source + "boxqp_fista.cu",
+         "replaces": "numpower_tpu/kernels/boxqp_fista.py:119", "launches": launches["fista"],
+         "max_abs_err": err["fista"], "ms": ms["fista"], "plain_ms": plain_ms["fista"]},
+        {"name": "admm_boxqp", "route": "cuda", "source": source + "boxqp_admm.cu",
+         "replaces": "numpower_tpu/kernels/boxqp_admm.py:186", "launches": launches["admm"],
+         "max_abs_err": err["admm"], "ms": ms["admm"], "plain_ms": plain_ms["admm"]},
+    ]
+
+
+def ilqr_family(dev, smi: str) -> list:
+    """Phase 9 and its times: K7/K8 and configs #3, #3b and the AL-iLQR
+    configuration. Returns the kernels' entries of the JSON line."""
+    from numpower_tpu_torch.kernels import ilqr_backward, ilqr_forward
+    from numpower_tpu_torch.models import (
+        al_ilqr_solve_batched, cartpole_step, ilqr_solve, ilqr_solve_batched,
+        linearize_trajectory, pendulum_step, rollout_nonlinear,
+    )
+
+    def t32(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
+
+    # config #3 (bench.py:408-420)
+    Q, R = t32(np.diag([1.0, 10.0, 0.1, 0.1])), t32(np.eye(1) * 0.01)
+    QF, goal = t32(np.diag([10.0, 100.0, 1.0, 1.0])), t32(np.zeros(4))
+    alphas = t32([1.0, 0.6, 0.3, 0.1, 0.03, 0.01])
+    # the AL-iLQR configuration (bench.py:524-544)
+    Qp, Rp, QFp = t32(np.diag([1.0, 0.1])), t32(np.eye(1) * 0.01), t32(np.diag([100.0, 10.0]))
+
+    def problem(N, f, n, T_p, seed, draw):
+        """The first line search of a solve: x0s from the bench's seed, the
+        zero nominal controls, its rollout, FD linearization and affine
+        terms, and the gains of one plain backward pass."""
+        x0s = t32(draw(np.random.default_rng(seed), N))
+        us = torch.zeros((N, T_p, 1), dtype=torch.float32, device=dev)
+        xs = rollout_nonlinear(f, x0s, us)
+        As, Bs = linearize_trajectory(f, xs, us, use_fd=True)
+        Qn, QFn, g = (Q, QF, goal) if n == 4 else (Qp, QFp, goal[:2])
+        lxs = 2.0 * (xs[:, :T_p] - g) @ Qn.T
+        lus = 2.0 * us @ R.T
+        lxT = 2.0 * (xs[:, T_p] - g) @ QFn.T
+        bwd = (As, Bs, lxs, lus, 2.0 * Qn, 2.0 * R, lxT, 2.0 * QFn)
+        ks, Ks = ilqr_backward.ilqr_backward_reference(*bwd, reg=1e-3)
+        fwd = (f, Qn, R, QFn, g, alphas, x0s, xs.contiguous(), us, ks, Ks)
+        return bwd, fwd, ks, Ks
+
+    def cart_draw(rng, N):  # bench.py:431-433
+        return rng.standard_normal((N, 4)) * 0.3
+
+    def pend_draw(rng, N):  # bench.py:527-529
+        return rng.uniform(-np.pi, np.pi, (N, 2))
+
+    # -- phase 9: kernels against their plain versions ---------------------------
+    # K8 is compared on the candidates whose plain rollout stays in |x| <= 10:
+    # at alpha >= 0.3 the first line search of the cartpole leaves the region
+    # of its linearization and diverges (|x| up to 1e18, or inf), in the
+    # kernel and the plain version alike, and there fp32 rounding, not the
+    # kernel, sets the difference. Bounds: xs 1e-4, costs rtol 1e-5 (the JAX
+    # package's, tests/test_kernels.py:577-582); us 5e-4, because the gains
+    # reach |K| ~ 100, so a state difference of 5e-6 moves u by 5e-4.
+    err = {"bwd": 0.0, "fwd": 0.0}
+    probs = {}
+    for N_k, f, n, T_p, name, draw, seed in (
+            (N_ILQR, cartpole_step, 4, T_ILQR, "cartpole", cart_draw, 3),
+            (N, cartpole_step, 4, T_ILQR, "cartpole", cart_draw, 3),
+            (N_ILQR, pendulum_step, 2, T_AL, "pendulum", pend_draw, 8)):
+        bwd, fwd, ks, Ks = probs[(N_k, name)] = problem(N_k, f, n, T_p, seed, draw)
+        ks_k, Ks_k = ilqr_backward.ilqr_backward_fused(*bwd, reg=1e-3)
+        dk, dK = max_err(ks_k, ks), max_err(Ks_k, Ks)
+        log(f"K7 ilqr_backward {name} N={N_k} T={T_p}: max|dks| {dk:.3e} max|dKs| {dK:.3e} "
+            f"(|Ks| {Ks.abs().max().item():.3e})")
+        require(close(ks_k, ks, 1e-3, 1e-4) and close(Ks_k, Ks, 1e-3, 1e-4),
+                f"K7 {name} at N={N_k} vs plain")
+        err["bwd"] = max(err["bwd"], dk, dK)
+        u_k, x_k, c_k = ilqr_forward.ilqr_forward_fused(*fwd)
+        u_p, x_p, c_p = ilqr_forward.ilqr_forward_reference(*fwd)
+        ok = torch.isfinite(c_p) & (x_p.abs().amax(dim=(-2, -1)) <= 10.0)
+        du, dx = max_err(u_k[ok], u_p[ok]), max_err(x_k[ok], x_p[ok])
+        dc = ((c_k[ok].double() - c_p[ok].double()).abs() / c_p[ok].double().abs()).max().item()
+        per_alpha = ok.sum(dim=1).tolist()
+        log(f"K8 ilqr_forward {name} N={N_k} T={T_p} A={alphas.numel()}: bounded candidates "
+            f"per alpha {per_alpha}; on them max|dus| {du:.3e} max|dxs| {dx:.3e} max rel dcost "
+            f"{dc:.3e}")
+        require(ok.double().mean().item() >= 0.4 and du <= 5e-4 and dx <= 1e-4 and dc <= 1e-5,
+                f"K8 {name} at N={N_k} vs plain")
+        err["fwd"] = max(err["fwd"], du, dx)
+
+    # -- phase 9: configs #3, #3b and AL-iLQR, counted ---------------------------
+    ilqr_backward.ilqr_backward_fused.launches = 0
+    ilqr_forward.ilqr_forward_fused.launches = 0
+    x0 = t32([0.0, 0.5, 0.0, 0.0])
+    r3 = ilqr_solve(cartpole_step, x0, Q, R, QF, goal, horizon=T_ILQR, iters=10, use_fd=True)
+    x0s = t32(cart_draw(np.random.default_rng(3), N_ILQR))
+    kw = dict(horizon=T_ILQR, use_fd=True)
+    r3b = ilqr_solve_batched(cartpole_step, x0s, Q, R, QF, goal, backend="fused", iters=10, **kw)
+    ilqr_launches = (ilqr_backward.ilqr_backward_fused.launches,
+                     ilqr_forward.ilqr_forward_fused.launches)
+    x0p = t32(pend_draw(np.random.default_rng(8), N_ILQR))
+    al_kw = dict(al_iters=4, ilqr_iters=6)
+    ral = al_ilqr_solve_batched(pendulum_step, x0p, Qp, Rp, QFp, goal[:2], T_AL, -2.0, 2.0,
+                                backend="fused", **al_kw)
+    launches = {"bwd": ilqr_backward.ilqr_backward_fused.launches,
+                "fwd": ilqr_forward.ilqr_forward_fused.launches}
+    log(f"iLQR-path launches: config #3b {ilqr_launches}, with AL-iLQR {launches}")
+    require(ilqr_launches == (10, 10), "config #3b went through K7 and K8 once per iteration")
+    require(launches == {"bwd": 34, "fwd": 34}, "AL-iLQR went through K7 and K8 24 times each")
+
+    def consistent(res, f, x0, Qn, Rn, QFn, g, what):
+        """The repo's own checks of a solve: finite; xs the plain rollout of
+        us and cost the trajectory's cost, to 1e-3 of |xs| and of the cost:
+        an open-loop replay on another arithmetic path (K8's rollout against
+        the plain one) drifts on the chaotic cartpole (2.2e-3 on |x| ~ 30
+        measured on the H100)."""
+        from numpower_tpu_torch.models.ilqr import _total_cost
+
+        xs_re = rollout_nonlinear(f, x0, res.us)
+        c_re = _total_cost(xs_re, res.us, Qn, Rn, QFn, g)
+        d_x, x_max = max_err(xs_re, res.xs), res.xs.abs().max().item()
+        d_c = ((c_re.double() - res.cost.double()).abs() / res.cost.double().abs()).max().item()
+        log(f"{what}: replay of us max|dxs| {d_x:.3e} (|xs| {x_max:.3e}), rel dcost {d_c:.3e}")
+        return (bool(torch.isfinite(res.us).all() and torch.isfinite(res.cost).all())
+                and d_x <= 1e-3 * max(1.0, x_max) and d_c <= 1e-3)
+
+    def rel_cost(a, b):
+        return ((a.cost.double() - b.cost.double()).abs() / b.cost.double().abs()).sort().values
+
+    c0 = r3.costs
+    log(f"config #3 ilqr_solve (fd, h={T_ILQR}, 10 iters): cost {c0[0].item():.6f} -> "
+        f"{r3.cost.item():.6f}, |x_T| {r3.xs[-1].norm().item():.3e}")
+    require(consistent(r3, cartpole_step, x0, Q, R, QF, goal, "config #3")
+            and bool((c0[1:] <= c0[:-1]).all()), "config #3: finite, descending, consistent")
+    require(consistent(r3b, cartpole_step, x0s, Q, R, QF, goal, "config #3b")
+            and bool((r3b.costs[:, 1:] <= r3b.costs[:, :-1]).all()),
+            "config #3b: finite, descending, consistent")
+    # Against the plain backend. The per-scenario bound of the JAX package,
+    # rtol 1e-2 and atol 1e-3 on the cost, was set on its test problem
+    # (tests/test_kernels.py:166-176: Q = I, R = 0.01, QF = 10 I, h = 15, 6
+    # iterations); it is held there at config #3b's batch of 256. At config
+    # #3 itself (h = 50, theta weighted 10, QF 100) the candidates of large
+    # alphas leave the linearization's region and diverge chaotically (phase 9
+    # above), so marginal line-search choices part the two backends'
+    # trajectories (the JAX package's own backends differ so: ROADMAP.md,
+    # queue 3); there the batch's mean cost is held, to 5%.
+    Qt, Rt, QFt = t32(np.eye(4)), t32(np.eye(1) * 0.01), t32(np.eye(4) * 10.0)
+    x0t = t32(0.3 * np.random.default_rng(1).standard_normal((N_ILQR, 4)))
+    pair = [ilqr_solve_batched(cartpole_step, x0t, Qt, Rt, QFt, goal, 15, backend=b, iters=6)
+            for b in ("fused", "vmap")]
+    d_t = (pair[0].cost - pair[1].cost).abs()
+    rel_t = (d_t / pair[1].cost.abs()).max().item()
+    out_t = int((d_t > 1e-3 + 1e-2 * pair[1].cost.abs()).sum().item())
+    r3b_plain = ilqr_solve_batched(cartpole_step, x0s, Q, R, QF, goal, backend="vmap", iters=10,
+                                   **kw)
+    rel10 = ((r3b.cost.double() - r3b_plain.cost.double()).abs()
+             / r3b_plain.cost.double().abs()).sort().values
+    mean_f, mean_p = r3b.cost.mean().item(), r3b_plain.cost.mean().item()
+    log(f"fused vs vmap, the JAX test problem at {N_ILQR} scenarios: max rel dcost {rel_t:.3e} "
+        f"({out_t} outside the bound); "
+        f"config #3b: per-scenario rel dcost median {rel10[N_ILQR // 2].item():.3e}, 90th pct "
+        f"{rel10[int(0.9 * N_ILQR)].item():.3e}, max {rel10[-1].item():.3e}, mean cost "
+        f"{mean_f:.4f} vs {mean_p:.4f}")
+    require(bool((d_t <= 1e-3 + 1e-2 * pair[1].cost.abs()).all()),
+            "fused vs vmap per scenario on the JAX test problem")
+    require(abs(mean_f - mean_p) <= 0.05 * mean_p, "config #3b fused vs vmap, mean cost")
+    lo_hi_ok = bool(((ral.us >= -2.0) & (ral.us <= 2.0)).all())
+    log(f"AL-iLQR pendulum {N_ILQR} scenarios h={T_AL} 4x6 fused: mean cost "
+        f"{ral.cost.mean().item():.4f}, max_violation max {ral.max_violation.max().item():.3e} "
+        f"median {ral.max_violation.median().item():.3e}, us in the box {lo_hi_ok}")
+    require(consistent(ral, pendulum_step, x0p, Qp, Rp, QFp, goal[:2], "AL-iLQR") and lo_hi_ok
+            and bool(torch.isfinite(ral.max_violation).all()), "AL-iLQR: finite, feasible")
+
+    # -- phase 10 (iLQR part): times ----------------------------------------------
+    ms, plain_ms = {}, {}
+    slow = {"reps": 3, "inner": 1, "warmup": 1}
+    for N_k in (N_ILQR, N):
+        bwd, fwd, _, _ = probs[(N_k, "cartpole")]
+        ms[("bwd", N_k)] = cuda_ms(lambda: ilqr_backward.ilqr_backward_fused(*bwd, reg=1e-3))
+        ms[("fwd", N_k)] = cuda_ms(lambda: ilqr_forward.ilqr_forward_fused(*fwd))
+        plain_ms[("bwd", N_k)] = cuda_ms(
+            lambda: ilqr_backward.ilqr_backward_reference(*bwd, reg=1e-3), **slow)
+        plain_ms[("fwd", N_k)] = cuda_ms(lambda: ilqr_forward.ilqr_forward_reference(*fwd), **slow)
+        for k, name in (("bwd", "K7 ilqr_backward"), ("fwd", "K8 ilqr_forward")):
+            log(f"time {name} cartpole N={N_k} T={T_ILQR}: kernel {ms[(k, N_k)]:.4f} ms, "
+                f"plain {plain_ms[(k, N_k)]:.4f} ms [{smi}]")
+    solve_ms = {
+        f"config #3 ilqr_solve (fd, h={T_ILQR}, 10 iters)":
+            cuda_ms(lambda: ilqr_solve(cartpole_step, x0, Q, R, QF, goal, horizon=T_ILQR,
+                                       iters=10, use_fd=True), **slow),
+        f"config #3b ilqr_solve_batched fused ({N_ILQR} scenarios)":
+            cuda_ms(lambda: ilqr_solve_batched(cartpole_step, x0s, Q, R, QF, goal,
+                                               backend="fused", iters=10, **kw),
+                    reps=5, inner=2, warmup=1),
+        f"config #3b ilqr_solve_batched vmap ({N_ILQR} scenarios)":
+            cuda_ms(lambda: ilqr_solve_batched(cartpole_step, x0s, Q, R, QF, goal,
+                                               backend="vmap", iters=10, **kw), **slow),
+        f"AL-iLQR fused (pendulum, {N_ILQR} scenarios, h={T_AL}, 4x6)":
+            cuda_ms(lambda: al_ilqr_solve_batched(pendulum_step, x0p, Qp, Rp, QFp, goal[:2],
+                                                  T_AL, -2.0, 2.0, backend="fused", **al_kw),
+                    reps=5, inner=1, warmup=1),
+    }
+    for what, t_ms in solve_ms.items():
+        log(f"time {what}: {t_ms:.4f} ms [{smi}]")
+    source = "numpower_tpu_torch/csrc/"
+    return [
+        {"name": "ilqr_backward_fused", "route": "cuda", "source": source + "ilqr_backward.cu",
+         "replaces": "numpower_tpu/kernels/ilqr_backward.py:134", "launches": launches["bwd"],
+         "max_abs_err": err["bwd"], "ms": ms[("bwd", N_ILQR)],
+         "plain_ms": plain_ms[("bwd", N_ILQR)]},
+        {"name": "ilqr_forward_fused", "route": "cuda", "source": source + "ilqr_forward.cu",
+         "replaces": "numpower_tpu/kernels/ilqr_forward.py:92", "launches": launches["fwd"],
+         "max_abs_err": err["fwd"], "ms": ms[("fwd", N_ILQR)],
+         "plain_ms": plain_ms[("fwd", N_ILQR)]},
+    ]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -318,9 +691,8 @@ def main() -> int:
     log(f"kernel build/load {time.perf_counter() - t0:.2f} s -> {_build.library_path().name}")
     build_log = _build.library_path().with_suffix(".so.log")
     if build_log.is_file():
-        for line in build_log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log("ptxas " + line.strip())
+        for entry, line in ptxas_lines(build_log.read_text()):
+            log(f"ptxas {entry}: {line}")
 
     A, B = quadrotor12(0.02)
     n, m = 12, 4
@@ -467,6 +839,8 @@ def main() -> int:
          "ms": ms["admm"], "plain_ms": plain_ms["admm"]},
     ]
     kernels += riccati_family(dev, smi)
+    kernels += boxqp_two_step(dev, smi, qp, x0s, rho)
+    kernels += ilqr_family(dev, smi)
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,16 +1,20 @@
-// Fused FISTA box-QP solve for condensed MPC, with the residual reduced in the
-// kernel.
+// FISTA box-QP solves for condensed MPC: the fused one (g formed from x0, the
+// residual reduced in the kernel) and the two-step one (g given).
 //
-// Replaces the TPU kernel numpower_tpu/kernels/boxqp_fista.py
-// fista_mpc_pallas_res (body _fista_g_res_kernel, loop _fista_loop). For each
-// scenario x0 (row of the (N, n) x0s) it solves
-//     min 1/2 U'HU + g'U  s.t.  lo <= U <= hi,   g = x0 @ W,
-// with W = Sx'(Su'Q)' folded on the host, by static-beta FISTA:
+// Replaces two TPU kernels of numpower_tpu/kernels/boxqp_fista.py:
+//   fista_mpc_pallas_res (body _fista_g_res_kernel, loop _fista_loop): K2,
+//   fista_boxqp_pallas   (body _fista_kernel, the same loop):          K3b.
+// For each scenario (row of the batch) it solves
+//     min 1/2 U'HU + g'U  s.t.  lo <= U <= hi,
+// with g = x0 @ W (K2; W = Sx'(Su'Q)' folded on the host) or g read from the
+// (N, d) operand (K3b, for reference tracking and single-vector solves), by
+// static-beta FISTA:
 //     grad = Y @ H' + g;  U+ = clip(Y - grad / L);  Y = U+ + beta_k (U+ - U)
 // The beta schedule restarts at the switch from the coarse to the tail phase
-// and is 0 on the last coarse iteration. Then it writes U and folds
+// and is 0 on the last coarse iteration. Both write U; K2 also folds
 // max |U - clip(U - (U @ H' + g) / L)| over the N x d real entries into
-// *resid.
+// *resid (K3b's caller forms its residual outside, as the JAX package does).
+// One template, fista_kernel<kFused>, runs the loop for both.
 //
 // Precision. The first `coarse` products round both operands to bf16
 // (round-to-nearest-even) and accumulate in fp32, as the TPU's single-pass
@@ -23,8 +27,8 @@
 // What bounds it on the H100. Each iteration is an (N, d) x (d, d) product,
 // 2 N d^2 flops, with nothing to read from device memory: H' stays in shared
 // memory and the carries in registers for the whole solve (boxqp_tile.cuh),
-// so device memory is touched once per scenario (x0 and U0 in, U out). The
-// bound is the SM's fp32 FMA rate and shared-memory bandwidth for the
+// so device memory is touched once per scenario (x0 or g, and U0 in, U out).
+// The bound is the SM's fp32 FMA rate and shared-memory bandwidth for the
 // operands: per k a warp issues 16 FMAs per thread against one broadcast and
 // one 512-byte shared load. The tensor cores are unused; moving the products
 // onto wgmma is the next step for speed.
@@ -33,35 +37,34 @@
 
 namespace boxqp {
 
+template <bool kFused>
 __global__ void __launch_bounds__(kThreads)
-    fista_mpc_res_kernel(const float* __restrict__ Ht, const float* __restrict__ W,
-                         const float* __restrict__ x0, const float* __restrict__ U0,
-                         const float* __restrict__ lipschitz, float* __restrict__ U_out,
-                         float* __restrict__ resid, int N, int n, int d, int iters,
-                         int coarse, float lo, float hi) {
+    fista_kernel(const float* __restrict__ Ht, const float* __restrict__ W,
+                 const float* __restrict__ x0, const float* __restrict__ g_in,
+                 const float* __restrict__ U0, const float* __restrict__ lipschitz,
+                 float* __restrict__ U_out, float* __restrict__ resid, int N, int n, int d,
+                 int iters, int coarse, float lo, float hi) {
   extern __shared__ __align__(16) float smem_base[];
   __shared__ int scratch[kThreads / 32];
   const Smem sm = carve(smem_base, d, n);
   const int rg = threadIdx.x / 32, cg = threadIdx.x % 32;
   const int row0 = blockIdx.x * kTileS;
 
-  stage_inputs(sm, Ht, W, x0, row0, N, n, d);
+  stage_inputs(sm, Ht, W, x0, row0, N, n, d);  // n = 0 on the two-step route: H' only
   __syncthreads();
 
   const float step = 1.0f / *lipschitz;
   float g[4][4], U[4][4], Y[4][4], acc[4][4];
-  tile_product(sm.x0T, sm.w, n, rg, cg, g);
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = row0 + 4 * rg + r;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int col = 4 * cg + c;
-      const bool real = row < N && col < d;
-      U[r][c] = (U0 != nullptr && real) ? U0[static_cast<size_t>(row) * d + col] : 0.0f;
-      Y[r][c] = U[r][c];
-    }
+  if constexpr (kFused) {
+    tile_product(sm.x0T, sm.w, n, rg, cg, g);
+  } else {
+    load_tile(g_in, row0, N, d, rg, cg, g);
   }
+  load_tile(U0, row0, N, d, rg, cg, U);
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) Y[r][c] = U[r][c];
   store_operand(sm.opT, Y, coarse > 0, rg, cg, d);
   __syncthreads();
 
@@ -86,46 +89,64 @@ __global__ void __launch_bounds__(kThreads)
     store_operand(sm.opT, Y, k + 1 < coarse, rg, cg, d);
     __syncthreads();
   }
+  store_tile(U_out, U, row0, N, d, rg, cg);
 
-  // Projected-gradient residual at the final U, over the real entries only.
-  store_operand(sm.opT, U, false, rg, cg, d);
-  __syncthreads();
-  tile_product(sm.opT, sm.mat, d, rg, cg, acc);
-  float r_max = 0.0f;
+  if constexpr (kFused) {
+    // Projected-gradient residual at the final U, over the real entries only.
+    store_operand(sm.opT, U, false, rg, cg, d);
+    __syncthreads();
+    tile_product(sm.opT, sm.mat, d, rg, cg, acc);
+    float r_max = 0.0f;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = row0 + 4 * rg + r;
+    for (int r = 0; r < 4; ++r) {
+      const int row = row0 + 4 * rg + r;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int col = 4 * cg + c;
-      if (row < N && col < d) {
-        const float grad = acc[r][c] + g[r][c];
-        r_max = max_keep_nan(r_max, fabsf(U[r][c] - clip(U[r][c] - step * grad, lo, hi)));
-        U_out[static_cast<size_t>(row) * d + col] = U[r][c];
+      for (int c = 0; c < 4; ++c) {
+        const int col = 4 * cg + c;
+        if (row < N && col < d) {
+          const float grad = acc[r][c] + g[r][c];
+          r_max = max_keep_nan(r_max, fabsf(U[r][c] - clip(U[r][c] - step * grad, lo, hi)));
+        }
       }
     }
+    block_max_into(r_max, resid, scratch);
   }
-  block_max_into(r_max, resid, scratch);
+}
+
+template <bool kFused>
+int launch_fista(const float* Ht, const float* W, const float* x0, const float* g,
+                 const float* U0, const float* lipschitz, float* U, float* resid, int N, int n,
+                 int d, int iters, int coarse, float lo, float hi, void* stream) {
+  if (N < 1 || n < 0 || n > kMaxN || (kFused && n < 1) || d < 1 || d > kMaxD || iters < 0 ||
+      coarse < 0 || coarse > iters)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_floats(d, n) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      fista_kernel<kFused>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (N + kTileS - 1) / kTileS;
+  fista_kernel<kFused><<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      Ht, W, x0, g, U0, lipschitz, U, resid, N, n, d, iters, coarse, lo, hi);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace boxqp
 
-// Launches the kernel on `stream`. U0 may be null (cold start at 0). *resid
-// must be zeroed. Returns the CUDA error code of the launch (0 on success).
+// K2: launches the fused kernel on `stream`. U0 may be null (cold start at 0).
+// *resid must be zeroed. Returns the CUDA error code of the launch (0 on success).
 extern "C" int npt_fista_mpc_res(const float* Ht, const float* W, const float* x0,
                                  const float* U0, const float* lipschitz, float* U,
                                  float* resid, int N, int n, int d, int iters, int coarse,
                                  float lo, float hi, void* stream) {
-  using namespace boxqp;
-  if (N < 1 || n < 1 || n > kMaxN || d < 1 || d > kMaxD || iters < 0 || coarse < 0 ||
-      coarse > iters)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_floats(d, n) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fista_mpc_res_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (N + kTileS - 1) / kTileS;
-  fista_mpc_res_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      Ht, W, x0, U0, lipschitz, U, resid, N, n, d, iters, coarse, lo, hi);
-  return static_cast<int>(cudaGetLastError());
+  return boxqp::launch_fista<true>(Ht, W, x0, nullptr, U0, lipschitz, U, resid, N, n, d, iters,
+                                   coarse, lo, hi, stream);
+}
+
+// K3b: launches the two-step kernel on `stream`: U (N, d) from g (N, d). U0 may
+// be null (cold start at 0). Returns the CUDA error code of the launch.
+extern "C" int npt_fista_boxqp(const float* Ht, const float* g, const float* U0,
+                               const float* lipschitz, float* U, int N, int d, int iters,
+                               int coarse, float lo, float hi, void* stream) {
+  return boxqp::launch_fista<false>(Ht, nullptr, nullptr, g, U0, lipschitz, U, nullptr, N, 0, d,
+                                    iters, coarse, lo, hi, stream);
 }

@@ -1,4 +1,5 @@
-// Shared pieces of the two fused box-QP kernels (boxqp_fista.cu, boxqp_admm.cu).
+// Shared pieces of the box-QP kernels (boxqp_fista.cu, boxqp_admm.cu): the
+// fused ones that form g (or c) from x0 and the two-step ones that read g.
 //
 // Layout. One block solves a tile of kTileS = 32 scenarios; 4096 scenarios make
 // 128 blocks for the H100's 132 SMs. The block has 256 threads. Thread
@@ -100,6 +101,36 @@ __device__ inline void stage_inputs(const Smem& sm, const float* __restrict__ m,
     const int row = row0 + s;
     sm.x0T[4 * op_slot(k, s / 4) + s % 4] =
         row < N ? x0[static_cast<size_t>(row) * n + k] : 0.0f;
+  }
+}
+
+// The thread's micro-tile of the row-major (N, d) `src`: entries outside
+// (N, d), and every entry when `src` is null, read as zero.
+__device__ __forceinline__ void load_tile(const float* __restrict__ src, int row0, int N,
+                                          int d, int rg, int cg, float v[4][4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = row0 + 4 * rg + r;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = 4 * cg + c;
+      v[r][c] = (src != nullptr && row < N && col < d)
+                    ? src[static_cast<size_t>(row) * d + col] : 0.0f;
+    }
+  }
+}
+
+// Write the thread's micro-tile into the row-major (N, d) `dst`, real entries only.
+__device__ __forceinline__ void store_tile(float* __restrict__ dst, const float v[4][4],
+                                           int row0, int N, int d, int rg, int cg) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = row0 + 4 * rg + r;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = 4 * cg + c;
+      if (row < N && col < d) dst[static_cast<size_t>(row) * d + col] = v[r][c];
+    }
   }
 }
 

@@ -3,10 +3,11 @@ plain PyTorch version (sources in numpower_tpu_torch/csrc, built at first
 use by kernels/_build.py)."""
 
 from numpower_tpu_torch.kernels.boxqp_fista import (  # noqa: F401
-    fista_mpc_res, fista_mpc_res_reference,
+    fista_boxqp, fista_boxqp_reference, fista_mpc_res, fista_mpc_res_reference,
+    solve_mpc_boxqp_pallas,
 )
 from numpower_tpu_torch.kernels.boxqp_admm import (  # noqa: F401
-    admm_mpc_res, admm_mpc_res_reference, minv_factor,
+    admm_boxqp, admm_boxqp_reference, admm_mpc_res, admm_mpc_res_reference, minv_factor,
 )
 from numpower_tpu_torch.kernels.cholesky import (  # noqa: F401
     cholesky_batched, cholesky_batched_reference, psd_solve_batched,
@@ -14,4 +15,10 @@ from numpower_tpu_torch.kernels.cholesky import (  # noqa: F401
 )
 from numpower_tpu_torch.kernels.riccati import (  # noqa: F401
     riccati_batched_fused, riccati_batched_reference,
+)
+from numpower_tpu_torch.kernels.ilqr_backward import (  # noqa: F401
+    ilqr_backward_fused, ilqr_backward_reference,
+)
+from numpower_tpu_torch.kernels.ilqr_forward import (  # noqa: F401
+    ilqr_forward_fused, ilqr_forward_reference,
 )

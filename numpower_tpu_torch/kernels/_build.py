@@ -52,6 +52,15 @@ _SIGNATURES = {
     "npt_psd_solve_batched": (_P, _P, _P, _I, _I, _I, _P),
     # As, Bs, Q, R, QF, Ks, P0, N, n, m, T, stream
     "npt_riccati_fused": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # Ht, g, U0, lipschitz, U, N, d, iters, coarse, lo, hi, stream
+    "npt_fista_boxqp": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
+    # rMt, g, U0, rho, z, y, N, d, iters, coarse, lo, hi, alpha, stream
+    "npt_admm_boxqp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
+    # As, Bs, lxs, lus, luud, lxx, luu_reg, lxT, lxxT, ks, Ks, N, n, m, T, stream
+    "npt_ilqr_backward": (_P,) * 11 + (_I, _I, _I, _I, _P),
+    # plant, 8 plant parameters, Q, R, QF, goal, alphas, x0s, xs_nom, us_nom, ks, Ks,
+    # us, xs, costs, N, T, A, xs_rows, stream
+    "npt_ilqr_forward": (_I,) + (_F,) * 8 + (_P,) * 13 + (_I, _I, _I, _I, _P),
 }
 
 

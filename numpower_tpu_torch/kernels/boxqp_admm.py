@@ -1,13 +1,17 @@
-"""Fused ADMM box-QP kernel for condensed MPC (port of
-numpower_tpu/kernels/boxqp_admm.py ``admm_mpc_pallas_res``, s-form).
+"""ADMM box-QP kernels for condensed MPC, s-form (port of
+numpower_tpu/kernels/boxqp_admm.py ``admm_mpc_pallas_res``, K1, and
+``admm_boxqp_pallas``, K3a).
 
-The kernel is CUDA C++ in ``csrc/boxqp_admm.cu`` (its note says what bounds
-it on the H100 and how the design answers that). This module holds the host
-setup :func:`minv_factor`, the wrapper :func:`admm_mpc_res` and its plain
-PyTorch version :func:`admm_mpc_res_reference`, which computes the same
-function with the same bf16 rounding of the coarse-phase operands. The
-wrapper takes the plain version for a tensor on the CPU only; for a CUDA
-tensor it launches the kernel or raises.
+Both kernels are one CUDA C++ template in ``csrc/boxqp_admm.cu`` (its note
+says what bounds it on the H100 and how the design answers that): K1 forms
+c from x0 and both residuals in the kernel, K3a forms c from a given g and
+returns (z, y). This module holds the host setup :func:`minv_factor`, the
+wrappers :func:`admm_mpc_res` and :func:`admm_boxqp`, and their plain
+PyTorch versions :func:`admm_mpc_res_reference` and
+:func:`admm_boxqp_reference`, which compute the same functions with the same
+bf16 rounding of the coarse-phase operands. A wrapper takes the plain
+version for a tensor on the CPU only; for a CUDA tensor it launches the
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from typing import Optional
 import torch
 
 from numpower_tpu_torch.kernels import _build
-from numpower_tpu_torch.kernels._build import MAX_D  # noqa: F401  (the routing envelope)
+from numpower_tpu_torch.kernels._build import MAX_D
 from numpower_tpu_torch.kernels.boxqp_fista import _check_operand, _launch_shape
 from numpower_tpu_torch.kernels.precision import bf16_round
 
@@ -42,6 +46,22 @@ def _fold(H, SxT, SuTQT, rho, Minv):
     return rminvT, Wc
 
 
+def _s_loop(c, rminvT, lo, hi, alpha, iters: int, coarse_iters: int, U0):
+    """The s-form iteration of both kernels from s = clip(U0) (clip(0) cold):
+    p = clip(s), t = 2p - s, u = t @ (rho Minv)', s += alpha (u - c - p), the
+    first ``coarse_iters`` products with both operands rounded to bf16.
+    Returns the final s."""
+    coarse_iters = min(coarse_iters, iters)
+    rminvT_coarse = bf16_round(rminvT)
+    s = torch.clamp(torch.zeros_like(c) if U0 is None else U0, lo, hi)
+    for k in range(iters):
+        p = torch.clamp(s, lo, hi)
+        t = 2.0 * p - s
+        u = bf16_round(t) @ rminvT_coarse if k < coarse_iters else t @ rminvT
+        s = s + alpha * (u - c - p)
+    return s
+
+
 def admm_mpc_res_reference(H, SxT, SuTQT, x0s, lo: float, hi: float, rho,
                            iters: int = 40, coarse_iters: int = 0,
                            over_relax: float = 1.6,
@@ -55,18 +75,10 @@ def admm_mpc_res_reference(H, SxT, SuTQT, x0s, lo: float, hi: float, rho,
     whose first ``coarse_iters`` products round both operands to bf16.
     Residuals come from one more fp32 x-update at the final (z, y = s - z),
     as maxima over the N x d entries. Works in the dtype of its inputs."""
-    coarse_iters = min(coarse_iters, iters)
     rminvT, Wc = _fold(H, SxT, SuTQT, rho, Minv)
-    rminvT_coarse = bf16_round(rminvT)
     alpha = over_relax
     c = x0s @ Wc
-    start = torch.zeros_like(c) if U0 is None else U0
-    s = torch.clamp(start, lo, hi)
-    for k in range(iters):
-        p = torch.clamp(s, lo, hi)
-        t = 2.0 * p - s
-        u = bf16_round(t) @ rminvT_coarse if k < coarse_iters else t @ rminvT
-        s = s + alpha * (u - c - p)
+    s = _s_loop(c, rminvT, lo, hi, alpha, iters, coarse_iters, U0)
     z = torch.clamp(s, lo, hi)
     x = (2.0 * z - s) @ rminvT - c
     z_next = torch.clamp(s + alpha * (x - z), lo, hi)
@@ -117,3 +129,66 @@ def admm_mpc_res(H, SxT, SuTQT, x0s, lo: float, hi: float, rho,
 
 
 admm_mpc_res.launches = 0
+
+
+def admm_boxqp_reference(H, g, lo: float, hi: float, rho, iters: int = 30,
+                         coarse_iters: int = 0, over_relax: float = 1.6,
+                         U0: Optional[torch.Tensor] = None,
+                         Minv: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of the two-step kernel: returns (z, y), both
+    (N, d), from g (N, d).
+
+    c = (g @ (rho Minv)') * (1 / rho), then the s-form loop from
+    s = clip(U0) (clip(0) cold); z = clip(s), y = s - z. Minv =
+    (H + rho I)^{-1}, factored here when None. Works in the dtype of its
+    inputs."""
+    if Minv is None:
+        Minv = minv_factor(H, rho)
+    rminvT = rho * Minv.T
+    c = (g @ rminvT) * (1.0 / rho)
+    s = _s_loop(c, rminvT, lo, hi, over_relax, iters, coarse_iters, U0)
+    z = torch.clamp(s, lo, hi)
+    return z, s - z
+
+
+def admm_boxqp(H, g, lo: float, hi: float, rho, iters: int = 30, coarse_iters: int = 0,
+               over_relax: float = 1.6, U0: Optional[torch.Tensor] = None,
+               Minv: Optional[torch.Tensor] = None):
+    """Two-step ADMM box-QP solve: argmin_U 1/2 U'HU + g_i'U, lo <= U <= hi,
+    for each row g_i of g (N, d); returns (z, y), the feasible iterate and
+    the scaled dual, both (N, d).
+
+    H (d, d); rho a scalar tensor (or float); U0 (N, d) warm start of z,
+    clipped; Minv = (H + rho I)^{-1}, factored here when None (pass it to
+    share the factorization with the caller's residuals). The fold
+    (rho Minv)' is a host-side product; c, the whole iteration loop and y
+    run in the kernel. On a CPU tensor this is :func:`admm_boxqp_reference`.
+    Each kernel launch adds one to ``admm_boxqp.launches``."""
+    if g.device.type == "cpu":
+        return admm_boxqp_reference(H, g, lo, hi, rho, iters, coarse_iters, over_relax,
+                                    U0, Minv)
+    device, N, _, d, coarse_iters = _launch_shape(H, g, iters, coarse_iters, n_max=MAX_D)
+    rho_t = torch.as_tensor(rho, dtype=torch.float32, device=device).reshape(())
+    if Minv is None:
+        Minv = minv_factor(H, rho_t)
+    rminvT = (rho_t * Minv.T).contiguous()
+    for name, t, shape in (("(rho Minv)'", rminvT, (d, d)), ("g", g, (N, d)),
+                           ("rho", rho_t, ())):
+        _check_operand(name, t, device, shape)
+    if U0 is not None:
+        _check_operand("U0", U0, device, (N, d))
+    z = torch.empty((N, d), dtype=torch.float32, device=device)
+    y = torch.empty((N, d), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = _build.library().npt_admm_boxqp(
+            rminvT.data_ptr(), g.data_ptr(), None if U0 is None else U0.data_ptr(),
+            rho_t.data_ptr(), z.data_ptr(), y.data_ptr(), N, d, iters, coarse_iters,
+            ctypes.c_float(float(lo)), ctypes.c_float(float(hi)),
+            ctypes.c_float(float(over_relax)), stream)
+    _build.check(code, "admm_boxqp kernel launch")
+    admm_boxqp.launches += 1
+    return z, y
+
+
+admm_boxqp.launches = 0

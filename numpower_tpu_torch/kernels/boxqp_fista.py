@@ -1,13 +1,16 @@
-"""Fused FISTA box-QP kernel for condensed MPC (port of
-numpower_tpu/kernels/boxqp_fista.py ``fista_mpc_pallas_res``).
+"""FISTA box-QP kernels for condensed MPC (port of
+numpower_tpu/kernels/boxqp_fista.py ``fista_mpc_pallas_res``, K2, and
+``fista_boxqp_pallas``, K3b, with the drop-in ``solve_mpc_boxqp_pallas``).
 
-The kernel is CUDA C++ in ``csrc/boxqp_fista.cu`` (its note says what bounds
-it on the H100 and how the design answers that). This module holds its
-wrapper, :func:`fista_mpc_res`, and its plain PyTorch version,
-:func:`fista_mpc_res_reference`, which computes the same function with the
-same bf16 rounding of the coarse-phase operands. The wrapper takes the plain
-version for a tensor on the CPU only; for a CUDA tensor it launches the
-kernel or raises.
+Both kernels are one CUDA C++ template in ``csrc/boxqp_fista.cu`` (its note
+says what bounds it on the H100 and how the design answers that): K2 forms
+g = x0 @ W and the residual in the kernel, K3b takes g as given. This module
+holds their wrappers, :func:`fista_mpc_res` and :func:`fista_boxqp`, and
+their plain PyTorch versions, :func:`fista_mpc_res_reference` and
+:func:`fista_boxqp_reference`, which compute the same functions with the same
+bf16 rounding of the coarse-phase operands. A wrapper takes the plain version
+for a tensor on the CPU only; for a CUDA tensor it launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -44,8 +47,23 @@ def fista_mpc_res_reference(H, SxT, SuTQT, x0s, lo: float, hi: float, lipschitz,
     bf16; the momentum restarts at the switch to the fp32 tail. resid is the
     projected-gradient residual max over the N x d entries. Works in the
     dtype of its inputs (float64 for a reference run at coarse_iters=0)."""
-    coarse_iters = min(coarse_iters, iters)
     g = x0s @ (SxT @ SuTQT)
+    U = fista_boxqp_reference(H, g, lo, hi, lipschitz, iters, coarse_iters, U0)
+    step = 1.0 / lipschitz
+    grad = U @ H.T + g
+    resid = torch.abs(U - torch.clamp(U - step * grad, lo, hi)).max()
+    return U, resid
+
+
+def fista_boxqp_reference(H, g, lo: float, hi: float, lipschitz, iters: int = 40,
+                          coarse_iters: int = 0, U0: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of the two-step kernel: U (N, d) from g (N, d).
+
+    Static-beta FISTA from U0 (not clipped; zeros when None), whose first
+    ``coarse_iters`` products round both operands to bf16; the momentum
+    restarts at the switch to the fp32 tail. The loop of both kernels. Works
+    in the dtype of its inputs."""
+    coarse_iters = min(coarse_iters, iters)
     Ht = H.T
     Ht_coarse = bf16_round(Ht)
     step = 1.0 / lipschitz
@@ -58,9 +76,7 @@ def fista_mpc_res_reference(H, SxT, SuTQT, x0s, lo: float, hi: float, lipschitz,
         beta = 0.0 if k == coarse_iters - 1 else betas[k]
         Y = U_new + beta * (U_new - U)
         U = U_new
-    grad = U @ Ht + g
-    resid = torch.abs(U - torch.clamp(U - step * grad, lo, hi)).max()
-    return U, resid
+    return U
 
 
 def _check_operand(name: str, t: torch.Tensor, device: torch.device, shape) -> None:
@@ -74,16 +90,19 @@ def _check_operand(name: str, t: torch.Tensor, device: torch.device, shape) -> N
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch_shape(H, x0s, iters: int, coarse_iters: int):
+def _launch_shape(H, x0s, iters: int, coarse_iters: int, n_max: int = MAX_N):
     """(device, N, n, d, coarse_iters) of a launch on x0s's CUDA device, or a
-    ValueError for what the kernels do not take."""
+    ValueError for what the kernels do not take. The two-step kernels pass
+    their (N, d) g as x0s, with no bound on its width but d's."""
     if x0s.device.type != "cuda":
         raise ValueError(f"x0s is on {x0s.device}: the kernel needs a CUDA tensor")
+    if x0s.ndim != 2:
+        raise ValueError(f"the kernel takes a batch (N, width), got shape {tuple(x0s.shape)}")
     N, n = x0s.shape
     d = H.shape[0]
-    if not (1 <= d <= MAX_D and 1 <= n <= MAX_N and N >= 1):
+    if not (1 <= d <= MAX_D and 1 <= n <= n_max and N >= 1):
         raise ValueError(f"(N, n, d) = ({N}, {n}, {d}) is outside the kernel's "
-                         f"envelope: N >= 1, n <= {MAX_N}, d <= {MAX_D}")
+                         f"envelope: N >= 1, n <= {n_max}, d <= {MAX_D}")
     if iters < 0 or coarse_iters < 0:
         raise ValueError("iters and coarse_iters must be non-negative")
     return x0s.device, N, n, d, min(coarse_iters, iters)
@@ -127,3 +146,54 @@ def fista_mpc_res(H, SxT, SuTQT, x0s, lo: float, hi: float, lipschitz,
 
 
 fista_mpc_res.launches = 0
+
+
+def fista_boxqp(H, g, lo: float, hi: float, lipschitz, iters: int = 40,
+                coarse_iters: int = 0, U0: Optional[torch.Tensor] = None):
+    """Two-step FISTA box-QP solve: argmin_U 1/2 U'HU + g_i'U, lo <= U <= hi,
+    for each row g_i of g (N, d); returns U (N, d).
+
+    H (d, d); lipschitz a scalar tensor (or float); U0 (N, d) warm start (not
+    clipped). The whole iteration loop runs in the kernel; the caller forms
+    the residual. On a CPU tensor this is :func:`fista_boxqp_reference`. Each
+    kernel launch adds one to ``fista_boxqp.launches``."""
+    if g.device.type == "cpu":
+        return fista_boxqp_reference(H, g, lo, hi, lipschitz, iters, coarse_iters, U0)
+    device, N, _, d, coarse_iters = _launch_shape(H, g, iters, coarse_iters, n_max=MAX_D)
+    Ht = H.T.contiguous()
+    lip = torch.as_tensor(lipschitz, dtype=torch.float32, device=device).reshape(())
+    for name, t, shape in (("H'", Ht, (d, d)), ("g", g, (N, d)), ("lipschitz", lip, ())):
+        _check_operand(name, t, device, shape)
+    if U0 is not None:
+        _check_operand("U0", U0, device, (N, d))
+    U = torch.empty((N, d), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = _build.library().npt_fista_boxqp(
+            Ht.data_ptr(), g.data_ptr(), None if U0 is None else U0.data_ptr(),
+            lip.data_ptr(), U.data_ptr(), N, d, iters, coarse_iters,
+            ctypes.c_float(float(lo)), ctypes.c_float(float(hi)), stream)
+    _build.check(code, "fista_boxqp kernel launch")
+    fista_boxqp.launches += 1
+    return U
+
+
+fista_boxqp.launches = 0
+
+
+def solve_mpc_boxqp_pallas(qp, x0s, u_lo: float, u_hi: float, iters: int = 40,
+                           coarse_iters: Optional[int] = None):
+    """Drop-in for models.boxqp.solve_mpc_boxqp over the two-step kernel: g
+    from the QP, U by :func:`fista_boxqp`, the residual outside. x0s (N, n)."""
+    from numpower_tpu_torch.models.boxqp import BoxQPResult
+    from numpower_tpu_torch.models.condensed import default_coarse_iters, gradient_offset
+
+    if coarse_iters is None:
+        coarse_iters = default_coarse_iters(qp, iters)
+    g = gradient_offset(qp, x0s)
+    U = fista_boxqp(qp.H, g, u_lo, u_hi, qp.lipschitz, iters=iters,
+                    coarse_iters=coarse_iters)
+    step = 1.0 / qp.lipschitz
+    grad = U @ qp.H.T + g
+    resid = torch.abs(U - torch.clamp(U - step * grad, u_lo, u_hi)).max()
+    return BoxQPResult(U=U, iterations=iters, residual=resid)

@@ -1,8 +1,13 @@
-"""Plants, LQR/Riccati, condensed-MPC box-QP solvers, tube MPC and the serving
-controller."""
+"""Plants, rollouts and linearization, LQR/Riccati, condensed-MPC box-QP
+solvers, tube MPC, the serving controller, and iLQR / AL-iLQR."""
 
 from numpower_tpu_torch.models.plants import (  # noqa: F401
-    LTIPlant, double_integrator, quadrotor12,
+    LTIPlant, double_integrator, quadrotor12, cartpole_step, cartpole_params,
+    pendulum_step, unicycle_step, planar_quadrotor_step, kernel_plant, plant_from_jax,
+)
+from numpower_tpu_torch.models.rollout import (  # noqa: F401
+    rollout_lti, rollout_ltv, rollout_nonlinear, batched_rollout_lti,
+    linearize, linearize_finite_diff, linearize_trajectory, quadratic_cost,
 )
 from numpower_tpu_torch.models.lqr import (  # noqa: F401
     riccati_scan, riccati_associative, riccati_scan_per_scenario,
@@ -19,3 +24,7 @@ from numpower_tpu_torch.models.admm import (  # noqa: F401
 )
 from numpower_tpu_torch.models.tube import TubeMPCResult, tube_mpc_solve  # noqa: F401
 from numpower_tpu_torch.models.mpc import MPCController, MPCState  # noqa: F401
+from numpower_tpu_torch.models.ilqr import ILQRResult, ilqr_solve, ilqr_solve_batched  # noqa: F401
+from numpower_tpu_torch.models.al_ilqr import (  # noqa: F401
+    ALILQRResult, al_ilqr_solve, al_ilqr_solve_batched,
+)

@@ -12,7 +12,8 @@ iterations (H is scenario-independent for condensed MPC), and each x-update
 is a dense product against the precomputed inverse. Both residuals (primal
 ||x - z||_inf, dual rho*||z - z_prev||_inf) are returned. solve_boxqp_admm is
 plain PyTorch; solve_mpc_boxqp_admm routes a batched solve on a CUDA tensor to
-the fused ADMM kernel (kernels/boxqp_admm.py). The general-constraint OSQP
+the ADMM kernels (kernels/boxqp_admm.py): the fused one for regulation
+problems, the two-step one for an x_ref. The general-constraint OSQP
 solver of the JAX module is not ported yet.
 """
 
@@ -23,7 +24,6 @@ from typing import NamedTuple, Optional
 import torch
 
 from numpower_tpu_torch.kernels import boxqp_admm
-from numpower_tpu_torch.models.boxqp import K3_NOT_PORTED
 from numpower_tpu_torch.models.condensed import (
     CondensedQP, admm_coarse_iters, gradient_offset,
 )
@@ -84,15 +84,16 @@ def route_mpc_boxqp_admm(device_type: str, d: int, has_x_ref: bool, x0_ndim: int
     whose d fits the kernel's shared-memory envelope
     (d <= boxqp_admm.MAX_D = 128), and plain ADMM otherwise, as the JAX
     package's auto rule does off the TPU or above its VMEM bound
-    (admm.py:134-136). An x_ref on the kernel route needs the two-step kernel,
-    which is not ported and raises NotImplementedError."""
+    (admm.py:134-136); with or without an x_ref. On the kernel route,
+    solve_mpc_boxqp_admm takes the fused kernel for a batch of regulation
+    problems and the two-step one (g given) for an x_ref, or for a single x0
+    asked for by method="kernel", as the JAX package does (admm.py:149-179)."""
+    del has_x_ref  # both kernel routes take an x_ref
     if method == "auto":
         on_cuda = device_type == "cuda"
         method = "kernel" if on_cuda and d <= boxqp_admm.MAX_D and x0_ndim == 2 else "plain"
     if method not in ("kernel", "plain"):
         raise ValueError(f"unknown method {method!r} (auto|kernel|plain)")
-    if method == "kernel" and (has_x_ref or x0_ndim != 2):
-        raise NotImplementedError(K3_NOT_PORTED)
     return method
 
 
@@ -112,8 +113,12 @@ def solve_mpc_boxqp_admm(
     models/boxqp.solve_mpc_boxqp). rho defaults to sqrt(lipschitz * max(mu,
     1e-12)), the geometric mean of the eigenvalue bounds.
 
-    method (see route_mpc_boxqp_admm): "kernel" is the fused s-form kernel
-    (the JAX package's "pallas"), "plain" the PyTorch iteration (its "xla").
+    method (see route_mpc_boxqp_admm): "kernel" (the JAX package's "pallas")
+    is the s-form iteration in a kernel: for a batch x0s (N, n) with no x_ref
+    the fused kernel, with c formed from x0 and both residuals reduced in the
+    kernel; otherwise g is formed here, the two-step kernel returns (z, y)
+    (a single x0 as a batch of one) and the residuals come from one more
+    x-update outside. "plain" is the PyTorch iteration (its "xla").
     On the kernel route coarse_iters defaults to condensed.admm_coarse_iters
     (fp32 tail max(8, ceil(3 sqrt(kappa)))): leading x-update products round
     their operands to bf16 and the tail washes the perturbation out. The
@@ -125,9 +130,29 @@ def solve_mpc_boxqp_admm(
     if method == "kernel":
         if coarse_iters is None:
             coarse_iters = admm_coarse_iters(qp, iters)
-        z, r_prim, r_dual = boxqp_admm.admm_mpc_res(
-            qp.H, qp.Sx.T, qp.SuTQ.T, x0s, u_lo, u_hi, rho, iters=iters,
-            coarse_iters=coarse_iters, over_relax=OVER_RELAX, U0=U0)
+        # one factorization, shared by the kernel and the residuals
+        Minv = boxqp_admm.minv_factor(qp.H, rho)
+        if x_ref is None and x0s.ndim == 2:
+            z, r_prim, r_dual = boxqp_admm.admm_mpc_res(
+                qp.H, qp.Sx.T, qp.SuTQ.T, x0s, u_lo, u_hi, rho, iters=iters,
+                coarse_iters=coarse_iters, over_relax=OVER_RELAX, Minv=Minv, U0=U0)
+            return ADMMResult(U=z, iterations=iters, primal_residual=r_prim,
+                              dual_residual=r_dual)
+        g = gradient_offset(qp, x0s, x_ref)
+        squeeze = g.ndim == 1
+        z, y = boxqp_admm.admm_boxqp(
+            qp.H, g[None] if squeeze else g, u_lo, u_hi, rho, iters=iters,
+            coarse_iters=coarse_iters, over_relax=OVER_RELAX,
+            U0=None if U0 is None else (U0[None] if squeeze else U0), Minv=Minv)
+        if squeeze:
+            z, y = z[0], y[0]
+        # exact residuals from one more x-update at the final (z, y), the
+        # over-relaxed formulas of solve_boxqp_admm
+        rhs = rho * (z - y) - g
+        x = rhs @ Minv.T if g.ndim == 2 else Minv @ rhs
+        r_prim = torch.abs(x - z).max()
+        z_next = torch.clamp(OVER_RELAX * x + (1.0 - OVER_RELAX) * z + y, u_lo, u_hi)
+        r_dual = rho * torch.abs(z_next - z).max()
         return ADMMResult(U=z, iterations=iters, primal_residual=r_prim,
                           dual_residual=r_dual)
     g = gradient_offset(qp, x0s, x_ref)

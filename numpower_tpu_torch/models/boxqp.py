@@ -8,8 +8,9 @@ box-constrained QP:
     plus Nesterov momentum with adaptive restart    [FISTA]
 
 solve_boxqp_pg and solve_boxqp_fista are plain PyTorch, the counterpart of the
-JAX package's XLA scan path. solve_mpc_boxqp routes a batched solve on a CUDA
-tensor to the fused FISTA kernel (kernels/boxqp_fista.py).
+JAX package's XLA scan path. solve_mpc_boxqp routes a solve on a CUDA tensor
+to the FISTA kernels (kernels/boxqp_fista.py): the fused one for a batch of
+regulation problems, the two-step one for an x_ref or a single x0.
 """
 
 from __future__ import annotations
@@ -23,12 +24,6 @@ from numpower_tpu_torch.kernels.precision import bf16_round
 from numpower_tpu_torch.models.condensed import (
     CondensedQP, default_coarse_iters, gradient_offset,
 )
-
-K3_NOT_PORTED = (
-    "the two-step box-QP kernels that take g (K3: fista_boxqp_pallas and "
-    "admm_boxqp_pallas, for x_ref and single-vector solves) are not ported "
-    "yet (ROADMAP.md, queue 2, first item)")
-
 
 class BoxQPResult(NamedTuple):
     U: torch.Tensor         # (N, Tm) or (Tm,) solutions
@@ -100,15 +95,15 @@ def route_mpc_boxqp(device_type: str, d: int, has_x_ref: bool, x0_ndim: int,
     fits the kernel's shared-memory envelope (d <= boxqp_fista.MAX_D = 128),
     and plain FISTA otherwise: on the CPU, as the JAX package does off the
     TPU, and above the envelope, as it does above its VMEM bound of d = 1024
-    (boxqp.py:156-161). The kernel solves batched regulation problems; an
-    x_ref or a single x0 needs the two-step kernel, which is not ported and
-    raises NotImplementedError rather than running plain FISTA unasked."""
+    (boxqp.py:156-161). On the kernel route, solve_mpc_boxqp takes the fused
+    kernel for a batch of regulation problems and the two-step one (g given)
+    for an x_ref or a single x0, as the JAX package does (boxqp.py:162-197);
+    has_x_ref and x0_ndim choose between the two there, not here."""
+    del has_x_ref, x0_ndim  # both kernel routes take every x_ref and x0 rank
     if method == "auto":
         method = "kernel" if device_type == "cuda" and d <= boxqp_fista.MAX_D else "fista"
     if method not in ("kernel", "fista", "pg"):
         raise ValueError(f"unknown method {method!r} (auto|kernel|fista|pg)")
-    if method == "kernel" and (has_x_ref or x0_ndim != 2):
-        raise NotImplementedError(K3_NOT_PORTED)
     return method
 
 
@@ -129,10 +124,12 @@ def solve_mpc_boxqp(
     H is shared; only g varies per scenario. U0 warm-starts the iterate
     (shifted previous solution in receding-horizon use).
 
-    method (see route_mpc_boxqp): "kernel" is the fused FISTA kernel (the JAX
-    package's "pallas"): g formed from x0 in the kernel, static momentum
-    schedule, residual reduced in the kernel. "fista" is plain FISTA with
-    adaptive restart, "pg" plain projected gradient.
+    method (see route_mpc_boxqp): "kernel" (the JAX package's "pallas") is
+    static-beta FISTA in a kernel: for a batch x0s (N, n) with no x_ref the
+    fused kernel, with g formed from x0 and the residual reduced in the
+    kernel; otherwise g is formed here, the two-step kernel solves it (a
+    single x0 as a batch of one) and the residual is formed outside. "fista"
+    is plain FISTA with adaptive restart, "pg" plain projected gradient.
 
     Precision: the leading coarse_iters iterations round the product's
     operands to bf16; the fp32 tail of ceil(6.5 sqrt(kappa)) iterations
@@ -143,12 +140,22 @@ def solve_mpc_boxqp(
         coarse_iters = default_coarse_iters(qp, iters)
     method = route_mpc_boxqp(x0s.device.type, qp.H.shape[0], x_ref is not None,
                              x0s.ndim, method)
-    if method == "kernel":
+    if method == "kernel" and x_ref is None and x0s.ndim == 2:
         U, resid = boxqp_fista.fista_mpc_res(
             qp.H, qp.Sx.T, qp.SuTQ.T, x0s, u_lo, u_hi, qp.lipschitz,
             iters=iters, coarse_iters=coarse_iters, U0=U0)
         return BoxQPResult(U=U, iterations=iters, residual=resid)
     g = gradient_offset(qp, x0s, x_ref)
+    if method == "kernel":
+        squeeze = g.ndim == 1
+        U = boxqp_fista.fista_boxqp(
+            qp.H, g[None] if squeeze else g, u_lo, u_hi, qp.lipschitz, iters=iters,
+            coarse_iters=coarse_iters, U0=None if U0 is None else (U0[None] if squeeze else U0))
+        if squeeze:
+            U = U[0]
+        step = 1.0 / qp.lipschitz
+        resid = torch.abs(U - torch.clamp(U - step * (_product(U, qp.H) + g), u_lo, u_hi)).max()
+        return BoxQPResult(U=U, iterations=iters, residual=resid)
     if method == "fista":
         return solve_boxqp_fista(qp.H, g, u_lo, u_hi, L=qp.lipschitz, iters=iters,
                                  U0=U0, coarse_iters=coarse_iters)

@@ -1,0 +1,162 @@
+"""The iLQR CUDA kernels of numpower_tpu_torch (K7 ilqr_backward_fused, K8
+ilqr_forward_fused) against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device and skips without one (the kernels have
+no CPU mode). The file imports neither jax nor numpower_tpu, so it runs on
+the GPU machine, where jax is absent; tests/conftest.py imports jax, so run
+it there without the conftest:
+
+    python -m pytest --noconftest tests/test_torch_ilqr_cuda.py -q
+
+Tolerances: K7 rtol 1e-3, atol 1e-4, the JAX package's bound for its fused
+kernel (tests/test_kernels.py:158-163). K8 on the candidates whose plain
+rollout stays in |x| <= 10 (the others leave the linearization's region and
+diverge, in both versions alike): xs 1e-4, costs rtol 1e-5 (the JAX
+package's, tests/test_kernels.py:577-582), us 5e-4 (gains up to |K| ~ 100
+turn a 5e-6 state difference into 5e-4). N = 1003 and 257 are ragged for
+K7's 32-, 16- and 8-scenario blocks and K8's 32-scenario blocks.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from numpower_tpu_torch.kernels import ilqr_backward, ilqr_forward
+from numpower_tpu_torch.models import (
+    cartpole_step, ilqr_solve_batched, pendulum_step, planar_quadrotor_step, rollout_nonlinear,
+    linearize_trajectory, unicycle_step,
+)
+
+pytestmark = pytest.mark.cuda
+ALPHAS = (1.0, 0.6, 0.3, 0.1, 0.03, 0.01)
+PLANTS = [(cartpole_step, 4, 1), (pendulum_step, 2, 1), (unicycle_step, 3, 2),
+          (planar_quadrotor_step, 6, 2)]
+# The nominal control of each plant's test problem: the planar quadrotor
+# hovers (m g / 2 per rotor), for with zero thrust it falls out of the
+# bounded region within the horizon.
+U_NOM = {planar_quadrotor_step: 0.5 * 9.81}
+
+
+@pytest.fixture(scope="module")
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _ltv(N, T, n, m, device, seed):
+    """A random LTV problem: A near I, small B, affine terms, stage costs."""
+    rng = np.random.default_rng(seed)
+    f32 = functools.partial(torch.as_tensor, dtype=torch.float32, device=device)
+    return (f32(np.eye(n) + 0.05 * rng.standard_normal((N, T, n, n))),
+            f32(0.3 * rng.standard_normal((N, T, n, m))), f32(rng.standard_normal((N, T, n))),
+            f32(rng.standard_normal((N, T, m))), 2.0 * np.eye(n, dtype=np.float32),
+            0.2 * np.eye(m, dtype=np.float32), f32(rng.standard_normal((N, n))),
+            10.0 * np.eye(n, dtype=np.float32))
+
+
+@pytest.mark.parametrize("n,m,T", [(4, 1, 50), (12, 4, 30), (6, 2, 20), (16, 8, 10), (3, 2, 7)],
+                         ids=["cartpole", "quadrotor", "planar", "envelope", "unicycle"])
+@pytest.mark.parametrize("diag", [False, True], ids=["plain", "luu_diags"])
+def test_backward_kernel_matches_plain(device, n, m, T, diag):
+    N = 1003
+    args = _ltv(N, T, n, m, device, seed=n * 10 + m)
+    luu_diags = None
+    if diag:
+        luu_diags = torch.as_tensor(np.random.default_rng(7).uniform(0.0, 2.0, (N, T, m)),
+                                    dtype=torch.float32, device=device)
+    before = ilqr_backward.ilqr_backward_fused.launches
+    ks, Ks = ilqr_backward.ilqr_backward_fused(*args, reg=1e-3, luu_diags=luu_diags)
+    torch.cuda.synchronize()
+    assert ilqr_backward.ilqr_backward_fused.launches == before + 1
+    ks_p, Ks_p = ilqr_backward.ilqr_backward_reference(*args, reg=1e-3, luu_diags=luu_diags)
+    assert torch.allclose(ks, ks_p, rtol=1e-3, atol=1e-4)
+    assert torch.allclose(Ks, Ks_p, rtol=1e-3, atol=1e-4)
+
+
+def test_backward_kernel_rejects_what_it_does_not_take(device):
+    args = _ltv(4, 3, 17, 1, device, seed=1)
+    with pytest.raises(ValueError, match="envelope"):
+        ilqr_backward.ilqr_backward_fused(*args)
+    args = _ltv(4, 3, 4, 1, device, seed=1)
+    with pytest.raises(ValueError, match="float32"):
+        ilqr_backward.ilqr_backward_fused(args[0].double(), *args[1:])
+
+
+def _line_search_problem(f, n, m, N, T, device):
+    """The first line search of a solve from x0 = 0.3 N(0, 1) and constant
+    nominal controls (U_NOM, else zero): its rollout, FD linearization and
+    plain backward pass."""
+    x0s = torch.as_tensor(0.3 * np.random.default_rng(n).standard_normal((N, n)),
+                          dtype=torch.float32, device=device)
+    us = torch.full((N, T, m), U_NOM.get(f, 0.0), dtype=torch.float32, device=device)
+    xs = rollout_nonlinear(f, x0s, us)
+    As, Bs = linearize_trajectory(f, xs, us, use_fd=True)
+    Q, R, QF = (torch.eye(n, device=device), 0.1 * torch.eye(m, device=device),
+                10.0 * torch.eye(n, device=device))
+    goal = torch.zeros(n, device=device)
+    ks, Ks = ilqr_backward.ilqr_backward_reference(
+        As, Bs, 2.0 * (xs[:, :T] - goal) @ Q.T, 2.0 * us @ R.T, 2.0 * Q, 2.0 * R,
+        2.0 * (xs[:, T] - goal) @ QF.T, 2.0 * QF)
+    alphas = torch.tensor(ALPHAS, device=device)
+    return (f, Q, R, QF, goal, alphas, x0s, xs.contiguous(), us, ks, Ks)
+
+
+@pytest.mark.parametrize("f,n,m", PLANTS, ids=[f.__name__ for f, _, _ in PLANTS])
+def test_forward_kernel_matches_plain_on_every_registered_plant(device, f, n, m):
+    args = _line_search_problem(f, n, m, 257, 40, device)
+    before = ilqr_forward.ilqr_forward_fused.launches
+    us, xs, costs = ilqr_forward.ilqr_forward_fused(*args)
+    torch.cuda.synchronize()
+    assert ilqr_forward.ilqr_forward_fused.launches == before + 1
+    assert us.shape == (6, 257, 40, m) and xs.shape == (6, 257, 41, n) and costs.shape == (6, 257)
+    us_p, xs_p, c_p = ilqr_forward.ilqr_forward_reference(*args)
+    ok = torch.isfinite(c_p) & (xs_p.abs().amax(dim=(-2, -1)) <= 10.0)
+    assert ok.double().mean().item() >= 0.4
+    assert (us[ok] - us_p[ok]).abs().max().item() <= 5e-4
+    assert (xs[ok] - xs_p[ok]).abs().max().item() <= 1e-4
+    assert ((costs[ok] - c_p[ok]).abs() / c_p[ok].abs()).max().item() <= 1e-5
+    assert torch.equal(xs[:, :, 0], args[6].expand(6, 257, n))
+
+
+def test_partial_plant_carries_its_parameters_into_the_kernel(device):
+    f = functools.partial(cartpole_step, dt=0.02, mp=0.2)
+    args = _line_search_problem(f, 4, 1, 64, 30, device)
+    us, xs, costs = ilqr_forward.ilqr_forward_fused(*args)
+    us_p, xs_p, c_p = ilqr_forward.ilqr_forward_reference(*args)
+    ok = torch.isfinite(c_p) & (xs_p.abs().amax(dim=(-2, -1)) <= 10.0)
+    assert ok.any() and (xs[ok] - xs_p[ok]).abs().max().item() <= 1e-4
+    assert ((costs[ok] - c_p[ok]).abs() / c_p[ok].abs()).max().item() <= 1e-5
+
+
+def test_unregistered_plant_on_the_kernel_route_raises(device):
+    x0s = torch.zeros((8, 2), device=device)
+    Q, R = np.eye(2, dtype=np.float32), np.eye(1, dtype=np.float32)
+
+    def my_pendulum(x, u):
+        return pendulum_step(x, u)
+
+    with pytest.raises(ValueError, match="not registered"):
+        ilqr_solve_batched(my_pendulum, x0s, Q, R, Q, np.zeros(2, np.float32), 5, iters=1,
+                           backend="fused")
+    r = ilqr_solve_batched(my_pendulum, x0s, Q, R, Q, np.zeros(2, np.float32), 5, iters=1,
+                           backend="fused", forward="plain")
+    assert r.us.device.type == "cuda" and bool(torch.isfinite(r.cost).all())
+
+
+def test_fused_solve_launches_each_kernel_once_per_iteration(device):
+    x0s = torch.as_tensor(0.3 * np.random.default_rng(1).standard_normal((300, 4)),
+                          dtype=torch.float32, device=device)
+    Q, R, QF = np.eye(4, dtype=np.float32), 0.01 * np.eye(1, dtype=np.float32), \
+        10.0 * np.eye(4, dtype=np.float32)
+    before = (ilqr_backward.ilqr_backward_fused.launches, ilqr_forward.ilqr_forward_fused.launches)
+    r = ilqr_solve_batched(cartpole_step, x0s, Q, R, QF, np.zeros(4, np.float32), 15, iters=4,
+                           backend="fused")
+    assert (ilqr_backward.ilqr_backward_fused.launches,
+            ilqr_forward.ilqr_forward_fused.launches) == (before[0] + 4, before[1] + 4)
+    v = ilqr_solve_batched(cartpole_step, x0s, Q, R, QF, np.zeros(4, np.float32), 15, iters=4)
+    # the JAX package's cross-backend bound on its test problem (tests/test_kernels.py:176)
+    assert torch.allclose(r.cost, v.cost, rtol=1e-2, atol=1e-3)
+    assert bool((r.costs[:, 1:] <= r.costs[:, :-1]).all())

@@ -1,5 +1,5 @@
-"""The CUDA kernels of numpower_tpu_torch against their plain PyTorch versions,
-on the card.
+"""The box-QP CUDA kernels of numpower_tpu_torch (K1, K2 and the two-step
+K3a, K3b) against their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA device and skips without one (the kernels have
 no CPU mode). The file imports neither jax nor numpower_tpu, so it runs on
@@ -14,7 +14,9 @@ import pytest
 import torch
 
 from numpower_tpu_torch.kernels import boxqp_admm, boxqp_fista
-from numpower_tpu_torch.models import MPCController, condense, quadrotor12
+from numpower_tpu_torch.models import (
+    MPCController, condense, gradient_offset, quadrotor12, solve_mpc_boxqp, solve_mpc_boxqp_admm,
+)
 from numpower_tpu_torch.models.condensed import admm_coarse_iters, default_coarse_iters
 
 pytestmark = pytest.mark.cuda
@@ -112,3 +114,69 @@ def test_wrappers_reject_what_the_kernel_does_not_take(problem):
         boxqp_fista.fista_mpc_res(big, qp.Sx.T, torch.zeros(360, big.shape[0],
                                                             device=x0s.device),
                                   x0s, -1, 1, qp.lipschitz)
+
+
+@pytest.fixture(scope="module")
+def tracking_g(problem):
+    """g of tracking an x_ref held over the horizon, for the 1000 scenarios."""
+    qp, x0s, _, _ = problem
+    x_ref = torch.as_tensor(0.2 * np.random.default_rng(5).standard_normal(12),
+                            dtype=torch.float32, device=x0s.device)
+    return gradient_offset(qp, x0s, x_ref).contiguous(), x_ref
+
+
+@pytest.mark.parametrize("box", [(-0.5, 0.5), (0.1, 0.5)])
+@pytest.mark.parametrize("start", ["cold", "warm"])
+@pytest.mark.parametrize("schedule", ["fp32", "default"])
+def test_two_step_kernels_match_plain(problem, tracking_g, schedule, start, box):
+    qp, _, U0, rho = problem
+    g, _ = tracking_g
+    U0 = U0 if start == "warm" else None
+    cf = 0 if schedule == "fp32" else default_coarse_iters(qp, ITERS)
+    ca = 0 if schedule == "fp32" else admm_coarse_iters(qp, ITERS)
+    tol = 1e-5 if schedule == "fp32" else 1e-4
+    before = (boxqp_fista.fista_boxqp.launches, boxqp_admm.admm_boxqp.launches)
+    U = boxqp_fista.fista_boxqp(qp.H, g, *box, qp.lipschitz, ITERS, cf, U0)
+    z, y = boxqp_admm.admm_boxqp(qp.H, g, *box, rho, ITERS, ca, U0=U0)
+    torch.cuda.synchronize()
+    assert (boxqp_fista.fista_boxqp.launches, boxqp_admm.admm_boxqp.launches) == \
+        (before[0] + 1, before[1] + 1)
+    U_ref = boxqp_fista.fista_boxqp_reference(qp.H, g, *box, qp.lipschitz, ITERS, cf, U0)
+    z_ref, y_ref = boxqp_admm.admm_boxqp_reference(qp.H, g, *box, rho, ITERS, ca, U0=U0)
+    assert (U - U_ref).abs().max().item() <= tol
+    assert (z - z_ref).abs().max().item() <= tol
+    assert (y - y_ref).abs().max().item() <= tol
+
+
+def test_x_ref_and_single_x0_solves_run_the_two_step_kernels(problem, tracking_g):
+    qp, x0s, _, _ = problem
+    _, x_ref = tracking_g
+    before = (boxqp_fista.fista_boxqp.launches, boxqp_admm.admm_boxqp.launches)
+    res = solve_mpc_boxqp(qp, x0s, -1, 1, x_ref=x_ref, iters=ITERS)
+    one = solve_mpc_boxqp(qp, x0s[3], -1, 1, iters=ITERS)
+    res_a = solve_mpc_boxqp_admm(qp, x0s, -1, 1, x_ref=x_ref, iters=ITERS)
+    assert (boxqp_fista.fista_boxqp.launches, boxqp_admm.admm_boxqp.launches) == \
+        (before[0] + 2, before[1] + 1)
+    assert one.U.shape == (120,) and res.U.shape == res_a.U.shape == (1000, 120)
+    for r in (res.residual, one.residual, res_a.primal_residual, res_a.dual_residual):
+        assert bool(torch.isfinite(r)) and r.item() <= 1e-3
+    # the single x0 is the row of the batch's regulation solve
+    batch = solve_mpc_boxqp(qp, x0s, -1, 1, iters=ITERS)
+    assert (one.U - batch.U[3]).abs().max().item() <= 1e-4
+
+
+def test_x_ref_serving_tick_launches_k3b_once(device):
+    A, B = quadrotor12(0.02)
+    x_ref = 0.1 * np.ones(12, np.float32)
+    ctrl = MPCController(A, B, *_costs(), horizon=30, u_lo=-1, u_hi=1, x_ref=x_ref,
+                         device=device)
+    state = ctrl.init(256)
+    x = torch.as_tensor(0.3 * np.random.default_rng(2).standard_normal((256, 12)),
+                        dtype=torch.float32, device=device)
+    for _ in range(3):
+        before = (boxqp_fista.fista_boxqp.launches, boxqp_fista.fista_mpc_res.launches)
+        u0, state, resid = ctrl.step_with_residual(state, x)
+        assert (boxqp_fista.fista_boxqp.launches, boxqp_fista.fista_mpc_res.launches) == \
+            (before[0] + 1, before[1])
+    assert u0.shape == (256, 4) and bool(((u0 >= -1) & (u0 <= 1)).all())
+    assert bool(torch.isfinite(resid))

@@ -170,13 +170,14 @@ def test_route_mpc_boxqp_admm(args, want):
 
 @pytest.mark.parametrize("route", [route_mpc_boxqp, route_mpc_boxqp_admm])
 @pytest.mark.parametrize("args", [
-    ("cuda", 120, True, 2),            # x_ref on the kernel route: K3, not ported
-    ("cuda", 120, False, 1, "kernel"),  # one x0 on the kernel route: K3, not ported
+    ("cuda", 120, True, 2),            # x_ref: the two-step kernel (K3)
+    ("cuda", 120, False, 1, "kernel"),  # one x0 asked for on the kernel route: K3
     ("cpu", 120, True, 2, "kernel"),
 ])
 def test_route_to_unported_kernel_raises(route, args):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        route(*args)
+    """The x_ref and single-x0 solves that once had no kernel now take the
+    kernel route (the two-step kernels K3a/K3b) and raise nothing."""
+    assert route(*args) == "kernel"
 
 
 def test_route_rejects_unknown_method():
