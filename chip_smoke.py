@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives two paths of the port through their entry points and fails unless
+Drives the paths of the port through their entry points and fails unless
 every phase passes. The condensed box-QP MPC serving path of BASELINE config
 #4 (the 12-state quadrotor linearised about hover, horizon 30, 4096
 scenarios, controls boxed to +-1, so d = 120 controls per scenario):
@@ -68,14 +68,41 @@ AL-iLQR bench configuration, bench.py:408-451 and 524-544):
 10. times from CUDA events: K3a/K3b at N = 4096, K7 and K8 at N = 256 and
    4096, each beside its plain version, and the three solves.
 
+The estimators (the estimation bench, bench.py:576-775) and the closed
+output-feedback loop:
+
+11. K9 kalman_mean_pass and K10 rts_mean_pass against their plain versions on
+   the bench's filter (double integrator, C = [1 0], N = 4096 and a ragged
+   1003, T = 50, with and without known inputs; means 2e-5, ll rtol 2e-4 /
+   atol 2e-3); K11 ekf_batched and K12 ukf_batched against theirs on the
+   pendulum (N = 1024, T = 50, h the first component), the unicycle (p = 2)
+   and the planar quadrotor (p = 3) (means 1e-4, covariances 1e-5, ll rtol
+   1e-3 / atol 5e-3);
+12. the path through its entry points: kalman_filter_batched (one K9 launch)
+   against float64 (its default route: the plain one, no launch),
+   kalman_filter_sqrt_batched (one K9), kalman_smoother_batched
+   (one K10) against the per-trajectory smoother on the batch,
+   ekf_filter_batched and ukf_filter_batched (one K11, one K12) against the
+   xla route, the associative filter against the sequential one at T = 4096,
+   and the closed loop: BASELINE config #4 (MPCController on its default
+   device, the card) with kalman_estimator, 4096 scenarios, 100 ticks, noisy
+   position and attitude measurements (one K2 launch per tick, controls in
+   the box, the unmeasured velocities tracked within 0.1);
+13. times from CUDA events: each new kernel's device time (direct library
+   calls), wrapper and plain version, each batched entry point and its share
+   outside the kernel, the T = 4096 filters, one closed-loop tick.
+
 The launch counters of each path are zeroed just before it is driven
-(phases 2-3, 6, the path of 8 and the path of 9) and read just after. The
-last lines are the total wall time, one JSON object listing every kernel,
+(phases 2-3, 6, the path of 8, the path of 9 and phase 12) and read just
+after. The last lines are the total wall time, one JSON object listing every
+kernel with its bound (bound_ms, bound_by, from this run's shapes) and, where
+one PyTorch call computes the same function, that call's time (library_ms),
 the card's name and power limit from nvidia-smi, and {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import statistics
 import subprocess
@@ -90,6 +117,12 @@ LO, HI = -1.0, 1.0
 N_RAGGED = 1003  # not a multiple of K5's 8-scenario or K6's 32-matrix blocks
 N_CONFIG2, N_TUBE, T_LONG = 256, 65536, 4096
 T_ILQR, N_ILQR, T_AL = 50, 256, 40  # configs #3/#3b and the AL-iLQR bench (bench.py:408-451, 524-544)
+# the estimation bench (bench.py:576-775) and the closed loop
+N_KF, T_KF, N_NL, N_LOOP, T_LOOP = 4096, 50, 1024, 4096, 100
+# floating-point operations of one step of each registered plant (csrc/plants.cuh;
+# sinf and cosf count one each), for the operation bounds of K8, K11 and K12
+PLANT_OPS = {"cartpole_step": 28, "pendulum_step": 8, "unicycle_step": 10,
+             "planar_quadrotor_step": 24}
 
 
 def log(msg: str) -> None:
@@ -127,6 +160,24 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 def close(a: torch.Tensor, b: torch.Tensor, rtol: float, atol: float) -> bool:
     """|a - b| <= atol + rtol |b| everywhere (torch.allclose, in float64)."""
     return torch.allclose(a.double(), b.double(), rtol=rtol, atol=atol)
+
+
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s
+# and fp32 FLOP/s outside the tensor cores (no kernel here uses them)
+HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
+
+
+def kernel_entry(name: str, source: str, replaces: str, launches: int, err: float, ms: float,
+                 plain_ms: float, n_bytes: float, n_ops: float, library_ms=None) -> dict:
+    """One kernel's entry of the JSON line. bound_ms is the least time the
+    card could take for the call that `ms` timed: the larger of its bytes
+    (each input read once, each output written once) over the HBM rate and
+    its operations over the fp32 rate, both counted from this run's shapes."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_FLOP_PER_S * 1e3
+    return {"name": name, "route": "cuda", "source": "numpower_tpu_torch/csrc/" + source,
+            "replaces": "numpower_tpu/kernels/" + replaces, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms}
 
 
 def ptxas_lines(build_log: str) -> list:
@@ -323,17 +374,21 @@ def riccati_family(dev, smi: str) -> list:
     for what, t_ms in path_ms.items():
         log(f"time {what}: {t_ms:.4f} ms [{smi}]")
 
-    source = "numpower_tpu_torch/csrc/"
+    lib_solve_ms = cuda_ms(lambda: torch.linalg.solve(a4, b4))
+    log(f"time torch.linalg.solve ({N},{m},{m})x({N},{m},{n}) (K6b's function): "
+        f"{lib_solve_ms:.4f} ms [{smi}]")
+    r = n  # K6b's right-hand sides at the timed shape
     return [
-        {"name": "riccati_batched_fused", "route": "cuda", "source": source + "riccati.cu",
-         "replaces": "numpower_tpu/kernels/riccati.py:172", "launches": launches["riccati"],
-         "max_abs_err": err["riccati"], "ms": ms["riccati"], "plain_ms": plain_ms["riccati"]},
-        {"name": "cholesky_batched", "route": "cuda", "source": source + "cholesky.cu",
-         "replaces": "numpower_tpu/kernels/cholesky.py:107", "launches": launches["chol"],
-         "max_abs_err": err["chol"], "ms": ms["chol"], "plain_ms": plain_ms["chol"]},
-        {"name": "psd_solve_batched", "route": "cuda", "source": source + "cholesky.cu",
-         "replaces": "numpower_tpu/kernels/cholesky.py:135", "launches": launches["psd"],
-         "max_abs_err": err["psd"], "ms": ms["psd"], "plain_ms": plain_ms["psd"]},
+        kernel_entry("riccati_batched_fused", "riccati.cu", "riccati.py:172", launches["riccati"],
+                     err["riccati"], ms["riccati"], plain_ms["riccati"],
+                     4 * (N * n * n + N * n * m + 2 * n * n + m * m + N * T * m * n + N * n * n),
+                     flop),
+        kernel_entry("cholesky_batched", "cholesky.cu", "cholesky.py:107", launches["chol"],
+                     err["chol"], ms["chol"], plain_ms["chol"], 4 * 2 * N * n * n,
+                     N * n ** 3 / 3, library_ms=lib_chol_ms),
+        kernel_entry("psd_solve_batched", "cholesky.cu", "cholesky.py:135", launches["psd"],
+                     err["psd"], ms["psd"], plain_ms["psd"], 4 * (N * m * m + 2 * N * m * r),
+                     N * (m ** 3 / 3 + 2 * m * m * r), library_ms=lib_solve_ms),
     ]
 
 
@@ -450,14 +505,14 @@ def boxqp_two_step(dev, smi: str, qp, x0s, rho) -> list:
         log(f"time {name} {iters} iters, {N} scenarios: kernel {ms[solver]:.4f} ms, plain "
             f"{plain_ms[solver]:.4f} ms [{smi}]")
     log(f"time serving tick with x_ref (FISTA, 30 iters, {N} scenarios): {tick_ms:.4f} ms [{smi}]")
-    source = "numpower_tpu_torch/csrc/"
+    d = T * m
     return [
-        {"name": "fista_boxqp", "route": "cuda", "source": source + "boxqp_fista.cu",
-         "replaces": "numpower_tpu/kernels/boxqp_fista.py:119", "launches": launches["fista"],
-         "max_abs_err": err["fista"], "ms": ms["fista"], "plain_ms": plain_ms["fista"]},
-        {"name": "admm_boxqp", "route": "cuda", "source": source + "boxqp_admm.cu",
-         "replaces": "numpower_tpu/kernels/boxqp_admm.py:186", "launches": launches["admm"],
-         "max_abs_err": err["admm"], "ms": ms["admm"], "plain_ms": plain_ms["admm"]},
+        kernel_entry("fista_boxqp", "boxqp_fista.cu", "boxqp_fista.py:119", launches["fista"],
+                     err["fista"], ms["fista"], plain_ms["fista"], 4 * (d * d + 2 * N * d + 1),
+                     2 * N * d * d * iters),
+        kernel_entry("admm_boxqp", "boxqp_admm.cu", "boxqp_admm.py:186", launches["admm"],
+                     err["admm"], ms["admm"], plain_ms["admm"], 4 * (2 * d * d + 3 * N * d + 1),
+                     2 * N * d * d * (iters + 1)),
     ]
 
 
@@ -652,16 +707,318 @@ def ilqr_family(dev, smi: str) -> list:
     }
     for what, t_ms in solve_ms.items():
         log(f"time {what}: {t_ms:.4f} ms [{smi}]")
-    source = "numpower_tpu_torch/csrc/"
+    # K7 per stage: the Q-function products, the (m x m) solve for k and K,
+    # and the value updates; K8 per (alpha, scenario, step): the feedback, the
+    # stage cost's upper-triangle sums and the plant's operations
+    n, m, Nk, Tk, A_n = 4, 1, N_ILQR, T_ILQR, alphas.numel()
+    bwd_ops = Nk * Tk * (4 * n ** 3 + 6 * n * n * m + 2 * n * m * m + 2 * n * n + 4 * n * m
+                         + m ** 3 / 3 + 2 * m * m * (n + 1))
+    bwd_bytes = 4 * (Nk * Tk * (n * n + n * m + n + m) + 2 * n * n + m * m + Nk * n
+                     + Nk * Tk * (m + m * n))
+    fwd_ops = A_n * Nk * Tk * (n + m * (2 + 2 * n) + 3 * (n * (n + 1) // 2 + m * (m + 1) // 2)
+                               + PLANT_OPS["cartpole_step"])
+    fwd_bytes = 4 * (2 * n * n + m * m + n + A_n + Nk * n + Nk * (Tk + 1) * n
+                     + Nk * Tk * (2 * m + m * n) + A_n * Nk * (Tk * m + (Tk + 1) * n + 1))
     return [
-        {"name": "ilqr_backward_fused", "route": "cuda", "source": source + "ilqr_backward.cu",
-         "replaces": "numpower_tpu/kernels/ilqr_backward.py:134", "launches": launches["bwd"],
-         "max_abs_err": err["bwd"], "ms": ms[("bwd", N_ILQR)],
-         "plain_ms": plain_ms[("bwd", N_ILQR)]},
-        {"name": "ilqr_forward_fused", "route": "cuda", "source": source + "ilqr_forward.cu",
-         "replaces": "numpower_tpu/kernels/ilqr_forward.py:92", "launches": launches["fwd"],
-         "max_abs_err": err["fwd"], "ms": ms[("fwd", N_ILQR)],
-         "plain_ms": plain_ms[("fwd", N_ILQR)]},
+        kernel_entry("ilqr_backward_fused", "ilqr_backward.cu", "ilqr_backward.py:134",
+                     launches["bwd"], err["bwd"], ms[("bwd", N_ILQR)], plain_ms[("bwd", N_ILQR)],
+                     bwd_bytes, bwd_ops),
+        kernel_entry("ilqr_forward_fused", "ilqr_forward.cu", "ilqr_forward.py:92",
+                     launches["fwd"], err["fwd"], ms[("fwd", N_ILQR)], plain_ms[("fwd", N_ILQR)],
+                     fwd_bytes, fwd_ops),
+    ]
+
+
+def estimation_family(dev, smi: str) -> list:
+    """Phases 11-13: the estimators' kernels K9-K12, the estimation path
+    through its entry points with the closed output-feedback loop, and their
+    times. Returns the kernels' entries of the JSON line."""
+    import functools
+
+    from numpower_tpu_torch.kernels import _build, boxqp_fista, ekf, kalman_mean, rts_mean, ukf
+    from numpower_tpu_torch.models import (
+        MPCController, double_integrator, ekf_filter_batched, first_components, kalman_estimator,
+        kalman_filter, kalman_filter_associative, kalman_filter_batched,
+        kalman_filter_sqrt_batched, kalman_smoother, kalman_smoother_batched, pendulum_step,
+        planar_quadrotor_step, quadrotor12, simulate_closed_loop, ukf_filter_batched,
+        unicycle_step,
+    )
+    from numpower_tpu_torch.models.estimation import _chol, _chosolve, shared_gains
+
+    def t32(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
+
+    def worst(a, b):
+        return max(max_err(x, y) for x, y in zip(a, b))
+
+    # the estimation bench's configuration (bench.py:587-595); known inputs
+    # for the "with inputs" case as in tests/test_kernels.py:325-326
+    A = t32(double_integrator(0.1).A)
+    C, Q, R = t32([[1.0, 0.0]]), t32(np.eye(2) * 1e-3), t32(np.eye(1) * 1e-2)
+    P0 = t32(np.eye(2) * 0.1)
+    kf = (A, C, Q, R)
+    rng = np.random.default_rng(11)
+    yss = t32(rng.standard_normal((N_KF, T_KF, 1)))
+    x0s = t32(rng.standard_normal((N_KF, 2)))
+    Bu, uss = t32([[0.005], [0.1]]), t32(rng.standard_normal((N_KF, T_KF, 1)))
+    # the nonlinear filters' (bench.py:700-711: N = 1024, T = 50, the same Q,
+    # R, P0) on the registered plants, h the first p components
+    nonlinear = {}
+    for f, n_, m_, p_ in ((pendulum_step, 2, 1, 1), (unicycle_step, 3, 2, 2),
+                          (planar_quadrotor_step, 6, 2, 3)):
+        r = np.random.default_rng(11)
+        u_nom = 0.5 * 9.81 if f is planar_quadrotor_step else 0.0  # the quadrotor hovers
+        nonlinear[f.__name__] = (f, functools.partial(first_components, k=p_), (
+            t32(np.eye(n_) * 1e-3), t32(np.eye(p_) * 1e-2),
+            t32(0.3 * r.standard_normal((N_NL, n_))),
+            t32(np.eye(n_) * 0.1), t32(r.standard_normal((N_NL, T_KF, p_))),
+            t32(0.1 * r.standard_normal((N_NL, T_KF, m_)) + u_nom)))
+
+    # -- phase 11: each new kernel against its plain version ------------------
+    # Bounds: K9 means 2e-5, ll rtol 2e-4 / atol 2e-3; K10 2e-5; K11/K12 means
+    # 1e-4, covariances 1e-5, ll rtol 1e-3 / atol 5e-3 (tests/test_kernels.py:
+    # 310-500; the kernels' rsqrtf pivots are within 2 ulp)
+    err = {"kf": 0.0, "rts": 0.0, "ekf": 0.0, "ukf": 0.0}
+    for N_k in (N_KF, N_RAGGED):
+        for kw in ({}, {"B": Bu, "uss": uss[:N_k]}):
+            got = kalman_filter_batched(*kf, x0s[:N_k], P0, yss[:N_k], method="pallas", **kw)
+            want = kalman_filter_batched(*kf, x0s[:N_k], P0, yss[:N_k], method="xla", **kw)
+            dm = max(max_err(got.means, want.means), max_err(got.pred_means, want.pred_means))
+            dl = max_err(got.log_likelihood, want.log_likelihood)
+            s_k = kalman_smoother_batched(A, got, method="pallas")
+            s_p = kalman_smoother_batched(A, got, method="xla")
+            ds = max_err(s_k.means, s_p.means)
+            log(f"K9 kalman_mean N={N_k} T={T_KF} inputs={bool(kw)}: max|dx| {dm:.3e} "
+                f"max|dll| {dl:.3e}; K10 rts_mean: max|dx| {ds:.3e}")
+            require(dm <= 2e-5 and close(got.log_likelihood, want.log_likelihood, 2e-4, 2e-3)
+                    and ds <= 2e-5, f"K9/K10 at N={N_k} inputs={bool(kw)} vs plain")
+            err["kf"], err["rts"] = max(err["kf"], dm), max(err["rts"], ds)
+    for name, (f, h, args) in nonlinear.items():
+        for key, port, ref in (("ekf", ekf.ekf_batched, ekf.ekf_reference),
+                               ("ukf", ukf.ukf_batched, ukf.ukf_reference)):
+            got, want = port(f, h, *args), ref(f, h, *args)
+            dx, dP = worst(got[0::2][:2], want[0::2][:2]), worst(got[1::2][:2], want[1::2][:2])
+            log(f"K{11 if key == 'ekf' else 12} {key} {name} N={N_NL} T={T_KF}: max|dx| {dx:.3e} "
+                f"max|dP| {dP:.3e} max|dll| {max_err(got[4], want[4]):.3e}")
+            require(dx <= 1e-4 and dP <= 1e-5 and close(got[4], want[4], 1e-3, 5e-3),
+                    f"{key} on {name} vs plain")
+            err[key] = max(err[key], dx, dP)
+
+    # -- phase 12: the estimation path through its entry points, counted -------
+    counters = {"kf": kalman_mean.kalman_mean_pass, "rts": rts_mean.rts_mean_pass,
+                "ekf": ekf.ekf_batched, "ukf": ukf.ukf_batched, "fista": boxqp_fista.fista_mpc_res}
+    for counter in counters.values():
+        counter.launches = 0
+    filt = kalman_filter_batched(*kf, x0s, P0, yss)
+    seen = {"kf": kalman_mean.kalman_mean_pass.launches}
+    f64 = [M.double() for M in kf]
+    # float64 on the default route: "auto" takes the plain route (the kernels
+    # take float32), so the counted K9 launches stay at one
+    filt64 = kalman_filter_batched(*f64, x0s.double(), P0.double(), yss.double())
+    d64 = max_err(filt.means, filt64.means)
+    rel_ll = ((filt.log_likelihood.double() - filt64.log_likelihood)
+              / filt64.log_likelihood).abs().max().item()
+    log(f"kalman_filter_batched N={N_KF} T={T_KF} (auto -> K9, {seen['kf']} launch) vs float64 "
+        f"(auto -> plain): max|dx| {d64:.3e}, max rel dll {rel_ll:.3e}")
+    # test_kalman_filter_matches_fp64's bounds: means rtol 1e-3 atol 1e-4, ll rtol 1e-3
+    require(seen["kf"] == 1 and kalman_mean.kalman_mean_pass.launches == 1
+            and close(filt.means, filt64.means, 1e-3, 1e-4)
+            and close(filt.log_likelihood, filt64.log_likelihood, 1e-3, 0.0),
+            "kalman_filter_batched: one K9 launch, against float64")
+    sq = kalman_filter_sqrt_batched(*kf, x0s, P0, yss)
+    seen["kf_sqrt"] = kalman_mean.kalman_mean_pass.launches - seen["kf"]
+    d_sq = max_err(sq.means, filt.means)
+    log(f"kalman_filter_sqrt_batched (auto -> K9, {seen['kf_sqrt']} launch) vs the covariance "
+        f"form: max|dx| {d_sq:.3e}")
+    # test_sqrt_kalman_matches_standard's bounds: means 1e-5, ll rtol 1e-4
+    require(seen["kf_sqrt"] == 1 and d_sq <= 1e-5
+            and close(sq.log_likelihood, filt.log_likelihood, 1e-4, 0.0),
+            "kalman_filter_sqrt_batched: one K9 launch, against kalman_filter_batched")
+    sm = kalman_smoother_batched(A, filt)
+    seen["rts"] = rts_mean.rts_mean_pass.launches
+    sm_v = kalman_smoother(A, filt)  # the vmapped form: the per-trajectory smoother on the batch
+    log(f"kalman_smoother_batched (auto -> K10, {seen['rts']} launch) vs kalman_smoother on the "
+        f"batch: max|dx| {max_err(sm.means, sm_v.means):.3e} "
+        f"max|dP| {max_err(sm.covs, sm_v.covs):.3e}")
+    require(seen["rts"] == 1 and close(sm.means, sm_v.means, 1e-5, 1e-4)
+            and close(sm.covs, sm_v.covs, 1e-5, 1e-4),
+            "kalman_smoother_batched: one K10 launch, against the vmapped form")
+    f, h, args = nonlinear["pendulum_step"]
+    for key, entry in (("ekf", ekf_filter_batched), ("ukf", ukf_filter_batched)):
+        got = entry(f, h, *args)
+        want = entry(f, h, *args, method="xla")
+        dx, dP = max_err(got.means, want.means), max_err(got.covs, want.covs)
+        seen[key] = counters[key].launches
+        log(f"{entry.__name__} pendulum N={N_NL} (auto -> K{11 if key == 'ekf' else 12}, "
+            f"{seen[key]} launch) vs the xla route: max|dx| {dx:.3e} max|dP| {dP:.3e} max|dll| "
+            f"{max_err(got.log_likelihood, want.log_likelihood):.3e}")
+        require(seen[key] == 1 and dx <= 1e-4 and dP <= 1e-5
+                and close(got.log_likelihood, want.log_likelihood, 1e-3, 5e-3),
+                f"{entry.__name__}: one launch, against the xla route")
+    ys_long = t32(rng.standard_normal((T_LONG, 1)))
+    x0 = t32([1.0, 0.0])
+    seq = kalman_filter(*kf, x0, P0, ys_long)
+    for nopivot in (False, True):
+        par = kalman_filter_associative(*kf, x0, P0, ys_long, nopivot=nopivot)
+        log(f"kalman_filter_associative T={T_LONG} nopivot={nopivot} vs kalman_filter: max|dx| "
+            f"{max_err(par.means, seq.means):.3e} max|dP| {max_err(par.covs, seq.covs):.3e}")
+        # test_kalman_associative_long_horizon's bounds
+        require(close(par.means, seq.means, 5e-3, 5e-4) and close(par.covs, seq.covs, 5e-3, 5e-5),
+                f"kalman_filter_associative nopivot={nopivot} vs kalman_filter")
+
+    # the closed loop: BASELINE config #4 under output feedback (the noise of
+    # tests/test_simulate.py:54-70), position and attitude measured
+    Aq, Bq = quadrotor12(0.02)
+    nq = Aq.shape[0]
+    ctrl = MPCController(Aq, Bq, np.eye(nq, dtype=np.float32), np.eye(4, dtype=np.float32) * 0.1,
+                         np.eye(nq, dtype=np.float32) * 5.0, T, LO, HI, iters=30)  # on the card
+    require(ctrl.qp.H.device.type == "cuda", "MPCController defaults to the card")
+    measured = [0, 1, 2, 6, 7, 8]
+    Cq = np.eye(nq, dtype=np.float32)[measured]
+    x0q = torch.as_tensor(0.3 * np.random.default_rng(0).standard_normal((N_LOOP, nq)),
+                          dtype=torch.float32, device=dev)
+    make, update = kalman_estimator(Aq, Cq, np.eye(nq) * 1e-4, np.eye(6) * 1e-2,
+                                    np.eye(nq) * 0.5, B=Bq)
+    Aq_t, Bq_t, Cq_t = t32(Aq), t32(Bq), t32(Cq)
+
+    def plant(x, u):
+        return x @ Aq_t.T + u @ Bq_t.T
+
+    def sensor(x):
+        return x @ Cq_t.T
+
+    loop = dict(w_std=0.01, h=sensor, v_std=0.05, estimator=update)
+    res = simulate_closed_loop(plant, ctrl.callback(), ctrl.callback_init(N_LOOP), x0q, T_LOOP,
+                               generator=torch.Generator(device=dev).manual_seed(0),
+                               est_state0=make(x0q), **loop)
+    seen["fista"] = boxqp_fista.fista_mpc_res.launches
+    vel_err = (res.xhats[20:, :, 3:6] - res.xs[21:, :, 3:6]).abs().mean().item()
+    finite = all(bool(torch.isfinite(t).all()) for t in res)
+    in_box = bool(((res.us >= LO) & (res.us <= HI)).all())
+    log(f"closed loop: config #4 + kalman_estimator, {N_LOOP} scenarios x {T_LOOP} ticks, "
+        f"{seen['fista']} K2 launches; controls in the box {in_box}, finite {finite}; mean "
+        f"|velocity estimate error| after tick 20 {vel_err:.4e} (bound 0.1); mean |x| "
+        f"{res.xs[0].norm(dim=-1).mean().item():.4e} -> "
+        f"{res.xs[-1].norm(dim=-1).mean().item():.4e}")
+    require(seen["fista"] == T_LOOP and in_box and finite and vel_err < 0.1,
+            "the closed loop: one K2 launch per tick, in the box, finite, velocities tracked")
+    launches = {k: c.launches for k, c in counters.items()}
+    log(f"estimation-path launches: {launches}")
+    require(launches == {"kf": 2, "rts": 1, "ekf": 1, "ukf": 1, "fista": T_LOOP},
+            "the estimation path went through K9 twice, K10, K11, K12 once, K2 once per tick")
+
+    # -- phase 13: times --------------------------------------------------------
+    slow = {"reps": 3, "inner": 1, "warmup": 1}
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    Ws, _, P_fs, invLs, logdets = shared_gains(A, C, Q, R, P0, T_KF)
+    cst = logdets + 0.5 * np.log(2.0 * np.pi)
+    ys_t = yss.transpose(0, 1).contiguous()
+    kf_args = (A, C, Ws, invLs, logdets, x0s, ys_t)
+    P_ps = filt.pred_covs[0]
+    G_Ts = _chosolve(_chol(P_ps[1:]), A @ P_fs[:-1]).contiguous()
+    xs_f_t, xs_p_t = filt.means.transpose(0, 1), filt.pred_means.transpose(0, 1)
+    es_t = (xs_f_t[:-1] - torch.einsum("tnj,tjk->tnk", xs_p_t[1:], G_Ts)).contiguous()
+    x_last = xs_f_t[-1].contiguous()
+    out_kf = [torch.empty((T_KF, N_KF, 2), device=dev) for _ in range(3)]
+    out_ll = torch.empty((N_KF,), device=dev)
+    device_ms = {
+        "kf": cuda_ms(lambda: lib.npt_kalman_mean(
+            A.data_ptr(), C.data_ptr(), Ws.data_ptr(), invLs.data_ptr(), cst.data_ptr(),
+            x0s.data_ptr(), ys_t.data_ptr(), None, out_kf[0].data_ptr(), out_kf[1].data_ptr(),
+            out_ll.data_ptr(), N_KF, T_KF, 2, 1, stream)),
+        "rts": cuda_ms(lambda: lib.npt_rts_mean(G_Ts.data_ptr(), es_t.data_ptr(), x_last.data_ptr(),
+                                                out_kf[2].data_ptr(), N_KF, T_KF, 2, stream)),
+    }
+    # the nonlinear kernels' operands as their wrappers check and lay them out
+    pl, me, ins, outs = ekf.kernel_operands(f, h, *args, what="EKF")
+    ptrs = [t.data_ptr() for t in ins] + [outs[k].data_ptr() for k in (0, 2, 1, 3, 4)]
+    floats = ekf.plant_floats(pl)
+    device_ms["ekf"] = cuda_ms(lambda: lib.npt_ekf(pl.plant_id, *floats, me.measure_id, me.p,
+                                                   *ptrs, N_NL, T_KF, stream))
+    weights = [ctypes.c_float(w) for w in ukf.sigma_weights(2, 1.0, 2.0, 0.0) + (ukf.JITTER,)]
+    device_ms["ukf"] = cuda_ms(lambda: lib.npt_ukf(pl.plant_id, *floats, me.measure_id, me.p,
+                                                   *weights, *ptrs, N_NL, T_KF, stream))
+    ms = {
+        "kf": cuda_ms(lambda: kalman_mean.kalman_mean_pass(*kf_args)),
+        "rts": cuda_ms(lambda: rts_mean.rts_mean_pass(G_Ts, es_t, x_last)),
+        "ekf": cuda_ms(lambda: ekf.ekf_batched(f, h, *args)),
+        "ukf": cuda_ms(lambda: ukf.ukf_batched(f, h, *args)),
+    }
+    plain_ms = {
+        "kf": cuda_ms(lambda: kalman_mean.kalman_mean_pass_reference(*kf_args)),
+        "rts": cuda_ms(lambda: rts_mean.rts_mean_pass_reference(G_Ts, es_t, x_last)),
+        "ekf": cuda_ms(lambda: ekf.ekf_reference(f, h, *args), **slow),
+        "ukf": cuda_ms(lambda: ukf.ukf_reference(f, h, *args), **slow),
+    }
+    entry_ms = {
+        "kf": cuda_ms(lambda: kalman_filter_batched(*kf, x0s, P0, yss), **slow),
+        "kf_sqrt": cuda_ms(lambda: kalman_filter_sqrt_batched(*kf, x0s, P0, yss), **slow),
+        "rts": cuda_ms(lambda: kalman_smoother_batched(A, filt), **slow),
+        "ekf": cuda_ms(lambda: ekf_filter_batched(f, h, *args)),
+        "ukf": cuda_ms(lambda: ukf_filter_batched(f, h, *args)),
+    }
+    names = {"kf": "K9 kalman_mean", "rts": "K10 rts_mean", "ekf": "K11 ekf", "ukf": "K12 ukf"}
+    shapes = {"kf": f"N={N_KF} T={T_KF} n=2 p=1", "rts": f"N={N_KF} T={T_KF} n=2",
+              "ekf": f"pendulum N={N_NL} T={T_KF}", "ukf": f"pendulum N={N_NL} T={T_KF}"}
+    for key in names:
+        log(f"time {names[key]} {shapes[key]}: device {device_ms[key]:.4f} ms, wrapper "
+            f"{ms[key]:.4f} ms, plain {plain_ms[key]:.4f} ms [{smi}]")
+    for key, entry, kern in (("kf", "kalman_filter_batched", "kf"),
+                             ("kf_sqrt", "kalman_filter_sqrt_batched", "kf"),
+                             ("rts", "kalman_smoother_batched", "rts"),
+                             ("ekf", "ekf_filter_batched", "ekf"),
+                             ("ukf", "ukf_filter_batched", "ukf")):
+        log(f"time {entry} ({shapes[kern]}): {entry_ms[key]:.4f} ms, of it outside the kernel's "
+            f"device time {1.0 - device_ms[kern] / entry_ms[key]:.1%} [{smi}]")
+    once = {"reps": 1, "inner": 1, "warmup": 0}
+    long_ms = {
+        "sequential": cuda_ms(lambda: kalman_filter(*kf, x0, P0, ys_long), **once),
+        "associative": cuda_ms(lambda: kalman_filter_associative(*kf, x0, P0, ys_long), **slow),
+        "associative nopivot": cuda_ms(
+            lambda: kalman_filter_associative(*kf, x0, P0, ys_long, nopivot=True), **slow),
+    }
+    for what, t_ms in long_ms.items():
+        log(f"time kalman_filter {what} T={T_LONG}: {t_ms:.4f} ms [{smi}]")
+    holder = [ctrl.callback_init(N_LOOP), make(x0q)]
+    x_now = res.xs[-1].contiguous()
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def tick():
+        step = simulate_closed_loop(plant, ctrl.callback(), holder[0], x_now, 1, generator=gen,
+                                    est_state0=holder[1], **loop)
+        return step
+
+    log(f"time one closed-loop tick ({N_LOOP} scenarios: MPC solve, plant, noise, Kalman "
+        f"update): {cuda_ms(tick, reps=5, inner=5, warmup=2):.4f} ms [{smi}]")
+
+    # operations counted from the kernels' loops (per trajectory and step)
+    n, p, T_ = 2, 1, T_KF
+    kf_bytes = 4 * (n * n + p * n + T_ * (p * n + p * p + 1) + N_KF * n + T_ * N_KF * p
+                    + 2 * T_ * N_KF * n + N_KF)
+    kf_ops = N_KF * T_ * (2 * n * n + 4 * p * n + 2 * p * p + 2 * p + 3)
+    rts_bytes = 4 * ((T_ - 1) * n * n + (T_ - 1) * N_KF * n + N_KF * n + T_ * N_KF * n)
+    rts_ops = N_KF * (T_ - 1) * 2 * n * n
+    m = 1
+    nl_bytes = 4 * (N_NL * n + N_NL * T_ * (p + m) + 2 * n * n + p * p + 2 * N_NL * T_ * n
+                    + 2 * N_NL * T_ * n * n + N_NL)
+    po = PLANT_OPS["pendulum_step"]
+    update_ops = 2 * p * p * n * 2 + 4 * p * n + p * n * (n + 1) + p ** 3 / 3 + p * p + 4 * p + 4
+    ekf_ops = N_NL * T_ * (3 * n * po + 2 * n ** 3 + n * n * (n + 1) + 2 * p * n * n
+                           + p * (p + 1) * n + update_ops)
+    K = 2 * n + 1
+    ukf_ops = N_NL * T_ * (2 * (n ** 3 / 3 + 3 * n * n) + K * po + 2 * K * n
+                           + 5 * K * n * (n + 1) // 2 + 2 * K * p + 5 * K * p * (p + 1) // 2
+                           + 5 * K * n * p + 2 * p * p * n + update_ops)
+    return [
+        kernel_entry("kalman_mean_pass", "kalman_mean.cu", "kalman_batched.py:93",
+                     launches["kf"], err["kf"], ms["kf"], plain_ms["kf"], kf_bytes, kf_ops),
+        kernel_entry("rts_mean_pass", "rts_mean.cu", "rts_batched.py:66", launches["rts"],
+                     err["rts"], ms["rts"], plain_ms["rts"], rts_bytes, rts_ops),
+        kernel_entry("ekf_batched", "ekf.cu", "ekf.py:190", launches["ekf"], err["ekf"],
+                     ms["ekf"], plain_ms["ekf"], nl_bytes, ekf_ops),
+        kernel_entry("ukf_batched", "ukf.cu", "ukf.py:239", launches["ukf"], err["ukf"],
+                     ms["ukf"], plain_ms["ukf"], nl_bytes, ukf_ops),
     ]
 
 
@@ -826,21 +1183,23 @@ def main() -> int:
             f"plain {plain_ms[solver]:.4f} ms; serving tick (30 iters) {tick_ms[solver]:.4f} ms "
             f"[{smi}]")
 
+    # the fold of g (or c) from x0, the iterations' (N, d) x (d, d) products and
+    # the residual's one more; inputs H (and Minv), Sx', (Su'Q)', x0s
+    fold_ops = 2 * n * (T * n) * d + 2 * N * n * d
+    fold_bytes = 4 * (d * d + n * T * n + T * n * d + N * n + 1)
     kernels = [
-        {"name": "fista_mpc_res", "route": "cuda",
-         "source": "numpower_tpu_torch/csrc/boxqp_fista.cu",
-         "replaces": "numpower_tpu/kernels/boxqp_fista.py:299",
-         "launches": launches["fista"], "max_abs_err": err["fista"],
-         "ms": ms["fista"], "plain_ms": plain_ms["fista"]},
-        {"name": "admm_mpc_res", "route": "cuda",
-         "source": "numpower_tpu_torch/csrc/boxqp_admm.cu",
-         "replaces": "numpower_tpu/kernels/boxqp_admm.py:353",
-         "launches": launches["admm"], "max_abs_err": err["admm"],
-         "ms": ms["admm"], "plain_ms": plain_ms["admm"]},
+        kernel_entry("fista_mpc_res", "boxqp_fista.cu", "boxqp_fista.py:299", launches["fista"],
+                     err["fista"], ms["fista"], plain_ms["fista"], fold_bytes + 4 * (N * d + 1),
+                     fold_ops + 2 * N * d * d * (iters + 1)),
+        kernel_entry("admm_mpc_res", "boxqp_admm.cu", "boxqp_admm.py:353", launches["admm"],
+                     err["admm"], ms["admm"], plain_ms["admm"],
+                     fold_bytes + 4 * (d * d + N * d + 2),
+                     fold_ops + 2 * n * d * d + 2 * N * d * d * (iters + 1)),
     ]
     kernels += riccati_family(dev, smi)
     kernels += boxqp_two_step(dev, smi, qp, x0s, rho)
     kernels += ilqr_family(dev, smi)
+    kernels += estimation_family(dev, smi)
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

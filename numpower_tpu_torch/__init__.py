@@ -2,12 +2,15 @@
 
 The JAX package ``numpower_tpu`` is the reference; this package mirrors its
 layout and names and is held against it by tests/test_torch_*.py. It imports
-torch and numpy, never jax.
+torch and numpy, never jax. Its entry points run on the card
+(``utils.default_device``) unless handed CPU tensors or ``device="cpu"``.
 
 - ``numpower_tpu_torch.models``  — plants, LQR/Riccati (sequential,
                                    associative, per-scenario), condensed MPC,
-                                   box-QP solvers (FISTA, PG, ADMM), tube MPC
-                                   and the serving controller
+                                   box-QP solvers (FISTA, PG, ADMM), tube MPC,
+                                   the serving controller, iLQR / AL-iLQR, the
+                                   state estimators and the closed-loop
+                                   simulation
 - ``numpower_tpu_torch.kernels`` — hand-written CUDA kernels for Hopper
                                    (``csrc/*.cu``, built at first use)
 - ``numpower_tpu_torch.utils``   — unrolled small-matrix linear algebra and

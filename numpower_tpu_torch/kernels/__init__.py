@@ -22,3 +22,9 @@ from numpower_tpu_torch.kernels.ilqr_backward import (  # noqa: F401
 from numpower_tpu_torch.kernels.ilqr_forward import (  # noqa: F401
     ilqr_forward_fused, ilqr_forward_reference,
 )
+from numpower_tpu_torch.kernels.kalman_mean import (  # noqa: F401
+    kalman_mean_pass, kalman_mean_pass_reference,
+)
+from numpower_tpu_torch.kernels.rts_mean import rts_mean_pass, rts_mean_pass_reference  # noqa: F401
+from numpower_tpu_torch.kernels.ekf import ekf_batched, ekf_reference  # noqa: F401
+from numpower_tpu_torch.kernels.ukf import ukf_batched, ukf_reference  # noqa: F401

@@ -61,6 +61,15 @@ _SIGNATURES = {
     # plant, 8 plant parameters, Q, R, QF, goal, alphas, x0s, xs_nom, us_nom, ks, Ks,
     # us, xs, costs, N, T, A, xs_rows, stream
     "npt_ilqr_forward": (_I,) + (_F,) * 8 + (_P,) * 13 + (_I, _I, _I, _I, _P),
+    # A, C, W, invL, cst, x0s, ys, us, xs_f, xs_p, ll, N, T, n, p, stream
+    "npt_kalman_mean": (_P,) * 11 + (_I, _I, _I, _I, _P),
+    # G, es, x_last, xs, N, T, n, stream
+    "npt_rts_mean": (_P,) * 4 + (_I, _I, _I, _P),
+    # plant, 8 plant parameters, measure, p, Q, R, P0, x0s, yss, uss, xs_f, xs_p,
+    # Ps_f, Ps_p, ll, B, T, stream
+    "npt_ekf": (_I,) + (_F,) * 8 + (_I, _I) + (_P,) * 11 + (_I, _I, _P),
+    # as npt_ekf, with wm0, wmi, wc0, wci, c_half, jitter after p
+    "npt_ukf": (_I,) + (_F,) * 8 + (_I, _I) + (_F,) * 6 + (_P,) * 11 + (_I, _I, _P),
 }
 
 

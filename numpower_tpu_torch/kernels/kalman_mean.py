@@ -1,0 +1,106 @@
+"""Fused batched Kalman mean pass (K9; port of
+numpower_tpu/kernels/kalman_batched.py ``kalman_mean_pass_pallas``).
+
+The kernel is CUDA C++ in ``csrc/kalman_mean.cu`` (its note says what bounds
+it on the H100 and how the design answers that): one thread per trajectory,
+the whole horizon in one launch, the shared gains streamed through shared
+memory. This module holds its wrapper, :func:`kalman_mean_pass`, and its
+plain PyTorch version, :func:`kalman_mean_pass_reference`. The wrapper takes
+the plain version for a tensor on the CPU only; for a CUDA tensor it launches
+the kernel or raises.
+
+Layout: the JAX package's time-major one, ys_t (T, N, p), us_t (T, N, n) ->
+xs_f, xs_p (T, N, n), so the rows of one step are one contiguous run.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from numpower_tpu_torch.kernels import _build
+from numpower_tpu_torch.kernels.boxqp_fista import _check_operand
+
+# The kernel's envelope (csrc/kalman_mean.cu's buckets): n and p are padded to
+# 2/4/8/16 and 1/2/4/8.
+MAX_N = 16
+MAX_P = 8
+
+
+def _step_constants(logdets, p: int):
+    """The per-step constant of the innovation log-density, logdet_t +
+    0.5 p log 2pi, subtracted once per step (the TPU kernel's algebra)."""
+    return logdets + 0.5 * (p * math.log(2.0 * math.pi))
+
+
+def kalman_mean_pass_reference(A, C, Ws, invLs, logdets, x0s, ys_t, us_t=None):
+    """Plain PyTorch version of the kernel: the same arguments and results as
+    :func:`kalman_mean_pass`. Per step, batched over the trajectories:
+
+        x_p = x A' + u_t;  v = y_t - x_p C';  x = x_p + v W_t;
+        alpha = v invL_t';  ll -= 0.5 |alpha|^2 + cst_t
+
+    Works in x0s's dtype and device."""
+    cst = _step_constants(logdets, ys_t.shape[-1])
+    x = x0s
+    ll = torch.zeros(x0s.shape[:1], dtype=x0s.dtype, device=x0s.device)
+    xs_f, xs_p = [], []
+    for t in range(ys_t.shape[0]):
+        x_p = x @ A.T
+        if us_t is not None:
+            x_p = x_p + us_t[t]
+        v = ys_t[t] - x_p @ C.T
+        x = x_p + v @ Ws[t]
+        alpha = v @ invLs[t].T
+        ll = ll - 0.5 * (alpha * alpha).sum(1) - cst[t]
+        xs_f.append(x)
+        xs_p.append(x_p)
+    return torch.stack(xs_f), torch.stack(xs_p), ll
+
+
+def kalman_mean_pass(A, C, Ws, invLs, logdets, x0s, ys_t, us_t=None):
+    """Batched Kalman mean recurrence with shared gains, the whole horizon in
+    one kernel launch.
+
+    A (n, n), C (p, n), Ws (T, p, n), invLs (T, p, p), logdets (T,) [the
+    covariance pass of kalman_filter_batched], x0s (N, n), ys_t (T, N, p),
+    us_t optional (T, N, n) input terms (already u B'). Returns xs_f (T, N,
+    n), xs_p (T, N, n), ll (N,). The data are made contiguous (a copy where
+    they are not); every operand must be float32 on x0s's device.
+
+    On a CPU tensor this is :func:`kalman_mean_pass_reference`. Each kernel
+    launch adds one to ``kalman_mean_pass.launches``."""
+    if x0s.device.type == "cpu":
+        return kalman_mean_pass_reference(A, C, Ws, invLs, logdets, x0s, ys_t, us_t)
+    device = x0s.device
+    T, N, p = ys_t.shape
+    n = x0s.shape[1]
+    if n > MAX_N or p > MAX_P:
+        raise ValueError(f"(n, p) = ({n}, {p}) is outside the kernel's envelope "
+                         f"(n <= {MAX_N}, p <= {MAX_P})")
+    A, C, Ws, invLs, x0s, ys_t = (t.contiguous() for t in (A, C, Ws, invLs, x0s, ys_t))
+    cst = _step_constants(logdets, p).contiguous()
+    operands = [("A", A, (n, n)), ("C", C, (p, n)), ("Ws", Ws, (T, p, n)),
+                ("invLs", invLs, (T, p, p)), ("cst", cst, (T,)), ("x0s", x0s, (N, n)),
+                ("ys_t", ys_t, (T, N, p))]
+    if us_t is not None:
+        us_t = us_t.contiguous()
+        operands.append(("us_t", us_t, (T, N, n)))
+    for name, t, shape in operands:
+        _check_operand(name, t, device, shape)
+    xs_f = torch.empty((T, N, n), dtype=torch.float32, device=device)
+    xs_p = torch.empty((T, N, n), dtype=torch.float32, device=device)
+    ll = torch.empty((N,), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = _build.library().npt_kalman_mean(
+            A.data_ptr(), C.data_ptr(), Ws.data_ptr(), invLs.data_ptr(), cst.data_ptr(),
+            x0s.data_ptr(), ys_t.data_ptr(), None if us_t is None else us_t.data_ptr(),
+            xs_f.data_ptr(), xs_p.data_ptr(), ll.data_ptr(), N, T, n, p, stream)
+    _build.check(code, "kalman_mean_pass kernel launch")
+    kalman_mean_pass.launches += 1
+    return xs_f, xs_p, ll
+
+
+kalman_mean_pass.launches = 0

@@ -1,9 +1,11 @@
 """Plants, rollouts and linearization, LQR/Riccati, condensed-MPC box-QP
-solvers, tube MPC, the serving controller, and iLQR / AL-iLQR."""
+solvers, tube MPC, the serving controller, iLQR / AL-iLQR, the state
+estimators and the closed-loop simulation."""
 
 from numpower_tpu_torch.models.plants import (  # noqa: F401
     LTIPlant, double_integrator, quadrotor12, cartpole_step, cartpole_params,
     pendulum_step, unicycle_step, planar_quadrotor_step, kernel_plant, plant_from_jax,
+    first_components, kernel_measurement,
 )
 from numpower_tpu_torch.models.rollout import (  # noqa: F401
     rollout_lti, rollout_ltv, rollout_nonlinear, batched_rollout_lti,
@@ -27,4 +29,14 @@ from numpower_tpu_torch.models.mpc import MPCController, MPCState  # noqa: F401
 from numpower_tpu_torch.models.ilqr import ILQRResult, ilqr_solve, ilqr_solve_batched  # noqa: F401
 from numpower_tpu_torch.models.al_ilqr import (  # noqa: F401
     ALILQRResult, al_ilqr_solve, al_ilqr_solve_batched,
+)
+from numpower_tpu_torch.models.estimation import (  # noqa: F401
+    KalmanResult, SmootherResult, SqrtKalmanResult, kalman_filter,
+    kalman_filter_batched, kalman_filter_associative, kalman_filter_sqrt,
+    kalman_smoother, kalman_smoother_associative, kalman_smoother_batched,
+    ekf_filter, ukf_filter,
+    ukf_filter_batched, ekf_filter_batched, kalman_filter_sqrt_batched,
+)
+from numpower_tpu_torch.models.simulate import (  # noqa: F401
+    SimResult, simulate_closed_loop, lqr_feedback, kalman_estimator,
 )

@@ -23,6 +23,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from numpower_tpu_torch.utils.device import default_device
+
 
 @dataclass
 class CondensedQP:
@@ -84,9 +86,10 @@ def condense(A, B, Q, R, QF, horizon: int, *, device=None) -> CondensedQP:
     sum_{t=1..T} x_t' Qt x_t + sum_t u_t' R u_t (Qt = Q for t<T, QF at T).
 
     Inputs may be numpy arrays or tensors; they become fp32 tensors on
-    ``device`` (default: A's device if A is a tensor, else the CPU)."""
+    ``device`` (default: A's device if A is a tensor, else the card,
+    utils.default_device)."""
     if device is None:
-        device = A.device if isinstance(A, torch.Tensor) else torch.device("cpu")
+        device = A.device if isinstance(A, torch.Tensor) else default_device()
     A, B, Q, R, QF = (_as_float32(x, device) for x in (A, B, Q, R, QF))
     n, m = A.shape[0], B.shape[1]
     T = horizon

@@ -9,7 +9,8 @@ engines:
                              scan over conditional-value-function elements
 
 Inputs may be tensors or numpy arrays; every function computes in the dtype
-and on the device of its first matrix argument (A, or As). The small SPD
+and on the device of its first matrix argument (A, or As), a numpy one on the
+card (utils.default_device), so pass CPU tensors to run on the CPU. The small SPD
 solves run unrolled (utils/smallmat.py); on a CUDA device each of their
 lines is a kernel launch, so the sequential engines here are bound by launch
 overhead. ``riccati_scan_per_scenario`` routes its batched backward pass to
@@ -25,14 +26,15 @@ import torch
 
 from numpower_tpu_torch.kernels import cholesky, riccati
 from numpower_tpu_torch.utils.associative_scan import associative_scan
+from numpower_tpu_torch.utils.device import default_device
 from numpower_tpu_torch.utils.smallmat import lu_solve_nopivot, psd_solve_unrolled, solve_small
 
 
 def _tensors(first, *rest):
-    """``first`` as a tensor (numpy as it is, on the CPU) and ``rest`` as
-    tensors of its dtype on its device."""
+    """``first`` as a tensor (a numpy one on the card, utils.default_device)
+    and ``rest`` as tensors of its dtype on its device."""
     if not isinstance(first, torch.Tensor):
-        first = torch.as_tensor(np.asarray(first))
+        first = torch.as_tensor(np.asarray(first), device=default_device())
     return (first,) + tuple(torch.as_tensor(x, dtype=first.dtype, device=first.device)
                             for x in rest)
 

@@ -20,6 +20,7 @@ from numpower_tpu_torch.models.boxqp import solve_mpc_boxqp
 from numpower_tpu_torch.models.condensed import (
     CondensedQP, admm_coarse_iters, condense, default_coarse_iters,
 )
+from numpower_tpu_torch.utils.device import default_device
 
 
 @dataclass
@@ -33,17 +34,18 @@ class MPCState:
 class MPCController:
     """Batched box-constrained linear MPC with warm starting.
 
-    >>> ctrl = MPCController(A, B, Q, R, QF, horizon=30, u_lo=-1, u_hi=1, device="cuda")
+    >>> ctrl = MPCController(A, B, Q, R, QF, horizon=30, u_lo=-1, u_hi=1)  # on the card
     >>> state = ctrl.init(n_scenarios=4096)
     >>> u0, state = ctrl.step(state, x0s)   # (N, m) first-stage controls
     """
 
     def __init__(self, A, B, Q, R, QF, horizon: int, u_lo: float, u_hi: float,
                  iters: int = 30, coarse_iters: Optional[int] = None,
-                 x_ref=None, mesh=None, solver: str = "fista", *, device="cpu"):
+                 x_ref=None, mesh=None, solver: str = "fista", *, device=None):
         """solver: "fista" (default) or "admm"; the ADMM solver warm-starts
         its z iterate from the shifted previous plan. x_ref is FISTA-only.
-        device: where the QP, the state and every tick's solve live.
+        device: where the QP, the state and every tick's solve live
+        (default: the card, utils.default_device; pass "cpu" for the CPU).
 
         mesh (multi-GPU serving) is not ported yet and raises
         NotImplementedError."""
@@ -56,7 +58,7 @@ class MPCController:
         if solver == "admm" and x_ref is not None:
             raise ValueError("solver='admm' does not support x_ref")
         self.solver = solver
-        self.device = torch.device(device)
+        self.device = default_device() if device is None else torch.device(device)
         self.qp: CondensedQP = condense(A, B, Q, R, QF, horizon, device=self.device)
         self.u_lo, self.u_hi = float(u_lo), float(u_hi)
         self.iters = int(iters)

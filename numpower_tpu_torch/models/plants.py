@@ -20,7 +20,9 @@ maps a registered function, or a ``functools.partial`` of one that sets
 keyword parameters, to the (plant id, n, m, parameter floats) the kernel
 takes; :func:`plant_from_jax` maps the JAX package's plant (or a partial of
 it) to the port's, by name and keywords, so both packages can be handed the
-same plant.
+same plant. The measurement registry beside it does the same for the
+estimators' kernels (K11, K12): :func:`first_components` and its device twin
+``Measure<0>``, looked up by :func:`kernel_measurement`.
 """
 
 from __future__ import annotations
@@ -213,6 +215,44 @@ def kernel_plant(f) -> Optional[KernelPlant]:
     bound.apply_defaults()
     params = {k: float(v) for k, v in list(bound.arguments.items())[2:]}
     return KernelPlant(entry.plant_id, entry.n, entry.m, tuple(entry.pack(**params)))
+
+
+def first_components(x, k: int = 1):
+    """The measurement y = x[..., :k]: the first k state components (a
+    position or an angle), the measurement model of every estimator caller
+    in the repository (the JAX package's ``lambda x: x[:1]``)."""
+    return x[..., :k]
+
+
+class KernelMeasurement(NamedTuple):
+    """A registered measurement as the kernels take it: the index H of its
+    device function Measure<H> in csrc/plants.cuh and its output width p."""
+
+    measure_id: int
+    p: int
+
+
+# function -> (measure id, keyword parameters -> output width p)
+_MEASUREMENTS = {first_components: (0, lambda k: int(k))}
+
+
+def kernel_measurement(h) -> Optional[KernelMeasurement]:
+    """The kernel form of measurement h, or None when h is not registered.
+    h is a registered function or a functools.partial of one that sets its
+    keyword parameters, as for :func:`kernel_plant`."""
+    split = _split_partial(h)
+    if split is None:
+        return None
+    fn, kw = split
+    try:
+        entry = _MEASUREMENTS.get(fn)
+    except TypeError:
+        return None
+    if entry is None:
+        return None
+    bound = inspect.signature(fn).bind_partial(None, **kw)
+    bound.apply_defaults()
+    return KernelMeasurement(entry[0], entry[1](**dict(list(bound.arguments.items())[1:])))
 
 
 def plant_from_jax(f):

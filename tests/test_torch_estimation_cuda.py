@@ -1,0 +1,224 @@
+"""The estimation CUDA kernels of numpower_tpu_torch (K9 kalman_mean_pass,
+K10 rts_mean_pass, K11 ekf_batched, K12 ukf_batched) against their plain
+PyTorch versions, on the card; the dual-number Jacobians of K11 against
+torch.func.jacfwd; the batched filters' launches.
+
+Every test here needs a CUDA device and skips without one (the kernels have
+no CPU mode). The file imports neither jax nor numpower_tpu, so it runs on
+the GPU machine, where jax is absent; tests/conftest.py imports jax, so run
+it there without the conftest:
+
+    python -m pytest --noconftest tests/test_torch_estimation_cuda.py -q
+
+Tolerances: the JAX package's for its kernels (tests/test_kernels.py:
+310-500): K9 means 2e-5, log-likelihood rtol 2e-4 / atol 2e-3; K10 2e-5;
+K11/K12 means 1e-4, covariances 1e-5, log-likelihood rtol 1e-3 / atol 5e-3
+(the kernels' rsqrtf pivots are within 2 ulp, CUDA's bound). Those bounds
+were set on data of order one; the test problems here stay there: stable
+random LTI systems, and measurements of each plant's own rollout over a
+horizon short enough that the unstable cartpole and the barely observed
+planar quadrotor keep their covariances under one. N = 1003 and B = 257 are
+ragged for every block (64 and 32 trajectories).
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from numpower_tpu_torch.kernels import ekf, kalman_mean, rts_mean, ukf
+from numpower_tpu_torch.models import (
+    MPCController, cartpole_step, double_integrator, ekf_filter_batched, first_components,
+    kalman_estimator, kalman_filter_batched, kalman_filter_sqrt_batched, kalman_smoother_batched,
+    pendulum_step, planar_quadrotor_step, rollout_nonlinear, simulate_closed_loop,
+    ukf_filter_batched, unicycle_step,
+)
+from numpower_tpu_torch.models.estimation import _jac_x
+
+pytestmark = pytest.mark.cuda
+PLANTS = [(pendulum_step, 2, 1), (unicycle_step, 3, 2), (planar_quadrotor_step, 6, 2),
+          (cartpole_step, 4, 1)]
+HORIZON = {pendulum_step: 30, unicycle_step: 30, planar_quadrotor_step: 10, cartpole_step: 5}
+# the planar quadrotor hovers (m g / 2 per rotor); with zero thrust it falls
+U_NOM = {planar_quadrotor_step: 0.5 * 9.81}
+
+
+@pytest.fixture(scope="module")
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _f32(a, device):
+    return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=device)
+
+
+def _lti(n, p, device, seed, N=1003, T=37):
+    """A stable random system (spectral radius about 0.95) and random data."""
+    rng = np.random.default_rng(seed)
+    A = 0.9 * np.eye(n) + 0.05 * rng.standard_normal((n, n)) / np.sqrt(n)
+    C = rng.standard_normal((p, n))
+    B = rng.standard_normal((n, 2))
+    mats = [_f32(M, device) for M in (A, C, 0.01 * np.eye(n), 0.1 * np.eye(p), 0.5 * np.eye(n))]
+    data = [_f32(rng.standard_normal(s), device) for s in ((N, n), (N, T, p), (N, T, 2))]
+    return mats, _f32(B, device), data
+
+
+@pytest.mark.parametrize("n,p", [(2, 1), (3, 2), (4, 4), (12, 6), (16, 8)])
+@pytest.mark.parametrize("inputs", [False, True], ids=["no_inputs", "inputs"])
+def test_kalman_mean_kernel_matches_plain(device, n, p, inputs):
+    (A, C, Q, R, P0), B, (x0s, yss, uss) = _lti(n, p, device, seed=n * 10 + p)
+    kw = dict(B=B, uss=uss) if inputs else {}
+    before = kalman_mean.kalman_mean_pass.launches
+    got = kalman_filter_batched(A, C, Q, R, x0s, P0, yss, method="pallas", **kw)
+    torch.cuda.synchronize()
+    assert kalman_mean.kalman_mean_pass.launches == before + 1
+    want = kalman_filter_batched(A, C, Q, R, x0s, P0, yss, method="xla", **kw)
+    assert torch.allclose(got.means, want.means, rtol=0, atol=2e-5)
+    assert torch.allclose(got.pred_means, want.pred_means, rtol=0, atol=2e-5)
+    assert torch.allclose(got.log_likelihood, want.log_likelihood, rtol=2e-4, atol=2e-3)
+
+
+@pytest.mark.parametrize("n", [2, 3, 12, 16])
+@pytest.mark.parametrize("T", [2, 37, 130])
+def test_rts_mean_kernel_matches_plain(device, n, T):
+    (A, C, Q, R, P0), _, (x0s, yss, _) = _lti(n, 1, device, seed=n, T=T)
+    filt = kalman_filter_batched(A, C, Q, R, x0s, P0, yss)
+    before = rts_mean.rts_mean_pass.launches
+    got = kalman_smoother_batched(A, filt, method="pallas")
+    torch.cuda.synchronize()
+    assert rts_mean.rts_mean_pass.launches == before + 1
+    want = kalman_smoother_batched(A, filt, method="xla")
+    assert torch.allclose(got.means, want.means, rtol=0, atol=2e-5)
+
+
+def _nonlinear(f, n, m, p, device, B=257, T=None, seed=2):
+    """(Q, R, x0s, P0, yss, uss): the first p components of the plant's own
+    rollout from 0.3 N(0, 1) under small controls, measured with noise 0.05;
+    the filters start 0.1 N(0, 1) off."""
+    rng = np.random.default_rng(seed)
+    T = HORIZON[f] if T is None else T
+    x0 = _f32(0.3 * rng.standard_normal((B, n)), device)
+    us = _f32(0.1 * rng.standard_normal((B, T, m)) + U_NOM.get(f, 0.0), device)
+    xs = rollout_nonlinear(f, x0, us)
+    ys = xs[:, 1:, :p] + _f32(0.05 * rng.standard_normal((B, T, p)), device)
+    return (_f32(np.eye(n) * 1e-3, device), _f32(np.eye(p) * 1e-2, device),
+            x0 + _f32(0.1 * rng.standard_normal((B, n)), device), _f32(np.eye(n) * 0.1, device),
+            ys, us)
+
+
+@pytest.mark.parametrize("f,n,m", PLANTS, ids=[f.__name__ for f, _, _ in PLANTS])
+@pytest.mark.parametrize("which", ["ekf", "ukf"])
+def test_whole_filter_kernels_match_plain_on_every_plant_and_width(device, f, n, m, which):
+    port, ref = ((ekf.ekf_batched, ekf.ekf_reference) if which == "ekf"
+                 else (ukf.ukf_batched, ukf.ukf_reference))
+    for p in range(1, min(n, 4) + 1):
+        h = functools.partial(first_components, k=p)
+        args = _nonlinear(f, n, m, p, device, seed=p)
+        before = port.launches
+        got = port(f, h, *args)
+        torch.cuda.synchronize()
+        assert port.launches == before + 1
+        want = ref(f, h, *args)
+        for k, atol in enumerate((1e-4, 1e-5, 1e-4, 1e-5)):
+            assert torch.allclose(got[k], want[k], rtol=0, atol=atol), (p, k)
+        assert torch.allclose(got[4], want[4], rtol=1e-3, atol=5e-3), p
+
+
+@pytest.mark.parametrize("f,n,m", PLANTS, ids=[f.__name__ for f, _, _ in PLANTS])
+def test_dual_number_jacobians_match_jacfwd(device, f, n, m):
+    """K11's first prediction covariance is A P0 A' + Q with A the kernel's
+    dual-number Jacobian at x0: against torch.func.jacfwd's A, for a generic
+    SPD P0 (fp32 rounding of the products, rtol 1e-5)."""
+    Q, R, x0s, _, yss, uss = _nonlinear(f, n, m, 1, device, T=1)
+    M = np.random.default_rng(n).standard_normal((n, n))
+    P0 = _f32(M @ M.T + n * np.eye(n), device)
+    _, _, xs_p, Ps_p, _ = ekf.ekf_batched(f, first_components, Q, R, x0s, P0, yss, uss)
+    A = _jac_x(f, x0s, uss[:, 0])
+    want = A @ P0 @ A.transpose(1, 2) + Q
+    assert torch.allclose(Ps_p[:, 0], want, rtol=1e-5, atol=1e-6)
+    # the value part is the float plant, operation for operation
+    assert torch.allclose(xs_p[:, 0], f(x0s, uss[:, 0]), rtol=0, atol=1e-6)
+
+
+def test_batched_filters_launch_each_kernel_once(device):
+    (A, C, Q, R, P0), _, (x0s, yss, uss) = _lti(2, 1, device, seed=1, N=300, T=20)
+    counters = (kalman_mean.kalman_mean_pass, rts_mean.rts_mean_pass, ekf.ekf_batched,
+                ukf.ukf_batched)
+    before = [c.launches for c in counters]
+    filt = kalman_filter_batched(A, C, Q, R, x0s, P0, yss)
+    kalman_filter_sqrt_batched(A, C, Q, R, x0s, P0, yss)
+    kalman_smoother_batched(A, filt)
+    nl = (Q, R[:1, :1], x0s, P0, yss, uss[..., :1])
+    ekf_filter_batched(pendulum_step, first_components, *nl)
+    ukf_filter_batched(pendulum_step, first_components, *nl)
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 1, 1, 1]
+    # an unregistered plant or measurement: "auto" takes the kernel and raises
+    # naming the registry; "xla" runs the plain filter on the card
+    mine = lambda x, u: pendulum_step(x, u)  # noqa: E731
+    for entry in (ekf_filter_batched, ukf_filter_batched):
+        with pytest.raises(ValueError, match="kernel_plant"):
+            entry(mine, first_components, *nl)
+        with pytest.raises(ValueError, match="kernel_measurement"):
+            entry(pendulum_step, lambda x: x[..., :1], *nl)
+        r = entry(mine, first_components, *nl, method="xla")
+        assert r.means.device.type == "cuda"
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 1, 1, 1]
+
+
+def test_float64_takes_the_plain_route_by_default(device):
+    """The kernels take float32. On float64 tensors, and on float64 numpy
+    inputs (which the entry points put on the card), "auto" takes the plain
+    route: no launch, and the float32 kernels' results within the JAX
+    package's float64 bounds (test_kalman_filter_matches_fp64: means rtol
+    1e-3 / atol 1e-4, log-likelihood rtol 1e-3) with the nonlinear kernels'
+    log-likelihood atol 5e-3."""
+    (A, C, Q, R, P0), _, (x0s, yss, uss) = _lti(2, 1, device, seed=3, N=300, T=20)
+    counters = (kalman_mean.kalman_mean_pass, rts_mean.rts_mean_pass, ekf.ekf_batched,
+                ukf.ukf_batched)
+    kf, nl = (A, C, Q, R, x0s, P0, yss), (Q, R[:1, :1], x0s, P0, yss, uss[..., :1])
+    want = (kalman_filter_batched(*kf), kalman_filter_sqrt_batched(*kf),
+            ekf_filter_batched(pendulum_step, first_components, *nl),
+            ukf_filter_batched(pendulum_step, first_components, *nl))
+    want_sm = kalman_smoother_batched(A, want[0])
+    before = [c.launches for c in counters]
+    kf64 = [t.double() for t in kf]
+    kf_np = [t.cpu().double().numpy() for t in kf]
+    nl64 = [t.double() for t in nl]
+    got = (kalman_filter_batched(*kf64), kalman_filter_sqrt_batched(*kf64),
+           ekf_filter_batched(pendulum_step, first_components, *nl64),
+           ukf_filter_batched(pendulum_step, first_components, *nl64))
+    got_np = kalman_filter_batched(*kf_np)
+    got_sm = kalman_smoother_batched(A.double(), got[0])
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == before
+    assert got_np.means.device.type == "cuda" and got_np.means.dtype == torch.float64
+    for g, w in zip(got + (got_np,), want + (want[0],)):
+        assert g.means.dtype == torch.float64
+        assert torch.allclose(g.means, w.means.double(), rtol=1e-3, atol=1e-4)
+        assert torch.allclose(g.log_likelihood, w.log_likelihood.double(), rtol=1e-3, atol=5e-3)
+    assert torch.allclose(got_sm.means, want_sm.means.double(), rtol=1e-3, atol=1e-4)
+
+
+def test_output_feedback_loop_on_the_card(device):
+    """The Kalman-estimator MPC loop with the controller on its default
+    device (the card): one K2 launch per tick, controls in the box."""
+    from numpower_tpu_torch.kernels import boxqp_fista
+
+    A, B = double_integrator(0.1)
+    C = np.array([[1.0, 0.0]], np.float32)
+    ctrl = MPCController(A, B, np.eye(2, dtype=np.float32), 0.1 * np.eye(1, dtype=np.float32),
+                         10 * np.eye(2, dtype=np.float32), horizon=15, u_lo=-1.0, u_hi=1.0)
+    assert ctrl.qp.H.device.type == "cuda"
+    x0s = _f32(np.random.default_rng(0).uniform(-2, 2, (64, 2)), device)
+    make, update = kalman_estimator(A, C, np.eye(2) * 1e-4, np.eye(1) * 1e-2, np.eye(2) * 0.5,
+                                    B=B)
+    A_t, B_t = _f32(A, device), _f32(B, device)
+    before = boxqp_fista.fista_mpc_res.launches
+    res = simulate_closed_loop(lambda x, u: x @ A_t.T + u @ B_t.T, ctrl.callback(),
+                               ctrl.callback_init(64), x0s, 40, w_std=0.01, h=first_components,
+                               v_std=0.05, estimator=update, est_state0=make(x0s))
+    assert boxqp_fista.fista_mpc_res.launches == before + 40
+    assert float(res.us.abs().max()) <= 1.0 + 1e-6 and bool(torch.isfinite(res.xhats).all())

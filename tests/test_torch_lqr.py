@@ -34,13 +34,18 @@ def _quad():
             np.eye(4, dtype=np.float32) * 0.1, np.eye(12, dtype=np.float32) * 5.0)
 
 
+def _cpu(arrays):
+    """The port's operands: numpy inputs would go to the card, the port's default."""
+    return tuple(torch.from_numpy(np.asarray(a)) for a in arrays)
+
+
 def _close(got, want, rtol, atol):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=rtol, atol=atol)
 
 
 def test_riccati_scan_matches_jax():
     sys_ = _di()
-    Ks, Ps = tm.riccati_scan(*sys_, 30)
+    Ks, Ps = tm.riccati_scan(*_cpu(sys_), 30)
     Ks_j, Ps_j = jm.riccati_scan(*sys_, 30)
     assert Ks.shape == (30, 1, 2) and Ps.shape == (31, 2, 2)
     _close(Ks, Ks_j, 1e-4, 1e-4)
@@ -51,7 +56,7 @@ def test_riccati_scan_matches_jax():
 def test_lqr_solve_config1_matches_jax(parallel):
     sys_ = _di(QF=100.0)  # BASELINE config #1 (bench.py:316-319)
     x0 = np.array([1.0, 0.0], np.float32)
-    us, xs = tm.lqr_solve(*sys_, x0, 30, parallel=parallel)
+    us, xs = tm.lqr_solve(*_cpu(sys_), x0, 30, parallel=parallel)
     us_j, xs_j = jm.lqr_solve(*sys_, jnp.asarray(x0), 30, parallel=parallel)
     assert us.shape == (30, 1) and xs.shape == (31, 2)
     _close(us, us_j, 1e-3, 1e-4)
@@ -62,12 +67,12 @@ def test_lqr_solve_config1_matches_jax(parallel):
 def test_lqr_solve_batched_config2_matches_jax():
     sys_ = _di(QF=100.0)
     x0s = np.random.default_rng(1).standard_normal((16, 2)).astype(np.float32)
-    us, xs = tm.lqr_solve_batched(*sys_, x0s, 30)
+    us, xs = tm.lqr_solve_batched(*_cpu(sys_), x0s, 30)
     us_j, xs_j = jm.lqr_solve_batched(*sys_, jnp.asarray(x0s), 30)
     assert us.shape == (16, 30, 1) and xs.shape == (16, 31, 2)
     _close(us, us_j, 1e-3, 1e-4)
     _close(xs, xs_j, 1e-3, 1e-4)
-    us0, _ = tm.lqr_solve(*sys_, x0s[0], 30)
+    us0, _ = tm.lqr_solve(*_cpu(sys_), x0s[0], 30)
     torch.testing.assert_close(us[0], us0, rtol=1e-5, atol=1e-6)
 
 
@@ -79,19 +84,19 @@ def test_lqt_solve_matches_jax(refs):
     x_refs = np.zeros((T + 1, 2), np.float32)
     if refs == "ramp":
         x_refs[:, 0] = 0.1 * np.arange(T + 1)
-    us, xs = tm.lqt_solve(*sys_, x0, x_refs, T)
+    us, xs = tm.lqt_solve(*_cpu(sys_), x0, x_refs, T)
     us_j, xs_j = jm.lqt_solve(*sys_, jnp.asarray(x0), jnp.asarray(x_refs), T)
     assert us.shape == (T, 1) and xs.shape == (T + 1, 2)
     _close(us, us_j, 1e-4, 1e-5)
     _close(xs, xs_j, 1e-4, 1e-5)
     if refs == "zero":
-        torch.testing.assert_close(us, tm.lqr_solve(*sys_, x0, T)[0], rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(us, tm.lqr_solve(*_cpu(sys_), x0, T)[0], rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("plant", ["double_integrator", "quadrotor"])
 def test_lqr_infinite_gain_matches_jax(plant):
     A, B, Q, R, _ = _di() if plant == "double_integrator" else _quad()
-    K, P = tm.lqr_infinite_gain(A, B, Q, R)
+    K, P = tm.lqr_infinite_gain(*_cpu((A, B, Q, R)))
     K_j, P_j = jm.lqr_infinite_gain(A, B, Q, R)
     _close(K, K_j, 1e-4, 1e-4)
     _close(P, P_j, 1e-4, 1e-3)
@@ -102,14 +107,38 @@ def test_lqr_infinite_gain_matches_jax(plant):
 @pytest.mark.parametrize("T", [30, 64])
 def test_riccati_associative_matches_jax(T, nopivot):
     sys_ = _quad()
-    Ks, Ps = tm.riccati_associative(*sys_, T, nopivot=nopivot)
+    Ks, Ps = tm.riccati_associative(*_cpu(sys_), T, nopivot=nopivot)
     Ks_j, Ps_j = jm.riccati_associative(*sys_, T, nopivot=nopivot)
     assert Ks.shape == (T, 4, 12) and Ps.shape == (T + 1, 12, 12)
     _close(Ks, Ks_j, 1e-3, 1e-4)
     _close(Ps, Ps_j, 1e-3, 1e-3)
-    Ks_seq, Ps_seq = tm.riccati_scan(*sys_, T)
+    Ks_seq, Ps_seq = tm.riccati_scan(*_cpu(sys_), T)
     torch.testing.assert_close(Ks, Ks_seq, rtol=1e-3, atol=1e-4)
     torch.testing.assert_close(Ps, Ps_seq, rtol=1e-3, atol=1e-3)
+
+
+DEVICE_CALLS = {
+    "riccati_scan": lambda s, x0: tm.riccati_scan(*s, 5),
+    "riccati_associative": lambda s, x0: tm.riccati_associative(*s, 5),
+    "lqr_solve": lambda s, x0: tm.lqr_solve(*s, x0, 5),
+    "lqr_solve_batched": lambda s, x0: tm.lqr_solve_batched(*s, x0[None], 5),
+    "lqt_solve": lambda s, x0: tm.lqt_solve(*s, x0, np.zeros((6, 2), np.float32), 5),
+    "lqr_infinite_gain": lambda s, x0: tm.lqr_infinite_gain(*s[:4], iters=3),
+}
+
+
+@pytest.mark.parametrize("call", list(DEVICE_CALLS.values()), ids=list(DEVICE_CALLS))
+def test_entry_points_default_to_the_card(call):
+    """With numpy matrices (no tensor whose device to follow) the LQR entry
+    points compute on the card: on a machine without CUDA they raise,
+    because they reach for it; with CPU tensors they run on the CPU."""
+    sys_, x0 = _di(), np.array([1.0, 0.0], np.float32)
+    if torch.cuda.is_available():
+        assert call(sys_, x0)[0].device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            call(sys_, x0)
+    assert call(_cpu(sys_), x0)[0].device.type == "cpu"
 
 
 def _affine_combine(lib):
@@ -164,7 +193,7 @@ def test_riccati_scan_per_scenario_plain_matches_jax_xla(bs):
     assert Ks.shape == (N, 20, 4, 12) and P0.shape == (N, 12, 12)
     _close(Ks, Ks_j, 1e-3, 1e-4)
     _close(P0, P0_j, 1e-3, 1e-3)
-    Ks_0, Ps_0 = tm.riccati_scan(As[3], Bs_t[3], Q, R, QF, 20)
+    Ks_0, Ps_0 = tm.riccati_scan(torch.from_numpy(As[3]), Bs_t[3], Q, R, QF, 20)
     torch.testing.assert_close(Ks[3], Ks_0, rtol=2e-3, atol=2e-4)
     torch.testing.assert_close(P0[3], Ps_0[0], rtol=2e-3, atol=2e-3)
 

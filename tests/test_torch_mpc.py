@@ -145,6 +145,27 @@ def test_controller_rejects_unported_and_invalid_options():
         tm.MPCController(A, B, *_costs(), horizon=10, u_lo=-1, u_hi=1, solver="osqp")
 
 
+def test_controller_and_condense_default_to_the_card():
+    """With no device named, the serving controller and condense (numpy
+    inputs) build on the card: on a machine without CUDA they raise, because
+    they reach for it; with device="cpu" both run on the CPU. A tensor input
+    keeps its own device."""
+    A, B = tm.quadrotor12(0.02)
+    if torch.cuda.is_available():
+        assert tm.condense(A, B, *_costs(), 10).H.device.type == "cuda"
+        assert tm.MPCController(A, B, *_costs(), horizon=10, u_lo=-1,
+                                u_hi=1).qp.H.device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            tm.condense(A, B, *_costs(), 10)
+        with pytest.raises((RuntimeError, AssertionError)):
+            tm.MPCController(A, B, *_costs(), horizon=10, u_lo=-1, u_hi=1)
+    assert tm.condense(A, B, *_costs(), 10, device="cpu").H.device.type == "cpu"
+    ctrl = tm.MPCController(A, B, *_costs(), horizon=10, u_lo=-1, u_hi=1, device="cpu")
+    assert ctrl.qp.H.device.type == "cpu" and ctrl.init(4).U_prev.device.type == "cpu"
+    assert tm.condense(torch.from_numpy(A), B, *_costs(), 10).H.device.type == "cpu"
+
+
 @pytest.mark.parametrize("args,want", [
     (("cuda", 120, False, 2), "kernel"),          # the flagship shape
     (("cuda", boxqp_fista.MAX_D, False, 2), "kernel"),
@@ -198,7 +219,7 @@ def test_import_leaves_jax_out():
 
 
 def test_port_sources_never_import_jax():
-    for path in (REPO / "numpower_tpu_torch").rglob("*.py"):
+    for path in [*(REPO / "numpower_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
