@@ -92,8 +92,32 @@ output-feedback loop:
    calls), wrapper and plain version, each batched entry point and its share
    outside the kernel, the T = 4096 filters, one closed-loop tick.
 
+The sampling family (the MPPI and particle-filter benches, bench.py:546-572
+and 644-693), OSQP and MHE:
+
+14. K13 mppi_fused against its plain version on the same perturbations at the
+   bench's shape (pendulum, N = 256 scenarios, K = 256 samples, T = 40; two
+   rounds max |dus| <= 2e-3 and ess rtol 1e-3, eight rounds median relative
+   final cost <= 5e-2), also with the box +-2, sigma 0.7 and lam 0.5, with a
+   warm start, and on the unicycle (m = 2, N = 64); then the path:
+   mppi_solve_batched (auto -> one K13 launch per call, both eps streams)
+   below zero control and near the plain route;
+15. K14 resample_systematic against its plain version, element-exact, at
+   B = 256, N = 1024 and 1023 with and without a weight spike, and past its
+   shared-memory staging (N = 12,289); particle_filter_batched at the bench's
+   shape (one K14 launch per step, T = 50) against resample_method="gather"
+   (<= 1e-6), and against kalman_filter_batched on 256 linear Gaussian
+   trajectories within the Monte Carlo bound of tests/test_estimation.py;
+16. solve_mpc_state_constrained on config #4 (4096 scenarios, loose and tight
+   state bounds, 60 iterations) against float64 (<= 1e-3), and mhe_solve on
+   4096 windows against the RTS smoother; then times from CUDA events: K13
+   and K14 (device, wrapper, plain, the eps draw, repeat_interleave, the
+   resample constructions), the entry points, rollouts/s and
+   particle-steps/s.
+
 The launch counters of each path are zeroed just before it is driven
-(phases 2-3, 6, the path of 8, the path of 9 and phase 12) and read just
+(phases 2-3, 6, the path of 8, the path of 9, phase 12 and the paths of 14
+and 15) and read just
 after. The last lines are the total wall time, one JSON object listing every
 kernel with its bound (bound_ms, bound_by, from this run's shapes) and, where
 one PyTorch call computes the same function, that call's time (library_ms),
@@ -104,6 +128,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -119,6 +144,10 @@ N_CONFIG2, N_TUBE, T_LONG = 256, 65536, 4096
 T_ILQR, N_ILQR, T_AL = 50, 256, 40  # configs #3/#3b and the AL-iLQR bench (bench.py:408-451, 524-544)
 # the estimation bench (bench.py:576-775) and the closed loop
 N_KF, T_KF, N_NL, N_LOOP, T_LOOP = 4096, 50, 1024, 4096, 100
+# MPPI (bench.py:546-572; the unicycle case at a smaller N), the particle filter
+# (bench.py:644-693) and the MHE windows
+N_MPPI, K_MPPI, T_MPPI, IT_MPPI, N_MPPI_SMALL, N_MPPI_BIG = 256, 256, 40, 8, 64, 4096
+B_PF, N_PF, T_PF, N_MHE_WINDOWS, M_MHE = 256, 1024, 50, 4096, 20
 # floating-point operations of one step of each registered plant (csrc/plants.cuh;
 # sinf and cosf count one each), for the operation bounds of K8, K11 and K12
 PLANT_OPS = {"cartpole_step": 28, "pendulum_step": 8, "unicycle_step": 10,
@@ -1022,6 +1051,317 @@ def estimation_family(dev, smi: str) -> list:
     ]
 
 
+def relative_cost(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| / (1 + |b|), the bench's measure of two final MPPI costs
+    (bench.py:1616-1619)."""
+    return (a.double() - b.double()).abs() / (1.0 + b.double().abs())
+
+
+def sampling_family(dev, smi: str) -> list:
+    """Phases 14-16: MPPI with K13, the particle filter with K14, OSQP and
+    MHE, and their times. Returns the kernels' entries of the JSON line."""
+    import functools
+
+    from numpower_tpu_torch.kernels import _build, mppi, pf_resample
+    from numpower_tpu_torch.models import (
+        condense, double_integrator, first_components, kalman_filter, kalman_filter_batched,
+        kalman_smoother, mhe_solve, mppi_solve_batched, particle_filter_batched, pendulum_step,
+        quadratic_mppi_cost, quadrotor12, rollout_nonlinear, solve_mpc_state_constrained,
+        unicycle_step,
+    )
+    from numpower_tpu_torch.models.condensed import CondensedQP
+    from numpower_tpu_torch.models.mppi import _trajectory_cost
+    from numpower_tpu_torch.models.particle import _resample_slots, _systematic_resample
+
+    def t32(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    # -- phase 14: MPPI at the bench's shape (bench.py:546-572) ----------------
+    cost_p = quadratic_mppi_cost(np.diag([1.0, 0.1]), np.eye(1) * 0.01, np.diag([100.0, 10.0]),
+                                 np.zeros(2))
+    x0s = t32(np.random.default_rng(8).uniform(-np.pi, np.pi, (N_MPPI, 2)))
+    cost_u = quadratic_mppi_cost(np.diag([1.0, 1.0, 0.0]), np.eye(2) * 0.01,
+                                 np.diag([50.0, 50.0, 0.0]), np.array([1.0, 1.0, 0.0]))
+    x0u = t32(0.3 * np.random.default_rng(9).standard_normal((N_MPPI_SMALL, 3)))
+    warm = t32(0.3 * np.random.default_rng(10).standard_normal(T_MPPI))
+
+    def final_cost(f, cost, x, us):
+        return _trajectory_cost(cost, rollout_nonlinear(f, x, us), us)
+
+    # (name, plant, cost, x0s, m, options of the solve, warm start)
+    cases = [("pendulum", pendulum_step, cost_p, x0s, 1, {}, None),
+             ("pendulum box+-2 sigma 0.7 lam 0.5", pendulum_step, cost_p, x0s, 1,
+              dict(u_lo=-2.0, u_hi=2.0, sigma=0.7, lam=0.5), None),
+             ("pendulum warm start", pendulum_step, cost_p, x0s, 1, {}, warm),
+             ("unicycle", unicycle_step, cost_u, x0u, 2,
+              dict(sigma=(1.0, 0.5), lam=0.5), None)]
+    err = {"mppi": 0.0, "resample": 0.0}
+    for name, f, cost, x, m_, opts, us0 in cases:
+        lam, sigma = opts.get("lam", 1.0), opts.get("sigma", 1.0)
+        box = dict(u_lo=opts.get("u_lo"), u_hi=opts.get("u_hi"))
+        us0 = torch.zeros(T_MPPI * m_, device=dev) if us0 is None else us0
+        for iters in (2, IT_MPPI):
+            eps = mppi.eps_kernel_layout(gen(iters), x.shape[0], iters, T_MPPI, m_, K_MPPI, sigma)
+            kw = dict(T=T_MPPI, iters=iters, m=m_, lam=lam, sigma=sigma, **box)
+            us, ess = mppi.mppi_fused(f, cost, x, eps, us0, **kw)
+            us_p, ess_p = mppi.mppi_fused_reference(f, cost.rows, x, eps, us0, **kw)
+            if iters == 2:
+                du = max_err(us, us_p)
+                d_ess = ((ess.double() - ess_p.double()) / ess_p.double()).abs().max().item()
+                log(f"K13 mppi {name} N={x.shape[0]} K={K_MPPI} T={T_MPPI} iters=2 vs plain: "
+                    f"max|dus| {du:.3e} (bound 2e-3), max rel dess {d_ess:.3e} (bound 1e-3)")
+                require(du <= 2e-3 and d_ess <= 1e-3, f"K13 {name} iters=2 vs plain")
+                err["mppi"] = max(err["mppi"], du)
+            else:
+                rel = relative_cost(final_cost(f, cost, x, us), final_cost(f, cost, x, us_p))
+                log(f"K13 mppi {name} iters={iters} vs plain: relative final cost median "
+                    f"{rel.median().item():.3e} (bound 5e-2), max {rel.max().item():.3e}")
+                require(rel.median().item() <= 5e-2, f"K13 {name} iters={iters} vs plain")
+
+    # the path: mppi_solve_batched, counted
+    mppi.mppi_fused.launches = 0
+    solves = {}
+    for stream in ("exact", "direct"):
+        before = mppi.mppi_fused.launches
+        solves[stream] = mppi_solve_batched(pendulum_step, x0s, cost_p, T_MPPI, gen(0),
+                                            samples=K_MPPI, iters=IT_MPPI, m=1, eps_stream=stream)
+        require(mppi.mppi_fused.launches == before + 1,
+                f"mppi_solve_batched eps_stream={stream}: one K13 launch")
+    launches_mppi = mppi.mppi_fused.launches
+    plain = mppi_solve_batched(pendulum_step, x0s, cost_p, T_MPPI, gen(0), method="xla",
+                               samples=K_MPPI, iters=IT_MPPI, m=1)
+    zero = torch.zeros((N_MPPI, T_MPPI, 1), device=dev)
+    cost0 = final_cost(pendulum_step, cost_p, x0s, zero)
+    rel = relative_cost(solves["exact"].cost, plain.cost)
+    log(f"mppi_solve_batched N={N_MPPI} K={K_MPPI} T={T_MPPI} iters={IT_MPPI} (auto -> K13, "
+        f"{launches_mppi} launches for 2 calls): median final cost exact "
+        f"{solves['exact'].cost.median().item():.4e}, direct "
+        f"{solves['direct'].cost.median().item():.4e}, plain route "
+        f"{plain.cost.median().item():.4e}, zero control {cost0.median().item():.4e}; "
+        f"exact vs plain route relative cost median {rel.median().item():.3e}")
+    require(launches_mppi == 2 and rel.median().item() <= 5e-2
+            and all(bool(torch.isfinite(s.cost).all()) for s in solves.values())
+            and all(s.cost.median().item() < cost0.median().item() for s in solves.values()),
+            "mppi_solve_batched: one K13 launch per call, below zero control, near the plain route")
+
+    # -- phase 15: the particle filter at the bench's shape (bench.py:644-693) --
+    for B_k, N_k, n_k, spike in ((B_PF, N_PF, 2, False), (B_PF, N_PF, 2, True),
+                                 (B_PF, N_PF - 1, 2, True), (7, 12289, 3, False)):
+        r = np.random.default_rng(N_k + n_k)
+        parts = t32(r.standard_normal((B_k, N_k, n_k)))
+        logw = t32(2.0 * r.standard_normal((B_k, N_k)))
+        if spike:
+            logw[::3, N_k // 3] = 40.0  # one particle takes (nearly) all the weight
+        m_k = _resample_slots(t32(r.uniform(size=B_k)), logw, N_k)
+        out = pf_resample.resample_systematic(parts, m_k)
+        ref = pf_resample.resample_systematic_reference(parts, m_k)
+        d = max_err(out, ref)
+        log(f"K14 resample B={B_k} N={N_k} n={n_k} spike={spike} vs plain: max|d| {d:.3e} "
+            f"(element-exact: {torch.equal(out, ref)})")
+        require(torch.equal(out, ref), f"K14 at B={B_k} N={N_k} vs plain")
+        err["resample"] = max(err["resample"], d)
+    pf_args = (pendulum_step, functools.partial(first_components, k=1), t32(np.eye(2) * 1e-4),
+               t32(np.eye(1) * 2.5e-3))
+    r = np.random.default_rng(12)
+    x0_pf = t32(0.3 * r.standard_normal((B_PF, 2)))
+    ys_pf = t32(r.standard_normal((B_PF, T_PF, 1)))
+    us_pf = torch.zeros((B_PF, T_PF, 1), device=dev)
+    pf_data = (x0_pf, t32(np.eye(2)), ys_pf, us_pf)
+    pf_resample.resample_systematic.launches = 0
+    pf = particle_filter_batched(*pf_args, *pf_data, gen(0), n_particles=N_PF)
+    launches_pf = pf_resample.resample_systematic.launches
+    pf_g = particle_filter_batched(*pf_args, *pf_data, gen(0), n_particles=N_PF,
+                                   resample_method="gather")
+    dpf = {k: max_err(getattr(pf, k), getattr(pf_g, k)) for k in ("means", "log_likelihood",
+                                                                   "ess")}
+    log(f"particle_filter_batched B={B_PF} N={N_PF} T={T_PF} (auto -> K14, {launches_pf} "
+        f"launches) vs resample_method=gather: max|d| {dpf}; ess min "
+        f"{pf.ess.min().item():.1f}, ll median {pf.log_likelihood.median().item():.4e}")
+    require(launches_pf == T_PF and all(v <= 1e-6 for v in dpf.values())
+            and bool(torch.isfinite(pf.log_likelihood).all()),
+            "particle_filter_batched: one K14 launch per step, the same filter as gather")
+    # PF against the Kalman filter on a linear Gaussian plant (the bound of
+    # tests/test_estimation.py:487-509), with the bench's trajectory count
+    A_di = t32(double_integrator(0.1).A)
+    Q_di, R_di, P0_di = t32(np.eye(2) * 1e-3), t32(np.eye(1) * 1e-2), t32(np.eye(2) * 0.1)
+    x_true = np.tile([1.0, 0.0], (B_PF, 1))
+    ys_lin = np.empty((B_PF, T_PF, 1))
+    An = np.asarray(double_integrator(0.1).A, np.float64)
+    for t in range(T_PF):
+        x_true = x_true @ An.T + r.multivariate_normal(np.zeros(2), np.eye(2) * 1e-3, B_PF)
+        ys_lin[:, t, 0] = x_true[:, 0] + r.normal(0.0, 0.1, B_PF)
+    ys_lin = t32(ys_lin)
+    x0_lin = t32(np.tile([1.0, 0.0], (B_PF, 1)))
+    kf = kalman_filter_batched(A_di, t32([[1.0, 0.0]]), Q_di, R_di, x0_lin, P0_di, ys_lin)
+    pf_lin = particle_filter_batched(lambda x, u: x @ A_di.T, pf_args[1], Q_di, R_di, x0_lin,
+                                     P0_di, ys_lin, torch.zeros((B_PF, T_PF, 1), device=dev),
+                                     gen(1), n_particles=4 * N_PF)
+    mean_err = (pf_lin.means - kf.means).abs().mean(dim=(1, 2))
+    scale = kf.means.abs().mean(dim=(1, 2)).clamp(min=1.0)
+    ll_err = (pf_lin.log_likelihood - kf.log_likelihood).abs()
+    ll_bound = (0.02 * kf.log_likelihood.abs()).clamp(min=2.0)
+    log(f"particle filter ({4 * N_PF} particles) vs kalman_filter_batched, {B_PF} linear "
+        f"Gaussian trajectories: mean |dx| / scale max {(mean_err / scale).max().item():.3e} "
+        f"(bound 5e-2), |dll| / bound max {(ll_err / ll_bound).max().item():.3e} (bound 1)")
+    require(bool((mean_err < 0.05 * scale).all()) and bool((ll_err < ll_bound).all()),
+            "particle filter within the Monte Carlo bound of the Kalman filter")
+
+    # -- phase 16: OSQP and MHE ---------------------------------------------------
+    Aq, Bq = quadrotor12(0.02)
+    nq = Aq.shape[0]
+    qp = condense(Aq, Bq, np.eye(nq), np.eye(4) * 0.1, np.eye(nq) * 5.0, T, device=dev)
+    qp64 = CondensedQP(**{k: getattr(qp, k).double() for k in
+                          ("H", "Sx", "Su", "SuTQ", "lipschitz", "mu")},
+                       T=qp.T, n=qp.n, m=qp.m, kappa=qp.kappa)
+    x0q = t32(0.3 * np.random.default_rng(0).standard_normal((N, nq)))
+    osqp_cases = {"loose": (-1e6, 1e6), "tight": (-1.0, 1.0)}
+    for name, (lo, hi) in osqp_cases.items():
+        res = solve_mpc_state_constrained(qp, x0q, LO, HI, lo, hi, iters=60)
+        res64 = solve_mpc_state_constrained(qp64, x0q.double(), LO, HI, lo, hi, iters=60)
+        dU = max_err(res.U, res64.U)
+        # the states of the solution X = Sx x0 + Su U, and how many scenarios
+        # meet a state bound (within 1e-3) somewhere on the horizon
+        X = x0q @ qp.Sx.T + res.U @ qp.Su.T
+        active = int(((X - lo).abs().min(dim=1).values <= 1e-3).sum()
+                     + ((X - hi).abs().min(dim=1).values <= 1e-3).sum())
+        log(f"solve_mpc_state_constrained config #4 N={N} states {name} [{lo:g}, {hi:g}], 60 "
+            f"iters: max|dU| vs float64 {dU:.3e}; primal residual {res.primal_residual.item():.3e}"
+            f" (float64 {res64.primal_residual.item():.3e}), dual {res.dual_residual.item():.3e};"
+            f" scenarios at a state bound {active}; max |X| {X.abs().max().item():.3e}")
+        controls = res.Z[:, :qp.H.shape[0]]
+        require(bool(torch.isfinite(res.U).all()) and dU <= 1e-3
+                and bool(((controls >= LO) & (controls <= HI)).all()),
+                f"state-constrained MPC ({name}) against float64")
+    C_di = t32([[1.0, 0.0]])
+    ys_mhe = t32(np.random.default_rng(13).standard_normal((N_MHE_WINDOWS, M_MHE, 1)) * 0.1
+                 + np.linspace(1.0, 1.1, M_MHE)[None, :, None])
+    x_prior = t32(np.tile([1.0, 0.0], (N_MHE_WINDOWS, 1))
+                  + 0.1 * np.random.default_rng(14).standard_normal((N_MHE_WINDOWS, 2)))
+    mhe = mhe_solve(A_di, C_di, Q_di, R_di, P0_di, x_prior, ys_mhe)
+    sm = kalman_smoother(A_di, kalman_filter(A_di, C_di, Q_di, R_di, x_prior, P0_di, ys_mhe))
+    d_mhe = max_err(mhe.xs[:, 1:], sm.means)
+    log(f"mhe_solve {N_MHE_WINDOWS} windows M={M_MHE} (double integrator) vs kalman_smoother: "
+        f"max|dx| {d_mhe:.3e} (rtol 5e-3, atol 5e-4)")
+    require(close(mhe.xs[:, 1:], sm.means, 5e-3, 5e-4), "batched MHE equals the RTS smoother")
+
+    # -- times ------------------------------------------------------------------
+    slow = {"reps": 3, "inner": 1, "warmup": 1}
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    eps = mppi.eps_kernel_layout(gen(0), N_MPPI, IT_MPPI, T_MPPI, 1, K_MPPI, 1.0)
+    us0 = torch.zeros(T_MPPI, device=dev)
+    kw = dict(T=T_MPPI, iters=IT_MPPI, m=1, lam=1.0, sigma=1.0)
+    plant, floats, ins, (us_o, ess_o) = mppi.kernel_operands(pendulum_step, cost_p, x0s, eps,
+                                                             us0, T=T_MPPI, iters=IT_MPPI, m=1,
+                                                             sigma=1.0)
+    ptrs = [t.data_ptr() for t in ins] + [us_o.data_ptr(), ess_o.data_ptr()]
+    mppi_args = (N_MPPI, K_MPPI, T_MPPI, IT_MPPI, 1.0, 1.0, 0, -float("inf"), float("inf"))
+    ms = {"mppi_device": cuda_ms(lambda: lib.npt_mppi(plant.plant_id, *floats, *ptrs,
+                                                      *mppi_args, stream)),
+          "mppi": cuda_ms(lambda: mppi.mppi_fused(pendulum_step, cost_p, x0s, eps, us0, **kw)),
+          "mppi_plain": cuda_ms(lambda: mppi.mppi_fused_reference(
+              pendulum_step, cost_p.rows, x0s, eps, us0, **kw), **slow),
+          "eps_exact": cuda_ms(lambda: mppi.eps_kernel_layout(gen(0), N_MPPI, IT_MPPI, T_MPPI, 1,
+                                                              K_MPPI, 1.0)),
+          "eps_direct": cuda_ms(lambda: mppi.eps_direct_layout(gen(0), N_MPPI, IT_MPPI, T_MPPI,
+                                                               1, K_MPPI, 1.0)),
+          "mppi_solve": cuda_ms(lambda: mppi_solve_batched(
+              pendulum_step, x0s, cost_p, T_MPPI, gen(0), samples=K_MPPI, iters=IT_MPPI, m=1)),
+          "mppi_solve_direct": cuda_ms(lambda: mppi_solve_batched(
+              pendulum_step, x0s, cost_p, T_MPPI, gen(0), samples=K_MPPI, iters=IT_MPPI, m=1,
+              eps_stream="direct")),
+          "mppi_solve_plain": cuda_ms(lambda: mppi_solve_batched(
+              pendulum_step, x0s, cost_p, T_MPPI, gen(0), method="xla", samples=K_MPPI,
+              iters=IT_MPPI, m=1), **slow)}
+    rollouts = N_MPPI * K_MPPI * IT_MPPI
+    inside = ms["eps_exact"] + ms["mppi_device"]
+    log(f"time K13 mppi N={N_MPPI} K={K_MPPI} T={T_MPPI} iters={IT_MPPI}: device "
+        f"{ms['mppi_device']:.4f} ms, wrapper {ms['mppi']:.4f} ms, plain {ms['mppi_plain']:.4f} "
+        f"ms; eps draw exact {ms['eps_exact']:.4f} ms, direct {ms['eps_direct']:.4f} ms [{smi}]")
+    log(f"time mppi_solve_batched (auto -> K13): exact {ms['mppi_solve']:.4f} ms "
+        f"({rollouts / ms['mppi_solve'] * 1e3:.4e} rollouts/s), direct "
+        f"{ms['mppi_solve_direct']:.4f} ms ({rollouts / ms['mppi_solve_direct'] * 1e3:.4e} "
+        f"rollouts/s); the plain route {ms['mppi_solve_plain']:.4f} ms; outside the eps draw "
+        f"and K13's device time {1.0 - inside / ms['mppi_solve']:.1%} [{smi}]")
+    # K13's device time at 16 times the scenarios (eps 1.3 GB, drawn directly
+    # in the kernel's layout), where the blocks no longer fit in one wave
+    x0_big = x0s.repeat(N_MPPI_BIG // N_MPPI, 1).contiguous()
+    eps_big = mppi.eps_direct_layout(gen(1), N_MPPI_BIG, IT_MPPI, T_MPPI, 1, K_MPPI, 1.0)
+    _, _, ins_b, outs_b = mppi.kernel_operands(pendulum_step, cost_p, x0_big, eps_big, us0,
+                                               T=T_MPPI, iters=IT_MPPI, m=1, sigma=1.0)
+    ptrs_b = [t.data_ptr() for t in ins_b] + [o.data_ptr() for o in outs_b]
+    big_ms = cuda_ms(lambda: lib.npt_mppi(plant.plant_id, *floats, *ptrs_b, N_MPPI_BIG,
+                                          *mppi_args[1:], stream), reps=3, inner=3, warmup=1)
+    big_bound = 4 * IT_MPPI * T_MPPI * N_MPPI_BIG * K_MPPI / HBM_BYTES_PER_S * 1e3
+    log(f"time K13 mppi device N={N_MPPI_BIG} K={K_MPPI} T={T_MPPI} iters={IT_MPPI}: "
+        f"{big_ms:.4f} ms (eps bytes bound {big_bound:.4f} ms) [{smi}]")
+    del eps_big
+
+    parts = pf.particles.contiguous()
+    logw_t = t32(2.0 * np.random.default_rng(15).standard_normal((B_PF, N_PF)))
+    u0_t = t32(np.random.default_rng(16).uniform(size=B_PF))
+    m_t = _resample_slots(u0_t, logw_t, N_PF)
+    out_t = torch.empty_like(parts)
+    counts = torch.diff(m_t, dim=1, prepend=torch.zeros_like(m_t[:, :1])).reshape(-1).long()
+    flat = parts.reshape(B_PF * N_PF, 2)
+    ms.update({
+        "res_device": cuda_ms(lambda: lib.npt_resample_systematic(
+            parts.data_ptr(), m_t.data_ptr(), out_t.data_ptr(), B_PF, N_PF, 2, stream)),
+        "res": cuda_ms(lambda: pf_resample.resample_systematic(parts, m_t)),
+        "res_plain": cuda_ms(lambda: pf_resample.resample_systematic_reference(parts, m_t)),
+        "res_library": cuda_ms(lambda: flat.repeat_interleave(counts, dim=0,
+                                                              output_size=B_PF * N_PF)),
+        "res_step_pallas": cuda_ms(lambda: _systematic_resample(u0_t, parts, logw_t, "pallas")),
+        "res_step_gather": cuda_ms(lambda: _systematic_resample(u0_t, parts, logw_t, "gather")),
+        "res_step_onehot": cuda_ms(lambda: _systematic_resample(u0_t, parts, logw_t, "onehot"),
+                                   **slow),
+        "pf": cuda_ms(lambda: particle_filter_batched(*pf_args, *pf_data, gen(0),
+                                                      n_particles=N_PF), **slow),
+        "pf_gather": cuda_ms(lambda: particle_filter_batched(
+            *pf_args, *pf_data, gen(0), n_particles=N_PF, resample_method="gather"), **slow),
+    })
+    steps = B_PF * N_PF * T_PF
+    log(f"time K14 resample B={B_PF} N={N_PF} n=2 per step: device {ms['res_device']:.4f} ms, "
+        f"wrapper {ms['res']:.4f} ms, plain {ms['res_plain']:.4f} ms, repeat_interleave "
+        f"{ms['res_library']:.4f} ms; a whole resample step (slots + cloud) by pallas "
+        f"{ms['res_step_pallas']:.4f} ms, gather {ms['res_step_gather']:.4f} ms, onehot "
+        f"{ms['res_step_onehot']:.4f} ms [{smi}]")
+    log(f"time particle_filter_batched B={B_PF} N={N_PF} T={T_PF}: auto (K14) {ms['pf']:.4f} ms "
+        f"({steps / ms['pf'] * 1e3:.4e} particle-steps/s), gather {ms['pf_gather']:.4f} ms "
+        f"[{smi}]")
+    osqp_ms = {name: cuda_ms(lambda lo=lo, hi=hi: solve_mpc_state_constrained(
+        qp, x0q, LO, HI, lo, hi, iters=60), **slow) for name, (lo, hi) in osqp_cases.items()}
+    mhe_ms = cuda_ms(lambda: mhe_solve(A_di, C_di, Q_di, R_di, P0_di, x_prior, ys_mhe), **slow)
+    log(f"time solve_mpc_state_constrained config #4 N={N} 60 iters: loose "
+        f"{osqp_ms['loose']:.4f} ms, tight {osqp_ms['tight']:.4f} ms; mhe_solve "
+        f"{N_MHE_WINDOWS} windows M={M_MHE}: {mhe_ms:.4f} ms [{smi}]")
+
+    # K13: eps read once, x0s, us0, us and ess; per (sample, round, step) the
+    # candidate and its clip, the quadratic stage cost, the coupling, the
+    # plant and the update's weighted term; per (sample, round) the terminal
+    # cost and the softmax
+    n, m_ = 2, 1
+    mppi_bytes = 4 * (IT_MPPI * T_MPPI * m_ * N_MPPI * K_MPPI + N_MPPI * n + T_MPPI * m_
+                      + N_MPPI * T_MPPI * m_ + N_MPPI * IT_MPPI)
+    per_step = 3 * m_ + n + 3 * n * n + 3 * m_ * m_ + 1 + 4 * m_ + PLANT_OPS["pendulum_step"] \
+        + 6 * m_
+    mppi_ops = IT_MPPI * N_MPPI * K_MPPI * (T_MPPI * per_step + 3 * n * n + n + 10)
+    # K14: the cloud read once and written once, the slot boundaries read
+    # once; a binary search of log2(N) comparisons per slot
+    res_bytes = 4 * (2 * B_PF * N_PF * 2 + B_PF * N_PF)
+    res_ops = B_PF * N_PF * math.ceil(math.log2(N_PF))
+    return [
+        kernel_entry("mppi_fused", "mppi.cu", "mppi.py:112", launches_mppi, err["mppi"],
+                     ms["mppi"], ms["mppi_plain"], mppi_bytes, mppi_ops),
+        kernel_entry("resample_systematic", "pf_resample.cu", "pf_resample.py:60", launches_pf,
+                     err["resample"], ms["res"], ms["res_plain"], res_bytes, res_ops,
+                     library_ms=ms["res_library"]),
+    ]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1200,6 +1540,7 @@ def main() -> int:
     kernels += boxqp_two_step(dev, smi, qp, x0s, rho)
     kernels += ilqr_family(dev, smi)
     kernels += estimation_family(dev, smi)
+    kernels += sampling_family(dev, smi)
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -28,3 +28,9 @@ from numpower_tpu_torch.kernels.kalman_mean import (  # noqa: F401
 from numpower_tpu_torch.kernels.rts_mean import rts_mean_pass, rts_mean_pass_reference  # noqa: F401
 from numpower_tpu_torch.kernels.ekf import ekf_batched, ekf_reference  # noqa: F401
 from numpower_tpu_torch.kernels.ukf import ukf_batched, ukf_reference  # noqa: F401
+from numpower_tpu_torch.kernels.mppi import (  # noqa: F401
+    eps_direct_layout, eps_kernel_layout, mppi_fused, mppi_fused_reference,
+)
+from numpower_tpu_torch.kernels.pf_resample import (  # noqa: F401
+    resample_systematic, resample_systematic_reference,
+)

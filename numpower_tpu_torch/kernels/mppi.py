@@ -1,0 +1,222 @@
+"""Fused whole-solve batched MPPI (K13; port of numpower_tpu/kernels/mppi.py
+``mppi_pallas``).
+
+The kernel is CUDA C++ in ``csrc/mppi.cu`` (its note says what bounds it on
+the H100 and how the design answers that): one block per scenario, one thread
+per sample, all ``iters`` rounds in one launch, each round a T-step rollout
+of every sample through the registered plant's device function
+(``csrc/plants.cuh``), the quadratic stage costs, the softmax weights and the
+effective sample size (ESS), and the nominal update. This module holds its
+wrapper, :func:`mppi_fused`, its plain PyTorch version,
+:func:`mppi_fused_reference` (the kernel's own formulas on (N, K) tensors),
+and the two layouts of the perturbations the kernel consumes. The wrapper
+takes the plain version for a tensor on the CPU only (any plant); for a CUDA
+tensor it launches the kernel or raises, and a plant that is not registered
+raises ValueError.
+
+Layout (the JAX kernel's): x0s (N, n); eps (iters*T*m, N, K), the
+perturbations pre-scaled by sigma, row r = (it*T + t)*m + a, each row
+contiguous along the K samples; us0 (T*m,) a warm start shared by every
+scenario -> us (N, T, m), ess (N, iters).
+
+The cost is a quadratic one (models/mppi.quadratic_mppi_cost): the kernel
+reads its ``.kernel`` form (Q, R, QF, x_goal as float arrays) and the plain
+version its ``.rows`` form, the JAX package's component-rows callable.
+
+Memory: eps holds iters*T*m*N*K floats, 84 MB at the bench's shape (N = 256,
+K = 256, T = 40, m = 1, 8 rounds) and 1.3 GB at N = 4096; the "exact" layout
+draws it in the plain route's order and transposes it, which holds a second
+copy for a moment.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from numpower_tpu_torch.kernels import _build
+from numpower_tpu_torch.kernels.boxqp_fista import _check_operand
+
+MAX_K = 1024   # csrc/mppi.cu: one thread per sample, one block per scenario
+MAX_TM = 1024  # csrc/mppi.cu kMaxTM: the nominal and the update partials in shared memory
+
+
+def sigma_tuple(sigma, m: int) -> tuple:
+    """The exploration std-dev as m Python floats (a scalar is repeated; an
+    array's entries are its float32 values), as the JAX package forms it."""
+    if isinstance(sigma, torch.Tensor):
+        sigma = sigma.detach().cpu().numpy()
+    if isinstance(sigma, (int, float)):
+        sig = (float(sigma),)
+    else:
+        sig = tuple(float(s) for s in np.atleast_1d(np.asarray(sigma, np.float32)))
+    if len(sig) == 1 and m > 1:
+        sig = sig * m
+    if len(sig) != m:
+        raise ValueError(f"sigma has {len(sig)} entries for m = {m} inputs")
+    return sig
+
+
+def draw_eps(generator: torch.Generator, N: int, iters: int, K: int, T: int, m: int, sigma,
+             dtype=torch.float32) -> torch.Tensor:
+    """The perturbations of a batched solve, (N, iters, K, T, m): one normal
+    draw from ``generator`` on its device, times sigma (per input)."""
+    sig = torch.tensor(sigma_tuple(sigma, m), dtype=dtype, device=generator.device)
+    return torch.randn((N, iters, K, T, m), generator=generator, dtype=dtype,
+                       device=generator.device) * sig
+
+
+def eps_kernel_layout(generator: torch.Generator, N: int, iters: int, T: int, m: int, K: int,
+                      sigma, dtype=torch.float32) -> torch.Tensor:
+    """The plain batched route's perturbations (:func:`draw_eps`, the same
+    draw from the same generator state) laid out (iters*T*m, N, K) for the
+    kernel, so that kernel and plain route agree to fp tolerance from one
+    seed (the JAX package's "exact" stream)."""
+    eps = draw_eps(generator, N, iters, K, T, m, sigma, dtype)
+    return eps.permute(1, 3, 4, 0, 2).reshape(iters * T * m, N, K).contiguous()
+
+
+def eps_direct_layout(generator: torch.Generator, N: int, iters: int, T: int, m: int, K: int,
+                      sigma, dtype=torch.float32) -> torch.Tensor:
+    """One normal draw directly in kernel layout (iters*T*m, N, K), scaled by
+    sigma per row: no transpose, a different stream from the plain route's
+    (statistically equivalent, not element-equal)."""
+    R = iters * T * m
+    scale = torch.tensor(sigma_tuple(sigma, m) * (iters * T), dtype=dtype,
+                         device=generator.device)
+    return torch.randn((R, N, K), generator=generator, dtype=dtype,
+                       device=generator.device) * scale[:, None, None]
+
+
+def _clip(u, u_lo, u_hi):
+    if u_lo is None and u_hi is None:
+        return u
+    return torch.clamp(u, u_lo, u_hi)
+
+
+def mppi_fused_reference(f, cost_rows, x0s, eps_all, us0, *, T: int, iters: int, m: int,
+                         lam: float, sigma, u_lo=None, u_hi=None):
+    """Plain PyTorch version of the kernel, on (N, K) tensors: the same
+    arguments and results as :func:`mppi_fused`, with the cost in its
+    component-rows form cost_rows(x_rows, u_rows_or_None, t) (lists of (N, K)
+    tensors; models/mppi.quadratic_mppi_cost attaches one as ``.rows``), for
+    any plant f that indexes the last axis. Per round: the rollout of every
+    candidate u = clip(u_nom + eps), the stage and terminal costs, the
+    coupling (cand - u_nom) * (sigma^-2 u_nom) summed over t then a, the
+    weights exp(-(S - min S) / lam) normalized, the ESS 1 / sum w^2, and
+    u_nom <- clip(u_nom + sum_k w (cand - u_nom)) (kernels/mppi.py:49-105 of
+    the JAX package). Works in x0s's dtype and device."""
+    _, N, K = eps_all.shape
+    n = x0s.shape[1]
+    inv_sig2 = tuple(1.0 / (s * s) for s in sigma_tuple(sigma, m))
+    us0 = torch.as_tensor(us0, dtype=x0s.dtype, device=x0s.device).reshape(T * m)
+    u_nom = [us0[r].expand(N, 1) for r in range(T * m)]
+    ess = []
+    for it in range(iters):
+        x = x0s[:, None, :].expand(N, K, n)
+        S = torch.zeros((N, K), dtype=x0s.dtype, device=x0s.device)
+        cand = []
+        for t in range(T):
+            u_rows = [_clip(u_nom[t * m + a] + eps_all[(it * T + t) * m + a], u_lo, u_hi)
+                      for a in range(m)]
+            cand.append(u_rows)
+            S = S + cost_rows(list(x.unbind(-1)), u_rows, t)
+            x = f(x, torch.stack(u_rows, dim=-1))
+        S = S + cost_rows(list(x.unbind(-1)), None, T)
+        couple = None
+        for t in range(T):
+            for a in range(m):
+                term = (cand[t][a] - u_nom[t * m + a]) * (inv_sig2[a] * u_nom[t * m + a])
+                couple = term if couple is None else couple + term
+        S = S + lam * couple
+        Smin = torch.amin(S, dim=1, keepdim=True)
+        w = torch.exp(-(S - Smin) * (1.0 / lam))
+        w = w / torch.sum(w, dim=1, keepdim=True)
+        ess.append(1.0 / torch.sum(w * w, dim=1))
+        for t in range(T):
+            for a in range(m):
+                r = t * m + a
+                du = torch.sum(w * (cand[t][a] - u_nom[r]), dim=1, keepdim=True)
+                u_nom[r] = _clip(u_nom[r] + du, u_lo, u_hi)
+    return torch.cat(u_nom, dim=1).reshape(N, T, m), torch.stack(ess, dim=1)
+
+
+def kernel_operands(f, cost_fn, x0s, eps_all, us0, *, T: int, iters: int, m: int, sigma):
+    """The registered plant, its parameter floats, the checked float32
+    operands (consts = Q, R, QF, x_goal, sigma^-2 packed in one device
+    tensor, x0s, eps, us0) on x0s's CUDA device and the empty outputs (us,
+    ess) of a launch of K13; ValueError for what the kernel does not take."""
+    from numpower_tpu_torch.kernels.ekf import plant_floats
+    from numpower_tpu_torch.models.plants import kernel_plant
+
+    plant = kernel_plant(f)
+    if plant is None:
+        raise ValueError(f"plant {f!r} is not registered for the MPPI kernel "
+                         "(numpower_tpu_torch.models.plants.kernel_plant); use method='xla'")
+    form = getattr(cost_fn, "kernel", None)
+    if form is None:
+        raise ValueError("the MPPI kernel needs a cost with a kernel form (cost_fn.kernel, "
+                         "models/mppi.quadratic_mppi_cost attaches one); use method='xla'")
+    device = x0s.device
+    R_, N, K = eps_all.shape
+    n = x0s.shape[1]
+    if (n, m) != (plant.n, plant.m):
+        raise ValueError(f"the plant is ({plant.n}, {plant.m}), the operands ({n}, {m})")
+    if R_ != iters * T * m:
+        raise ValueError(f"eps has {R_} rows, expected iters*T*m = {iters * T * m}")
+    if not 1 <= K <= MAX_K or T * m > MAX_TM or T < 1 or iters < 1:
+        raise ValueError(f"K = {K}, T*m = {T * m}: the MPPI kernel takes 1 <= K <= {MAX_K}, "
+                         f"T*m <= {MAX_TM}")
+    Q, R, QF, goal = (np.asarray(a, np.float32) for a in form)
+    for name, a, shape in (("Q", Q, (n, n)), ("R", R, (m, m)), ("QF", QF, (n, n)),
+                           ("x_goal", goal, (n,))):
+        if a.shape != shape:
+            raise ValueError(f"{name} has shape {a.shape}, expected {shape}")
+    inv_sig2 = np.array([1.0 / (s * s) for s in sigma_tuple(sigma, m)], np.float32)
+    consts = torch.from_numpy(np.concatenate(
+        [Q.ravel(), R.ravel(), QF.ravel(), goal, inv_sig2])).to(device)
+    us0 = torch.as_tensor(us0, dtype=torch.float32, device=device).reshape(T * m).contiguous()
+    for name, t, shape in (("x0s", x0s, (N, n)), ("eps", eps_all, (R_, N, K))):
+        _check_operand(name, t, device, shape)
+    outs = (torch.empty((N, T, m), dtype=torch.float32, device=device),
+            torch.empty((N, iters), dtype=torch.float32, device=device))
+    return plant, plant_floats(plant), (consts, x0s, eps_all, us0), outs
+
+
+def mppi_fused(f, cost_fn, x0s, eps_all, us0, *, T: int, iters: int, m: int, lam: float,
+               sigma, u_lo=None, u_hi=None):
+    """Whole-solve batched MPPI in one kernel launch.
+
+    f a registered plant (models/plants.kernel_plant) or a partial of one;
+    cost_fn a quadratic cost with ``.kernel`` and ``.rows`` forms
+    (models/mppi.quadratic_mppi_cost); x0s (N, n); eps_all (iters*T*m, N, K)
+    pre-scaled perturbations (:func:`eps_kernel_layout`,
+    :func:`eps_direct_layout`); us0 (T*m,) the shared warm start (zeros for
+    cold); lam the temperature; sigma the std-dev (scalar or per input), here
+    only for the coupling's sigma^-2; u_lo/u_hi an optional box on the
+    candidates and the nominal. Returns us (N, T, m) and ess (N, iters).
+
+    On a CPU tensor this is :func:`mppi_fused_reference`. Each kernel launch
+    adds one to ``mppi_fused.launches``."""
+    if x0s.device.type == "cpu":
+        return mppi_fused_reference(f, cost_fn.rows, x0s, eps_all, us0, T=T, iters=iters, m=m,
+                                    lam=lam, sigma=sigma, u_lo=u_lo, u_hi=u_hi)
+    plant, floats, ins, (us, ess) = kernel_operands(f, cost_fn, x0s, eps_all, us0, T=T,
+                                                    iters=iters, m=m, sigma=sigma)
+    N, K = eps_all.shape[1:]
+    clip = int(u_lo is not None or u_hi is not None)
+    lo = -float("inf") if u_lo is None else float(u_lo)
+    hi = float("inf") if u_hi is None else float(u_hi)
+    with torch.cuda.device(x0s.device):
+        stream = torch.cuda.current_stream(x0s.device).cuda_stream
+        code = _build.library().npt_mppi(
+            plant.plant_id, *floats, *(t.data_ptr() for t in ins), us.data_ptr(), ess.data_ptr(),
+            N, K, T, iters, float(lam), float(1.0 / lam), clip, lo, hi, stream)
+    _build.check(code, "mppi_fused kernel launch")
+    mppi_fused.launches += 1
+    return us, ess
+
+
+mppi_fused.launches = 0

@@ -13,8 +13,13 @@ is a dense product against the precomputed inverse. Both residuals (primal
 ||x - z||_inf, dual rho*||z - z_prev||_inf) are returned. solve_boxqp_admm is
 plain PyTorch; solve_mpc_boxqp_admm routes a batched solve on a CUDA tensor to
 the ADMM kernels (kernels/boxqp_admm.py): the fused one for regulation
-problems, the two-step one for an x_ref. The general-constraint OSQP
-solver of the JAX module is not ported yet.
+problems, the two-step one for an x_ref.
+
+The general-constraint OSQP solver (solve_qp_osqp) and condensed MPC with
+state bounds on top of it (solve_mpc_state_constrained) are plain PyTorch,
+as the JAX package computes them outside any kernel: one dense factorization
+shared across the batch and all iterations, and per iteration three dense
+products.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from numpower_tpu_torch.kernels import boxqp_admm
 from numpower_tpu_torch.models.condensed import (
     CondensedQP, admm_coarse_iters, gradient_offset,
 )
+from numpower_tpu_torch.utils.device import state_tensor
 
 OVER_RELAX = 1.6
 
@@ -157,3 +163,110 @@ def solve_mpc_boxqp_admm(
                           dual_residual=r_dual)
     g = gradient_offset(qp, x0s, x_ref)
     return solve_boxqp_admm(qp.H, g, u_lo, u_hi, rho=rho, iters=iters, U0=U0)
+
+
+class OSQPResult(NamedTuple):
+    U: torch.Tensor                # (N, d) or (d,) primal solutions
+    Z: torch.Tensor                # (N, m_c) or (m_c,) constraint-space iterate (feasible)
+    iterations: int
+    primal_residual: torch.Tensor  # max ||A x - z||_inf across batch
+    dual_residual: torch.Tensor    # max ||H x + g + A'y||_inf (stationarity)
+
+
+def _osqp(H, g, A, l, u, rho, sigma: float, iters: int, over_relax: float):
+    """The OSQP iterations on g (..., d) and bounds l, u broadcasting against
+    (..., m_c). Returns x, z, y and the per-problem residuals (...)."""
+    d = H.shape[0]
+    eye = torch.eye(d, dtype=g.dtype, device=g.device)
+    K = H + sigma * eye + rho * (A.T @ A)
+    Lc = torch.linalg.cholesky(0.5 * (K + K.T))
+    Linv = torch.linalg.solve_triangular(Lc, eye, upper=False)
+    Kinv = Linv.T @ Linv  # explicit, as the JAX package forms it
+    shape_z = g.shape[:-1] + (A.shape[0],)
+    z = torch.clamp(torch.zeros(shape_z, dtype=g.dtype, device=g.device), l, u)
+    y = torch.zeros(shape_z, dtype=g.dtype, device=g.device)
+    x = torch.zeros_like(g)
+    for _ in range(iters):
+        rhs = sigma * x - g + (rho * z - y) @ A
+        x = rhs @ Kinv.T
+        ax = x @ A.T
+        ax_r = over_relax * ax + (1.0 - over_relax) * z
+        z_new = torch.clamp(ax_r + y / rho, l, u)
+        y = y + rho * (ax_r - z_new)
+        z = z_new
+    r_prim = torch.amax(torch.abs(x @ A.T - z), dim=-1)
+    r_dual = torch.amax(torch.abs(x @ H.T + g + y @ A), dim=-1)
+    return x, z, y, r_prim, r_dual
+
+
+def _bound(b, like):
+    """A bound (a float, an array or a tensor) as a tensor of like's dtype on
+    its device."""
+    return torch.as_tensor(b, dtype=like.dtype, device=like.device)
+
+
+def solve_qp_osqp(
+    H,
+    g,
+    A,
+    l,
+    u,
+    rho=1.0,
+    sigma: float = 1e-6,
+    iters: int = 50,
+    over_relax: float = OVER_RELAX,
+) -> OSQPResult:
+    """General-constraint QP via the OSQP splitting:
+
+        min 1/2 U'HU + g'U   s.t.  l <= A U <= u
+
+    x-update solves (H + sigma I + rho A'A) x = sigma x - g + A'(rho z - y):
+    one dense factorization shared across the batch and all iterations; per
+    iteration three dense products ((N, d) x (d, d), (N, d) x (d, m_c),
+    (N, m_c) x (m_c, d)). z projects onto [l, u] in constraint space; y is
+    the constraint-space dual. l/u/g may be batched (N, .). g may be a numpy
+    array (then float32 on the card, utils.state_tensor); H, A and the bounds
+    follow g's device and dtype."""
+    g = state_tensor(g)
+    H, A = (torch.as_tensor(M, dtype=g.dtype, device=g.device) for M in (H, A))
+    x, z, _, r_prim, r_dual = _osqp(H, g, A, _bound(l, g), _bound(u, g), rho, sigma, iters,
+                                    over_relax)
+    return OSQPResult(U=x, Z=z, iterations=iters, primal_residual=r_prim.max(),
+                      dual_residual=r_dual.max())
+
+
+def solve_mpc_state_constrained(
+    qp: CondensedQP,
+    x0s,
+    u_lo: float,
+    u_hi: float,
+    x_lo,
+    x_hi,
+    x_ref: Optional[torch.Tensor] = None,
+    rho=None,
+    iters: int = 60,
+) -> OSQPResult:
+    """Condensed MPC with BOTH control and state box constraints:
+
+        u_lo <= u_t <= u_hi,   x_lo <= x_t <= x_hi  (t = 1..T)
+
+    Stacked as l <= [I; Su] U <= u with the state rows shifted per scenario
+    by Sx x0 (X = Sx x0 + Su U). x_lo/x_hi may be scalars or (n,) per-state
+    vectors. x0s (N, n) or (n,) is taken in the QP's dtype on its device.
+    Returns the OSQP iterate; check primal_residual before trusting tight
+    state constraints (they can be infeasible for aggressive x0)."""
+    x0s = torch.as_tensor(x0s, dtype=qp.H.dtype, device=qp.H.device)
+    g = gradient_offset(qp, x0s, x_ref)
+    if rho is None:
+        rho = torch.sqrt(qp.lipschitz * torch.clamp(qp.mu, min=1e-12))
+    d = qp.H.shape[0]
+    A = torch.cat([torch.eye(d, dtype=qp.H.dtype, device=qp.H.device), qp.Su], dim=0)
+    sx_x0 = x0s @ qp.Sx.T  # (N, T n) or (T n,)
+    xl, xh = (torch.as_tensor(b, dtype=qp.H.dtype, device=qp.H.device).expand(qp.n).repeat(qp.T)
+              for b in (x_lo, x_hi))
+    shape_u = g.shape[:-1] + (d,)
+    l = torch.cat([torch.full(shape_u, u_lo, dtype=qp.H.dtype, device=qp.H.device),
+                   xl - sx_x0], dim=-1)
+    u = torch.cat([torch.full(shape_u, u_hi, dtype=qp.H.dtype, device=qp.H.device),
+                   xh - sx_x0], dim=-1)
+    return solve_qp_osqp(qp.H, g, A, l, u, rho=rho, iters=iters)

@@ -31,6 +31,7 @@ from numpower_tpu_torch.models.ilqr import (
     _fused_backward, _init_controls, _line_search, _select, _total_cost,
 )
 from numpower_tpu_torch.models.rollout import linearize_trajectory, rollout_nonlinear
+from numpower_tpu_torch.utils.device import state_tensor
 
 
 class ALILQRResult(NamedTuple):
@@ -69,7 +70,8 @@ def _solve(f, x0, Q, R, QF, x_goal, horizon, u_lo, u_hi, al_iters, ilqr_iters, m
            reg, use_fd, fd_eps, us_init, alphas, fused: bool, forward: str) -> ALILQRResult:
     """AL-iLQR on x0 (..., n), every leading dimension an independent solve;
     fused: K7 for the backward pass and `forward` for the line search (a
-    batch (N, n) only)."""
+    batch (N, n) only). A numpy x0 goes to the card as float32."""
+    x0 = state_tensor(x0)
     Q, R, QF, x_goal = (_as(a, x0) for a in (Q, R, QF, x_goal))
     batch = x0.shape[:-1]
     us = torch.clamp(_init_controls(us_init, batch + (horizon, R.shape[0]), x0), u_lo, u_hi)

@@ -31,6 +31,7 @@ from numpower_tpu_torch.kernels.ilqr_backward import ilqr_backward_fused
 from numpower_tpu_torch.kernels.ilqr_forward import ilqr_forward_fused
 from numpower_tpu_torch.models.lqr import _psd_solve
 from numpower_tpu_torch.models.rollout import linearize_trajectory, rollout_nonlinear
+from numpower_tpu_torch.utils.device import state_tensor
 
 ALPHAS = (1.0, 0.6, 0.3, 0.1, 0.03, 0.01)
 
@@ -176,14 +177,15 @@ def ilqr_solve(
     unroll_scans: bool = False,
 ) -> ILQRResult:
     """Full iLQR solve of one scenario x0 (n,); on x0's device and dtype
-    (Q, R, QF, x_goal are copied there once).
+    (Q, R, QF, x_goal are copied there once). A numpy x0 goes to the card
+    as float32 (utils.state_tensor).
 
     unroll_scans is accepted and has no effect: it was the JAX package's
     loop-overhead knob for its TPU scans, and the loops here are Python
     loops of batched operations."""
     del unroll_scans
-    return _solve_plain(f, x0, Q, R, QF, x_goal, horizon, iters, reg, use_fd, fd_eps, us_init,
-                        alphas)
+    return _solve_plain(f, state_tensor(x0), Q, R, QF, x_goal, horizon, iters, reg, use_fd,
+                        fd_eps, us_init, alphas)
 
 
 def ilqr_solve_batched(f, x0s, Q, R, QF, x_goal, horizon, backend: str = "vmap", **kwargs):
@@ -200,7 +202,8 @@ def ilqr_solve_batched(f, x0s, Q, R, QF, x_goal, horizon, backend: str = "vmap",
     The two backends agree per backward pass up to rounding (~1e-6
     relative) but may select different line-search branches in marginal
     scenarios, so final trajectories can differ on chaotic landscapes; both
-    monotonically descend the cost."""
+    monotonically descend the cost. A numpy x0s goes to the card as float32."""
+    x0s = state_tensor(x0s)
     if backend == "vmap":
         kwargs.pop("forward", None)  # fused-backend-only knob
         return ilqr_solve(f, x0s, Q, R, QF, x_goal, horizon, **kwargs)

@@ -18,6 +18,8 @@ from typing import Callable, Tuple
 
 import torch
 
+from numpower_tpu_torch.utils.device import state_tensor
+
 
 def rollout_lti(A, B, x0, us):
     """x_{t+1} = A x_t + B u_t for a (..., T, m) control sequence.
@@ -41,7 +43,10 @@ def rollout_ltv(As, Bs, x0, us):
 
 def rollout_nonlinear(f: Callable, x0, us):
     """Nonlinear plant rollout: x0 (..., n), us (..., T, m) -> xs
-    (..., T+1, n); f(x, u) -> x_next indexes the last axis."""
+    (..., T+1, n); f(x, u) -> x_next indexes the last axis. A numpy x0 goes
+    to the card as float32 (utils.state_tensor); us follows x0."""
+    x0 = state_tensor(x0)
+    us = torch.as_tensor(us, dtype=x0.dtype, device=x0.device)
     xs = [x0]
     for t in range(us.shape[-2]):
         xs.append(f(xs[-1], us[..., t, :]))

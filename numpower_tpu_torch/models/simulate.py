@@ -21,6 +21,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from numpower_tpu_torch.models.estimation import _filter_step
+from numpower_tpu_torch.utils.device import seeded_generator
 
 
 class SimResult(NamedTuple):
@@ -57,8 +58,7 @@ def simulate_closed_loop(
                          "(the estimator consumes y = h(x) + noise)")
     N, n = x0s.shape
     kw = dict(dtype=x0s.dtype, device=x0s.device)
-    if generator is None:
-        generator = torch.Generator(device=x0s.device).manual_seed(0)
+    generator = seeded_generator(generator, x0s.device)
     w_std = torch.as_tensor(w_std, **kw).expand(n)
     v_std = torch.as_tensor(v_std, **kw)
     x, xh = x0s, (x0s if xhat0 is None else xhat0)

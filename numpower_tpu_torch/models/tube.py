@@ -44,11 +44,12 @@ def tube_mpc_solve(
     x_ref: Optional[torch.Tensor] = None,
     qp_iters: int = 40,
 ) -> TubeMPCResult:
-    """A, B, Q, R may be numpy arrays or tensors; they are taken in the QP's
-    dtype on its device, where x0_nominal and disturbances must lie."""
+    """A, B, Q, R, x0_nominal and disturbances may be numpy arrays or
+    tensors; they are taken in the QP's dtype on its device."""
     T, m = qp.T, qp.m
-    A, B, Q, R = (torch.as_tensor(x, dtype=qp.H.dtype, device=qp.H.device)
-                  for x in (A, B, Q, R))
+    A, B, Q, R, x0_nominal, disturbances = (
+        torch.as_tensor(x, dtype=qp.H.dtype, device=qp.H.device)
+        for x in (A, B, Q, R, x0_nominal, disturbances))
 
     # 1. nominal solve (single-scenario condensed QP) and rollout
     g = gradient_offset(qp, x0_nominal, x_ref)

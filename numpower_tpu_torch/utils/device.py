@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -10,3 +11,21 @@ def default_device() -> torch.device:
     tensor and no ``device`` builds its tensors here, so on a machine without
     CUDA it raises; pass ``device="cpu"`` (or CPU tensors) to run on the CPU."""
     return torch.device("cuda")
+
+
+def state_tensor(x) -> torch.Tensor:
+    """An entry point's leading operand as a tensor: a tensor keeps its device
+    and dtype; anything else (a numpy array, a list) becomes a float32 tensor,
+    the JAX package's default precision, on :func:`default_device`."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=default_device())
+
+
+def seeded_generator(generator, device) -> torch.Generator:
+    """The random stream of an entry point that takes a generator where the
+    JAX package takes a key: ``generator`` itself, or, where it is None, a
+    new one seeded 0 on ``device``."""
+    if generator is None:
+        return torch.Generator(device=device).manual_seed(0)
+    return generator

@@ -103,3 +103,28 @@ def test_al_ilqr_solve_batched_backends_match_jax():
         assert float(got.us.abs().max()) <= HI
     with pytest.raises(ValueError, match="backend"):
         tm.al_ilqr_solve_batched(tm.pendulum_step, _t(x0s), *args, backend="xla", **kw)
+
+
+DEVICE_CALLS = {
+    "al_ilqr_solve": lambda x0s: tm.al_ilqr_solve(
+        tm.pendulum_step, x0s[0], QP, RP, QFP, GOAL, 4, -2.0, 2.0, al_iters=1, ilqr_iters=1),
+    "al_ilqr_solve_batched_vmap": lambda x0s: tm.al_ilqr_solve_batched(
+        tm.pendulum_step, x0s, QP, RP, QFP, GOAL, 4, -2.0, 2.0, al_iters=1, ilqr_iters=1),
+    "al_ilqr_solve_batched_fused": lambda x0s: tm.al_ilqr_solve_batched(
+        tm.pendulum_step, x0s, QP, RP, QFP, GOAL, 4, -2.0, 2.0, backend="fused", al_iters=1,
+        ilqr_iters=1),
+}
+
+
+@pytest.mark.parametrize("call", list(DEVICE_CALLS.values()), ids=list(DEVICE_CALLS))
+def test_entry_points_default_to_the_card(call):
+    """A numpy state goes to the card as float32: without CUDA the call
+    raises, because it reaches for it; CPU tensors keep the solve on the CPU."""
+    x0s = _x0s(2)
+    if torch.cuda.is_available():
+        got = call(x0s)
+        assert got.us.device.type == "cuda" and got.us.dtype == torch.float32
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            call(x0s)
+    assert call(_t(x0s)).us.device.type == "cpu"

@@ -148,3 +148,26 @@ def test_options_are_checked():
     # the vmap backend drops the fused-only knob, as the JAX package does
     r = tm.ilqr_solve_batched(tm.cartpole_step, x0s, Q, R, QF, GOAL, 5, iters=1, forward="plain")
     assert r.us.shape == (2, 5, 1)
+
+
+DEVICE_CALLS = {
+    "ilqr_solve": lambda x0s: tm.ilqr_solve(tm.cartpole_step, x0s[0], Q, R, QF, GOAL, 4, iters=1),
+    "ilqr_solve_batched_vmap": lambda x0s: tm.ilqr_solve_batched(
+        tm.cartpole_step, x0s, Q, R, QF, GOAL, 4, iters=1),
+    "ilqr_solve_batched_fused": lambda x0s: tm.ilqr_solve_batched(
+        tm.cartpole_step, x0s, Q, R, QF, GOAL, 4, backend="fused", iters=1),
+}
+
+
+@pytest.mark.parametrize("call", list(DEVICE_CALLS.values()), ids=list(DEVICE_CALLS))
+def test_entry_points_default_to_the_card(call):
+    """A numpy state goes to the card as float32: without CUDA the call
+    raises, because it reaches for it; CPU tensors keep the solve on the CPU."""
+    x0s = _x0s(2)
+    if torch.cuda.is_available():
+        got = call(x0s)
+        assert got.us.device.type == "cuda" and got.us.dtype == torch.float32
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            call(x0s)
+    assert call(_t(x0s)).us.device.type == "cpu"

@@ -178,3 +178,22 @@ def test_plant_from_jax():
         tp.plant_from_jax(lambda x, u: x)
     with pytest.raises(ValueError):
         tp.plant_from_jax(tp.cartpole_step)  # already the port's
+
+
+@pytest.mark.parametrize("name", ["cartpole_step", "pendulum_step"])
+def test_rollout_nonlinear_defaults_to_the_card(name):
+    """A numpy x0 goes to the card as float32 and us follows it: without CUDA
+    the rollout raises, because it reaches for it; with a CPU tensor x0 (us
+    still numpy) it runs on the CPU."""
+    n, m = PLANTS[name]
+    x0, _ = _xu(n, m, shape=(3,), seed=1)
+    us = (0.5 * np.random.default_rng(2).standard_normal((3, 6, m))).astype(np.float32)
+    f = getattr(tm, name)
+    if torch.cuda.is_available():
+        got = tm.rollout_nonlinear(f, x0, us)
+        assert got.device.type == "cuda" and got.dtype == torch.float32
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            tm.rollout_nonlinear(f, x0, us)
+    got = tm.rollout_nonlinear(f, torch.from_numpy(x0), us)
+    assert got.device.type == "cpu" and got.shape == (3, 7, n)

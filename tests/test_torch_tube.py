@@ -49,3 +49,29 @@ def test_tube_mpc_solve_matches_jax(x_ref):
     assert float(got.tube_radius[0]) == 0.0  # all scenarios start at x0
     assert float(got.max_violation) <= 1e-6  # feedback clipped to the bounds
     assert float(got.tube_radius.max()) < 0.5
+
+
+@pytest.mark.parametrize("device", ["default", "cpu"])
+def test_tube_inputs_follow_the_qp(device):
+    """x0_nominal and the disturbances may be numpy arrays: they go to the
+    QP's device. A QP condensed on the default device (the card) raises
+    without CUDA, because it reaches for it; a CPU QP runs on the CPU."""
+    A, B = (np.asarray(x) for x in jm.double_integrator(0.1))
+    Q, R, QF = np.eye(2, dtype=np.float32), np.eye(1, dtype=np.float32) * 0.1, \
+        np.eye(2, dtype=np.float32) * 10.0
+    T = 8
+    w = (0.01 * np.random.default_rng(3).standard_normal((4, T, 2))).astype(np.float32)
+    x0 = np.array([0.5, 0.0], np.float32)
+
+    def solve():
+        qp = tm.condense(A, B, Q, R, QF, T, **({} if device == "default" else {"device": "cpu"}))
+        return tm.tube_mpc_solve(qp, A, B, Q, R, x0, w, -1.0, 1.0)
+
+    if device == "default" and not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            solve()
+        return
+    got = solve()
+    assert got.xs_scenarios.shape == (4, T + 1, 2)
+    assert got.xs_scenarios.device.type == ("cpu" if device == "cpu" else "cuda")
+    assert float(got.max_violation) <= 1e-6
