@@ -115,9 +115,31 @@ and 644-693), OSQP and MHE:
    resample constructions), the entry points, rollouts/s and
    particle-steps/s.
 
+The box-QP variants and the data-parallel path (the JAX package's sharded
+solvers, which hold the fused kernels against their single-device forms), at
+the flagship QP, N = 4096, 40 iterations:
+
+17. K1' admm_mpc and K2' fista_mpc (g formed in the kernel) against their
+   plain versions (all-fp32 <= 1e-5, the default schedule <= 1e-4, g <= 1e-5
+   relative) and against K3a / K3b on the g they emit; K1's "zy" and "sp"
+   loop forms, its c_precision classes and K2's tail_precision / g_precision
+   classes against their plain versions (warm; the bf16x3 tail's all-fp32
+   bound is 3e-5, see the phase);
+18. the path on a one-rank NCCL group (a FileStore in a temporary directory)
+   and a (1, 1) mesh: K2' and K1' directly, solve_mpc_boxqp_dp (auto -> one
+   K2 launch) equal to the direct K2 within 1e-5 (the verify check
+   sharded_solvers_on_mesh), solve_mpc_boxqp_admm_dp (one K1 launch) within
+   2e-3 of it, and MPCController(mesh=...) for 20 ticks of 4096 scenarios per
+   solver, one launch a tick, equal to the single-device controller within
+   1e-5; the group is destroyed at the phase's end;
+19. times from CUDA events: K1' and K2' (device, wrapper, plain), the loop
+   forms and the precision classes (device), the DP solve against the direct
+   K2' in turns (the overhead of bench.py's shardmap row), and the mesh tick
+   against the single-device tick.
+
 The launch counters of each path are zeroed just before it is driven
-(phases 2-3, 6, the path of 8, the path of 9, phase 12 and the paths of 14
-and 15) and read just
+(phases 2-3, 6, the path of 8, the path of 9, phase 12, the paths of 14
+and 15, and phase 18) and read just
 after. The last lines are the total wall time, one JSON object listing every
 kernel with its bound (bound_ms, bound_by, from this run's shapes) and, where
 one PyTorch call computes the same function, that call's time (library_ms),
@@ -1362,6 +1384,256 @@ def sampling_family(dev, smi: str) -> list:
     ]
 
 
+def boxqp_variants_and_mesh(dev, smi: str, qp, x0s, rho) -> list:
+    """Phases 17-19: K1' and K2', K1's loop forms and the precision classes
+    of K1 and K2 against their plain versions; the data-parallel path on a
+    one-rank NCCL group; their times. Returns K1''s and K2''s entries of the
+    JSON line."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from numpower_tpu_torch.kernels import _build, boxqp_admm, boxqp_fista
+    from numpower_tpu_torch.kernels.precision import PRECISION_CODES
+    from numpower_tpu_torch.models import MPCController, quadrotor12
+    from numpower_tpu_torch.models.condensed import admm_coarse_iters, default_coarse_iters
+    from numpower_tpu_torch.parallel import (
+        make_mesh, shard_batch, solve_mpc_boxqp_admm_dp, solve_mpc_boxqp_dp,
+    )
+
+    iters, n, m = 40, 12, 4
+    d = T * m
+    fista_ci, admm_ci = default_coarse_iters(qp, iters), admm_coarse_iters(qp, iters)
+    fold, lip = (qp.H, qp.Sx.T, qp.SuTQ.T), qp.lipschitz
+    Minv = boxqp_admm.minv_factor(qp.H, rho)
+    z_cold, _, _ = boxqp_admm.admm_mpc_res_reference(*fold, x0s, LO, HI, rho, iters, admm_ci,
+                                                     Minv=Minv)
+    U0 = torch.cat([z_cold[:, m:], z_cold[:, -m:]], dim=1).contiguous()  # a shifted plan
+
+    # -- phase 17: K1', K2', the forms and the precision classes vs plain ---------
+    err = {"fista_g": 0.0, "admm_g": 0.0}
+    before = (boxqp_fista.fista_mpc.launches, boxqp_admm.admm_mpc.launches)
+    for coarse_f, coarse_a, tol in ((0, 0, 1e-5), (fista_ci, admm_ci, 1e-4)):
+        U, g = boxqp_fista.fista_mpc(*fold, x0s, LO, HI, lip, iters, coarse_f)
+        U_p, g_p = boxqp_fista.fista_mpc_reference(*fold, x0s, LO, HI, lip, iters, coarse_f)
+        z, y, g_a = boxqp_admm.admm_mpc(*fold, x0s, LO, HI, rho, iters, coarse_a, Minv=Minv)
+        z_p, y_p, _ = boxqp_admm.admm_mpc_reference(*fold, x0s, LO, HI, rho, iters, coarse_a,
+                                                    Minv=Minv)
+        du, dz, dy = max_err(U, U_p), max_err(z, z_p), max_err(y, y_p)
+        dg, dg_a = max_err(g, g_p), max_err(g_a, g_p)
+        g_scale = g_p.abs().max().item()
+        U_two = boxqp_fista.fista_boxqp(qp.H, g, LO, HI, lip, iters, coarse_f)
+        z_two, y_two = boxqp_admm.admm_boxqp(qp.H, g_a, LO, HI, rho, iters, coarse_a, Minv=Minv)
+        e_two = (max_err(U, U_two), max(max_err(z, z_two), max_err(y, y_two)))
+        log(f"K2' fista_mpc {coarse_f}+{iters - coarse_f}: max|dU| {du:.3e}, max|dg| {dg:.3e} "
+            f"(|g| <= {g_scale:.3e}); K1' admm_mpc {coarse_a}+{iters - coarse_a}: max|dz| "
+            f"{dz:.3e} max|dy| {dy:.3e} max|dg| {dg_a:.3e} (tol {tol:g}, g 1e-5 relative); "
+            f"against K3b / K3a on the g they emit {e_two[0]:.3e} / {e_two[1]:.3e}")
+        require(du <= tol and dz <= tol and dy <= tol and max(dg, dg_a) <= 1e-5 * g_scale,
+                f"K1'/K2' {coarse_f}/{coarse_a} vs plain")
+        require(max(e_two) <= 1e-5, "K2' == K3b and K1' == K3a on their g")
+        err["fista_g"] = max(err["fista_g"], du, dg)
+        err["admm_g"] = max(err["admm_g"], dz, dy, dg_a)
+    require((boxqp_fista.fista_mpc.launches, boxqp_admm.admm_mpc.launches)
+            == (before[0] + 2, before[1] + 2), "K1'/K2' launched once per call")
+
+    variants = [("admm", {"form": f}) for f in ("zy", "sp")]
+    variants += [("admm", {"c_precision": c}) for c in ("bf16x4", "bf16x3")]
+    variants += [("fista", {"tail_precision": t, "g_precision": gp})
+                 for t in ("bf16x3", "highest") for gp in ("highest", "bf16x4", "bf16x3")
+                 if (t, gp) != ("highest", "highest")]
+    # The bf16x3 tail drops lo*lo, which depends on where an operand's hi/lo
+    # split falls: operands one ulp apart (two sum orders) can split on either
+    # side of a bf16 rounding point, so two correct fp32 implementations of the
+    # class part by up to ~1e-5 at this shape, where the classes with an fp32
+    # tail part by under 2e-6: its all-fp32 bound is 3e-5.
+    for solver, kw in variants:
+        fp32_tol = 3e-5 if kw.get("tail_precision") == "bf16x3" else 1e-5
+        for coarse, tol in ((0, fp32_tol), (admm_ci if solver == "admm" else fista_ci, 1e-4)):
+            if solver == "admm":
+                args = (*fold, x0s, LO, HI, rho, iters, coarse)
+                out = boxqp_admm.admm_mpc_res(*args, Minv=Minv, U0=U0, **kw)
+                ref = boxqp_admm.admm_mpc_res_reference(*args, Minv=Minv, U0=U0, **kw)
+            else:
+                args = (*fold, x0s, LO, HI, lip, iters, coarse, U0)
+                out = boxqp_fista.fista_mpc_res(*args, **kw)
+                ref = boxqp_fista.fista_mpc_res_reference(*args, **kw)
+            de = max_err(out[0], ref[0])
+            dr = max(abs(a.item() - b.item()) for a, b in zip(out[1:], ref[1:]))
+            log(f"{'K1' if solver == 'admm' else 'K2'} {kw} {coarse}+{iters - coarse} warm: "
+                f"max|d| {de:.3e} (tol {tol:g}), residuals {dr:.3e} (tol 1e-5)")
+            require(de <= tol and dr <= 1e-5, f"{solver} {kw} {coarse} vs plain")
+
+    # -- phase 18: the data-parallel path on a one-rank NCCL group ---------------
+    A, B = quadrotor12(0.02)
+    Q = np.eye(n, dtype=np.float32)
+    R = np.eye(m, dtype=np.float32) * 0.1
+    QF = np.eye(n, dtype=np.float32) * 5.0
+    A_t, B_t = torch.as_tensor(A, device=dev), torch.as_tensor(B, device=dev)
+    U_direct, r_direct = boxqp_fista.fista_mpc_res(*fold, x0s, LO, HI, lip, iters, fista_ci)
+    single = {}  # each solver's single-device closed loop: the states and the controls
+    for solver in ("fista", "admm"):
+        ctrl = MPCController(A, B, Q, R, QF, T, LO, HI, iters=30, solver=solver, device=dev)
+        state, x, xs, us = ctrl.init(N), x0s.clone(), [], []
+        for _ in range(N_TICKS):
+            xs.append(x)
+            u0, state = ctrl.step(state, x)
+            us.append(u0.clone())
+            x = x @ A_t.T + u0 @ B_t.T
+        single[solver] = (ctrl, xs, us)
+    counters = {"K2": boxqp_fista.fista_mpc_res, "K1": boxqp_admm.admm_mpc_res,
+                "K2'": boxqp_fista.fista_mpc, "K1'": boxqp_admm.admm_mpc}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1, 1))
+            log(f"mesh {mesh.shape} {mesh.axis_names} on {mesh.device}, backend "
+                f"{dist.get_backend()}")
+            for c in counters.values():
+                c.launches = 0
+            xb = shard_batch(x0s, mesh)
+            U_yard, _ = boxqp_fista.fista_mpc(*fold, xb, LO, HI, lip, iters, fista_ci)
+            r_dp = solve_mpc_boxqp_dp(qp, xb, LO, HI, mesh, iters)
+            z_yard, _, _ = boxqp_admm.admm_mpc(*fold, xb, LO, HI, rho, iters, admm_ci, Minv=Minv)
+            r_admm = solve_mpc_boxqp_admm_dp(qp, xb, LO, HI, mesh, iters=iters)
+            require({k: c.launches for k, c in counters.items()}
+                    == {"K2": 1, "K1": 1, "K2'": 1, "K1'": 1},
+                    "each DP solve launched its kernel once (auto on a CUDA mesh)")
+            e = {"dp_direct": max_err(r_dp.U, U_direct),
+                 "dp_resid": abs(r_dp.residual.item() - r_direct.item()),
+                 "dp_k2p": max_err(r_dp.U, U_yard), "admm_k1p": max_err(r_admm.U, z_yard),
+                 "admm_fista": max_err(r_admm.U, r_dp.U)}
+            log(f"DP path ({N} scenarios): DP vs direct K2 {e['dp_direct']:.3e} (resid "
+                f"{e['dp_resid']:.3e}; tol 1e-5), vs K2' {e['dp_k2p']:.3e} (tol 1e-5); ADMM-DP "
+                f"vs K1' {e['admm_k1p']:.3e} (tol 1e-4); ADMM-DP vs FISTA-DP "
+                f"{e['admm_fista']:.3e} (tol 2e-3)")
+            require(e["dp_direct"] <= 1e-5 and e["dp_resid"] <= 1e-5 and e["dp_k2p"] <= 1e-5,
+                    "DP equals the direct kernel (sharded_solvers_on_mesh)")
+            require(e["admm_k1p"] <= 1e-4 and e["admm_fista"] <= 2e-3, "ADMM-DP")
+            mesh_ctrls = {}
+            for solver, key in (("fista", "K2"), ("admm", "K1")):
+                _, xs, us = single[solver]
+                ctrl = MPCController(A, B, Q, R, QF, T, LO, HI, iters=30, solver=solver,
+                                     mesh=mesh)
+                state, worst = ctrl.init(N), 0.0
+                for t in range(N_TICKS):
+                    before = counters[key].launches
+                    u0, state = ctrl.step(state, shard_batch(xs[t], mesh))
+                    require(counters[key].launches == before + 1,
+                            f"mesh {solver} tick launched its kernel once")
+                    worst = max(worst, max_err(u0, us[t]))
+                log(f"mesh serving {solver}: {N_TICKS} ticks x {N} scenarios, max |u0 - "
+                    f"single-device u0| {worst:.3e} (tol 1e-5)")
+                require(worst <= 1e-5, f"mesh {solver} ticks equal the single-device ticks")
+                mesh_ctrls[solver] = ctrl
+            launches = {k: c.launches for k, c in counters.items()}
+            log(f"DP-path launches: {launches}")
+            require(launches == {"K2": 1 + N_TICKS, "K1": 1 + N_TICKS, "K2'": 1, "K1'": 1},
+                    "the DP path went through K1, K2, K1' and K2'")
+
+            # -- phase 19: times ----------------------------------------------------
+            lib = _build.library()
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            Ht = qp.H.T.contiguous()
+            W = (qp.Sx.T @ qp.SuTQ.T).contiguous()
+            rho_t = rho.reshape(()).contiguous()
+            rMt = (rho_t * Minv.T).contiguous()
+            Wc = (qp.Sx.T @ (qp.SuTQ.T @ Minv.T)).contiguous()
+            outs = [torch.empty((N, d), device=dev) for _ in range(3)]
+            scal = [torch.zeros((), device=dev) for _ in range(2)]
+            lo_hi = (ctypes.c_float(LO), ctypes.c_float(HI))
+            alpha = ctypes.c_float(1.6)
+            device_ms = {
+                "fista_g": cuda_ms(lambda: lib.npt_fista_mpc(
+                    Ht.data_ptr(), W.data_ptr(), x0s.data_ptr(), lip.data_ptr(),
+                    outs[0].data_ptr(), outs[1].data_ptr(), N, n, d, iters, fista_ci, *lo_hi,
+                    stream)),
+                "admm_g": cuda_ms(lambda: lib.npt_admm_mpc(
+                    rMt.data_ptr(), W.data_ptr(), x0s.data_ptr(), rho_t.data_ptr(),
+                    outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(), N, n, d, iters,
+                    admm_ci, *lo_hi, alpha, stream)),
+            }
+            codes = boxqp_admm.FORMS
+            for form in ("s", "zy", "sp"):
+                device_ms[f"K1 form {form}"] = cuda_ms(lambda form=form: lib.npt_admm_mpc_res(
+                    rMt.data_ptr(), Wc.data_ptr(), x0s.data_ptr(), U0.data_ptr(),
+                    rho_t.data_ptr(), outs[0].data_ptr(), scal[0].data_ptr(), scal[1].data_ptr(),
+                    N, n, d, iters, admm_ci, *lo_hi, alpha, codes[form], 0, stream))
+            for cp in ("bf16x4", "bf16x3"):
+                device_ms[f"K1 c_precision {cp}"] = cuda_ms(lambda cp=cp: lib.npt_admm_mpc_res(
+                    rMt.data_ptr(), Wc.data_ptr(), x0s.data_ptr(), U0.data_ptr(),
+                    rho_t.data_ptr(), outs[0].data_ptr(), scal[0].data_ptr(), scal[1].data_ptr(),
+                    N, n, d, iters, admm_ci, *lo_hi, alpha, 0, PRECISION_CODES[cp], stream))
+            for tp in ("highest", "bf16x3"):
+                for gp in ("highest", "bf16x4", "bf16x3"):
+                    device_ms[f"K2 tail {tp} g {gp}"] = cuda_ms(
+                        lambda tp=tp, gp=gp: lib.npt_fista_mpc_res(
+                            Ht.data_ptr(), W.data_ptr(), x0s.data_ptr(), U0.data_ptr(),
+                            lip.data_ptr(), outs[0].data_ptr(), scal[0].data_ptr(), N, n, d,
+                            iters, fista_ci, *lo_hi, PRECISION_CODES[tp], PRECISION_CODES[gp],
+                            stream))
+            ms = {"fista_g": cuda_ms(lambda: boxqp_fista.fista_mpc(*fold, x0s, LO, HI, lip, iters,
+                                                                   fista_ci)),
+                  "admm_g": cuda_ms(lambda: boxqp_admm.admm_mpc(*fold, x0s, LO, HI, rho, iters,
+                                                                admm_ci, Minv=Minv))}
+            plain_ms = {
+                "fista_g": cuda_ms(lambda: boxqp_fista.fista_mpc_reference(
+                    *fold, x0s, LO, HI, lip, iters, fista_ci)),
+                "admm_g": cuda_ms(lambda: boxqp_admm.admm_mpc_reference(
+                    *fold, x0s, LO, HI, rho, iters, admm_ci, Minv=Minv))}
+            for key, name in (("fista_g", "K2' fista_mpc"), ("admm_g", "K1' admm_mpc")):
+                log(f"time {name} ({iters} iters, {N} scenarios): device {device_ms[key]:.4f} "
+                    f"ms, wrapper {ms[key]:.4f} ms, plain {plain_ms[key]:.4f} ms [{smi}]")
+            for key, t_ms in device_ms.items():
+                if key.startswith("K"):
+                    log(f"time {key} ({iters} iters, {N} scenarios, warm): device {t_ms:.4f} ms "
+                        f"[{smi}]")
+
+            # the DP solve against the direct K2' (bench.py's shardmap overhead), in turns
+            def direct():
+                boxqp_fista.fista_mpc(*fold, xb, LO, HI, lip, iters, fista_ci)
+
+            def dp():
+                solve_mpc_boxqp_dp(qp, xb, LO, HI, mesh, iters)
+
+            turns = [cuda_ms(direct), cuda_ms(dp), cuda_ms(dp), cuda_ms(direct)]
+            t_direct, t_dp = statistics.mean(turns[0::3]), statistics.mean(turns[1:3])
+            log(f"time DP solve vs direct K2' ({N} scenarios, one rank, in turns "
+                f"direct/DP/DP/direct {turns[0]:.4f}/{turns[1]:.4f}/{turns[2]:.4f}/"
+                f"{turns[3]:.4f} ms): overhead {100.0 * (t_dp / t_direct - 1.0):.1f}% "
+                f"(the JAX package's bar: < 10%) [{smi}]")
+            for solver, ctrl in mesh_ctrls.items():
+                one = single[solver][0]
+                holders = [[ctrl.init(N)], [one.init(N)]]
+
+                def tick_mesh(c=ctrl, h=holders[0]):
+                    _, h[0] = c.step(h[0], xb)
+
+                def tick_one(c=one, h=holders[1]):
+                    _, h[0] = c.step(h[0], x0s)
+
+                t1, tm = cuda_ms(tick_one), cuda_ms(tick_mesh)
+                log(f"time serving tick {solver} (30 iters, {N} scenarios): mesh {tm:.4f} ms, "
+                    f"single device {t1:.4f} ms [{smi}]")
+        finally:
+            dist.destroy_process_group()
+
+    # K1': g, c's product and the iterations' (N, d) x (d, d) products; inputs
+    # (rho Minv)', W, x0s; outputs z, y, g. K2': g and the iterations; outputs U, g.
+    fold_ops = 2 * N * n * d
+    return [
+        kernel_entry("fista_mpc", "boxqp_fista.cu", "boxqp_fista.py:183", launches["K2'"],
+                     err["fista_g"], ms["fista_g"], plain_ms["fista_g"],
+                     4 * (d * d + n * d + N * n + 2 * N * d), fold_ops + 2 * N * d * d * iters),
+        kernel_entry("admm_mpc", "boxqp_admm.cu", "boxqp_admm.py:447", launches["K1'"],
+                     err["admm_g"], ms["admm_g"], plain_ms["admm_g"],
+                     4 * (d * d + n * d + N * n + 3 * N * d),
+                     fold_ops + 2 * N * d * d * (iters + 1)),
+    ]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1541,6 +1813,7 @@ def main() -> int:
     kernels += ilqr_family(dev, smi)
     kernels += estimation_family(dev, smi)
     kernels += sampling_family(dev, smi)
+    kernels += boxqp_variants_and_mesh(dev, smi, qp, x0s, rho)
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

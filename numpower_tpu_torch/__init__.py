@@ -13,6 +13,8 @@ torch and numpy, never jax. Its entry points run on the card
                                    simulation
 - ``numpower_tpu_torch.kernels`` — hand-written CUDA kernels for Hopper
                                    (``csrc/*.cu``, built at first use)
+- ``numpower_tpu_torch.parallel`` — the mesh, the data-parallel solvers and
+                                   the runtime setup on torch.distributed
 - ``numpower_tpu_torch.utils``   — unrolled small-matrix linear algebra and
                                    the associative scan
 """
@@ -26,4 +28,4 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
-from numpower_tpu_torch import kernels, models, utils  # noqa: E402, F401
+from numpower_tpu_torch import kernels, models, parallel, utils  # noqa: E402, F401

@@ -1,67 +1,96 @@
-// ADMM box-QP solves for condensed MPC (s-form): the fused one (c formed from
-// x0, the primal and dual residuals reduced in the kernel) and the two-step
-// one (g given, z and the scaled dual y returned).
+// ADMM box-QP solves for condensed MPC: the fused one (c formed from x0, the
+// primal and dual residuals reduced in the kernel), the two-step one (g
+// given, z and the scaled dual y returned) and the one that forms g from x0
+// and returns (z, y, g).
 //
-// Replaces two TPU kernels of numpower_tpu/kernels/boxqp_admm.py:
-//   admm_mpc_pallas_res (body _admm_g_res_kernel, loop _s_loop, form "s"): K1,
-//   admm_boxqp_pallas   (body _admm_kernel, the same loop):                 K3a.
+// Replaces three TPU kernels of numpower_tpu/kernels/boxqp_admm.py:
+//   admm_mpc_pallas_res (body _admm_g_res_kernel, loops _s_loop, _zy_loop,
+//                        _s_loop_pipelined by `form`):                      K1,
+//   admm_boxqp_pallas   (body _admm_kernel, loop _s_loop):                  K3a,
+//   admm_mpc_pallas     (body _admm_g_kernel, loop _s_loop):                K1'.
 // For each scenario it runs over-relaxed exact-solve ADMM on
 //     min 1/2 U'HU + g'U  s.t.  lo <= U <= hi
-// carrying the single pre-projection state s = x_r + y:
+// carrying the single pre-projection state s = x_r + y (form "s"):
 //     c = x0 @ Wc                  (K1; Wc = Sx'(Su'Q)'Minv', folded on the host)
-//     c = (g @ (rho Minv)') / rho  (K3a; g read from the (N, d) operand)
+//     c = (g @ (rho Minv)') / rho  (K3a: g read from the (N, d) operand;
+//                                   K1': g = x0 @ W formed here and written,
+//                                   W = Sx'(Su'Q)' folded on the host)
 //     p = clip(s);  t = 2p - s;  u = t @ (rho Minv)';  s += alpha (u - c - p)
-// from s = z0 = clip(U0) (or clip(0) cold). Then z = clip(s) is written. K1,
-// with x = (2z - s) @ (rho Minv)' - c and z+ = clip(s + alpha (x - z)), folds
-// max |x - z| into *rp and rho max |z+ - z| into *rd over the N x d real
-// entries only; K3a writes y = s - z, from which its caller forms the
-// residuals outside, as the JAX package does. One template,
-// admm_kernel<kFused>, runs the loop for both.
+// from s = z0 = clip(U0) (or clip(0) cold; K1' always starts cold). Then
+// z = clip(s) is written. K1, with x = (2z - s) @ (rho Minv)' - c and
+// z+ = clip(s + alpha (x - z)), folds max |x - z| into *rp and rho max
+// |z+ - z| into *rd over the N x d real entries only; K3a and K1' write
+// y = s - z, from which the caller forms the residuals outside, as the JAX
+// package does. One template, admm_kernel<kMode, kForm, kCPrec>, runs the
+// loop for all three.
+//
+// K1's loop forms (kForm), the same recursion in three groupings:
+//   "s"  above;
+//   "sp" a = s - alpha c - alpha p before the product, s' = a + alpha u after
+//        it (one FMA follows the product);
+//   "zy" the classic carries z = clip(U0), y = 0: t = z - y,
+//        u = t @ (rho Minv)', x = u - c, x_r = alpha x + (1 - alpha) z,
+//        z' = clip(x_r + y), y += x_r - z'; it ends with s = z + y, so the
+//        epilogue is shared. In the coarse phase t is the rounded operand.
+// K3a and K1' run "s".
 //
 // Precision. The first `coarse` products round both operands to bf16
 // (round-to-nearest-even) and accumulate in fp32, as the TPU's single-pass
 // DEFAULT matmul does, so the calibrated schedule of
-// models/condensed.admm_coarse_iters keeps its meaning. The tail products,
-// the residual product and c are plain fp32 FMA: at least as accurate as the
-// TPU kernels' bf16x3 tail, bf16x4 c (K1) and HIGHEST c (K3a). The hi/lo
-// split schemes are for a later tensor-core version.
+// models/condensed.admm_coarse_iters keeps its meaning. The tail products and
+// the residual product are plain fp32 FMA: at least as accurate as the TPU
+// kernels' bf16x3 tail. K1's c is formed in the class kCPrec
+// (boxqp_tile.cuh: "highest" fp32, or the bf16x3 / bf16x4 hi/lo splits of
+// the TPU kernel's c_precision); K3a's and K1''s c and K1''s g are fp32, as
+// the TPU kernels form them HIGHEST.
 //
 // What bounds it on the H100: the same as boxqp_fista.cu. (rho Minv)' stays in
 // shared memory and s, p, c in registers for the whole solve, so device
 // memory is touched once per scenario; the SM's fp32 FMA rate and its
-// shared-memory bandwidth for the operands bound it. K3a's c costs one more
-// (32, d) x (d, d) product per tile, as the TPU kernel's does.
+// shared-memory bandwidth for the operands bound it. K3a's and K1''s c cost
+// one more (32, d) x (d, d) product per tile, as the TPU kernels' do; K1'
+// writes three (N, d) outputs where K1 writes one.
 
 #include "boxqp_tile.cuh"
 
 namespace boxqp {
 
-template <bool kFused>
+enum AdmmMode : int { kAdmmMpcRes = 0, kAdmmBoxqp = 1, kAdmmMpc = 2 };  // K1, K3a, K1'
+enum AdmmForm : int { kFormS = 0, kFormZY = 1, kFormSP = 2 };
+
+template <int kMode, int kForm, int kCPrec>
 __global__ void __launch_bounds__(kThreads)
-    admm_kernel(const float* __restrict__ rMt, const float* __restrict__ Wc,
+    admm_kernel(const float* __restrict__ rMt, const float* __restrict__ fold,
                 const float* __restrict__ x0, const float* __restrict__ g_in,
                 const float* __restrict__ U0, const float* __restrict__ rho,
-                float* __restrict__ z_out, float* __restrict__ y_out, float* __restrict__ rp,
-                float* __restrict__ rd, int N, int n, int d, int iters, int coarse, float lo,
-                float hi, float alpha) {
+                float* __restrict__ z_out, float* __restrict__ y_out, float* __restrict__ g_out,
+                float* __restrict__ rp, float* __restrict__ rd, int N, int n, int d, int iters,
+                int coarse, float lo, float hi, float alpha) {
+  static_assert(kMode == kAdmmMpcRes || (kForm == kFormS && kCPrec == kHighest),
+                "the loop forms and c's precision classes are K1's");
   extern __shared__ __align__(16) float smem_base[];
   __shared__ int scratch[kThreads / 32];
   const Smem sm = carve(smem_base, d, n);
   const int rg = threadIdx.x / 32, cg = threadIdx.x % 32;
   const int row0 = blockIdx.x * kTileS;
 
-  stage_inputs(sm, rMt, Wc, x0, row0, N, n, d);  // n = 0 on the two-step route
+  stage_inputs(sm, rMt, fold, x0, row0, N, n, d);  // n = 0 on the two-step route
   __syncthreads();
 
   float c[4][4], s[4][4], p[4][4], t[4][4], acc[4][4];
-  if constexpr (kFused) {
-    tile_product(sm.x0T, sm.w, n, rg, cg, c);
+  if constexpr (kMode == kAdmmMpcRes) {
+    tile_product<kCPrec, true>(sm.x0T, sm.w, nullptr, n, rg, cg, c);  // c = x0 @ Wc
   } else {
+    if constexpr (kMode == kAdmmMpc) {
+      tile_product(sm.x0T, sm.w, nullptr, n, rg, cg, t);  // g = x0 @ W
+      store_tile(g_out, t, row0, N, d, rg, cg);
+    } else {
+      load_tile(g_in, row0, N, d, rg, cg, t);
+    }
     // c = (g @ (rho Minv)') * (1 / rho), through opT in fp32.
-    load_tile(g_in, row0, N, d, rg, cg, t);
     store_operand(sm.opT, t, false, rg, cg, d);
     __syncthreads();
-    tile_product(sm.opT, sm.mat, d, rg, cg, acc);
+    tile_product(sm.opT, sm.mat, nullptr, d, rg, cg, acc);
     const float inv_rho = 1.0f / *rho;
 #pragma unroll
     for (int r = 0; r < 4; ++r)
@@ -69,38 +98,78 @@ __global__ void __launch_bounds__(kThreads)
       for (int q = 0; q < 4; ++q) c[r][q] = acc[r][q] * inv_rho;
     __syncthreads();  // every read of opT is done before it is overwritten
   }
+  // The zy form's carries live in the s-form's registers: z in s, y in p.
+  float(&z)[4][4] = s;
+  float(&y)[4][4] = p;
   load_tile(U0, row0, N, d, rg, cg, s);
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       s[r][q] = clip(s[r][q], lo, hi);
-      p[r][q] = clip(s[r][q], lo, hi);
-      t[r][q] = 2.0f * p[r][q] - s[r][q];
+      if constexpr (kForm == kFormZY) {
+        y[r][q] = 0.0f;
+        t[r][q] = z[r][q];
+      } else {
+        p[r][q] = clip(s[r][q], lo, hi);
+        t[r][q] = 2.0f * p[r][q] - s[r][q];
+      }
     }
   store_operand(sm.opT, t, coarse > 0, rg, cg, d);
   __syncthreads();
 
   for (int k = 0; k < iters; ++k) {
-    tile_product(sm.opT, k < coarse ? sm.matb : sm.mat, d, rg, cg, acc);
+    if constexpr (kForm == kFormSP) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) s[r][q] = s[r][q] - alpha * c[r][q] - alpha * p[r][q];
+    }
+    iteration_product<kHighest>(sm, k < coarse, d, rg, cg, acc);
     __syncthreads();  // every read of opT is done before it is overwritten
 #pragma unroll
     for (int r = 0; r < 4; ++r)
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        s[r][q] = s[r][q] + alpha * (acc[r][q] - c[r][q] - p[r][q]);
-        p[r][q] = clip(s[r][q], lo, hi);
-        t[r][q] = 2.0f * p[r][q] - s[r][q];
+        if constexpr (kForm == kFormZY) {
+          const float x_r = alpha * (acc[r][q] - c[r][q]) + (1.0f - alpha) * z[r][q];
+          const float z_new = clip(x_r + y[r][q], lo, hi);
+          y[r][q] = y[r][q] + x_r - z_new;
+          z[r][q] = z_new;
+          t[r][q] = z[r][q] - y[r][q];
+        } else {
+          if constexpr (kForm == kFormSP) {
+            s[r][q] = s[r][q] + alpha * acc[r][q];
+          } else {
+            s[r][q] = s[r][q] + alpha * (acc[r][q] - c[r][q] - p[r][q]);
+          }
+          p[r][q] = clip(s[r][q], lo, hi);
+          t[r][q] = 2.0f * p[r][q] - s[r][q];
+        }
       }
     store_operand(sm.opT, t, k + 1 < coarse, rg, cg, d);
     __syncthreads();
   }
+  if constexpr (kForm == kFormZY) {
+    // s = z + y, then the s-form's state: p = clip(s) and, for the residual
+    // product, 2p - s in opT.
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        s[r][q] = z[r][q] + y[r][q];
+        p[r][q] = clip(s[r][q], lo, hi);
+        t[r][q] = 2.0f * p[r][q] - s[r][q];
+      }
+    store_operand(sm.opT, t, false, rg, cg, d);
+    __syncthreads();
+  }
   store_tile(z_out, p, row0, N, d, rg, cg);  // z = p = clip(s)
 
-  if constexpr (kFused) {
+  if constexpr (kMode == kAdmmMpcRes) {
     // opT now holds 2z - s in fp32: one more x-update for the residuals, over
     // the real entries only.
-    tile_product(sm.opT, sm.mat, d, rg, cg, acc);
+    tile_product(sm.opT, sm.mat, nullptr, d, rg, cg, acc);
     float rp_max = 0.0f, rd_max = 0.0f;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
@@ -109,11 +178,11 @@ __global__ void __launch_bounds__(kThreads)
       for (int q = 0; q < 4; ++q) {
         const int col = 4 * cg + q;
         if (row < N && col < d) {
-          const float z = p[r][q];
+          const float zq = p[r][q];
           const float x = acc[r][q] - c[r][q];
-          const float z_next = clip(s[r][q] + alpha * (x - z), lo, hi);
-          rp_max = max_keep_nan(rp_max, fabsf(x - z));
-          rd_max = max_keep_nan(rd_max, fabsf(z_next - z));
+          const float z_next = clip(s[r][q] + alpha * (x - zq), lo, hi);
+          rp_max = max_keep_nan(rp_max, fabsf(x - zq));
+          rd_max = max_keep_nan(rd_max, fabsf(z_next - zq));
         }
       }
     }
@@ -128,34 +197,75 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kFused>
-int launch_admm(const float* rMt, const float* Wc, const float* x0, const float* g,
-                const float* U0, const float* rho, float* z, float* y, float* rp, float* rd,
-                int N, int n, int d, int iters, int coarse, float lo, float hi, float alpha,
-                void* stream) {
-  if (N < 1 || n < 0 || n > kMaxN || (kFused && n < 1) || d < 1 || d > kMaxD || iters < 0 ||
+template <int kMode, int kForm = kFormS, int kCPrec = kHighest>
+int launch_admm(const float* rMt, const float* fold, const float* x0, const float* g,
+                const float* U0, const float* rho, float* z, float* y, float* g_out, float* rp,
+                float* rd, int N, int n, int d, int iters, int coarse, float lo, float hi,
+                float alpha, void* stream) {
+  const bool needs_x0 = kMode != kAdmmBoxqp;
+  if (N < 1 || n < 0 || n > kMaxN || (needs_x0 && n < 1) || d < 1 || d > kMaxD || iters < 0 ||
       coarse < 0 || coarse > iters)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_floats(d, n) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      admm_kernel<kFused>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  cudaError_t err = cudaFuncSetAttribute(admm_kernel<kMode, kForm, kCPrec>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (N + kTileS - 1) / kTileS;
-  admm_kernel<kFused><<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      rMt, Wc, x0, g, U0, rho, z, y, rp, rd, N, n, d, iters, coarse, lo, hi, alpha);
+  admm_kernel<kMode, kForm, kCPrec>
+      <<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          rMt, fold, x0, g, U0, rho, z, y, g_out, rp, rd, N, n, d, iters, coarse, lo, hi,
+          alpha);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K1 at one loop form, the precision class of c chosen at run time.
+template <int kForm>
+int launch_admm_res(int c_prec, const float* rMt, const float* Wc, const float* x0,
+                    const float* U0, const float* rho, float* z, float* rp, float* rd, int N,
+                    int n, int d, int iters, int coarse, float lo, float hi, float alpha,
+                    void* stream) {
+  switch (c_prec) {
+    case kHighest:
+      return launch_admm<kAdmmMpcRes, kForm, kHighest>(rMt, Wc, x0, nullptr, U0, rho, z,
+                                                       nullptr, nullptr, rp, rd, N, n, d, iters,
+                                                       coarse, lo, hi, alpha, stream);
+    case kBf16x3:
+      return launch_admm<kAdmmMpcRes, kForm, kBf16x3>(rMt, Wc, x0, nullptr, U0, rho, z,
+                                                      nullptr, nullptr, rp, rd, N, n, d, iters,
+                                                      coarse, lo, hi, alpha, stream);
+    case kBf16x4:
+      return launch_admm<kAdmmMpcRes, kForm, kBf16x4>(rMt, Wc, x0, nullptr, U0, rho, z,
+                                                      nullptr, nullptr, rp, rd, N, n, d, iters,
+                                                      coarse, lo, hi, alpha, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace boxqp
 
-// K1: launches the fused kernel on `stream`. U0 may be null (cold start at
-// clip(0)). *rp and *rd must be zeroed. Returns the CUDA error code of the launch.
+// K1: launches the fused kernel on `stream` with loop form `form` (0 "s",
+// 1 "zy", 2 "sp") and c formed in class `c_prec` (0 "highest", 3 "bf16x3",
+// 4 "bf16x4"). U0 may be null (cold start at clip(0)). *rp and *rd must be
+// zeroed. Returns the CUDA error code of the launch.
 extern "C" int npt_admm_mpc_res(const float* rMt, const float* Wc, const float* x0,
                                 const float* U0, const float* rho, float* z, float* rp,
                                 float* rd, int N, int n, int d, int iters, int coarse, float lo,
-                                float hi, float alpha, void* stream) {
-  return boxqp::launch_admm<true>(rMt, Wc, x0, nullptr, U0, rho, z, nullptr, rp, rd, N, n, d,
-                                  iters, coarse, lo, hi, alpha, stream);
+                                float hi, float alpha, int form, int c_prec, void* stream) {
+  switch (form) {
+    case boxqp::kFormS:
+      return boxqp::launch_admm_res<boxqp::kFormS>(c_prec, rMt, Wc, x0, U0, rho, z, rp, rd, N, n,
+                                                   d, iters, coarse, lo, hi, alpha, stream);
+    case boxqp::kFormZY:
+      return boxqp::launch_admm_res<boxqp::kFormZY>(c_prec, rMt, Wc, x0, U0, rho, z, rp, rd, N,
+                                                    n, d, iters, coarse, lo, hi, alpha, stream);
+    case boxqp::kFormSP:
+      return boxqp::launch_admm_res<boxqp::kFormSP>(c_prec, rMt, Wc, x0, U0, rho, z, rp, rd, N,
+                                                    n, d, iters, coarse, lo, hi, alpha, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // K3a: launches the two-step kernel on `stream`: (z, y) (N, d) each from g
@@ -163,6 +273,18 @@ extern "C" int npt_admm_mpc_res(const float* rMt, const float* Wc, const float* 
 extern "C" int npt_admm_boxqp(const float* rMt, const float* g, const float* U0,
                               const float* rho, float* z, float* y, int N, int d, int iters,
                               int coarse, float lo, float hi, float alpha, void* stream) {
-  return boxqp::launch_admm<false>(rMt, nullptr, nullptr, g, U0, rho, z, y, nullptr, nullptr, N,
-                                   0, d, iters, coarse, lo, hi, alpha, stream);
+  return boxqp::launch_admm<boxqp::kAdmmBoxqp>(rMt, nullptr, nullptr, g, U0, rho, z, y, nullptr,
+                                               nullptr, nullptr, N, 0, d, iters, coarse, lo, hi,
+                                               alpha, stream);
+}
+
+// K1': launches the kernel that forms g = x0 @ W on `stream` and writes
+// (z, y, g), (N, d) each, from a cold start at clip(0). Returns the CUDA
+// error code.
+extern "C" int npt_admm_mpc(const float* rMt, const float* W, const float* x0, const float* rho,
+                            float* z, float* y, float* g, int N, int n, int d, int iters,
+                            int coarse, float lo, float hi, float alpha, void* stream) {
+  return boxqp::launch_admm<boxqp::kAdmmMpc>(rMt, W, x0, nullptr, nullptr, rho, z, y, g, nullptr,
+                                             nullptr, N, n, d, iters, coarse, lo, hi, alpha,
+                                             stream);
 }

@@ -19,6 +19,14 @@
 // (512 contiguous bytes across the warp), then issues 16 FMAs. Sums run over
 // k in order and in fp32.
 //
+// Precision classes (numpower_tpu/kernels/precision.py). kHighest is the
+// fp32 product above. The split classes form x = hi + lo with hi = bf16_rn(x)
+// and lo = x - hi (exact in fp32) for both operands and sum hi*hi + hi*lo +
+// lo*hi (kBf16x3), plus lo*lo (kBf16x4), each term an fp32 FMA: the function
+// the TPU's multi-pass bf16 schemes compute. hi(mat) is matb, staged already;
+// lo(mat) is one subtraction per load, so no shared memory is added. The
+// left operand is split as it is loaded.
+//
 // Envelope. A warp spans 32 x 4 = 128 columns, so d <= kMaxD = 128. Shared
 // memory holds mat twice (fp32, and rounded to bf16 for the coarse phase),
 // opT, the (n, d) fold of the prediction chain and the tile's x0: at
@@ -134,12 +142,25 @@ __device__ __forceinline__ void store_tile(float* __restrict__ dst, const float 
   }
 }
 
-// acc[r][c] = sum_{k < depth} op[4rg + r][k] * mat[k][4cg + c], in fp32,
-// with op held transposed and swizzled in opT.
+enum Precision : int { kHighest = 0, kBf16x3 = 3, kBf16x4 = 4 };
+
+__device__ __forceinline__ float4 bf16_round4(float4 v) {
+  return make_float4(bf16_round(v.x), bf16_round(v.y), bf16_round(v.z), bf16_round(v.w));
+}
+
+// acc[r][c] = sum_{k < depth} op[4rg + r][k] * mat[k][4cg + c] in the
+// precision class kPrec, with op held transposed and swizzled in opT.
+// mat_hi is hi(mat) in the same layout (matb); with kRoundHi it is unused
+// and hi(mat) is rounded as it is loaded (the (n, d) fold, which has no
+// bf16 copy).
+template <int kPrec = kHighest, bool kRoundHi = false>
 __device__ __forceinline__ void tile_product(const float* __restrict__ opT,
                                              const float* __restrict__ mat,
+                                             const float* __restrict__ mat_hi,
                                              int depth, int rg, int cg,
                                              float acc[4][4]) {
+  static_assert(kPrec == kHighest || kPrec == kBf16x3 || kPrec == kBf16x4,
+                "unknown precision class");
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
@@ -152,10 +173,47 @@ __device__ __forceinline__ void tile_product(const float* __restrict__ opT,
     const float4 b = b4[k * (kStride / 4)];
     const float av[4] = {a.x, a.y, a.z, a.w};
     const float bv[4] = {b.x, b.y, b.z, b.w};
+    if constexpr (kPrec == kHighest) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+      for (int r = 0; r < 4; ++r)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+    } else {
+      const float4 bh4 = kRoundHi ? bf16_round4(b)
+                                  : reinterpret_cast<const float4*>(mat_hi)[k * (kStride / 4) + cg];
+      const float bh[4] = {bh4.x, bh4.y, bh4.z, bh4.w};
+      float ah[4], al[4], bl[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ah[i] = bf16_round(av[i]);
+        al[i] = av[i] - ah[i];
+        bl[i] = bv[i] - bh[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float v = fmaf(ah[r], bh[c], acc[r][c]);
+          v = fmaf(ah[r], bl[c], v);
+          v = fmaf(al[r], bh[c], v);
+          if constexpr (kPrec == kBf16x4) v = fmaf(al[r], bl[c], v);
+          acc[r][c] = v;
+        }
+    }
+  }
+}
+
+// The product of one iteration: in the coarse phase single-pass bf16 (opT
+// holds the operand rounded, matb the matrix), in the tail class kTailPrec.
+template <int kTailPrec>
+__device__ __forceinline__ void iteration_product(const Smem& sm, bool coarse, int d, int rg,
+                                                  int cg, float acc[4][4]) {
+  if constexpr (kTailPrec == kHighest) {
+    tile_product(sm.opT, coarse ? sm.matb : sm.mat, nullptr, d, rg, cg, acc);
+  } else if (coarse) {
+    tile_product(sm.opT, sm.matb, nullptr, d, rg, cg, acc);
+  } else {
+    tile_product<kTailPrec>(sm.opT, sm.mat, sm.matb, d, rg, cg, acc);
   }
 }
 

@@ -3,11 +3,12 @@ plain PyTorch version (sources in numpower_tpu_torch/csrc, built at first
 use by kernels/_build.py)."""
 
 from numpower_tpu_torch.kernels.boxqp_fista import (  # noqa: F401
-    fista_boxqp, fista_boxqp_reference, fista_mpc_res, fista_mpc_res_reference,
-    solve_mpc_boxqp_pallas,
+    fista_boxqp, fista_boxqp_reference, fista_mpc, fista_mpc_reference, fista_mpc_res,
+    fista_mpc_res_reference, solve_mpc_boxqp_pallas,
 )
 from numpower_tpu_torch.kernels.boxqp_admm import (  # noqa: F401
-    admm_boxqp, admm_boxqp_reference, admm_mpc_res, admm_mpc_res_reference, minv_factor,
+    admm_boxqp, admm_boxqp_reference, admm_mpc, admm_mpc_reference, admm_mpc_res,
+    admm_mpc_res_reference, minv_factor,
 )
 from numpower_tpu_torch.kernels.cholesky import (  # noqa: F401
     cholesky_batched, cholesky_batched_reference, psd_solve_batched,

@@ -42,10 +42,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # Ht, W, x0, U0, lipschitz, U, resid, N, n, d, iters, coarse, lo, hi, stream
-    "npt_fista_mpc_res": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
-    # rMt, Wc, x0, U0, rho, z, rp, rd, N, n, d, iters, coarse, lo, hi, alpha, stream
-    "npt_admm_mpc_res": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P),
+    # Ht, W, x0, U0, lipschitz, U, resid, N, n, d, iters, coarse, lo, hi, tail_prec,
+    # g_prec, stream
+    "npt_fista_mpc_res": (_P,) * 7 + (_I,) * 5 + (_F, _F, _I, _I, _P),
+    # rMt, Wc, x0, U0, rho, z, rp, rd, N, n, d, iters, coarse, lo, hi, alpha, form,
+    # c_prec, stream
+    "npt_admm_mpc_res": (_P,) * 8 + (_I,) * 5 + (_F, _F, _F, _I, _I, _P),
+    # Ht, W, x0, lipschitz, U, g, N, n, d, iters, coarse, lo, hi, stream
+    "npt_fista_mpc": (_P,) * 6 + (_I,) * 5 + (_F, _F, _P),
+    # rMt, W, x0, rho, z, y, g, N, n, d, iters, coarse, lo, hi, alpha, stream
+    "npt_admm_mpc": (_P,) * 7 + (_I,) * 5 + (_F, _F, _F, _P),
     # a, L, N, n, stream
     "npt_cholesky_batched": (_P, _P, _I, _I, _P),
     # a, b, x, N, n, r, stream

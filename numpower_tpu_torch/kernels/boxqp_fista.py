@@ -1,14 +1,18 @@
 """FISTA box-QP kernels for condensed MPC (port of
-numpower_tpu/kernels/boxqp_fista.py ``fista_mpc_pallas_res``, K2, and
-``fista_boxqp_pallas``, K3b, with the drop-in ``solve_mpc_boxqp_pallas``).
+numpower_tpu/kernels/boxqp_fista.py ``fista_mpc_pallas_res``, K2,
+``fista_boxqp_pallas``, K3b, and ``fista_mpc_pallas``, K2', with the drop-in
+``solve_mpc_boxqp_pallas``).
 
-Both kernels are one CUDA C++ template in ``csrc/boxqp_fista.cu`` (its note
-says what bounds it on the H100 and how the design answers that): K2 forms
-g = x0 @ W and the residual in the kernel, K3b takes g as given. This module
-holds their wrappers, :func:`fista_mpc_res` and :func:`fista_boxqp`, and
-their plain PyTorch versions, :func:`fista_mpc_res_reference` and
-:func:`fista_boxqp_reference`, which compute the same functions with the same
-bf16 rounding of the coarse-phase operands. A wrapper takes the plain version
+The three kernels are one CUDA C++ template in ``csrc/boxqp_fista.cu`` (its
+note says what bounds it on the H100 and how the design answers that): K2
+forms g = x0 @ W and the residual in the kernel, K3b takes g as given, K2'
+forms g and returns it beside U. This module holds their wrappers,
+:func:`fista_mpc_res`, :func:`fista_boxqp` and :func:`fista_mpc`, and their
+plain PyTorch versions, :func:`fista_mpc_res_reference`,
+:func:`fista_boxqp_reference` and :func:`fista_mpc_reference`, which compute
+the same functions with the same bf16 rounding of the coarse-phase operands
+and the same precision classes (K2's ``tail_precision`` and
+``g_precision``, kernels/precision.py). A wrapper takes the plain version
 for a tensor on the CPU only; for a CUDA tensor it launches the kernel or
 raises.
 """
@@ -22,7 +26,11 @@ import torch
 
 from numpower_tpu_torch.kernels import _build
 from numpower_tpu_torch.kernels._build import MAX_D, MAX_N
-from numpower_tpu_torch.kernels.precision import bf16_round
+from numpower_tpu_torch.kernels.precision import bf16_round, make_tail_dot, precision_code
+
+# K2's precision classes, the JAX package's value sets (boxqp_fista.py:312-313)
+TAIL_PRECISIONS = ("bf16x3", "highest")
+G_PRECISIONS = ("highest", "bf16x4", "bf16x3")
 
 
 def _fista_betas(iters: int) -> list[float]:
@@ -39,20 +47,47 @@ def _fista_betas(iters: int) -> list[float]:
 
 def fista_mpc_res_reference(H, SxT, SuTQT, x0s, lo: float, hi: float, lipschitz,
                             iters: int = 40, coarse_iters: int = 0,
-                            U0: Optional[torch.Tensor] = None):
+                            U0: Optional[torch.Tensor] = None,
+                            tail_precision: str = "highest", g_precision: str = "highest"):
     """Plain PyTorch version of the kernel: returns (U (N, d), resid).
 
-    g = x0s @ (SxT @ SuTQT); static-beta FISTA from U0 (not clipped; zeros
-    when None), whose first ``coarse_iters`` products round both operands to
-    bf16; the momentum restarts at the switch to the fp32 tail. resid is the
-    projected-gradient residual max over the N x d entries. Works in the
-    dtype of its inputs (float64 for a reference run at coarse_iters=0)."""
-    g = x0s @ (SxT @ SuTQT)
-    U = fista_boxqp_reference(H, g, lo, hi, lipschitz, iters, coarse_iters, U0)
+    g = x0s @ (SxT @ SuTQT) in the class ``g_precision``; static-beta FISTA
+    from U0 (not clipped; zeros when None), whose first ``coarse_iters``
+    products round both operands to bf16 and whose tail products run in the
+    class ``tail_precision``; the momentum restarts at the switch to the
+    tail. resid is the projected-gradient residual max over the N x d
+    entries, its product in the tail's class. Works in the dtype of its
+    inputs (float64 for a reference run at coarse_iters=0 in "highest")."""
+    precision_code(tail_precision, TAIL_PRECISIONS, "tail_precision")
+    precision_code(g_precision, G_PRECISIONS, "g_precision")
+    g = make_tail_dot(SxT @ SuTQT, g_precision)(x0s)
+    tail_dot = make_tail_dot(H.T, tail_precision)
+    U = _fista_loop(H, g, lo, hi, lipschitz, iters, coarse_iters, U0, tail_dot)
     step = 1.0 / lipschitz
-    grad = U @ H.T + g
+    grad = tail_dot(U) + g
     resid = torch.abs(U - torch.clamp(U - step * grad, lo, hi)).max()
     return U, resid
+
+
+def _fista_loop(H, g, lo: float, hi: float, lipschitz, iters: int, coarse_iters: int, U0,
+                tail_dot):
+    """The loop of the three kernels: static-beta FISTA from U0 (not
+    clipped; zeros when None), the first ``coarse_iters`` products with both
+    operands rounded to bf16, the tail's by ``tail_dot``; the momentum
+    restarts at the switch to the tail. Returns U."""
+    coarse_iters = min(coarse_iters, iters)
+    Ht_coarse = bf16_round(H.T)
+    step = 1.0 / lipschitz
+    betas = _fista_betas(coarse_iters) + _fista_betas(iters - coarse_iters)
+    U = torch.zeros_like(g) if U0 is None else U0
+    Y = U
+    for k in range(iters):
+        gemm = bf16_round(Y) @ Ht_coarse if k < coarse_iters else tail_dot(Y)
+        U_new = torch.clamp(Y - step * (gemm + g), lo, hi)
+        beta = 0.0 if k == coarse_iters - 1 else betas[k]
+        Y = U_new + beta * (U_new - U)
+        U = U_new
+    return U
 
 
 def fista_boxqp_reference(H, g, lo: float, hi: float, lipschitz, iters: int = 40,
@@ -61,22 +96,21 @@ def fista_boxqp_reference(H, g, lo: float, hi: float, lipschitz, iters: int = 40
 
     Static-beta FISTA from U0 (not clipped; zeros when None), whose first
     ``coarse_iters`` products round both operands to bf16; the momentum
-    restarts at the switch to the fp32 tail. The loop of both kernels. Works
-    in the dtype of its inputs."""
-    coarse_iters = min(coarse_iters, iters)
-    Ht = H.T
-    Ht_coarse = bf16_round(Ht)
-    step = 1.0 / lipschitz
-    betas = _fista_betas(coarse_iters) + _fista_betas(iters - coarse_iters)
-    U = torch.zeros_like(g) if U0 is None else U0
-    Y = U
-    for k in range(iters):
-        gemm = bf16_round(Y) @ Ht_coarse if k < coarse_iters else Y @ Ht
-        U_new = torch.clamp(Y - step * (gemm + g), lo, hi)
-        beta = 0.0 if k == coarse_iters - 1 else betas[k]
-        Y = U_new + beta * (U_new - U)
-        U = U_new
-    return U
+    restarts at the switch to the fp32 tail. The loop of the three kernels.
+    Works in the dtype of its inputs."""
+    return _fista_loop(H, g, lo, hi, lipschitz, iters, coarse_iters, U0,
+                       make_tail_dot(H.T, "highest"))
+
+
+def fista_mpc_reference(H, SxT, SuTQT, x0s, lo: float, hi: float, lipschitz,
+                        iters: int = 40, coarse_iters: int = 0):
+    """Plain PyTorch version of K2': returns (U, g), both (N, d).
+
+    g = x0s @ (SxT @ SuTQT), then :func:`fista_boxqp_reference` on that g
+    from a cold start at 0: K2' is K3b on the g it forms. Works in the dtype
+    of its inputs."""
+    g = x0s @ (SxT @ SuTQT)
+    return fista_boxqp_reference(H, g, lo, hi, lipschitz, iters, coarse_iters), g
 
 
 def _check_operand(name: str, t: torch.Tensor, device: torch.device, shape) -> None:
@@ -108,29 +142,44 @@ def _launch_shape(H, x0s, iters: int, coarse_iters: int, n_max: int = MAX_N):
     return x0s.device, N, n, d, min(coarse_iters, iters)
 
 
+def _mpc_operands(H, SxT, SuTQT, x0s, lipschitz, iters: int, coarse_iters: int, U0=None):
+    """The checked operands of a launch that forms g in the kernel: the
+    launch shape, H', the fold W = SxT @ SuTQT (one host-side matmul) and
+    the Lipschitz constant, on x0s's device."""
+    shape = device, N, n, d, _ = _launch_shape(H, x0s, iters, coarse_iters)
+    Ht = H.T.contiguous()
+    W = (SxT @ SuTQT).contiguous()
+    lip = torch.as_tensor(lipschitz, dtype=torch.float32, device=device).reshape(())
+    for name, t, want in (("H'", Ht, (d, d)), ("W", W, (n, d)), ("x0s", x0s, (N, n)),
+                          ("lipschitz", lip, ())):
+        _check_operand(name, t, device, want)
+    if U0 is not None:
+        _check_operand("U0", U0, device, (N, d))
+    return shape, Ht, W, lip
+
+
 def fista_mpc_res(H, SxT, SuTQT, x0s, lo: float, hi: float, lipschitz,
                   iters: int = 40, coarse_iters: int = 0,
-                  U0: Optional[torch.Tensor] = None):
+                  U0: Optional[torch.Tensor] = None,
+                  tail_precision: str = "highest", g_precision: str = "highest"):
     """Fused FISTA MPC solve: returns (U (N, d), resid scalar).
 
     H (d, d); SxT (n, T n) = Sx'; SuTQT (T n, d) = (Su' Qbar)'; x0s (N, n);
     lipschitz a scalar tensor (or float); U0 (N, d) warm start. The fold
     W = SxT @ SuTQT is one host-side matmul; g = x0s @ W, the whole iteration
-    loop and the residual run in the kernel. On a CPU tensor this is
-    :func:`fista_mpc_res_reference`. Each kernel launch adds one to
-    ``fista_mpc_res.launches``."""
+    loop and the residual run in the kernel. tail_precision ("bf16x3" |
+    "highest") is the class of the tail and residual products, g_precision
+    ("highest" | "bf16x4" | "bf16x3") that of g (kernels/precision.py); the
+    port's defaults are "highest", where the JAX package's tail default is
+    "bf16x3". On a CPU tensor this is :func:`fista_mpc_res_reference`. Each
+    kernel launch adds one to ``fista_mpc_res.launches``."""
+    tail_code = precision_code(tail_precision, TAIL_PRECISIONS, "tail_precision")
+    g_code = precision_code(g_precision, G_PRECISIONS, "g_precision")
     if x0s.device.type == "cpu":
         return fista_mpc_res_reference(H, SxT, SuTQT, x0s, lo, hi, lipschitz,
-                                       iters, coarse_iters, U0)
-    device, N, n, d, coarse_iters = _launch_shape(H, x0s, iters, coarse_iters)
-    Ht = H.T.contiguous()
-    W = (SxT @ SuTQT).contiguous()
-    lip = torch.as_tensor(lipschitz, dtype=torch.float32, device=device).reshape(())
-    for name, t, shape in (("H'", Ht, (d, d)), ("W", W, (n, d)), ("x0s", x0s, (N, n)),
-                           ("lipschitz", lip, ())):
-        _check_operand(name, t, device, shape)
-    if U0 is not None:
-        _check_operand("U0", U0, device, (N, d))
+                                       iters, coarse_iters, U0, tail_precision, g_precision)
+    (device, N, n, d, coarse_iters), Ht, W, lip = _mpc_operands(
+        H, SxT, SuTQT, x0s, lipschitz, iters, coarse_iters, U0)
     U = torch.empty((N, d), dtype=torch.float32, device=device)
     resid = torch.zeros((), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
@@ -139,13 +188,42 @@ def fista_mpc_res(H, SxT, SuTQT, x0s, lo: float, hi: float, lipschitz,
             Ht.data_ptr(), W.data_ptr(), x0s.data_ptr(),
             None if U0 is None else U0.data_ptr(), lip.data_ptr(),
             U.data_ptr(), resid.data_ptr(), N, n, d, iters, coarse_iters,
-            ctypes.c_float(float(lo)), ctypes.c_float(float(hi)), stream)
+            ctypes.c_float(float(lo)), ctypes.c_float(float(hi)), tail_code, g_code, stream)
     _build.check(code, "fista_mpc_res kernel launch")
     fista_mpc_res.launches += 1
     return U, resid
 
 
 fista_mpc_res.launches = 0
+
+
+def fista_mpc(H, SxT, SuTQT, x0s, lo: float, hi: float, lipschitz, iters: int = 40,
+              coarse_iters: int = 0):
+    """FISTA MPC solve with g formed in the kernel (K2'): returns (U, g),
+    both (N, d), from a cold start at 0 and with no residual.
+
+    Operands as :func:`fista_mpc_res`; the products are fp32. The caller
+    forms the residual from the g it gets back, as the JAX package's
+    callers do. On a CPU tensor this is :func:`fista_mpc_reference`. Each
+    kernel launch adds one to ``fista_mpc.launches``."""
+    if x0s.device.type == "cpu":
+        return fista_mpc_reference(H, SxT, SuTQT, x0s, lo, hi, lipschitz, iters, coarse_iters)
+    (device, N, n, d, coarse_iters), Ht, W, lip = _mpc_operands(
+        H, SxT, SuTQT, x0s, lipschitz, iters, coarse_iters)
+    U = torch.empty((N, d), dtype=torch.float32, device=device)
+    g = torch.empty((N, d), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = _build.library().npt_fista_mpc(
+            Ht.data_ptr(), W.data_ptr(), x0s.data_ptr(), lip.data_ptr(), U.data_ptr(),
+            g.data_ptr(), N, n, d, iters, coarse_iters, ctypes.c_float(float(lo)),
+            ctypes.c_float(float(hi)), stream)
+    _build.check(code, "fista_mpc kernel launch")
+    fista_mpc.launches += 1
+    return U, g
+
+
+fista_mpc.launches = 0
 
 
 def fista_boxqp(H, g, lo: float, hi: float, lipschitz, iters: int = 40,

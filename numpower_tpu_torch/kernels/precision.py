@@ -7,13 +7,30 @@ the matrix unit and their tail with hand-built hi/lo splits:
     x @ y ~= hi@hi + hi@lo + lo@hi        ["bf16x3": drops only lo@lo]
 
 These are the same schemes as plain PyTorch. The plain versions of the fused
-kernels use :func:`bf16_round` for their coarse phase; the split schemes are
-kept for the tensor-core kernels that will use them.
+kernels use :func:`bf16_round` for their coarse phase and
+:func:`make_tail_dot` for the products of their precision classes (K1's
+``c_precision``, K2's ``tail_precision`` and ``g_precision``); the CUDA
+kernels compute the same split sums with fp32 FMAs (csrc/boxqp_tile.cuh),
+the class passed as :data:`PRECISION_CODES`. The port's default class is
+"highest": on the card's FMA pipes a split costs 3-4 products where fp32
+costs one, and fp32 is at least as accurate.
 """
 
 from __future__ import annotations
 
 import torch
+
+# A precision class's name and its code in the kernels' C interface
+# (csrc/boxqp_tile.cuh, enum Precision).
+PRECISION_CODES = {"highest": 0, "bf16x3": 3, "bf16x4": 4}
+
+
+def precision_code(name: str, allowed: tuple, what: str) -> int:
+    """The C code of precision class ``name``, or a ValueError when the
+    option ``what`` does not take it (``allowed``: the JAX package's set)."""
+    if name not in allowed:
+        raise ValueError(f"unknown {what} {name!r} ({'|'.join(allowed)})")
+    return PRECISION_CODES[name]
 
 
 def bf16_round(x: torch.Tensor) -> torch.Tensor:

@@ -32,7 +32,7 @@ from numpower_tpu_torch.kernels import boxqp_admm
 from numpower_tpu_torch.models.condensed import (
     CondensedQP, admm_coarse_iters, gradient_offset,
 )
-from numpower_tpu_torch.utils.device import state_tensor
+from numpower_tpu_torch.utils.device import follow, state_tensor
 
 OVER_RELAX = 1.6
 
@@ -59,7 +59,11 @@ def solve_boxqp_admm(
     g may be batched (N, d): the factorization is shared, the solves are
     batched products. over_relax in [1, 1.8] is the standard alpha
     relaxation (1.6 per the OSQP recommendation). Cold start z0 = clip(0).
+    A numpy g goes to the card as float32 (utils.state_tensor); H and U0
+    follow g's device and dtype.
     """
+    g = state_tensor(g)
+    H, U0 = follow(g, H, U0)
     Minv = boxqp_admm.minv_factor(H, rho)
 
     def x_update(z, y):
@@ -128,7 +132,10 @@ def solve_mpc_boxqp_admm(
     On the kernel route coarse_iters defaults to condensed.admm_coarse_iters
     (fp32 tail max(8, ceil(3 sqrt(kappa)))): leading x-update products round
     their operands to bf16 and the tail washes the perturbation out. The
-    plain route runs all-fp32, as the JAX scan path does."""
+    plain route runs all-fp32, as the JAX scan path does. x0s, x_ref and U0
+    may be numpy arrays: they are taken in the QP's dtype on its device."""
+    x0s = state_tensor(x0s, qp.H)
+    x_ref, U0 = follow(qp.H, x_ref, U0)
     if rho is None:
         rho = torch.sqrt(qp.lipschitz * torch.clamp(qp.mu, min=1e-12))
     method = route_mpc_boxqp_admm(x0s.device.type, qp.H.shape[0], x_ref is not None,

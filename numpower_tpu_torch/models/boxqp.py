@@ -24,6 +24,7 @@ from numpower_tpu_torch.kernels.precision import bf16_round
 from numpower_tpu_torch.models.condensed import (
     CondensedQP, default_coarse_iters, gradient_offset,
 )
+from numpower_tpu_torch.utils.device import follow, state_tensor
 
 class BoxQPResult(NamedTuple):
     U: torch.Tensor         # (N, Tm) or (Tm,) solutions
@@ -41,7 +42,11 @@ def _step_size(H: torch.Tensor, L):
 
 
 def solve_boxqp_pg(H, g, lo, hi, L=None, iters: int = 60, U0=None) -> BoxQPResult:
-    """Plain projected gradient with fixed step 1/L. g may be batched (N, d)."""
+    """Plain projected gradient with fixed step 1/L. g may be batched (N, d);
+    a numpy g goes to the card as float32 (utils.state_tensor), and H and U0
+    follow g's device and dtype."""
+    g = state_tensor(g)
+    H, U0 = follow(g, H, U0)
     step = _step_size(H, L)
     U = torch.zeros_like(g) if U0 is None else U0
     for _ in range(iters):
@@ -58,8 +63,11 @@ def solve_boxqp_fista(H, g, lo, hi, L=None, iters: int = 40, U0=None,
     coarse_iters > 0 runs that many leading iterations with both operands of
     the product rounded to bf16 (accumulating in fp32); the remaining
     iterations run in fp32 and contract to the same fixed point, after a
-    momentum restart at the switch.
+    momentum restart at the switch. A numpy g goes to the card as float32
+    (utils.state_tensor); H and U0 follow g's device and dtype.
     """
+    g = state_tensor(g)
+    H, U0 = follow(g, H, U0)
     step = _step_size(H, L)
     H_coarse = bf16_round(H)
     U = torch.zeros_like(g) if U0 is None else U0
@@ -135,7 +143,12 @@ def solve_mpc_boxqp(
     operands to bf16; the fp32 tail of ceil(6.5 sqrt(kappa)) iterations
     (condensed.default_coarse_iters) contracts to the fp32 fixed point. Pass
     coarse_iters=0 for all-fp32.
+
+    x0s, x_ref and U0 may be numpy arrays: they are taken in the QP's dtype
+    on its device.
     """
+    x0s = state_tensor(x0s, qp.H)
+    x_ref, U0 = follow(qp.H, x_ref, U0)
     if coarse_iters is None:
         coarse_iters = default_coarse_iters(qp, iters)
     method = route_mpc_boxqp(x0s.device.type, qp.H.shape[0], x_ref is not None,

@@ -23,7 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from numpower_tpu_torch.utils.device import default_device
+from numpower_tpu_torch.utils.device import default_device, follow, state_tensor
 
 
 @dataclass
@@ -50,7 +50,10 @@ class CondensedQP:
 
 def prediction_matrices(A: torch.Tensor, B: torch.Tensor, horizon: int):
     """Sx = [A; A^2; ...; A^T], Su lower-block-triangular with blocks
-    A^{i-j-1} B."""
+    A^{i-j-1} B. A numpy A goes to the card as float32 (utils.state_tensor);
+    B follows A's device and dtype."""
+    A = state_tensor(A)
+    (B,) = follow(A, B)
     n, m = A.shape[0], B.shape[1]
     T = horizon
     A_pows = [torch.eye(n, dtype=A.dtype, device=A.device)]  # A_pows[k] = A^k
@@ -152,7 +155,10 @@ def admm_coarse_iters(qp: CondensedQP, iters: int) -> int:
 def gradient_offset(qp: CondensedQP, x0: torch.Tensor,
                     x_ref: Optional[torch.Tensor] = None) -> torch.Tensor:
     """g(x0) = Su' Qbar (Sx x0 - Xref); x0 (n,) or batched (N, n). x_ref is
-    one state (n,), held over the horizon, or a (T, n) trajectory."""
+    one state (n,), held over the horizon, or a (T, n) trajectory. A numpy x0
+    or x_ref is taken in the QP's dtype on its device."""
+    x0 = state_tensor(x0, qp.H)
+    (x_ref,) = follow(qp.H, x_ref)
     xref_stack = None
     if x_ref is not None:
         xref_stack = x_ref.repeat(qp.T) if x_ref.ndim == 1 else x_ref.reshape(-1)

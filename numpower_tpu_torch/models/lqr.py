@@ -26,7 +26,7 @@ import torch
 
 from numpower_tpu_torch.kernels import cholesky, riccati
 from numpower_tpu_torch.utils.associative_scan import associative_scan
-from numpower_tpu_torch.utils.device import default_device
+from numpower_tpu_torch.utils.device import default_device, follow, state_tensor
 from numpower_tpu_torch.utils.smallmat import lu_solve_nopivot, psd_solve_unrolled, solve_small
 
 
@@ -231,7 +231,11 @@ def riccati_scan_per_scenario(As, Bs, Q, R, QF, horizon: int, method: str = "aut
     kernel for the whole backward pass; "psd" runs the batched products in
     plain PyTorch and each step's (N, m, m) SPD solve as one launch of the
     batched-solve kernel; "plain" is plain PyTorch throughout (unrolled
-    solves). On a CPU tensor each kernel wrapper runs its plain version."""
+    solves). On a CPU tensor each kernel wrapper runs its plain version.
+    Numpy As go to the card as float32 (utils.state_tensor); Bs, Q, R and QF
+    follow As's device and dtype."""
+    As = state_tensor(As)
+    Bs, Q, R, QF = follow(As, Bs, Q, R, QF)
     N, n, _ = As.shape
     m = Bs.shape[-1]
     method = route_riccati_per_scenario(As.device.type, n, m, method)

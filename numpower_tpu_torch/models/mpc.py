@@ -1,11 +1,12 @@
-"""Receding-horizon MPC controller (port of numpower_tpu/models/mpc.py,
-single device).
+"""Receding-horizon MPC controller (port of numpower_tpu/models/mpc.py).
 
 One controller object holds a condensed QP and solves a batch of scenarios
 every tick, warm-started from the previous plan shifted one stage. On a CUDA
 device each tick is one launch of the fused solver kernel plus a few small
 tensor ops; there is no host math and no device-to-host wait on the tick path
-(the 10 ms real-time budget, BASELINE.md).
+(the 10 ms real-time budget, BASELINE.md). With a mesh (parallel/mesh.py)
+each rank serves its block of the scenarios through the data-parallel
+solvers of parallel/sharding.py.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from numpower_tpu_torch.models.boxqp import solve_mpc_boxqp
 from numpower_tpu_torch.models.condensed import (
     CondensedQP, admm_coarse_iters, condense, default_coarse_iters,
 )
+from numpower_tpu_torch.parallel.sharding import solve_mpc_boxqp_admm_dp, solve_mpc_boxqp_dp
 from numpower_tpu_torch.utils.device import default_device
 
 
@@ -27,7 +29,7 @@ from numpower_tpu_torch.utils.device import default_device
 class MPCState:
     """Warm-start state carried between ticks."""
 
-    U_prev: torch.Tensor  # (N, T*m) previous optimal plans
+    U_prev: torch.Tensor  # (N, T*m) previous optimal plans (this rank's block with a mesh)
     tick: int
 
 
@@ -45,20 +47,26 @@ class MPCController:
         """solver: "fista" (default) or "admm"; the ADMM solver warm-starts
         its z iterate from the shifted previous plan. x_ref is FISTA-only.
         device: where the QP, the state and every tick's solve live
-        (default: the card, utils.default_device; pass "cpu" for the CPU).
+        (default: the mesh's device with a mesh, else the card,
+        utils.default_device; pass "cpu" for the CPU).
 
-        mesh (multi-GPU serving) is not ported yet and raises
-        NotImplementedError."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-GPU serving (mesh=) is not ported yet "
-                "(ROADMAP.md, queue 2: mesh serving)")
+        mesh: a parallel.mesh.Mesh for multi-device serving. Each rank holds
+        its block of the scenarios over the data axis (init, step's x0s) and
+        each tick runs parallel/sharding.solve_mpc_boxqp_dp (or _admm_dp)
+        on it with the shifted warm start: on a mesh of cards one K2 (K1)
+        launch per tick and rank. x_ref is not supported with a mesh (the
+        sharded path is the regulation solve)."""
+        if mesh is not None and x_ref is not None:
+            raise ValueError("mesh serving does not support x_ref")
         if solver not in ("fista", "admm"):
             raise ValueError(f"unknown solver {solver!r} (fista|admm)")
         if solver == "admm" and x_ref is not None:
             raise ValueError("solver='admm' does not support x_ref")
         self.solver = solver
-        self.device = default_device() if device is None else torch.device(device)
+        self.mesh = mesh
+        if device is None:
+            device = default_device() if mesh is None else mesh.device
+        self.device = torch.device(device)
         self.qp: CondensedQP = condense(A, B, Q, R, QF, horizon, device=self.device)
         self.u_lo, self.u_hi = float(u_lo), float(u_hi)
         self.iters = int(iters)
@@ -72,9 +80,15 @@ class MPCController:
 
     def init(self, n_scenarios: int, *, device=None) -> MPCState:
         """Zero plans for n_scenarios, on ``device`` (default: the
-        controller's)."""
+        controller's). With a mesh, n_scenarios is the global count and the
+        state holds this rank's block of it."""
         d = self.qp.T * self.qp.m
         device = self.device if device is None else torch.device(device)
+        if self.mesh is not None:
+            parts = self.mesh.size(self.mesh.axis_names[0])
+            if n_scenarios % parts:
+                raise ValueError(f"{n_scenarios} scenarios do not split into {parts} blocks")
+            n_scenarios //= parts
         return MPCState(U_prev=torch.zeros((n_scenarios, d), dtype=torch.float32,
                                            device=device), tick=0)
 
@@ -82,7 +96,12 @@ class MPCController:
         m = qp.m
         # warm start: shift previous plan one stage, hold last input
         U_shift = torch.cat([state.U_prev[:, m:], state.U_prev[:, -m:]], dim=1)
-        if self.solver == "admm":
+        if self.mesh is not None:
+            dp = solve_mpc_boxqp_admm_dp if self.solver == "admm" else solve_mpc_boxqp_dp
+            res = dp(qp, x0s, self.u_lo, self.u_hi, self.mesh, iters=self.iters, U0=U_shift,
+                     coarse_iters=self.coarse_iters)
+            resid = res.primal_residual if self.solver == "admm" else res.residual
+        elif self.solver == "admm":
             res = solve_mpc_boxqp_admm(qp, x0s, self.u_lo, self.u_hi, iters=self.iters,
                                        U0=U_shift, coarse_iters=self.coarse_iters)
             resid = res.primal_residual
@@ -98,7 +117,9 @@ class MPCController:
         return u0, MPCState(U_prev=state.U_prev, tick=state.tick + 1), resid
 
     def step(self, state: MPCState, x0s: torch.Tensor):
-        """One tick: returns ((N, m) first-stage controls, new state).
+        """One tick: returns ((N, m) first-stage controls, new state). A
+        numpy x0s is taken in the QP's dtype on the controller's device; with
+        a mesh, x0s and the controls are this rank's block.
 
         The passed state's U_prev buffer is reused in place for the new plan
         (the counterpart of the JAX controller's donation): thread the

@@ -18,13 +18,16 @@ from typing import Callable, Tuple
 
 import torch
 
-from numpower_tpu_torch.utils.device import state_tensor
+from numpower_tpu_torch.utils.device import follow, state_tensor
 
 
 def rollout_lti(A, B, x0, us):
     """x_{t+1} = A x_t + B u_t for a (..., T, m) control sequence.
 
-    Returns xs (..., T+1, n) including x0."""
+    Returns xs (..., T+1, n) including x0. A numpy x0 goes to the card as
+    float32 (utils.state_tensor); A, B and us follow x0's device and dtype."""
+    x0 = state_tensor(x0)
+    A, B, us = follow(x0, A, B, us)
     xs = [x0]
     for t in range(us.shape[-2]):
         xs.append(xs[-1] @ A.T + us[..., t, :] @ B.T)
@@ -33,7 +36,9 @@ def rollout_lti(A, B, x0, us):
 
 def rollout_ltv(As, Bs, x0, us):
     """Time-varying x_{t+1} = A_t x_t + B_t u_t; As (..., T, n, n), Bs
-    (..., T, n, m)."""
+    (..., T, n, m). Operands as in :func:`rollout_lti`, led by x0."""
+    x0 = state_tensor(x0)
+    As, Bs, us = follow(x0, As, Bs, us)
     xs = [x0]
     for t in range(us.shape[-2]):
         xs.append((As[..., t, :, :] @ xs[-1][..., None])[..., 0]
@@ -46,7 +51,7 @@ def rollout_nonlinear(f: Callable, x0, us):
     (..., T+1, n); f(x, u) -> x_next indexes the last axis. A numpy x0 goes
     to the card as float32 (utils.state_tensor); us follows x0."""
     x0 = state_tensor(x0)
-    us = torch.as_tensor(us, dtype=x0.dtype, device=x0.device)
+    (us,) = follow(x0, us)
     xs = [x0]
     for t in range(us.shape[-2]):
         xs.append(f(xs[-1], us[..., t, :]))
@@ -54,12 +59,16 @@ def rollout_nonlinear(f: Callable, x0, us):
 
 
 def batched_rollout_lti(A, B, x0s, uss):
-    """x0s (N, n); uss (N, T, m) -> (N, T+1, n)."""
+    """x0s (N, n); uss (N, T, m) -> (N, T+1, n). Operands as in
+    :func:`rollout_lti`, led by x0s."""
     return rollout_lti(A, B, x0s, uss)
 
 
 def linearize(f: Callable, x, u) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact Jacobians (A, B) = (df/dx, df/du) at (x, u) via jacfwd."""
+    """Exact Jacobians (A, B) = (df/dx, df/du) at (x, u) via jacfwd. A numpy
+    x goes to the card as float32 (utils.state_tensor); u follows x."""
+    x = state_tensor(x)
+    (u,) = follow(x, u)
     A = torch.func.jacfwd(f, argnums=0)(x, u)
     B = torch.func.jacfwd(f, argnums=1)(x, u)
     return A, B
@@ -68,7 +77,10 @@ def linearize(f: Callable, x, u) -> Tuple[torch.Tensor, torch.Tensor]:
 def linearize_finite_diff(f: Callable, x, u, eps: float = 1e-4):
     """Central finite-difference Jacobians at (x, u), or at each point of a
     batch (..., n), (..., m): the 2(n + m) perturbed states and controls are
-    stacked on a new axis and f runs once on all of them."""
+    stacked on a new axis and f runs once on all of them. Operands as in
+    :func:`linearize`."""
+    x = state_tensor(x)
+    (u,) = follow(x, u)
     n, m = x.shape[-1], u.shape[-1]
     ex = torch.eye(n, dtype=x.dtype, device=x.device) * eps
     eu = torch.eye(m, dtype=u.dtype, device=u.device) * eps
@@ -84,7 +96,10 @@ def linearize_finite_diff(f: Callable, x, u, eps: float = 1e-4):
 def linearize_trajectory(f: Callable, xs, us, use_fd: bool = False, eps: float = 1e-4):
     """Linearize along a trajectory: xs (..., T+1, n) or (..., T, n), us
     (..., T, m) -> As (..., T, n, n), Bs (..., T, n, m). All T steps, of every
-    trajectory of the batch, at once."""
+    trajectory of the batch, at once. A numpy xs goes to the card as float32
+    (utils.state_tensor); us follows xs."""
+    xs = state_tensor(xs)
+    (us,) = follow(xs, us)
     xs_t = xs[..., : us.shape[-2], :]
     if use_fd:
         return linearize_finite_diff(f, xs_t, us, eps)
@@ -97,14 +112,19 @@ def linearize_trajectory(f: Callable, xs, us, use_fd: bool = False, eps: float =
 
 def quadratic_cost(Q, R, QF, x_ref=None):
     """Builds a trajectory cost function:
-    cost = sum_t [(x_t-xref)'Q(x_t-xref) + u_t'R u_t] + terminal QF term."""
+    cost = sum_t [(x_t-xref)'Q(x_t-xref) + u_t'R u_t] + terminal QF term.
+    A numpy xs goes to the card as float32 (utils.state_tensor); us, the
+    weights and x_ref follow xs's device and dtype."""
 
     def total(xs, us):
-        xr = x_ref if x_ref is not None else torch.zeros_like(xs[..., 0, :])
+        xs = state_tensor(xs)
+        us, Qt, Rt, QFt, xr = follow(xs, us, Q, R, QF, x_ref)
+        if xr is None:
+            xr = torch.zeros_like(xs[..., 0, :])
         dx = xs[..., :-1, :] - xr[..., None, :]
         dxf = xs[..., -1, :] - xr
-        stage = (torch.einsum("...ti,ij,...tj->...", dx, Q, dx)
-                 + torch.einsum("...ti,ij,...tj->...", us, R, us))
-        return stage + torch.einsum("...i,ij,...j->...", dxf, QF, dxf)
+        stage = (torch.einsum("...ti,ij,...tj->...", dx, Qt, dx)
+                 + torch.einsum("...ti,ij,...tj->...", us, Rt, us))
+        return stage + torch.einsum("...i,ij,...j->...", dxf, QFt, dxf)
 
     return total

@@ -21,7 +21,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from numpower_tpu_torch.models.estimation import _filter_step
-from numpower_tpu_torch.utils.device import seeded_generator
+from numpower_tpu_torch.utils.device import follow, seeded_generator, state_tensor
 
 
 class SimResult(NamedTuple):
@@ -52,7 +52,11 @@ def simulate_closed_loop(
     feedback); with an estimator it sees x_hat (output feedback). generator
     drives the noise (default: a generator seeded 0 on x0s's device); per
     tick it draws the process noise, then the measurement noise. f and h take
-    the whole batch (the house style of models/plants.py)."""
+    the whole batch (the house style of models/plants.py). A numpy x0s goes
+    to the card as float32 (utils.state_tensor); xhat0 follows x0s's device
+    and dtype."""
+    x0s = state_tensor(x0s)
+    (xhat0,) = follow(x0s, xhat0)
     if estimator is not None and h is None:
         raise ValueError("estimator requires a measurement model h "
                          "(the estimator consumes y = h(x) + noise)")
@@ -99,9 +103,11 @@ def kalman_estimator(A, C, Q, R, P0, B=None):
     Returns (make_state, update): make_state(xhat0 (N, n)) builds the state,
     the filter matrices (on xhat0's device and in its dtype) with the (means,
     covariances) of every loop; update consumes one measurement batch per
-    tick (estimation._filter_step, batched over the loops)."""
+    tick (estimation._filter_step, batched over the loops). A numpy xhat0
+    goes to the card as float32 (utils.state_tensor)."""
 
     def make_state(xhat0: torch.Tensor):
+        xhat0 = state_tensor(xhat0)
         kw = dict(dtype=xhat0.dtype, device=xhat0.device)
         A_, C_, Q_, R_, P0_ = (torch.as_tensor(M, **kw) for M in (A, C, Q, R, P0))
         B_ = None if B is None else torch.as_tensor(B, **kw)

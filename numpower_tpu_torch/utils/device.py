@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -13,13 +15,24 @@ def default_device() -> torch.device:
     return torch.device("cuda")
 
 
-def state_tensor(x) -> torch.Tensor:
+def state_tensor(x, like: Optional[torch.Tensor] = None) -> torch.Tensor:
     """An entry point's leading operand as a tensor: a tensor keeps its device
-    and dtype; anything else (a numpy array, a list) becomes a float32 tensor,
-    the JAX package's default precision, on :func:`default_device`."""
+    and dtype; anything else (a numpy array, a list) becomes a tensor of
+    ``like``'s dtype on its device (the QP's or the controller's, where the
+    call has one), else a float32 tensor, the JAX package's default
+    precision, on :func:`default_device`."""
     if isinstance(x, torch.Tensor):
         return x
-    return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=default_device())
+    if like is None:
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=default_device())
+    return torch.as_tensor(np.asarray(x), dtype=like.dtype, device=like.device)
+
+
+def follow(like: torch.Tensor, *xs) -> tuple:
+    """``xs`` as tensors of ``like``'s dtype on its device (a tensor already
+    there is returned as it is); None stays None."""
+    return tuple(None if x is None else torch.as_tensor(x, dtype=like.dtype, device=like.device)
+                 for x in xs)
 
 
 def seeded_generator(generator, device) -> torch.Generator:

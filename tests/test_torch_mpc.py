@@ -136,8 +136,10 @@ def test_controller_reuses_the_state_buffer():
 
 def test_controller_rejects_unported_and_invalid_options():
     A, B = tm.quadrotor12(0.02)
-    with pytest.raises(NotImplementedError):
-        tm.MPCController(A, B, *_costs(), horizon=10, u_lo=-1, u_hi=1, mesh=object())
+    # serving on a mesh (parallel/mesh.py) is the regulation solve: no x_ref
+    with pytest.raises(ValueError):
+        tm.MPCController(A, B, *_costs(), horizon=10, u_lo=-1, u_hi=1, mesh=object(),
+                         x_ref=np.zeros(12, np.float32))
     with pytest.raises(ValueError):
         tm.MPCController(A, B, *_costs(), horizon=10, u_lo=-1, u_hi=1, solver="admm",
                          x_ref=np.zeros(12, np.float32))
@@ -219,7 +221,9 @@ def test_import_leaves_jax_out():
 
 
 def test_port_sources_never_import_jax():
-    for path in [*(REPO / "numpower_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]:
+    paths = [*(REPO / "numpower_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]
+    assert REPO / "numpower_tpu_torch" / "parallel" / "sharding.py" in paths
+    for path in paths:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
