@@ -9,7 +9,10 @@ every phase passes. The condensed box-QP MPC serving path of BASELINE config
 scenarios, controls boxed to +-1, so d = 120 controls per scenario):
 
 0. device: a CUDA device is required; the kernels are built from
-   numpower_tpu_torch/csrc with nvcc (timed);
+   numpower_tpu_torch/csrc with nvcc (timed); every instance of the box-QP
+   templates (K1, K2, K3a, K3b, K1', K2') must hold HGMMA instructions
+   (cuobjdump -sass of the library, counted per instance) and compile with
+   no spills (ptxas);
 1. each kernel against its plain PyTorch version on the card at N = 4096:
    cold and warm starts, all-fp32 (max |dU| <= 1e-5) and the default
    bf16 + fp32 schedules (<= 1e-4), residuals within 1e-5;
@@ -19,7 +22,10 @@ scenarios, controls boxed to +-1, so d = 120 controls per scenario):
 3. serving: MPCController (FISTA, then ADMM) for 20 closed-loop ticks of
    4096 scenarios, one kernel launch per tick, finite residuals, u0 in the box;
 4. times from CUDA events (median): each kernel and its plain version per
-   4096-scenario solve, and one serving tick per solver.
+   4096-scenario solve, and one serving tick per solver; K1's and K2's
+   device time (direct library calls) at 0 iterations and at 40 all-coarse
+   and all-tail, so the fixed cost and the time per iteration of each pass
+   count.
 
 The Riccati/LQR family (BASELINE configs #1, #2, #5 and the per-scenario
 Riccati of bench.py:341-372):
@@ -133,7 +139,8 @@ the flagship QP, N = 4096, 40 iterations:
    solver, one launch a tick, equal to the single-device controller within
    1e-5; the group is destroyed at the phase's end;
 19. times from CUDA events: K1' and K2' (device, wrapper, plain), the loop
-   forms and the precision classes (device), the DP solve against the direct
+   forms and the precision classes (device, beside their times when the
+   products ran on the FMA pipes), the DP solve against the direct
    K2' in turns (the overhead of bench.py's shardmap row), and the mesh tick
    against the single-device tick.
 
@@ -155,6 +162,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -204,6 +212,20 @@ def cuda_ms(fn, reps: int = 7, inner: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def enqueue_ms(fn, calls: int = 50) -> float:
+    """Mean host time to enqueue one call without waiting for the card: close
+    to the call's CUDA-event time when the host bounds it, below it when the
+    card does."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e3
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.double() - b.double()).abs().max().item()
 
@@ -213,22 +235,64 @@ def close(a: torch.Tensor, b: torch.Tensor, rtol: float, atol: float) -> bool:
     return torch.allclose(a.double(), b.double(), rtol=rtol, atol=atol)
 
 
-# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s
-# and fp32 FLOP/s outside the tensor cores (no kernel here uses them)
-HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, fp32 FLOP/s outside
+# the tensor cores, and the tensor cores' dense bf16 FLOP/s (the box-QP
+# kernels' products)
+HBM_BYTES_PER_S, FP32_FLOP_PER_S, BF16_TENSOR_FLOP_PER_S = 3.35e12, 67e12, 989e12
+# the box-QP templates' device times when their products ran on the fp32 FMA
+# pipes (PERF.md section 6; H100 80GB HBM3, 700 W; warm start, default
+# schedule), logged beside this run's
+FMA_DEVICE_MS = {"K1 form s": "0.2041", "K1 form zy": "0.1944", "K1 form sp": "0.1975",
+                 "K1 c_precision bf16x4": "0.2021", "K1 c_precision bf16x3": "0.2016",
+                 "K2 tail highest": "0.2120-0.2130", "K2 tail bf16x3": "0.3079-0.3105",
+                 "fista_g": "0.1936", "admm_g": "0.2574"}
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int, err: float, ms: float,
-                 plain_ms: float, n_bytes: float, n_ops: float, library_ms=None) -> dict:
+                 plain_ms: float, n_bytes: float, n_ops: float, library_ms=None,
+                 tensor_ops: float = 0.0) -> dict:
     """One kernel's entry of the JSON line. bound_ms is the least time the
-    card could take for the call that `ms` timed: the larger of its bytes
-    (each input read once, each output written once) over the HBM rate and
-    its operations over the fp32 rate, both counted from this run's shapes."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_FLOP_PER_S * 1e3
+    card could take for the call that `ms` timed: the largest of its bytes
+    (each input read once, each output written once) over the HBM rate, its
+    fp32 operations (`n_ops`) over the fp32 rate and its bf16 tensor-core
+    operations (`tensor_ops`) over the tensor cores' rate, all counted from
+    this run's shapes."""
+    times = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+             "operations": n_ops / FP32_FLOP_PER_S * 1e3,
+             "tensor operations": tensor_ops / BF16_TENSOR_FLOP_PER_S * 1e3}
+    bound_by = max(times, key=times.get)
     return {"name": name, "route": "cuda", "source": "numpower_tpu_torch/csrc/" + source,
             "replaces": "numpower_tpu/kernels/" + replaces, "launches": launches,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": times[bound_by],
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def boxqp_passes(coarse: int, tail: int, tail_class: str = "highest") -> int:
+    """bf16 tensor-core passes of `coarse` coarse products and `tail` products
+    in the class `tail_class` (numpower_tpu_torch/kernels/precision.py)."""
+    from numpower_tpu_torch.kernels.precision import TENSOR_PASSES
+
+    return coarse * TENSOR_PASSES["coarse"] + tail * TENSOR_PASSES[tail_class]
+
+
+def sass_instruction_counts(library, mnemonic: str) -> dict:
+    """{demangled kernel: count of `mnemonic` in its SASS} for the library,
+    from cuobjdump -sass (found beside nvcc)."""
+    from numpower_tpu_torch.kernels import _build
+
+    cuobjdump = str(Path(_build._nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and mnemonic in line:
+            counts[fn] += 1
+    names = subprocess.run(["c++filt"], input="\n".join(counts), capture_output=True, text=True,
+                           check=True).stdout.splitlines()
+    return {name.split("(")[0]: n for name, n in zip(names, counts.values())}
 
 
 def ptxas_lines(build_log: str) -> list:
@@ -239,7 +303,7 @@ def ptxas_lines(build_log: str) -> list:
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
-        elif "registers" in line or "spill" in line:
+        elif ("Used" in line and "registers" in line) or "spill" in line:
             pairs.append((entry, line.replace("ptxas info    :", "").strip()))
     try:
         names = subprocess.run(["c++filt"], input="\n".join(e for e, _ in pairs),
@@ -443,6 +507,46 @@ def riccati_family(dev, smi: str) -> list:
     ]
 
 
+def boxqp_iteration_times(qp, x0s, rho, Minv, iters: int, smi: str) -> None:
+    """Phase 4's breakdown: K2's and K1's device time (direct library calls,
+    cold start) at 0 iterations (staging, fold, residual) and at `iters`
+    all-coarse (1 bf16 pass a product) and all-tail (K2: 3 and 6 passes; K1:
+    6), whence the time per iteration of each pass count."""
+    from numpower_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    Nq, n = x0s.shape
+    d = qp.H.shape[0]
+    lip = qp.lipschitz.reshape(()).contiguous()
+    rho_t = rho.reshape(()).contiguous()
+    Ht, W = qp.H.T.contiguous(), (qp.Sx.T @ qp.SuTQ.T).contiguous()
+    rMt = (rho_t * Minv.T).contiguous()
+    Wc = (qp.Sx.T @ (qp.SuTQ.T @ Minv.T)).contiguous()
+    out = torch.empty((Nq, d), device=x0s.device)
+    scal = [torch.zeros((), device=x0s.device) for _ in range(2)]
+    lo_hi = (ctypes.c_float(LO), ctypes.c_float(HI))
+
+    def k2(it, coarse, tail):
+        return cuda_ms(lambda: lib.npt_fista_mpc_res(
+            Ht.data_ptr(), W.data_ptr(), x0s.data_ptr(), None, lip.data_ptr(), out.data_ptr(),
+            scal[0].data_ptr(), Nq, n, d, it, coarse, *lo_hi, tail, 0, stream))
+
+    def k1(it, coarse):
+        return cuda_ms(lambda: lib.npt_admm_mpc_res(
+            rMt.data_ptr(), Wc.data_ptr(), x0s.data_ptr(), None, rho_t.data_ptr(),
+            out.data_ptr(), scal[0].data_ptr(), scal[1].data_ptr(), Nq, n, d, it, coarse,
+            *lo_hi, ctypes.c_float(1.6), 0, 0, stream))
+
+    rows = {"K2": (k2(0, 0, 0), {1: k2(iters, iters, 0), 3: k2(iters, 0, 3), 6: k2(iters, 0, 0)}),
+            "K1": (k1(0, 0), {1: k1(iters, iters), 6: k1(iters, 0)})}
+    for name, (fixed, by_passes) in rows.items():
+        per_it = ", ".join(f"{p} pass{'es' if p > 1 else ''} {1e3 * (t - fixed) / iters:.2f} us "
+                           f"({t:.4f} ms in all)" for p, t in by_passes.items())
+        log(f"time {name} device ({Nq} scenarios, d={d}, cold): 0 iterations {fixed:.4f} ms; "
+            f"per iteration at {per_it} [{smi}]")
+
+
 def boxqp_two_step(dev, smi: str, qp, x0s, rho) -> list:
     """Phase 8 and its times: K3b/K3a and the x_ref / single-x0 path.
     Returns the kernels' entries of the JSON line."""
@@ -560,10 +664,10 @@ def boxqp_two_step(dev, smi: str, qp, x0s, rho) -> list:
     return [
         kernel_entry("fista_boxqp", "boxqp_fista.cu", "boxqp_fista.py:119", launches["fista"],
                      err["fista"], ms["fista"], plain_ms["fista"], 4 * (d * d + 2 * N * d + 1),
-                     2 * N * d * d * iters),
+                     0, tensor_ops=2 * N * d * d * boxqp_passes(fista_ci, iters - fista_ci)),
         kernel_entry("admm_boxqp", "boxqp_admm.cu", "boxqp_admm.py:186", launches["admm"],
                      err["admm"], ms["admm"], plain_ms["admm"], 4 * (2 * d * d + 3 * N * d + 1),
-                     2 * N * d * d * (iters + 1)),
+                     0, tensor_ops=2 * N * d * d * boxqp_passes(admm_ci, iters - admm_ci + 1)),
     ]
 
 
@@ -1585,11 +1689,12 @@ def boxqp_variants_and_mesh(dev, smi: str, qp, x0s, rho) -> list:
                     *fold, x0s, LO, HI, rho, iters, admm_ci, Minv=Minv))}
             for key, name in (("fista_g", "K2' fista_mpc"), ("admm_g", "K1' admm_mpc")):
                 log(f"time {name} ({iters} iters, {N} scenarios): device {device_ms[key]:.4f} "
-                    f"ms, wrapper {ms[key]:.4f} ms, plain {plain_ms[key]:.4f} ms [{smi}]")
+                    f"ms (FMA version {FMA_DEVICE_MS[key]}), wrapper {ms[key]:.4f} ms, plain "
+                    f"{plain_ms[key]:.4f} ms [{smi}]")
             for key, t_ms in device_ms.items():
                 if key.startswith("K"):
                     log(f"time {key} ({iters} iters, {N} scenarios, warm): device {t_ms:.4f} ms "
-                        f"[{smi}]")
+                        f"(FMA version {FMA_DEVICE_MS[key.split(' g ')[0]]}) [{smi}]")
 
             # the DP solve against the direct K2' (bench.py's shardmap overhead), in turns
             def direct():
@@ -1620,17 +1725,21 @@ def boxqp_variants_and_mesh(dev, smi: str, qp, x0s, rho) -> list:
         finally:
             dist.destroy_process_group()
 
-    # K1': g, c's product and the iterations' (N, d) x (d, d) products; inputs
-    # (rho Minv)', W, x0s; outputs z, y, g. K2': g and the iterations; outputs U, g.
-    fold_ops = 2 * N * n * d
+    # bf16 tensor-core passes. K1': g at "highest", c's product (tail class)
+    # and the iterations' (N, d) x (d, d) products; inputs (rho Minv)', W,
+    # x0s; outputs z, y, g. K2': g and the iterations; outputs U, g.
+    fold_passes = 2 * N * n * d * boxqp_passes(0, 1)
     return [
         kernel_entry("fista_mpc", "boxqp_fista.cu", "boxqp_fista.py:183", launches["K2'"],
                      err["fista_g"], ms["fista_g"], plain_ms["fista_g"],
-                     4 * (d * d + n * d + N * n + 2 * N * d), fold_ops + 2 * N * d * d * iters),
+                     4 * (d * d + n * d + N * n + 2 * N * d), 0,
+                     tensor_ops=fold_passes + 2 * N * d * d * boxqp_passes(
+                         fista_ci, iters - fista_ci)),
         kernel_entry("admm_mpc", "boxqp_admm.cu", "boxqp_admm.py:447", launches["K1'"],
                      err["admm_g"], ms["admm_g"], plain_ms["admm_g"],
-                     4 * (d * d + n * d + N * n + 3 * N * d),
-                     fold_ops + 2 * N * d * d * (iters + 1)),
+                     4 * (d * d + n * d + N * n + 3 * N * d), 0,
+                     tensor_ops=fold_passes + 2 * N * d * d * boxqp_passes(
+                         admm_ci, iters - admm_ci + 1)),
     ]
 
 
@@ -1662,6 +1771,18 @@ def main() -> int:
     if build_log.is_file():
         for entry, line in ptxas_lines(build_log.read_text()):
             log(f"ptxas {entry}: {line}")
+            if "boxqp::" in entry and "spill" in line:
+                require("0 bytes spill stores, 0 bytes spill loads" in line,
+                        f"{entry} compiles without spills")
+    # the box-QP templates' products on the tensor cores: every instance (K2 in
+    # 2 x 3 classes, K3b, K2'; K1 in 3 forms x 3 classes, K3a, K1') holds wgmma
+    hgmma = {k: v for k, v in sass_instruction_counts(_build.library_path(), "HGMMA").items()
+             if "boxqp::fista_kernel" in k or "boxqp::admm_kernel" in k}
+    for name, count in sorted(hgmma.items()):
+        log(f"HGMMA {count:4d} {name}")
+    require(sum("fista_kernel" in k for k in hgmma) == 8
+            and sum("admm_kernel" in k for k in hgmma) == 11
+            and all(hgmma.values()), "every box-QP kernel instance runs its products as wgmma")
 
     A, B = quadrotor12(0.02)
     n, m = 12, 4
@@ -1782,31 +1903,37 @@ def main() -> int:
         "admm": cuda_ms(lambda: boxqp_admm.admm_mpc_res_reference(
             *fold, x0s, LO, HI, rho, iters, admm_ci, Minv=Minv)),
     }
-    tick_ms = {}
+    tick_ms, tick_host_ms = {}, {}
     for solver, ctrl in ctrls.items():
         holder = [ctrl.init(N)]
 
         def tick(ctrl=ctrl, holder=holder):
             _, holder[0] = ctrl.step(holder[0], x0s)
 
-        tick_ms[solver] = cuda_ms(tick)
+        tick_ms[solver], tick_host_ms[solver] = cuda_ms(tick), enqueue_ms(tick)
     for solver in ("fista", "admm"):
         log(f"time {solver} ({iters} iters) per {N}-scenario solve: kernel {ms[solver]:.4f} ms, "
-            f"plain {plain_ms[solver]:.4f} ms; serving tick (30 iters) {tick_ms[solver]:.4f} ms "
-            f"[{smi}]")
+            f"plain {plain_ms[solver]:.4f} ms; serving tick (30 iters) {tick_ms[solver]:.4f} ms, "
+            f"its host enqueue {tick_host_ms[solver]:.4f} ms [{smi}]")
+    boxqp_iteration_times(qp, x0s, rho, Minv, iters, smi)
 
-    # the fold of g (or c) from x0, the iterations' (N, d) x (d, d) products and
-    # the residual's one more; inputs H (and Minv), Sx', (Su'Q)', x0s
-    fold_ops = 2 * n * (T * n) * d + 2 * N * n * d
+    # fp32 on the host: the fold W = Sx'(Su'Q)' (K1 also its product with
+    # Minv'). bf16 tensor-core passes in the kernel: the fold of g (or c) from
+    # x0 at its class's count ("highest", 6), one per coarse product, six per
+    # tail and residual product. Inputs H (and Minv), Sx', (Su'Q)', x0s.
+    host_ops = 2 * n * (T * n) * d
+    fold_passes = 2 * N * n * d * boxqp_passes(0, 1)
     fold_bytes = 4 * (d * d + n * T * n + T * n * d + N * n + 1)
     kernels = [
         kernel_entry("fista_mpc_res", "boxqp_fista.cu", "boxqp_fista.py:299", launches["fista"],
                      err["fista"], ms["fista"], plain_ms["fista"], fold_bytes + 4 * (N * d + 1),
-                     fold_ops + 2 * N * d * d * (iters + 1)),
+                     host_ops, tensor_ops=fold_passes + 2 * N * d * d * boxqp_passes(
+                         fista_ci, iters - fista_ci + 1)),
         kernel_entry("admm_mpc_res", "boxqp_admm.cu", "boxqp_admm.py:353", launches["admm"],
                      err["admm"], ms["admm"], plain_ms["admm"],
-                     fold_bytes + 4 * (d * d + N * d + 2),
-                     fold_ops + 2 * n * d * d + 2 * N * d * d * (iters + 1)),
+                     fold_bytes + 4 * (d * d + N * d + 2), host_ops + 2 * n * d * d,
+                     tensor_ops=fold_passes + 2 * N * d * d * boxqp_passes(
+                         admm_ci, iters - admm_ci + 1)),
     ]
     kernels += riccati_family(dev, smi)
     kernels += boxqp_two_step(dev, smi, qp, x0s, rho)

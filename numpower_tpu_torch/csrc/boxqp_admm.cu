@@ -37,19 +37,21 @@
 // Precision. The first `coarse` products round both operands to bf16
 // (round-to-nearest-even) and accumulate in fp32, as the TPU's single-pass
 // DEFAULT matmul does, so the calibrated schedule of
-// models/condensed.admm_coarse_iters keeps its meaning. The tail products and
-// the residual product are plain fp32 FMA: at least as accurate as the TPU
-// kernels' bf16x3 tail. K1's c is formed in the class kCPrec
-// (boxqp_tile.cuh: "highest" fp32, or the bf16x3 / bf16x4 hi/lo splits of
-// the TPU kernel's c_precision); K3a's and K1''s c and K1''s g are fp32, as
-// the TPU kernels form them HIGHEST.
+// models/condensed.admm_coarse_iters keeps its meaning: one bf16 pass. The
+// tail products, the residual product and K3a's and K1''s c product are
+// "highest", 6 bf16 passes (boxqp_tile.cuh): at least as accurate as the TPU
+// kernels' bf16x3 tail. K1's c is formed in the class kCPrec (fp32 FMAs, or
+// the hi/lo splits of the TPU kernel's c_precision); K1''s g is fp32, as the
+// TPU kernels form it HIGHEST.
 //
 // What bounds it on the H100: the same as boxqp_fista.cu. (rho Minv)' stays in
-// shared memory and s, p, c in registers for the whole solve, so device
-// memory is touched once per scenario; the SM's fp32 FMA rate and its
-// shared-memory bandwidth for the operands bound it. K3a's and K1''s c cost
-// one more (32, d) x (d, d) product per tile, as the TPU kernels' do; K1'
-// writes three (N, d) outputs where K1 writes one.
+// shared memory in its three bf16 splits and s, p, c in registers, in the
+// accumulator's layout, for the whole solve, so device memory is touched once
+// per scenario; the operation bound is the tensor cores' bf16 rate, but each
+// iteration is a latency chain (store, fence, barrier, passes, wait) at 32
+// scenarios a block. K3a's and K1''s c cost one more 6-pass product per
+// tile, as the TPU kernels' do; K1' writes three (N, d) outputs where K1
+// writes one.
 
 #include "boxqp_tile.cuh"
 
@@ -57,6 +59,8 @@ namespace boxqp {
 
 enum AdmmMode : int { kAdmmMpcRes = 0, kAdmmBoxqp = 1, kAdmmMpc = 2 };  // K1, K3a, K1'
 enum AdmmForm : int { kFormS = 0, kFormZY = 1, kFormSP = 2 };
+
+constexpr int kTail = passes(kHighest);
 
 template <int kMode, int kForm, int kCPrec>
 __global__ void __launch_bounds__(kThreads)
@@ -68,132 +72,117 @@ __global__ void __launch_bounds__(kThreads)
                 int coarse, float lo, float hi, float alpha) {
   static_assert(kMode == kAdmmMpcRes || (kForm == kFormS && kCPrec == kHighest),
                 "the loop forms and c's precision classes are K1's");
-  extern __shared__ __align__(16) float smem_base[];
+  extern __shared__ __align__(128) unsigned char smem_base[];
   __shared__ int scratch[kThreads / 32];
-  const Smem sm = carve(smem_base, d, n);
-  const int rg = threadIdx.x / 32, cg = threadIdx.x % 32;
+  const Smem sm = carve(smem_base, n);
+  const Frag f = frag();
   const int row0 = blockIdx.x * kTileS;
 
   stage_inputs(sm, rMt, fold, x0, row0, N, n, d);  // n = 0 on the two-step route
-  __syncthreads();
 
-  float c[4][4], s[4][4], p[4][4], t[4][4], acc[4][4];
+  float c[16], s[16], p[16], t[16], acc[16];
+  int buf = 0;
   if constexpr (kMode == kAdmmMpcRes) {
-    tile_product<kCPrec, true>(sm.x0T, sm.w, nullptr, n, rg, cg, c);  // c = x0 @ Wc
+    fold_product<kCPrec>(sm, n, f, c);  // c = x0 @ Wc
   } else {
     if constexpr (kMode == kAdmmMpc) {
-      tile_product(sm.x0T, sm.w, nullptr, n, rg, cg, t);  // g = x0 @ W
-      store_tile(g_out, t, row0, N, d, rg, cg);
+      fold_product<kHighest>(sm, n, f, t);  // g = x0 @ W
+      store_frag(g_out, t, row0, N, d, f);
     } else {
-      load_tile(g_in, row0, N, d, rg, cg, t);
+      load_frag(g_in, row0, N, d, f, t);
     }
-    // c = (g @ (rho Minv)') * (1 / rho), through opT in fp32.
-    store_operand(sm.opT, t, false, rg, cg, d);
-    __syncthreads();
-    tile_product(sm.opT, sm.mat, nullptr, d, rg, cg, acc);
+    // c = (g @ (rho Minv)') * (1 / rho), a "highest" product.
+    store_iterate<kTail>(sm, buf, t, f, d, false);
+    product<kTail>(sm, buf, d, f, acc);
     const float inv_rho = 1.0f / *rho;
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) c[r][q] = acc[r][q] * inv_rho;
-    __syncthreads();  // every read of opT is done before it is overwritten
+    for (int r = 0; r < 16; ++r) c[r] = acc[r] * inv_rho;
+    buf = 1;  // the other warpgroup may still read buffer 0
   }
   // The zy form's carries live in the s-form's registers: z in s, y in p.
-  float(&z)[4][4] = s;
-  float(&y)[4][4] = p;
-  load_tile(U0, row0, N, d, rg, cg, s);
+  float(&z)[16] = s;
+  float(&y)[16] = p;
+  load_frag(U0, row0, N, d, f, s);
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      s[r][q] = clip(s[r][q], lo, hi);
-      if constexpr (kForm == kFormZY) {
-        y[r][q] = 0.0f;
-        t[r][q] = z[r][q];
-      } else {
-        p[r][q] = clip(s[r][q], lo, hi);
-        t[r][q] = 2.0f * p[r][q] - s[r][q];
-      }
+  for (int r = 0; r < 16; ++r) {
+    s[r] = clip(s[r], lo, hi);
+    if constexpr (kForm == kFormZY) {
+      y[r] = 0.0f;
+      t[r] = z[r];
+    } else {
+      p[r] = clip(s[r], lo, hi);
+      t[r] = 2.0f * p[r] - s[r];
     }
-  store_operand(sm.opT, t, coarse > 0, rg, cg, d);
-  __syncthreads();
+  }
+  store_iterate<kTail>(sm, buf, t, f, d, coarse > 0);
 
   for (int k = 0; k < iters; ++k) {
     if constexpr (kForm == kFormSP) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) s[r][q] = s[r][q] - alpha * c[r][q] - alpha * p[r][q];
+      for (int r = 0; r < 16; ++r) s[r] = s[r] - alpha * c[r] - alpha * p[r];
     }
-    iteration_product<kHighest>(sm, k < coarse, d, rg, cg, acc);
-    __syncthreads();  // every read of opT is done before it is overwritten
+    if (k < coarse) {
+      product<kCoarse>(sm, buf, d, f, acc);
+    } else {
+      product<kTail>(sm, buf, d, f, acc);
+    }
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        if constexpr (kForm == kFormZY) {
-          const float x_r = alpha * (acc[r][q] - c[r][q]) + (1.0f - alpha) * z[r][q];
-          const float z_new = clip(x_r + y[r][q], lo, hi);
-          y[r][q] = y[r][q] + x_r - z_new;
-          z[r][q] = z_new;
-          t[r][q] = z[r][q] - y[r][q];
+    for (int r = 0; r < 16; ++r) {
+      if constexpr (kForm == kFormZY) {
+        const float x_r = alpha * (acc[r] - c[r]) + (1.0f - alpha) * z[r];
+        const float z_new = clip(x_r + y[r], lo, hi);
+        y[r] = y[r] + x_r - z_new;
+        z[r] = z_new;
+        t[r] = z[r] - y[r];
+      } else {
+        if constexpr (kForm == kFormSP) {
+          s[r] = s[r] + alpha * acc[r];
         } else {
-          if constexpr (kForm == kFormSP) {
-            s[r][q] = s[r][q] + alpha * acc[r][q];
-          } else {
-            s[r][q] = s[r][q] + alpha * (acc[r][q] - c[r][q] - p[r][q]);
-          }
-          p[r][q] = clip(s[r][q], lo, hi);
-          t[r][q] = 2.0f * p[r][q] - s[r][q];
+          s[r] = s[r] + alpha * (acc[r] - c[r] - p[r]);
         }
+        p[r] = clip(s[r], lo, hi);
+        t[r] = 2.0f * p[r] - s[r];
       }
-    store_operand(sm.opT, t, k + 1 < coarse, rg, cg, d);
-    __syncthreads();
+    }
+    buf ^= 1;  // the other warpgroup may still read `buf`
+    store_iterate<kTail>(sm, buf, t, f, d, k + 1 < coarse);
   }
   if constexpr (kForm == kFormZY) {
     // s = z + y, then the s-form's state: p = clip(s) and, for the residual
-    // product, 2p - s in opT.
+    // product, 2p - s as the operand; every product of the loop is done, so
+    // `buf` is free.
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        s[r][q] = z[r][q] + y[r][q];
-        p[r][q] = clip(s[r][q], lo, hi);
-        t[r][q] = 2.0f * p[r][q] - s[r][q];
-      }
-    store_operand(sm.opT, t, false, rg, cg, d);
-    __syncthreads();
+    for (int r = 0; r < 16; ++r) {
+      s[r] = z[r] + y[r];
+      p[r] = clip(s[r], lo, hi);
+      t[r] = 2.0f * p[r] - s[r];
+    }
+    if constexpr (kMode == kAdmmMpcRes) store_iterate<kTail>(sm, buf, t, f, d, false);
   }
-  store_tile(z_out, p, row0, N, d, rg, cg);  // z = p = clip(s)
+  store_frag(z_out, p, row0, N, d, f);  // z = p = clip(s)
 
   if constexpr (kMode == kAdmmMpcRes) {
-    // opT now holds 2z - s in fp32: one more x-update for the residuals, over
-    // the real entries only.
-    tile_product(sm.opT, sm.mat, nullptr, d, rg, cg, acc);
+    // `buf` now holds 2z - s in the tail's parts: one more x-update for the
+    // residuals, over the real entries only.
+    product<kTail>(sm, buf, d, f, acc);
     float rp_max = 0.0f, rd_max = 0.0f;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = row0 + 4 * rg + r;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int col = 4 * cg + q;
-        if (row < N && col < d) {
-          const float zq = p[r][q];
-          const float x = acc[r][q] - c[r][q];
-          const float z_next = clip(s[r][q] + alpha * (x - zq), lo, hi);
-          rp_max = max_keep_nan(rp_max, fabsf(x - zq));
-          rd_max = max_keep_nan(rd_max, fabsf(z_next - zq));
-        }
+    for (int r = 0; r < 16; ++r) {
+      const int row = row0 + frag_s(f, r), j = frag_j(f, r);
+      if (row < N && j < d) {
+        const float zq = p[r];
+        const float x = acc[r] - c[r];
+        const float z_next = clip(s[r] + alpha * (x - zq), lo, hi);
+        rp_max = max_keep_nan(rp_max, fabsf(x - zq));
+        rd_max = max_keep_nan(rd_max, fabsf(z_next - zq));
       }
     }
     block_max_into(rp_max, rp, scratch);
     block_max_into(*rho * rd_max, rd, scratch);
   } else {
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) t[r][q] = s[r][q] - p[r][q];  // y = s - z
-    store_tile(y_out, t, row0, N, d, rg, cg);
+    for (int r = 0; r < 16; ++r) t[r] = s[r] - p[r];  // y = s - z
+    store_frag(y_out, t, row0, N, d, f);
   }
 }
 
@@ -206,7 +195,7 @@ int launch_admm(const float* rMt, const float* fold, const float* x0, const floa
   if (N < 1 || n < 0 || n > kMaxN || (needs_x0 && n < 1) || d < 1 || d > kMaxD || iters < 0 ||
       coarse < 0 || coarse > iters)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_floats(d, n) * sizeof(float);
+  const size_t smem = smem_bytes(n);
   cudaError_t err = cudaFuncSetAttribute(admm_kernel<kMode, kForm, kCPrec>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));

@@ -22,22 +22,23 @@
 // Precision. The first `coarse` products round both operands to bf16
 // (round-to-nearest-even) and accumulate in fp32, as the TPU's single-pass
 // DEFAULT matmul does, so the calibrated schedules of
-// models/condensed.default_coarse_iters keep their meaning. K2's tail
-// products and residual product run in the class kTailPrec and its g in the
-// class kGPrec (boxqp_tile.cuh: "highest" fp32, or the bf16x3 / bf16x4
-// hi/lo splits of the TPU kernel's tail_precision and g_precision); K3b's
-// and K2''s products are fp32, at least as accurate as the TPU kernels'
-// bf16x3 tail and HIGHEST g. On this card's FMA pipes a split class costs 3
-// or 4 FMAs where fp32 costs one, so the port's default is "highest".
+// models/condensed.default_coarse_iters keep their meaning: one bf16 pass.
+// K2's tail products and residual product run in the class kTailPrec
+// ("highest", 6 passes, or "bf16x3", 3) and its g in the class kGPrec (fp32
+// FMAs, or the hi/lo splits of the TPU kernel's g_precision; boxqp_tile.cuh);
+// K3b's and K2''s tail products are "highest", at least as accurate as the
+// TPU kernels' bf16x3 tail, and K2''s g fp32.
 //
-// What bounds it on the H100. Each iteration is an (N, d) x (d, d) product,
-// 2 N d^2 flops, with nothing to read from device memory: H' stays in shared
-// memory and the carries in registers for the whole solve (boxqp_tile.cuh),
-// so device memory is touched once per scenario (x0 or g, and U0 in, U out;
-// K2' also writes g). The bound is the SM's fp32 FMA rate and shared-memory
-// bandwidth for the operands: per k a warp issues 16 FMAs per thread against
-// one broadcast and one 512-byte shared load. The tensor cores are unused;
-// moving the products onto wgmma is the next step for speed.
+// What bounds it on the H100. Each iteration is a (32, d) x (d, d) product per
+// block on the tensor cores (boxqp_tile.cuh: wgmma m64n32k16, A = H staged
+// once in shared memory, the carries in the accumulator's layout in
+// registers), so device memory is touched once per scenario (x0 or g, and U0
+// in, U out; K2' also writes g). The operation bound is 2 N d^2 flops per
+// bf16 pass at the tensor cores' 989 TFLOP/s. At N = 32 a block, though, each
+// iteration is a latency chain with nothing to overlap it: split and store
+// the next operand, fence, barrier, start the passes (8 k-steps each), wait
+// for them, update elementwise. The time per iteration is what to watch; the
+// two B buffers make one barrier a step enough.
 
 #include "boxqp_tile.cuh"
 
@@ -54,30 +55,28 @@ __global__ void __launch_bounds__(kThreads)
                  int N, int n, int d, int iters, int coarse, float lo, float hi) {
   static_assert(kMode == kFistaMpcRes || (kTailPrec == kHighest && kGPrec == kHighest),
                 "the precision classes are K2's");
-  extern __shared__ __align__(16) float smem_base[];
+  constexpr int kTail = passes(kTailPrec);
+  extern __shared__ __align__(128) unsigned char smem_base[];
   __shared__ int scratch[kThreads / 32];
-  const Smem sm = carve(smem_base, d, n);
-  const int rg = threadIdx.x / 32, cg = threadIdx.x % 32;
+  const Smem sm = carve(smem_base, n);
+  const Frag f = frag();
   const int row0 = blockIdx.x * kTileS;
 
   stage_inputs(sm, Ht, W, x0, row0, N, n, d);  // n = 0 on the two-step route: H' only
-  __syncthreads();
 
   const float step = 1.0f / *lipschitz;
-  float g[4][4], U[4][4], Y[4][4], acc[4][4];
+  float g[16], U[16], Y[16], acc[16];
   if constexpr (kMode == kFistaBoxqp) {
-    load_tile(g_in, row0, N, d, rg, cg, g);
+    load_frag(g_in, row0, N, d, f, g);
   } else {
-    tile_product<kGPrec, true>(sm.x0T, sm.w, nullptr, n, rg, cg, g);  // g = x0 @ W
-    if constexpr (kMode == kFistaMpc) store_tile(g_out, g, row0, N, d, rg, cg);
+    fold_product<kGPrec>(sm, n, f, g);  // g = x0 @ W
+    if constexpr (kMode == kFistaMpc) store_frag(g_out, g, row0, N, d, f);
   }
-  load_tile(U0, row0, N, d, rg, cg, U);
+  load_frag(U0, row0, N, d, f, U);
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) Y[r][c] = U[r][c];
-  store_operand(sm.opT, Y, coarse > 0, rg, cg, d);
-  __syncthreads();
+  for (int r = 0; r < 16; ++r) Y[r] = U[r];
+  int buf = 0;
+  store_iterate<kTail>(sm, buf, Y, f, d, coarse > 0);
 
   double t = 1.0;  // FISTA's t_k, in double as the schedule is built on the host
   for (int k = 0; k < iters; ++k) {
@@ -86,38 +85,35 @@ __global__ void __launch_bounds__(kThreads)
     const float beta = (k == coarse - 1) ? 0.0f : static_cast<float>((t - 1.0) / t_next);
     t = t_next;
 
-    iteration_product<kTailPrec>(sm, k < coarse, d, rg, cg, acc);
-    __syncthreads();  // every read of opT is done before it is overwritten
+    if (k < coarse) {
+      product<kCoarse>(sm, buf, d, f, acc);
+    } else {
+      product<kTail>(sm, buf, d, f, acc);
+    }
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float grad = acc[r][c] + g[r][c];
-        const float u_new = clip(Y[r][c] - step * grad, lo, hi);
-        Y[r][c] = u_new + beta * (u_new - U[r][c]);
-        U[r][c] = u_new;
-      }
-    store_operand(sm.opT, Y, k + 1 < coarse, rg, cg, d);
-    __syncthreads();
+    for (int r = 0; r < 16; ++r) {
+      const float grad = acc[r] + g[r];
+      const float u_new = clip(Y[r] - step * grad, lo, hi);
+      Y[r] = u_new + beta * (u_new - U[r]);
+      U[r] = u_new;
+    }
+    buf ^= 1;  // the other warpgroup may still read `buf`
+    store_iterate<kTail>(sm, buf, Y, f, d, k + 1 < coarse);
   }
-  store_tile(U_out, U, row0, N, d, rg, cg);
+  store_frag(U_out, U, row0, N, d, f);
 
   if constexpr (kMode == kFistaMpcRes) {
-    // Projected-gradient residual at the final U, over the real entries only.
-    store_operand(sm.opT, U, false, rg, cg, d);
-    __syncthreads();
-    iteration_product<kTailPrec>(sm, false, d, rg, cg, acc);
+    // Projected-gradient residual at the final U, over the real entries only;
+    // every product of the loop is done, so `buf` is free.
+    store_iterate<kTail>(sm, buf, U, f, d, false);
+    product<kTail>(sm, buf, d, f, acc);
     float r_max = 0.0f;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = row0 + 4 * rg + r;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = 4 * cg + c;
-        if (row < N && col < d) {
-          const float grad = acc[r][c] + g[r][c];
-          r_max = max_keep_nan(r_max, fabsf(U[r][c] - clip(U[r][c] - step * grad, lo, hi)));
-        }
+    for (int r = 0; r < 16; ++r) {
+      const int row = row0 + frag_s(f, r), j = frag_j(f, r);
+      if (row < N && j < d) {
+        const float grad = acc[r] + g[r];
+        r_max = max_keep_nan(r_max, fabsf(U[r] - clip(U[r] - step * grad, lo, hi)));
       }
     }
     block_max_into(r_max, resid, scratch);
@@ -132,7 +128,7 @@ int launch_fista(const float* Ht, const float* W, const float* x0, const float* 
   if (N < 1 || n < 0 || n > kMaxN || (needs_x0 && n < 1) || d < 1 || d > kMaxD || iters < 0 ||
       coarse < 0 || coarse > iters)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_floats(d, n) * sizeof(float);
+  const size_t smem = smem_bytes(n);
   cudaError_t err = cudaFuncSetAttribute(fista_kernel<kMode, kTailPrec, kGPrec>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));

@@ -2,75 +2,118 @@
 // fused ones that form g (or c) from x0 and the two-step ones that read g.
 //
 // Layout. One block solves a tile of kTileS = 32 scenarios; 4096 scenarios make
-// 128 blocks for the H100's 132 SMs. The block has 256 threads. Thread
-// (rg, cg) = (warp, lane) owns a 4 x 4 micro-tile of the (32, d) iterate:
-// scenarios 4rg..4rg+3 and columns 4cg..4cg+3. Its share of every carry (U, Y,
-// g for FISTA; s, p, c for ADMM) stays in its registers for the whole solve, so
-// the elementwise update needs no shared memory. Only the left operand of the
-// iteration product is shared: each thread writes its micro-tile of it,
-// transposed, into `opT` (d rows of 32 scenarios), and every thread reads it
-// back for its product. The four-float slot of a row that holds a row group
-// is swizzled (op_slot), so that the 32 lanes of a warp, which write four
-// neighbouring rows each, spread over all 32 banks.
+// 128 blocks for the H100's 132 SMs. The block has 256 threads, two
+// warpgroups. Each iteration's (32, d) x (d, d) product runs transposed on the
+// tensor cores: out' (d x 32) = A op', with A = mat' (out = op @ mat). M = d
+// padded to 128, warpgroup w taking rows 64w..64w+63; N = the 32 scenarios;
+// K = d padded to 128, eight k-steps of wgmma.mma_async.m64n32k16.f32.bf16.bf16.
+// A is staged once per block, transposed as it is loaded (no symmetry of mat
+// is assumed); rows and columns past d are zero.
 //
-// Product. out[s][j] = sum_k opT[k][s] * mat[k][j], with mat (d x d) resident
-// in shared memory for the whole solve. Per k a thread loads one float4 of
-// opT (the same address across the warp: a broadcast) and one float4 of mat
-// (512 contiguous bytes across the warp), then issues 16 FMAs. Sums run over
-// k in order and in fp32.
+// Fragment. Thread (w, q, l) = (warpgroup, warp in it, lane) holds entry r
+// (0..15) of the m64n32 accumulator at row j = 64w + 16q + l/4 + 8((r >> 1) & 1)
+// and scenario s = 2(l % 4) + 8(r >> 2) + (r & 1) (Frag). Every carry (U, Y, g
+// for FISTA; s, p, c for ADMM) lives in this layout for the whole solve, so
+// the elementwise update needs no shuffle, and entries r and r + 1 are the
+// neighbours (j, s), (j, s + 1) of the next right operand: one 32-bit store.
 //
-// Precision classes (numpower_tpu/kernels/precision.py). kHighest is the
-// fp32 product above. The split classes form x = hi + lo with hi = bf16_rn(x)
-// and lo = x - hi (exact in fp32) for both operands and sum hi*hi + hi*lo +
-// lo*hi (kBf16x3), plus lo*lo (kBf16x4), each term an fp32 FMA: the function
-// the TPU's multi-pass bf16 schemes compute. hi(mat) is matb, staged already;
-// lo(mat) is one subtraction per load, so no shared memory is added. The
-// left operand is split as it is loaded.
+// Shared memory, no swizzle (core matrices of 8 rows x 16 bytes):
+//   A, K-major: (j, k) at (j / 8) 2048 + (k / 8) 128 + (j % 8) 16 + (k % 8) 2
+//     bytes; the descriptor's LBO (next core matrix along K) 128, SBO (next
+//     along M) 2048; three splits hi, mid, lo of 32 KB;
+//   B, MN-major (transposed): (k, s) at (k / 8) 512 + (s / 8) 128 + (k % 8) 16
+//     + (s % 8) 2 bytes; LBO (along K) 512, SBO (along N) 128; three splits of
+//     8 KB, twice: the operand of iteration k + 1 is stored while the other
+//     warpgroup may still read that of iteration k, so one barrier a step
+//     suffices.
 //
-// Envelope. A warp spans 32 x 4 = 128 columns, so d <= kMaxD = 128. Shared
-// memory holds mat twice (fp32, and rounded to bf16 for the coarse phase),
-// opT, the (n, d) fold of the prediction chain and the tile's x0: at
-// d = 128, n = 32 that is 164 KiB of the 227 KiB a block may have, so the
-// kernel needs the dynamic shared-memory opt-in.
+// Precision classes, as bf16 passes of one instruction (numpower_tpu/kernels/
+// precision.py). x = hi + mid + lo, each part bf16, is exact for fp32
+// normals. The coarse phase is 1 pass, hi*hi: both operands rounded to bf16,
+// summed in fp32, the TPU's single-pass DEFAULT product. "bf16x3" is 3
+// passes, hi*hi + hi*mid + mid*hi (mid is the bf16 lo of the two-way split);
+// "bf16x4" adds mid*mid; "highest" is 6: hi*hi, hi*mid, mid*hi, hi*lo, lo*hi,
+// mid*mid, the multi-pass fp32 of the JAX package's precision note, as
+// accurate as the fp32 product. hi*hi goes to one accumulator and the
+// corrections to a second, added in fp32 on the CUDA cores after the wait:
+// the tensor cores' fp32 sum is not round-to-nearest, and the corrections
+// (2^-8 to 2^-16 relative) would be cut against the large term.
+//
+// Envelope. d <= kMaxD = 128 (M and K of the padded product). Shared memory
+// holds A (96 KB), the two B buffers (48 KB), the (n, d) fold of the
+// prediction chain and the tile's x0: 164 KiB at n = 32 of the 227 KiB a
+// block may have, so the kernels need the dynamic shared-memory opt-in.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace boxqp {
 
-constexpr int kTileS = 32;    // scenarios per block
-constexpr int kMaxD = 128;    // decision variables (columns) per scenario
-constexpr int kMaxN = 32;     // state dimension of the in-kernel g / c formation
-constexpr int kThreads = 256;  // 8 warps: warp = row group, lane = column group
-constexpr int kStride = kMaxD;  // row stride of mat and w in shared memory
+constexpr int kTileS = 32;     // scenarios per block: the product's N
+constexpr int kMaxD = 128;     // decision variables per scenario: the product's M and K
+constexpr int kMaxN = 32;      // state dimension of the in-kernel g / c formation
+constexpr int kThreads = 256;  // two warpgroups of 64 product rows each
+constexpr int kSplits = 3;     // hi, mid, lo
+constexpr int kAElems = kMaxD * kMaxD;  // bf16 elements of one split of A
+constexpr int kBElems = kMaxD * kTileS;  // bf16 elements of one split of B
 
-// Floats of dynamic shared memory for a given (d, n).
-__host__ __device__ inline size_t smem_floats(int d, int n) {
-  return 2 * static_cast<size_t>(d) * kStride     // mat, matb
-         + static_cast<size_t>(d) * kTileS         // opT
-         + static_cast<size_t>(n) * kStride        // w
-         + static_cast<size_t>(n) * kTileS;        // x0T
+enum Precision : int { kHighest = 0, kBf16x3 = 3, kBf16x4 = 4 };
+
+// bf16 passes of a product in class `prec`, and the parts of each operand
+// they read; kCoarse is the coarse phase's single pass.
+constexpr int kCoarse = 1;
+__host__ __device__ constexpr int passes(int prec) { return prec == kHighest ? 6 : prec; }
+__host__ __device__ constexpr int parts(int npasses) {
+  return npasses == 1 ? 1 : (npasses == 6 ? 3 : 2);
+}
+
+// Bytes of dynamic shared memory for a fold of n rows.
+__host__ __device__ inline size_t smem_bytes(int n) {
+  return sizeof(__nv_bfloat16) * (kSplits * static_cast<size_t>(kAElems) + 2 * kSplits * kBElems) +
+         sizeof(float) * (static_cast<size_t>(n) * kMaxD + static_cast<size_t>(n) * kTileS);
 }
 
 struct Smem {
-  float* mat;   // (d, kStride) fp32, columns >= d zero
-  float* matb;  // the same rounded to bf16 (held as fp32)
-  float* opT;   // (d, kTileS) left operand of the product, transposed
-  float* w;     // (n, kStride) fold of the prediction chain, columns >= d zero
-  float* x0T;   // (n, kTileS) the tile's initial states, transposed
+  __nv_bfloat16* a;  // kSplits x A, K-major core matrices
+  __nv_bfloat16* b;  // 2 buffers x kSplits x B, MN-major core matrices
+  float* w;          // (n, kMaxD) fold of the prediction chain, columns >= d zero
+  float* x0T;        // (n, kTileS) the tile's initial states, transposed
 };
 
-__device__ inline Smem carve(float* base, int d, int n) {
+__device__ inline Smem carve(unsigned char* base, int n) {
   Smem s;
-  s.mat = base;
-  s.matb = s.mat + d * kStride;
-  s.opT = s.matb + d * kStride;
-  s.w = s.opT + d * kTileS;
-  s.x0T = s.w + n * kStride;
+  s.a = reinterpret_cast<__nv_bfloat16*>(base);
+  s.b = s.a + kSplits * kAElems;
+  s.w = reinterpret_cast<float*>(s.b + 2 * kSplits * kBElems);
+  s.x0T = s.w + n * kMaxD;
   return s;
 }
+
+// Element index of A's (j, k) and of B's (k, s) in the layouts above.
+__device__ __forceinline__ int a_index(int j, int k) {
+  return (j >> 3) * 1024 + (k >> 3) * 64 + (j & 7) * 8 + (k & 7);
+}
+__device__ __forceinline__ int b_index(int k, int s) {
+  return (k >> 3) * 256 + (s >> 3) * 64 + (k & 7) * 8 + (s & 7);
+}
+
+// Where this thread's accumulator entries sit (see Fragment above).
+struct Frag {
+  int wg;  // warpgroup
+  int j0;  // row of entry 0; entries with (r >> 1) & 1 sit 8 rows below
+  int s0;  // scenario of entry 0
+};
+
+__device__ inline Frag frag() {
+  const int t = threadIdx.x, lane = t % 32;
+  return {t / 128, 64 * (t / 128) + 16 * ((t % 128) / 32) + lane / 4, 2 * (lane % 4)};
+}
+__device__ __forceinline__ int frag_j(const Frag& f, int r) { return f.j0 + 8 * ((r >> 1) & 1); }
+__device__ __forceinline__ int frag_s(const Frag& f, int r) { return f.s0 + 8 * (r >> 2) + (r & 1); }
 
 // Round-to-nearest-even to bf16 and back: what a single-pass bf16 matrix
 // unit does to each operand before it multiplies and accumulates in fp32.
@@ -82,158 +125,238 @@ __device__ __forceinline__ float clip(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
 }
 
-// float4 index in opT (or x0T) of row k, row group rg.
-__device__ __forceinline__ int op_slot(int k, int rg) {
-  return k * (kTileS / 4) + (rg ^ ((k >> 2) & 7));
+// The exact split x = hi + mid + lo of two neighbours x0, x1, each part bf16
+// (round to nearest even), as bf16 pairs packed in 32 bits (x0 the low half,
+// the lower address); kParts of them (1: hi; 2: hi, mid; 3: all).
+template <int kParts>
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t (&part)[3]) {
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+  part[0] = reinterpret_cast<const uint32_t&>(hi);
+  if constexpr (kParts >= 2) {
+    const float r0 = x0 - __low2float(hi), r1 = x1 - __high2float(hi);
+    const __nv_bfloat162 mid = __floats2bfloat162_rn(r0, r1);
+    part[1] = reinterpret_cast<const uint32_t&>(mid);
+    if constexpr (kParts == 3) {
+      const __nv_bfloat162 lo =
+          __floats2bfloat162_rn(r0 - __low2float(mid), r1 - __high2float(mid));
+      part[2] = reinterpret_cast<const uint32_t&>(lo);
+    }
+  }
 }
 
-// Stage the block's inputs: mat and its bf16 copy from the row-major (d, d)
-// `m`, the fold from the row-major (n, d) `fold`, and the tile's rows of the
-// row-major (N, n) `x0` (rows >= N read as zero).
+// Stage the block's inputs: A = m' in its three splits from the row-major
+// (d, d) `m`, the fold from the row-major (n, d) `fold`, and the tile's rows
+// of the row-major (N, n) `x0` (rows >= N read as zero). Ends with the
+// writes visible to the tensor cores' (async) proxy and the block synchronised.
 __device__ inline void stage_inputs(const Smem& sm, const float* __restrict__ m,
                                     const float* __restrict__ fold,
-                                    const float* __restrict__ x0, int row0,
-                                    int N, int n, int d) {
-  for (int i = threadIdx.x; i < d * kStride; i += kThreads) {
-    const int k = i / kStride, j = i % kStride;
-    const float v = j < d ? m[k * d + j] : 0.0f;
-    sm.mat[i] = v;
-    sm.matb[i] = bf16_round(v);
+                                    const float* __restrict__ x0, int row0, int N, int n,
+                                    int d) {
+  // A(j, k) = m(k, j). Item (j, kb) reads rows 8kb..8kb+7 of column j (each
+  // read coalesced across the warp's 32 columns) and writes its 8 k's, one
+  // 16-byte row of a core matrix, per split.
+  for (int i = threadIdx.x; i < kAElems / 8; i += kThreads) {
+    const int j = i % kMaxD, k0 = 8 * (i / kMaxD);
+    uint32_t part[4][3];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int k = k0 + 2 * q;
+      split_pair<3>(j < d && k < d ? m[k * d + j] : 0.0f,
+                    j < d && k + 1 < d ? m[(k + 1) * d + j] : 0.0f, part[q]);
+    }
+#pragma unroll
+    for (int p = 0; p < kSplits; ++p) {
+      *reinterpret_cast<uint4*>(sm.a + p * kAElems + a_index(j, k0)) =
+          make_uint4(part[0][p], part[1][p], part[2][p], part[3][p]);
+    }
   }
-  for (int i = threadIdx.x; i < n * kStride; i += kThreads) {
-    const int k = i / kStride, j = i % kStride;
+  for (int i = threadIdx.x; i < n * kMaxD; i += kThreads) {
+    const int k = i / kMaxD, j = i % kMaxD;
     sm.w[i] = j < d ? fold[k * d + j] : 0.0f;
   }
   for (int i = threadIdx.x; i < n * kTileS; i += kThreads) {
     const int k = i / kTileS, s = i % kTileS;
     const int row = row0 + s;
-    sm.x0T[4 * op_slot(k, s / 4) + s % 4] =
-        row < N ? x0[static_cast<size_t>(row) * n + k] : 0.0f;
+    sm.x0T[i] = row < N ? x0[static_cast<size_t>(row) * n + k] : 0.0f;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+}
+
+// The thread's entries of the row-major (N, d) `src`: entries outside (N, d),
+// and every entry when `src` is null, read as zero.
+__device__ __forceinline__ void load_frag(const float* __restrict__ src, int row0, int N, int d,
+                                          const Frag& f, float (&v)[16]) {
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const int row = row0 + frag_s(f, r), j = frag_j(f, r);
+    v[r] = (src != nullptr && row < N && j < d) ? src[static_cast<size_t>(row) * d + j] : 0.0f;
   }
 }
 
-// The thread's micro-tile of the row-major (N, d) `src`: entries outside
-// (N, d), and every entry when `src` is null, read as zero.
-__device__ __forceinline__ void load_tile(const float* __restrict__ src, int row0, int N,
-                                          int d, int rg, int cg, float v[4][4]) {
+// Write the thread's entries into the row-major (N, d) `dst`, real entries only.
+__device__ __forceinline__ void store_frag(float* __restrict__ dst, const float (&v)[16],
+                                           int row0, int N, int d, const Frag& f) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = row0 + 4 * rg + r;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int col = 4 * cg + c;
-      v[r][c] = (src != nullptr && row < N && col < d)
-                    ? src[static_cast<size_t>(row) * d + col] : 0.0f;
-    }
+  for (int r = 0; r < 16; ++r) {
+    const int row = row0 + frag_s(f, r), j = frag_j(f, r);
+    if (row < N && j < d) dst[static_cast<size_t>(row) * d + j] = v[r];
   }
 }
 
-// Write the thread's micro-tile into the row-major (N, d) `dst`, real entries only.
-__device__ __forceinline__ void store_tile(float* __restrict__ dst, const float v[4][4],
-                                           int row0, int N, int d, int rg, int cg) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = row0 + 4 * rg + r;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int col = 4 * cg + c;
-      if (row < N && col < d) dst[static_cast<size_t>(row) * d + col] = v[r][c];
-    }
-  }
-}
-
-enum Precision : int { kHighest = 0, kBf16x3 = 3, kBf16x4 = 4 };
-
-__device__ __forceinline__ float4 bf16_round4(float4 v) {
-  return make_float4(bf16_round(v.x), bf16_round(v.y), bf16_round(v.z), bf16_round(v.w));
-}
-
-// acc[r][c] = sum_{k < depth} op[4rg + r][k] * mat[k][4cg + c] in the
-// precision class kPrec, with op held transposed and swizzled in opT.
-// mat_hi is hi(mat) in the same layout (matb); with kRoundHi it is unused
-// and hi(mat) is rounded as it is loaded (the (n, d) fold, which has no
-// bf16 copy).
-template <int kPrec = kHighest, bool kRoundHi = false>
-__device__ __forceinline__ void tile_product(const float* __restrict__ opT,
-                                             const float* __restrict__ mat,
-                                             const float* __restrict__ mat_hi,
-                                             int depth, int rg, int cg,
-                                             float acc[4][4]) {
+// out(j, s) = sum_{k < n} x0(s, k) w(k, j) in the class kPrec, as fp32 FMAs
+// straight into the fragment (n <= 32 deep: under 1% of a solve's work). The
+// split classes form x = hi + lo with hi = bf16_rn(x), lo = x - hi (exact in
+// fp32) for both operands and sum hi*hi + hi*lo + lo*hi (kBf16x3), plus
+// lo*lo (kBf16x4), in order over k: the function of the TPU kernels' g and
+// c precision classes.
+template <int kPrec>
+__device__ __forceinline__ void fold_product(const Smem& sm, int n, const Frag& f,
+                                             float (&out)[16]) {
   static_assert(kPrec == kHighest || kPrec == kBf16x3 || kPrec == kBf16x4,
                 "unknown precision class");
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < 16; ++r) out[r] = 0.0f;
+  for (int k = 0; k < n; ++k) {
+    const float wv[2] = {sm.w[k * kMaxD + f.j0], sm.w[k * kMaxD + f.j0 + 8]};
+    float xv[8];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
-  const float4* a4 = reinterpret_cast<const float4*>(opT);
-  const float4* b4 = reinterpret_cast<const float4*>(mat) + cg;
-#pragma unroll 4
-  for (int k = 0; k < depth; ++k) {
-    const float4 a = a4[op_slot(k, rg)];
-    const float4 b = b4[k * (kStride / 4)];
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-    if constexpr (kPrec == kHighest) {
+    for (int q = 0; q < 4; ++q) {
+      const float2 x = *reinterpret_cast<const float2*>(&sm.x0T[k * kTileS + f.s0 + 8 * q]);
+      xv[2 * q] = x.x;
+      xv[2 * q + 1] = x.y;
+    }
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-    } else {
-      const float4 bh4 = kRoundHi ? bf16_round4(b)
-                                  : reinterpret_cast<const float4*>(mat_hi)[k * (kStride / 4) + cg];
-      const float bh[4] = {bh4.x, bh4.y, bh4.z, bh4.w};
-      float ah[4], al[4], bl[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ah[i] = bf16_round(av[i]);
-        al[i] = av[i] - ah[i];
-        bl[i] = bv[i] - bh[i];
+    for (int r = 0; r < 16; ++r) {
+      const float a = xv[2 * (r >> 2) + (r & 1)], b = wv[(r >> 1) & 1];
+      if constexpr (kPrec == kHighest) {
+        out[r] = fmaf(a, b, out[r]);
+      } else {
+        const float ah = bf16_round(a), bh = bf16_round(b);
+        const float al = a - ah, bl = b - bh;
+        float v = fmaf(ah, bh, out[r]);
+        v = fmaf(ah, bl, v);
+        v = fmaf(al, bh, v);
+        if constexpr (kPrec == kBf16x4) v = fmaf(al, bl, v);
+        out[r] = v;
       }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          float v = fmaf(ah[r], bh[c], acc[r][c]);
-          v = fmaf(ah[r], bl[c], v);
-          v = fmaf(al[r], bh[c], v);
-          if constexpr (kPrec == kBf16x4) v = fmaf(al[r], bl[c], v);
-          acc[r][c] = v;
-        }
     }
   }
 }
 
-// The product of one iteration: in the coarse phase single-pass bf16 (opT
-// holds the operand rounded, matb the matrix), in the tail class kTailPrec.
-template <int kTailPrec>
-__device__ __forceinline__ void iteration_product(const Smem& sm, bool coarse, int d, int rg,
-                                                  int cg, float acc[4][4]) {
-  if constexpr (kTailPrec == kHighest) {
-    tile_product(sm.opT, coarse ? sm.matb : sm.mat, nullptr, d, rg, cg, acc);
-  } else if (coarse) {
-    tile_product(sm.opT, sm.matb, nullptr, d, rg, cg, acc);
+// Store the thread's entries as the right operand of the next product in
+// buffer `buf`: kParts = 1 the bf16 hi only (a coarse product), 2 hi and mid,
+// 3 hi, mid and lo. Rows j >= d are written as zero. Entries r and r + 1 are
+// (j, s) and (j, s + 1): one 32-bit store per part.
+template <int kParts>
+__device__ __forceinline__ void store_operand(const Smem& sm, int buf, const float (&v)[16],
+                                              const Frag& f, int d) {
+  uint32_t* b = reinterpret_cast<uint32_t*>(sm.b + buf * kSplits * kBElems);
+#pragma unroll
+  for (int r = 0; r < 16; r += 2) {
+    const int j = frag_j(f, r);
+    const bool real = j < d;
+    uint32_t part[3];
+    split_pair<kParts>(real ? v[r] : 0.0f, real ? v[r + 1] : 0.0f, part);
+    const int at = b_index(j, frag_s(f, r)) / 2;
+#pragma unroll
+    for (int p = 0; p < kParts; ++p) b[p * kBElems / 2 + at] = part[p];
+  }
+}
+
+// Store v as the operand of the next product, a coarse one or one of
+// kTailPasses passes, in buffer `buf`; then make it visible to the tensor
+// cores (async proxy) and synchronise the block.
+template <int kTailPasses>
+__device__ __forceinline__ void store_iterate(const Smem& sm, int buf, const float (&v)[16],
+                                              const Frag& f, int d, bool coarse) {
+  if (coarse) {
+    store_operand<parts(kCoarse)>(sm, buf, v, f, d);
   } else {
-    tile_product<kTailPrec>(sm.opT, sm.mat, sm.matb, d, rg, cg, acc);
+    store_operand<parts(kTailPasses)>(sm, buf, v, f, d);
   }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
 }
 
-// Write the thread's micro-tile of the next left operand into opT, rounded to
-// bf16 when the next product is a coarse one. Columns >= d have no row in opT.
-__device__ __forceinline__ void store_operand(float* __restrict__ opT,
-                                              const float v[4][4], bool round,
-                                              int rg, int cg, int d) {
+// Shared-memory matrix descriptor, no swizzle: start address, LBO and SBO in
+// 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(const __nv_bfloat16* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32);
+}
+
+// d += A(64 x 16) B(16 x 32) on the warpgroup's tensor cores, A K-major and
+// B MN-major (transposed) in shared memory.
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t desc_a,
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// Keep the compiler from moving reads or writes of d across the asynchronous
+// product.
+__device__ __forceinline__ void fence_operand(float (&d)[16]) {
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int j = 4 * cg + c;
-    if (j < d) {
-      float4 out;
-      out.x = round ? bf16_round(v[0][c]) : v[0][c];
-      out.y = round ? bf16_round(v[1][c]) : v[1][c];
-      out.z = round ? bf16_round(v[2][c]) : v[2][c];
-      out.w = round ? bf16_round(v[3][c]) : v[3][c];
-      reinterpret_cast<float4*>(opT)[op_slot(j, rg)] = out;
+  for (int r = 0; r < 16; ++r) asm volatile("" : "+f"(d[r])::"memory");
+}
+
+// out' = A op' over the warpgroup's 64 rows, op in buffer `buf`, in kPasses
+// bf16 passes (1, 3, 4 or 6; see Precision classes above): the hi*hi pass in
+// one accumulator, the corrections in another, added after the wait. A
+// warpgroup whose rows are all past d runs no pass and returns zeros; the
+// k-steps stop at d. Every thread of the block calls it.
+template <int kPasses>
+__device__ __forceinline__ void product(const Smem& sm, int buf, int d, const Frag& f,
+                                        float (&out)[16]) {
+  static_assert(kPasses == 1 || kPasses == 3 || kPasses == 4 || kPasses == 6,
+                "a class is 1, 3, 4 or 6 passes");
+  float hh[16], corr[16];
+#pragma unroll
+  for (int r = 0; r < 16; ++r) hh[r] = corr[r] = 0.0f;
+  if (64 * f.wg < d) {
+    const __nv_bfloat16* a = sm.a + f.wg * 8 * 1024;
+    const __nv_bfloat16* b = sm.b + buf * kSplits * kBElems;
+    // descriptors of the splits at k-step 0; k-step ks adds 16 ks (A, 256
+    // bytes) and 64 ks (B, 1024 bytes) to the address field
+    const uint64_t ah = smem_desc(a, 128, 2048), bh = smem_desc(b, 512, 128);
+    const uint64_t am = smem_desc(a + kAElems, 128, 2048), bm = smem_desc(b + kBElems, 512, 128);
+    const uint64_t al = smem_desc(a + 2 * kAElems, 128, 2048);
+    const uint64_t bl = smem_desc(b + 2 * kBElems, 512, 128);
+    fence_operand(hh);
+    fence_operand(corr);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    const int ksteps = (d + 15) / 16;
+    for (int ks = 0; ks < ksteps; ++ks) {
+      const uint64_t da = 16 * ks, db = 64 * ks;
+      wgmma_m64n32k16(hh, ah + da, bh + db);
+      if constexpr (kPasses >= 3) {
+        wgmma_m64n32k16(corr, ah + da, bm + db);
+        wgmma_m64n32k16(corr, am + da, bh + db);
+      }
+      if constexpr (kPasses == 6) {
+        wgmma_m64n32k16(corr, ah + da, bl + db);
+        wgmma_m64n32k16(corr, al + da, bh + db);
+      }
+      if constexpr (kPasses >= 4) wgmma_m64n32k16(corr, am + da, bm + db);
     }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_operand(hh);
+    fence_operand(corr);
   }
+#pragma unroll
+  for (int r = 0; r < 16; ++r) out[r] = kPasses == 1 ? hh[r] : hh[r] + corr[r];
 }
 
 // Max of a non-negative float (or NaN, which wins) over the block, folded

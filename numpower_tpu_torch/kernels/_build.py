@@ -31,9 +31,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "numpower_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Limits of the tile layout in csrc/boxqp_tile.cuh (kMaxD, kMaxN): a warp of
-# 32 lanes x 4 columns spans d <= 128, and the d x d matrix twice (fp32 and
-# its bf16 copy) plus the operand tile, the fold and x0 then fill at most
+# Limits of the tile layout in csrc/boxqp_tile.cuh (kMaxD, kMaxN): the
+# tensor-core product pads d to M = K = 128, and the matrix's three bf16
+# splits, two buffers of the operand's, the fold and x0 then fill at most
 # 164 KiB of the 227 KiB of shared memory a block may have.
 MAX_D = 128
 MAX_N = 32

@@ -59,10 +59,12 @@ def _form_code(form: str) -> int:
     return FORMS[form]
 
 
-def _admm_loop(c, rminvT, lo, hi, alpha, iters: int, coarse_iters: int, U0, form: str = "s"):
+def _admm_loop(c, rminvT, lo, hi, alpha, iters: int, coarse_iters: int, U0, tail_dot,
+               form: str = "s"):
     """The iteration of the kernels from z0 = clip(U0) (clip(0) cold), the
-    first ``coarse_iters`` products with both operands rounded to bf16, in
-    one of K1's loop forms (the same recursion, grouped three ways):
+    first ``coarse_iters`` products with both operands rounded to bf16, the
+    tail's by ``tail_dot(t)``, in one of K1's loop forms (the same recursion,
+    grouped three ways):
 
     "s":  p = clip(s), t = 2p - s, u = t @ (rho Minv)', s += alpha (u - c - p);
     "sp": the same with a = s - alpha c - alpha p formed before the product
@@ -76,7 +78,7 @@ def _admm_loop(c, rminvT, lo, hi, alpha, iters: int, coarse_iters: int, U0, form
     rminvT_coarse = bf16_round(rminvT)
 
     def product(t, k):
-        return bf16_round(t) @ rminvT_coarse if k < coarse_iters else t @ rminvT
+        return bf16_round(t) @ rminvT_coarse if k < coarse_iters else tail_dot(t)
 
     s = torch.clamp(torch.zeros_like(c) if U0 is None else U0, lo, hi)
     if form == "zy":
@@ -116,7 +118,8 @@ def admm_mpc_res_reference(H, SxT, SuTQT, x0s, lo: float, hi: float, rho,
     rminvT, Wc = _fold(H, SxT, SuTQT, rho, Minv)
     alpha = over_relax
     c = make_tail_dot(Wc, c_precision)(x0s)
-    s = _admm_loop(c, rminvT, lo, hi, alpha, iters, coarse_iters, U0, form)
+    s = _admm_loop(c, rminvT, lo, hi, alpha, iters, coarse_iters, U0,
+                   make_tail_dot(rminvT, "highest"), form)
     z = torch.clamp(s, lo, hi)
     x = (2.0 * z - s) @ rminvT - c
     z_next = torch.clamp(s + alpha * (x - z), lo, hi)
@@ -190,7 +193,8 @@ def admm_boxqp_reference(H, g, lo: float, hi: float, rho, iters: int = 30,
         Minv = minv_factor(H, rho)
     rminvT = rho * Minv.T
     c = (g @ rminvT) * (1.0 / rho)
-    s = _admm_loop(c, rminvT, lo, hi, over_relax, iters, coarse_iters, U0)
+    s = _admm_loop(c, rminvT, lo, hi, over_relax, iters, coarse_iters, U0,
+                   make_tail_dot(rminvT, "highest"))
     z = torch.clamp(s, lo, hi)
     return z, s - z
 

@@ -9,11 +9,18 @@ the matrix unit and their tail with hand-built hi/lo splits:
 These are the same schemes as plain PyTorch. The plain versions of the fused
 kernels use :func:`bf16_round` for their coarse phase and
 :func:`make_tail_dot` for the products of their precision classes (K1's
-``c_precision``, K2's ``tail_precision`` and ``g_precision``); the CUDA
-kernels compute the same split sums with fp32 FMAs (csrc/boxqp_tile.cuh),
-the class passed as :data:`PRECISION_CODES`. The port's default class is
-"highest": on the card's FMA pipes a split costs 3-4 products where fp32
-costs one, and fp32 is at least as accurate.
+``c_precision``, K2's ``tail_precision`` and ``g_precision``), the class
+passed to the CUDA kernels as :data:`PRECISION_CODES`.
+
+On the card the box-QP kernels form every iteration product as bf16 passes
+on the tensor cores (csrc/boxqp_tile.cuh), :data:`TENSOR_PASSES` a class,
+over the exact three-way split x = hi + mid + lo (:func:`bf16_split3`):
+the coarse phase is hi@hi, "bf16x3" adds hi@mid + mid@hi, "bf16x4" also
+mid@mid, and "highest" hi@hi, hi@mid, mid@hi, hi@lo, lo@hi and mid@mid, as
+accurate as fp32. The hi@hi pass is summed apart from the corrections.
+:func:`bf16_pass_product` computes that sum in plain PyTorch for the tests;
+nothing on the card's path calls it. The (n, d) folds of g and c stay fp32
+FMAs in the kernels, in the two-way split of :func:`make_tail_dot`.
 """
 
 from __future__ import annotations
@@ -23,6 +30,19 @@ import torch
 # A precision class's name and its code in the kernels' C interface
 # (csrc/boxqp_tile.cuh, enum Precision).
 PRECISION_CODES = {"highest": 0, "bf16x3": 3, "bf16x4": 4}
+
+# bf16 tensor-core passes of a product in each class, and of a coarse one
+# (csrc/boxqp_tile.cuh, passes()).
+TENSOR_PASSES = {"coarse": 1, "bf16x3": 3, "bf16x4": 4, "highest": 6}
+
+# The passes of each count as (left part, right part) of the split (0 hi,
+# 1 mid, 2 lo): hi@hi first, then the corrections in the kernel's order.
+_PASS_PARTS = {
+    1: ((0, 0),),
+    3: ((0, 0), (0, 1), (1, 0)),
+    4: ((0, 0), (0, 1), (1, 0), (1, 1)),
+    6: ((0, 0), (0, 1), (1, 0), (0, 2), (2, 0), (1, 1)),
+}
 
 
 def precision_code(name: str, allowed: tuple, what: str) -> int:
@@ -44,6 +64,33 @@ def bf16_split(x: torch.Tensor):
     as fp32."""
     hi = x.to(torch.bfloat16).float()
     return hi, x - hi
+
+
+def bf16_split3(x: torch.Tensor):
+    """Exact split x = hi + mid + lo of fp32 x, each part a bf16 (round to
+    nearest even) held as fp32: hi = bf16(x), mid = bf16(x - hi),
+    lo = bf16(x - hi - mid). Exact for fp32 normals whose lo stays normal."""
+    hi = x.to(torch.bfloat16).float()
+    rest = x - hi
+    mid = rest.to(torch.bfloat16).float()
+    return hi, mid, (rest - mid).to(torch.bfloat16).float()
+
+
+def bf16_pass_product(x: torch.Tensor, y: torch.Tensor, passes: int) -> torch.Tensor:
+    """x @ y (fp32) as the box-QP kernels form it on the tensor cores: the
+    bf16 passes of the class with ``passes`` passes (1, 3, 4 or 6) over the
+    three-way splits of both operands, each pass an fp32 sum of exact
+    products, the hi@hi pass in one sum and the corrections in another,
+    added last. Plain PyTorch, for the tests."""
+    if passes not in _PASS_PARTS:
+        raise ValueError(f"a class is 1, 3, 4 or 6 passes, got {passes}")
+    xs, ys = bf16_split3(x), bf16_split3(y)
+    (i, j), *corrections = _PASS_PARTS[passes]
+    out = xs[i] @ ys[j]
+    if not corrections:
+        return out
+    corr = sum(xs[a] @ ys[b] for a, b in corrections)
+    return out + corr
 
 
 def make_tail_dot(Ht: torch.Tensor, tail_precision: str):
