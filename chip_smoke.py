@@ -11,8 +11,8 @@ scenarios, controls boxed to +-1, so d = 120 controls per scenario):
 0. device: a CUDA device is required; the kernels are built from
    numpower_tpu_torch/csrc with nvcc (timed); every instance of the box-QP
    templates (K1, K2, K3a, K3b, K1', K2') must hold HGMMA instructions
-   (cuobjdump -sass of the library, counted per instance) and compile with
-   no spills (ptxas);
+   (cuobjdump -sass of the library, counted per instance), and they and
+   every instance of K7 and K8 compile with no spills (ptxas);
 1. each kernel against its plain PyTorch version on the card at N = 4096:
    cold and warm starts, all-fp32 (max |dU| <= 1e-5) and the default
    bf16 + fp32 schedules (<= 1e-4), residuals within 1e-5;
@@ -72,7 +72,10 @@ AL-iLQR bench configuration, bench.py:408-451 and 524-544):
    (pendulum, 256 scenarios, h = 40, 4 x 6 iterations, box +-2, fused: 24
    launches each);
 10. times from CUDA events: K3a/K3b at N = 4096, K7 and K8 at N = 256 and
-   4096, each beside its plain version, and the three solves.
+   4096 (wrapper, its host enqueue, the device time of a direct library
+   call), each beside its plain version; K7's and K8's device time at
+   T = 10, 50 and 200 (N = 256), whence a fixed cost and a time per step;
+   K8 with the six alphas and with (0.1, 0.03, 0.01); and the three solves.
 
 The estimators (the estimation bench, bench.py:576-775) and the closed
 output-feedback loop:
@@ -674,7 +677,7 @@ def boxqp_two_step(dev, smi: str, qp, x0s, rho) -> list:
 def ilqr_family(dev, smi: str) -> list:
     """Phase 9 and its times: K7/K8 and configs #3, #3b and the AL-iLQR
     configuration. Returns the kernels' entries of the JSON line."""
-    from numpower_tpu_torch.kernels import ilqr_backward, ilqr_forward
+    from numpower_tpu_torch.kernels import _build, ilqr_backward, ilqr_forward
     from numpower_tpu_torch.models import (
         al_ilqr_solve_batched, cartpole_step, ilqr_solve, ilqr_solve_batched,
         linearize_trajectory, pendulum_step, rollout_nonlinear,
@@ -706,6 +709,44 @@ def ilqr_family(dev, smi: str) -> list:
         ks, Ks = ilqr_backward.ilqr_backward_reference(*bwd, reg=1e-3)
         fwd = (f, Qn, R, QFn, g, alphas, x0s, xs.contiguous(), us, ks, Ks)
         return bwd, fwd, ks, Ks
+
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def ilqr_direct_calls(bwd, fwd):
+        """Direct library calls of K7 and K8 on a problem's operands, laid out
+        as their wrappers lay them out (no operand checks, no registry
+        lookup), each checked once: (K7 call, K8 call)."""
+        from numpower_tpu_torch.models.plants import MAX_PLANT_PARAMS, kernel_plant
+
+        As, Bs, lxs, lus, lxx, luu, lxT, lxxT = (x.contiguous() for x in bwd)
+        Nb, Tb, nb, mb = As.shape[0], As.shape[1], As.shape[-1], Bs.shape[-1]
+        luu_reg = (luu + 1e-3 * torch.eye(mb, device=dev)).contiguous()
+        ks = torch.empty((Nb, Tb, mb), device=dev)
+        Ks = torch.empty((Nb, Tb, mb, nb), device=dev)
+        bwd_ts = (As, Bs, lxs, lus, lxx, luu_reg, lxT, lxxT, ks, Ks)
+        bwd_ptrs = [x.data_ptr() for x in bwd_ts[:4]] + [None] + [x.data_ptr() for x in bwd_ts[4:]]
+
+        def bwd_call(keep=bwd_ts):  # the default holds the operands while the call lives
+            return lib.npt_ilqr_backward(*bwd_ptrs, Nb, nb, mb, Tb, stream)
+
+        f, *weights, alphas_f, x0s_f, xs_nom, us_nom, ks_f, Ks_f = fwd
+        plant = kernel_plant(f)
+        params = [ctypes.c_float(p) for p in
+                  list(plant.params) + [0.0] * (MAX_PLANT_PARAMS - len(plant.params))]
+        A_n = alphas_f.numel()
+        outs = (torch.empty((A_n, Nb, Tb, mb), device=dev),
+                torch.empty((A_n, Nb, Tb + 1, nb), device=dev), torch.empty((A_n, Nb), device=dev))
+        fwd_ts = [x.contiguous() for x in (*weights, alphas_f, x0s_f, xs_nom, us_nom, ks_f, Ks_f,
+                                           *outs)]
+        fwd_ptrs = [x.data_ptr() for x in fwd_ts]
+
+        def fwd_call(keep=fwd_ts):
+            return lib.npt_ilqr_forward(plant.plant_id, *params, *fwd_ptrs, Nb, Tb, A_n,
+                                        xs_nom.shape[1], stream)
+
+        require(bwd_call() == 0 and fwd_call() == 0, "direct K7/K8 library calls launch")
+        return bwd_call, fwd_call
 
     def cart_draw(rng, N):  # bench.py:431-433
         return rng.standard_normal((N, 4)) * 0.3
@@ -832,18 +873,46 @@ def ilqr_family(dev, smi: str) -> list:
             and bool(torch.isfinite(ral.max_violation).all()), "AL-iLQR: finite, feasible")
 
     # -- phase 10 (iLQR part): times ----------------------------------------------
-    ms, plain_ms = {}, {}
+    # wrapper (CUDA events), its host enqueue, the device time of a direct
+    # library call on the same operands, and the plain version
+    ms, host_ms, dev_ms, plain_ms = {}, {}, {}, {}
     slow = {"reps": 3, "inner": 1, "warmup": 1}
     for N_k in (N_ILQR, N):
         bwd, fwd, _, _ = probs[(N_k, "cartpole")]
-        ms[("bwd", N_k)] = cuda_ms(lambda: ilqr_backward.ilqr_backward_fused(*bwd, reg=1e-3))
-        ms[("fwd", N_k)] = cuda_ms(lambda: ilqr_forward.ilqr_forward_fused(*fwd))
+        calls = {"bwd": lambda: ilqr_backward.ilqr_backward_fused(*bwd, reg=1e-3),
+                 "fwd": lambda: ilqr_forward.ilqr_forward_fused(*fwd)}
+        for k, direct in zip(("bwd", "fwd"), ilqr_direct_calls(bwd, fwd)):
+            ms[(k, N_k)] = cuda_ms(calls[k])
+            host_ms[(k, N_k)] = enqueue_ms(calls[k])
+            dev_ms[(k, N_k)] = cuda_ms(direct)
         plain_ms[("bwd", N_k)] = cuda_ms(
             lambda: ilqr_backward.ilqr_backward_reference(*bwd, reg=1e-3), **slow)
         plain_ms[("fwd", N_k)] = cuda_ms(lambda: ilqr_forward.ilqr_forward_reference(*fwd), **slow)
         for k, name in (("bwd", "K7 ilqr_backward"), ("fwd", "K8 ilqr_forward")):
-            log(f"time {name} cartpole N={N_k} T={T_ILQR}: kernel {ms[(k, N_k)]:.4f} ms, "
+            log(f"time {name} cartpole N={N_k} T={T_ILQR}: kernel {ms[(k, N_k)]:.4f} ms "
+                f"(device {dev_ms[(k, N_k)]:.4f} ms, host enqueue {host_ms[(k, N_k)]:.4f} ms), "
                 f"plain {plain_ms[(k, N_k)]:.4f} ms [{smi}]")
+    # the chain: device time at T = 10, 50 and 200 (N = 256), whence a fixed
+    # cost and a time per step from the line through T = 10 and 200
+    by_T = {}
+    for T_p in (10, T_ILQR, 200):
+        bwd, fwd, _, _ = (probs[(N_ILQR, "cartpole")] if T_p == T_ILQR else
+                          problem(N_ILQR, cartpole_step, 4, T_p, 3, cart_draw))
+        by_T[T_p] = [cuda_ms(direct) for direct in ilqr_direct_calls(bwd, fwd)]
+    for i, name in enumerate(("K7 ilqr_backward", "K8 ilqr_forward")):
+        per_step = (by_T[200][i] - by_T[10][i]) / 190
+        fixed = by_T[10][i] - 10 * per_step
+        log(f"time {name} device cartpole N={N_ILQR}: T=10 {by_T[10][i]:.4f} ms, "
+            f"T={T_ILQR} {by_T[T_ILQR][i]:.4f} ms, T=200 {by_T[200][i]:.4f} ms; fixed "
+            f"{1e3 * fixed:.2f} us, per step {1e3 * per_step:.3f} us [{smi}]")
+    # K8 by alpha set: the six alphas of the solve (those >= 0.3 diverge on the
+    # first line search, |x| up to 1e18) against the three small ones
+    _, fwd, _, _ = probs[(N_ILQR, "cartpole")]
+    fwd_small = fwd[:5] + (t32([0.1, 0.03, 0.01]),) + fwd[6:]
+    _, direct_small = ilqr_direct_calls(probs[(N_ILQR, "cartpole")][0], fwd_small)
+    log(f"time K8 ilqr_forward device cartpole N={N_ILQR} T={T_ILQR}: six alphas "
+        f"{dev_ms[('fwd', N_ILQR)]:.4f} ms, alphas (0.1, 0.03, 0.01) "
+        f"{cuda_ms(direct_small):.4f} ms [{smi}]")
     solve_ms = {
         f"config #3 ilqr_solve (fd, h={T_ILQR}, 10 iters)":
             cuda_ms(lambda: ilqr_solve(cartpole_step, x0, Q, R, QF, goal, horizon=T_ILQR,
@@ -1771,7 +1840,8 @@ def main() -> int:
     if build_log.is_file():
         for entry, line in ptxas_lines(build_log.read_text()):
             log(f"ptxas {entry}: {line}")
-            if "boxqp::" in entry and "spill" in line:
+            if ("boxqp::" in entry or "ilqr_bwd::" in entry or "ilqr_fwd::" in entry) \
+                    and "spill" in line:
                 require("0 bytes spill stores, 0 bytes spill loads" in line,
                         f"{entry} compiles without spills")
     # the box-QP templates' products on the tensor cores: every instance (K2 in

@@ -2,9 +2,10 @@
 numpower_tpu/kernels/ilqr_backward.py ``ilqr_backward_fused``).
 
 The kernel is CUDA C++ in ``csrc/ilqr_backward.cu`` (its note says what bounds
-it on the H100 and how the design answers that): G lanes per scenario (4, 8
-or 16 by n), lane i owning row i of Vxx, each stage's linearization streamed
-in with cp.async, the whole T loop in one launch. This module holds its
+it on the H100 and how the design answers that): one thread per scenario for
+n <= 4, its whole step in registers, the horizon staged ahead in chunks by
+bulk asynchronous copies; above, 8 or 16 lanes per scenario, lane i owning
+row i of Vxx; the whole T loop in one launch. This module holds its
 wrapper, :func:`ilqr_backward_fused`, and its plain PyTorch version,
 :func:`ilqr_backward_reference`, which runs the kernel's recursion (not the
 full form of models/ilqr._backward_pass: the two agree only up to rounding).

@@ -4,8 +4,9 @@ numpower_tpu/kernels/ilqr_forward.py ``ilqr_forward_pallas``).
 The kernel is CUDA C++ in ``csrc/ilqr_forward.cu`` (its note says what bounds
 it on the H100 and how the design answers that): one thread per (alpha,
 scenario), the state in registers, the registered plant's device function
-(``csrc/plants.cuh``) in the kernel, the nominal rows staged once per
-scenario. This module holds its wrapper, :func:`ilqr_forward_fused`, and its plain
+(``csrc/plants.cuh``) in the kernel, the nominal rows staged ahead in chunks
+by bulk asynchronous copies for a block's alphas, the outputs written back
+chunk by chunk. This module holds its wrapper, :func:`ilqr_forward_fused`, and its plain
 PyTorch version, :func:`ilqr_forward_reference`: the closed-loop rollout of
 models/ilqr._forward_pass over all alphas at once and the cost of
 models/ilqr._total_cost. The wrapper takes the plain version for a tensor on

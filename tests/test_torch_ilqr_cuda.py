@@ -13,8 +13,9 @@ kernel (tests/test_kernels.py:158-163). K8 on the candidates whose plain
 rollout stays in |x| <= 10 (the others leave the linearization's region and
 diverge, in both versions alike): xs 1e-4, costs rtol 1e-5 (the JAX
 package's, tests/test_kernels.py:577-582), us 5e-4 (gains up to |K| ~ 100
-turn a 5e-6 state difference into 5e-4). N = 1003 and 257 are ragged for
-K7's 32-, 16- and 8-scenario blocks and K8's 32-scenario blocks.
+turn a 5e-6 state difference into 5e-4). N = 1, 31, 33, 257 and 1003 are
+ragged for K7's 32-scenario (n <= 4) and 16- or 8-scenario blocks and K8's
+32-scenario blocks.
 """
 
 import functools
@@ -57,11 +58,27 @@ def _ltv(N, T, n, m, device, seed):
             10.0 * np.eye(n, dtype=np.float32))
 
 
-@pytest.mark.parametrize("n,m,T", [(4, 1, 50), (12, 4, 30), (6, 2, 20), (16, 8, 10), (3, 2, 7)],
-                         ids=["cartpole", "quadrotor", "planar", "envelope", "unicycle"])
+# (n, m, T, N): the configurations' shapes at N = 1003, then each edge of the
+# two forms (thread per scenario for n <= 4, lane per row above; the m buckets
+# 1, 2, 4, 8) at T = 1, at T off the thread form's chunk (5 stages at n = 4,
+# m = 1; 12 at n = 2) and past its ring of three chunks, and at N ragged
+# against 32-scenario blocks (1, 31, 33, 257)
+BACKWARD_CASES = {
+    "cartpole": (4, 1, 50, 1003), "quadrotor": (12, 4, 30, 1003), "planar": (6, 2, 20, 1003),
+    "envelope": (16, 8, 10, 1003), "unicycle": (3, 2, 7, 1003),
+    "n2-m1-T40-N257": (2, 1, 40, 257), "n2-m8-T1-N33": (2, 8, 1, 33),
+    "n4-m1-T1-N1": (4, 1, 1, 1), "n4-m1-T17-N31": (4, 1, 17, 31),
+    "n4-m2-T64-N33": (4, 2, 64, 33), "n4-m8-T9-N257": (4, 8, 9, 257),
+    "n1-m1-T23-N33": (1, 1, 23, 33), "n5-m1-T1-N31": (5, 1, 1, 31),
+    "n5-m8-T13-N257": (5, 8, 13, 257), "n8-m2-T37-N1": (8, 2, 37, 1),
+    "n8-m8-T5-N33": (8, 8, 5, 33), "n12-m1-T19-N257": (12, 1, 19, 257),
+    "n16-m2-T1-N31": (16, 2, 1, 31), "n16-m1-T26-N33": (16, 1, 26, 33),
+}
+
+
+@pytest.mark.parametrize("n,m,T,N", list(BACKWARD_CASES.values()), ids=list(BACKWARD_CASES))
 @pytest.mark.parametrize("diag", [False, True], ids=["plain", "luu_diags"])
-def test_backward_kernel_matches_plain(device, n, m, T, diag):
-    N = 1003
+def test_backward_kernel_matches_plain(device, n, m, T, N, diag):
     args = _ltv(N, T, n, m, device, seed=n * 10 + m)
     luu_diags = None
     if diag:
@@ -72,6 +89,31 @@ def test_backward_kernel_matches_plain(device, n, m, T, diag):
     torch.cuda.synchronize()
     assert ilqr_backward.ilqr_backward_fused.launches == before + 1
     ks_p, Ks_p = ilqr_backward.ilqr_backward_reference(*args, reg=1e-3, luu_diags=luu_diags)
+    assert torch.allclose(ks, ks_p, rtol=1e-3, atol=1e-4)
+    assert torch.allclose(Ks, Ks_p, rtol=1e-3, atol=1e-4)
+
+
+def _shifted(t, shift):
+    """A copy of t that starts `shift` floats into a fresh buffer: 4 * shift
+    bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + shift, dtype=t.dtype, device=t.device)
+    view = buf[shift:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("shift", [1, 2, 3])
+def test_backward_kernel_reads_runs_at_any_alignment(device, shift):
+    """Operands that start 4, 8 or 12 bytes past a 16-byte boundary: the
+    16-byte copies stage the aligned span around each run."""
+    N, T, n, m = 33, 13, 4, 1
+    args = list(_ltv(N, T, n, m, device, seed=5))
+    diag = torch.as_tensor(np.random.default_rng(6).uniform(0.0, 2.0, (N, T, m)),
+                           dtype=torch.float32, device=device)
+    moved = [_shifted(args[i], shift) for i in (0, 1, 2, 3)]
+    assert all(t.data_ptr() % 16 == 4 * shift % 16 for t in moved)
+    ks, Ks = ilqr_backward.ilqr_backward_fused(*moved, *args[4:], luu_diags=_shifted(diag, shift))
+    ks_p, Ks_p = ilqr_backward.ilqr_backward_reference(*args, luu_diags=diag)
     assert torch.allclose(ks, ks_p, rtol=1e-3, atol=1e-4)
     assert torch.allclose(Ks, Ks_p, rtol=1e-3, atol=1e-4)
 
@@ -119,6 +161,40 @@ def test_forward_kernel_matches_plain_on_every_registered_plant(device, f, n, m)
     assert (xs[ok] - xs_p[ok]).abs().max().item() <= 1e-4
     assert ((costs[ok] - c_p[ok]).abs() / c_p[ok].abs()).max().item() <= 1e-5
     assert torch.equal(xs[:, :, 0], args[6].expand(6, 257, n))
+
+
+def _check_forward(args, A, N, T, n, m):
+    us, xs, costs = ilqr_forward.ilqr_forward_fused(*args)
+    torch.cuda.synchronize()
+    assert us.shape == (A, N, T, m) and xs.shape == (A, N, T + 1, n) and costs.shape == (A, N)
+    us_p, xs_p, c_p = ilqr_forward.ilqr_forward_reference(*args)
+    ok = torch.isfinite(c_p) & (xs_p.abs().amax(dim=(-2, -1)) <= 10.0)
+    assert ok.double().mean().item() >= 0.4
+    assert (us[ok] - us_p[ok]).abs().max().item() <= 5e-4
+    assert (xs[ok] - xs_p[ok]).abs().max().item() <= 1e-4
+    assert ((costs[ok] - c_p[ok]).abs() / c_p[ok].abs()).max().item() <= 1e-5
+    assert torch.equal(xs[:, :, 0], args[6].expand(A, N, n))
+
+
+# alpha counts 1, 6 (two blocks of three warps) and 32 (eight blocks of four);
+# T = 1, T = 9 across the cartpole's 8-step chunk, T = 50 past its ring of
+# three chunks; N ragged against 32-scenario blocks
+@pytest.mark.parametrize("A", [1, 6, 32])
+@pytest.mark.parametrize("T,N", [(1, 33), (9, 31), (50, 257)], ids=["T1-N33", "T9-N31", "T50-N257"])
+def test_forward_kernel_alpha_counts_and_chunks(device, A, T, N):
+    args = list(_line_search_problem(cartpole_step, 4, 1, N, T, device))
+    args[5] = torch.tensor(np.geomspace(0.1, 1e-3, A) if A > 1 else [0.05],
+                           dtype=torch.float32, device=device)
+    _check_forward(args, A, N, T, 4, 1)
+
+
+@pytest.mark.parametrize("shift", [1, 3])
+def test_forward_kernel_reads_runs_at_any_alignment(device, shift):
+    N, T = 33, 20
+    args = list(_line_search_problem(pendulum_step, 2, 1, N, T, device))
+    for i in (7, 8, 9, 10):  # xs_nom, us_nom, ks, Ks
+        args[i] = _shifted(args[i], shift)
+    _check_forward(args, 6, N, T, 2, 1)
 
 
 def test_partial_plant_carries_its_parameters_into_the_kernel(device):
