@@ -12,7 +12,7 @@ scenarios, controls boxed to +-1, so d = 120 controls per scenario):
    numpower_tpu_torch/csrc with nvcc (timed); every instance of the box-QP
    templates (K1, K2, K3a, K3b, K1', K2') must hold HGMMA instructions
    (cuobjdump -sass of the library, counted per instance), and they and
-   every instance of K7 and K8 compile with no spills (ptxas);
+   every instance of K7, K8, K6a/K6b and K14 compile with no spills (ptxas);
 1. each kernel against its plain PyTorch version on the card at N = 4096:
    cold and warm starts, all-fp32 (max |dU| <= 1e-5) and the default
    bf16 + fp32 schedules (<= 1e-4), residuals within 1e-5;
@@ -48,7 +48,10 @@ Riccati of bench.py:341-372):
    riccati_scan at T = 4096; tube_mpc_solve at N = 65,536, T = 30;
 7. times from CUDA events (median): each kernel and its plain version, one
    config #1 solve, one config #2 batch, the T = 4096 sequential and
-   associative Riccati, one tube sweep and lqr_infinite_gain's share of it.
+   associative Riccati, one tube sweep and lqr_infinite_gain's share of it;
+   each kernel's own duration from torch.profiler (K5, K6a, K6b) beside its
+   wrapper's time and host enqueue (K6a, K6b); one riccati_scan_per_scenario
+   by "psd" at N = 4096, T = 30, its K6b launches counted (T a call).
 
 The two-step box-QP kernels (reference tracking and single-x0 solves):
 
@@ -122,7 +125,8 @@ and 644-693), OSQP and MHE:
    4096 windows against the RTS smoother; then times from CUDA events: K13
    and K14 (device, wrapper, plain, the eps draw, repeat_interleave, the
    resample constructions), the entry points, rollouts/s and
-   particle-steps/s.
+   particle-steps/s; K14's own duration from torch.profiler and its
+   wrapper's host enqueue.
 
 The box-QP variants and the data-parallel path (the JAX package's sharded
 solvers, which hold the fused kernels against their single-device forms), at
@@ -187,6 +191,11 @@ PLANT_OPS = {"cartpole_step": 28, "pendulum_step": 8, "unicycle_step": 10,
              "planar_quadrotor_step": 24}
 
 
+# the kernels whose every instance must compile without spills (phase 0):
+# the box-QP templates, K7, K8, K6a/K6b and K14
+CHECKED_FOR_SPILLS = ("boxqp::", "ilqr_bwd::", "ilqr_fwd::", "smallmat::", "pf_resample::")
+
+
 def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
 
@@ -227,6 +236,36 @@ def enqueue_ms(fn, calls: int = 50) -> float:
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return (t1 - t0) / calls * 1e3
+
+
+def profiled_us(fn, names, calls: int = 50) -> dict:
+    """The kernels' own durations on the card: {name: (mean us, launches)} of
+    every kernel whose name holds one of `names`, over `calls` calls of fn,
+    from torch.profiler's CUDA activity (CUPTI); (None, 0) for a name the
+    profiler recorded no kernel of (its duration is then not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = {name: [] for name in names}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        for name in names:
+            if name in ev.name:
+                spans[name].append(ev.time_range.elapsed_us())
+    return {name: (statistics.fmean(us) if us else None, len(us)) for name, us in spans.items()}
+
+
+def fmt_us(entry) -> str:
+    us, launches = entry
+    return "not measured (no kernel in the trace)" if us is None else \
+        f"{us:.3f} us (mean of {launches} launches)"
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -495,6 +534,32 @@ def riccati_family(dev, smi: str) -> list:
     lib_solve_ms = cuda_ms(lambda: torch.linalg.solve(a4, b4))
     log(f"time torch.linalg.solve ({N},{m},{m})x({N},{m},{n}) (K6b's function): "
         f"{lib_solve_ms:.4f} ms [{smi}]")
+    # each kernel's own duration (profiler) beside its wrapper's CUDA-event
+    # time and host enqueue; the psd route of the per-scenario Riccati, timed
+    # with its launches counted
+    own = {
+        "riccati": profiled_us(lambda: riccati.riccati_batched_fused(As, Bs, *costs, T),
+                               ["riccati_kernel"])["riccati_kernel"],
+        "psd": profiled_us(lambda: cholesky.psd_solve_batched(a4, b4),
+                           ["psd_solve_kernel"])["psd_solve_kernel"],
+        "chol": profiled_us(lambda: cholesky.cholesky_batched(a12),
+                            ["cholesky_kernel"])["cholesky_kernel"],
+    }
+    enq = {"psd": enqueue_ms(lambda: cholesky.psd_solve_batched(a4, b4)),
+           "chol": enqueue_ms(lambda: cholesky.cholesky_batched(a12))}
+    log(f"profile K5 riccati N={N} T={T}: {fmt_us(own['riccati'])}; wrapper "
+        f"{ms['riccati']:.4f} ms [{smi}]")
+    log(f"profile K6b psd_solve ({N},{m},{m})x({N},{m},{n}): {fmt_us(own['psd'])}; wrapper "
+        f"{ms['psd']:.4f} ms, its host enqueue {enq['psd']:.4f} ms [{smi}]")
+    log(f"profile K6a cholesky ({N},{n},{n}): {fmt_us(own['chol'])}; wrapper "
+        f"{ms['chol']:.4f} ms, its host enqueue {enq['chol']:.4f} ms [{smi}]")
+    cholesky.psd_solve_batched.launches = 0
+    psd_route_ms = cuda_ms(lambda: riccati_scan_per_scenario(As, Bs, *costs, T, method="psd"),
+                           reps=5, inner=1, warmup=1)
+    route_launches = cholesky.psd_solve_batched.launches
+    log(f"time riccati_scan_per_scenario N={N} T={T} method=psd: {psd_route_ms:.4f} ms "
+        f"({route_launches // 6} K6b launches a call) [{smi}]")
+    require(route_launches == 6 * T, "the psd route launched K6b once per stage")
     r = n  # K6b's right-hand sides at the timed shape
     return [
         kernel_entry("riccati_batched_fused", "riccati.cu", "riccati.py:172", launches["riccati"],
@@ -1519,6 +1584,11 @@ def sampling_family(dev, smi: str) -> list:
             *pf_args, *pf_data, gen(0), n_particles=N_PF, resample_method="gather"), **slow),
     })
     steps = B_PF * N_PF * T_PF
+    own = profiled_us(lambda: pf_resample.resample_systematic(parts, m_t),
+                      ["resample_kernel"])["resample_kernel"]
+    res_enq = enqueue_ms(lambda: pf_resample.resample_systematic(parts, m_t))
+    log(f"profile K14 resample B={B_PF} N={N_PF} n=2: {fmt_us(own)}; wrapper {ms['res']:.4f} ms, "
+        f"its host enqueue {res_enq:.4f} ms [{smi}]")
     log(f"time K14 resample B={B_PF} N={N_PF} n=2 per step: device {ms['res_device']:.4f} ms, "
         f"wrapper {ms['res']:.4f} ms, plain {ms['res_plain']:.4f} ms, repeat_interleave "
         f"{ms['res_library']:.4f} ms; a whole resample step (slots + cloud) by pallas "
@@ -1840,8 +1910,7 @@ def main() -> int:
     if build_log.is_file():
         for entry, line in ptxas_lines(build_log.read_text()):
             log(f"ptxas {entry}: {line}")
-            if ("boxqp::" in entry or "ilqr_bwd::" in entry or "ilqr_fwd::" in entry) \
-                    and "spill" in line:
+            if any(ns in entry for ns in CHECKED_FOR_SPILLS) and "spill" in line:
                 require("0 bytes spill stores, 0 bytes spill loads" in line,
                         f"{entry} compiles without spills")
     # the box-QP templates' products on the tensor cores: every instance (K2 in

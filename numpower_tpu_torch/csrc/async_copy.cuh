@@ -1,6 +1,7 @@
 // Staging contiguous runs of floats from device memory into shared memory
 // with 16-byte cp.async (LDGSTS.128), for the kernels that stage a chunk of
-// a horizon ahead of their step chain (ilqr_backward.cu, ilqr_forward.cu).
+// a horizon ahead of their step chain (ilqr_backward.cu, ilqr_forward.cu)
+// and those that stage one tile a block (cholesky.cu, pf_resample.cu).
 //
 // Why not the TMA's bulk copies (cp.async.bulk on an mbarrier): a block's
 // chunk is 128-160 runs of 16-320 bytes (one per scenario and array), and a
@@ -56,6 +57,18 @@ __device__ __forceinline__ void copy_run(float* dst, const float* src, int count
   const char* const from = span_start(src);
   const int pieces = span_pieces(src, count);
   for (int q = 0; q < pieces; ++q) __pipeline_memcpy_async(dst + 4 * q, from + 16 * q, 16);
+}
+
+// The same copy shared by the block's threads: thread `tid` of `nthreads`
+// takes the pieces tid, tid + nthreads, ..., so that the block's whole span
+// is in flight at once (the kernels that stage one contiguous tile a block:
+// cholesky.cu, pf_resample.cu).
+__device__ __forceinline__ void copy_run_by_block(float* dst, const float* src, int count,
+                                                  int tid, int nthreads) {
+  const char* const from = span_start(src);
+  const int pieces = span_pieces(src, count);
+  for (int q = tid; q < pieces; q += nthreads)
+    __pipeline_memcpy_async(dst + 4 * q, from + 16 * q, 16);
 }
 
 }  // namespace async_copy

@@ -11,29 +11,61 @@
 // 1 / L[j][j]. A non-PD pivot gives NaN from its column on; nothing checks or
 // raises, as in the JAX package.
 //
-// Design. One matrix per thread, one warp per block (kBatch = 32 matrices),
-// so 4096 matrices are 128 blocks on the H100's 132 SMs. The dimension n is a
-// template parameter (1..16): the factor L, its inverse diagonal and one rhs
-// column live in registers, every loop is unrolled. The block first copies
-// its 32 matrices (and right-hand sides) from their public row-major layout
-// into shared memory with consecutive threads on consecutive addresses
-// (coalesced), each matrix at an odd stride, so that the 32 threads' reads of
-// "element e of my matrix" fall on 32 distinct banks. Results go back into the
-// same shared slots and out the same coalesced way. There is no transpose pass
-// on the host.
+// K6a. One matrix per thread, one warp per block (kBatch = 32 matrices),
+// so 4096 matrices are 128 blocks on the H100's 132 SMs. The dimension n is
+// a template parameter (1..16): the factor L and its inverse diagonal live in
+// registers, every loop is unrolled. The block copies its 32 matrices from
+// their public row-major layout into shared memory, consecutive threads on
+// consecutive addresses, each matrix at an odd stride so that the 32
+// threads' reads of "element e of my matrix" fall on 32 distinct banks;
+// results go back the same way.
 //
-// What bounds it. The work is ~n^3/6 dependent FMAs per factor plus n^2 per
-// rhs column, in one thread: a chain of dependent instructions, so latency
-// bound, with one warp per SM at N = 4096. Device memory is read and written
-// once (4 N n (n + 2r) bytes for K6b).
+// K6b. What bounded the first design (K6a's, one matrix per thread, one
+// warp a block): its staging loop, one 4-byte load a thread an iteration,
+// each waiting on device memory (probes/psd_resample.py at (4096, 4, 4) x
+// (4096, 4, 12): 71% of a thread's cycles, and the write-back loop 21%;
+// 16 us of device time for 1.8 MB); then the right-hand side's columns, one
+// after another in one thread. Now a block of (r, tile) threads takes
+// `tile` matrices (32 for n <= 8, else 16), one thread per (column, matrix):
+//   - staging: the block's matrices and right-hand sides are two contiguous
+//     runs of device memory, copied as their aligned 16-byte spans by cp.async
+//     shared over the block's threads (csrc/async_copy.cuh), all in flight at
+//     once, one wait; a base at any 4-byte alignment is read at its offset in
+//     the span, and no index is divided by a runtime width;
+//   - the factor: one thread per matrix forms it in registers by K6a's
+//     factor<n> and writes it over the matrix's slot (L below the diagonal,
+//     1 / L[j][j] on it), where the matrix's other threads read it;
+//   - the solve: each thread substitutes its own column, reading L as a
+//     broadcast among the matrix's threads, and writes X over its column;
+//   - the write-back: the block's X tile is one contiguous run, stored as
+//     16-byte pieces from the first aligned address on.
+// At N = 4096, n = 4, r = 12 that is 128 blocks of 12 warps. Shared memory is
+// at most 33 KB a block (n = 16, r = 16), under the 48 KB a launch may take
+// without an attribute, so nothing is set on the host per launch. Device
+// memory is read and written once (4 N n (n + 2r) bytes).
+//
+// The probe builds this file with the NPT_STAMP macros filled in (the parts
+// of K6b: 0 staging, 1 factor, 2 solve, 3 write-back); here they are empty.
 
+#include <cstdint>
+
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include "async_copy.cuh"
+
+#ifndef NPT_STAMP
+#define NPT_STAMP_BEGIN
+#define NPT_STAMP(part)
+#define NPT_WAIT(v)
+#define NPT_STAMP_END
+#endif
 
 namespace smallmat {
 
 constexpr int kMaxDim = 16;  // matrix dimension
 constexpr int kMaxRhs = 16;  // right-hand-side columns of K6b
-constexpr int kBatch = 32;   // matrices per block, one per thread
+constexpr int kBatch = 32;   // K6a: matrices per block, one per thread
 
 // An odd stride >= width: the 32 threads' slots fall on distinct banks.
 __host__ __device__ inline int odd_stride(int width) { return width | 1; }
@@ -95,54 +127,108 @@ __global__ void __launch_bounds__(kBatch) cholesky_kernel(const float* __restric
   store_items(out + static_cast<size_t>(first) * n * n, sm, count, n * n, stride);
 }
 
+// K6b's matrices a block: the block is (r, tile) threads.
 template <int n>
-__global__ void __launch_bounds__(kBatch) psd_solve_kernel(const float* __restrict__ a,
-                                                           const float* __restrict__ b,
-                                                           float* __restrict__ x, int N,
-                                                           int r) {
-  extern __shared__ float sm[];
-  const int sa = odd_stride(n * n), sb = odd_stride(n * r);
-  float* sm_a = sm;
-  float* sm_b = sm + kBatch * sa;
-  const int first = blockIdx.x * kBatch;
-  const int count = min(kBatch, N - first);
-  load_items(sm_a, a + static_cast<size_t>(first) * n * n, count, n * n, sa);
-  load_items(sm_b, b + static_cast<size_t>(first) * n * r, count, n * r, sb);
+__host__ __device__ constexpr int solve_tile() {
+  return n <= 8 ? 32 : 16;
+}
+
+// Shared floats of K6b's block: the slots of its A and B spans.
+__host__ __device__ constexpr int solve_smem_floats(int n, int tile, int r) {
+  return async_copy::slot_floats(tile * n * n) + async_copy::slot_floats(tile * n * r);
+}
+
+// X = L'^{-1} L^{-1} b for one column b (n floats at stride r from col), by
+// the factor at L: L[i][j] below the diagonal, 1 / L[i][i] on it; X
+// overwrites the column.
+template <int n>
+__device__ __forceinline__ void solve_column(const float* L, float* col, int r) {
+  float y[n];
+#pragma unroll
+  for (int i = 0; i < n; ++i) {  // forward: L y = b
+    float v = col[i * r];
+#pragma unroll
+    for (int k = 0; k < i; ++k) v -= L[i * n + k] * y[k];
+    y[i] = v * L[i * n + i];
+  }
+  // for n > 8, L is read again rather than held in registers from the
+  // forward pass to the backward one
+  if (n > 8) asm volatile("" ::: "memory");
+#pragma unroll
+  for (int i = n - 1; i >= 0; --i) {  // backward: L' x = y (x overwrites y)
+    float v = y[i];
+#pragma unroll
+    for (int k = i + 1; k < n; ++k) v -= L[k * n + i] * y[k];
+    y[i] = v * L[i * n + i];
+  }
+#pragma unroll
+  for (int i = 0; i < n; ++i) col[i * r] = y[i];
+}
+
+// Stores `count` floats from shared memory at src to dst, the block's
+// threads on consecutive 16-byte pieces of dst from its first 16-byte
+// boundary on, 4-byte stores before it and after the last whole piece.
+__device__ __forceinline__ void store_run_by_block(float* __restrict__ dst, const float* src,
+                                                   int count, int tid, int nthreads) {
+  const int head =
+      min(count, static_cast<int>(((16u - (reinterpret_cast<uintptr_t>(dst) & 15u)) & 15u) >> 2));
+  if (tid < head) dst[tid] = src[tid];
+  const int pieces = (count - head) >> 2;
+  for (int q = tid; q < pieces; q += nthreads) {
+    const int e = head + 4 * q;
+    *reinterpret_cast<float4*>(dst + e) = make_float4(src[e], src[e + 1], src[e + 2], src[e + 3]);
+  }
+  for (int e = head + 4 * pieces + tid; e < count; e += nthreads) dst[e] = src[e];
+}
+
+template <int n>
+__global__ void __launch_bounds__(solve_tile<n>() * kMaxRhs)
+    psd_solve_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                     float* __restrict__ x, int N, int r) {
+  constexpr int kTile = solve_tile<n>();
+  extern __shared__ __align__(16) float solve_sm[];
+  NPT_STAMP_BEGIN;
+  const int c = threadIdx.x, k = threadIdx.y;  // this thread's column and matrix
+  const int tid = k * r + c, nthreads = r * kTile;
+  const int first = blockIdx.x * kTile;
+  const int count = min(kTile, N - first);
+  const float* a_tile = a + static_cast<size_t>(first) * n * n;
+  const float* b_tile = b + static_cast<size_t>(first) * n * r;
+  float* const sa_slot = solve_sm;
+  float* const sb_slot = solve_sm + async_copy::slot_floats(kTile * n * n);
+  async_copy::copy_run_by_block(sa_slot, a_tile, count * n * n, tid, nthreads);
+  async_copy::copy_run_by_block(sb_slot, b_tile, count * n * r, tid, nthreads);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
   __syncthreads();
-  if (static_cast<int>(threadIdx.x) < count) {
+  float* const sa = sa_slot + async_copy::run_offset(a_tile);
+  float* const sb = sb_slot + async_copy::run_offset(b_tile);
+  NPT_STAMP(0);
+  if (c == 0 && k < count) {  // the factor, over the matrix's slot
+    float* const mat = sa + k * n * n;
     float L[n][n], inv[n];
-    factor<n>(sm_a + threadIdx.x * sa, L, inv);
-    float* rhs = sm_b + threadIdx.x * sb;  // row-major n x r; X overwrites it
-    for (int c = 0; c < r; ++c) {
-      float y[n];
+    factor<n>(mat, L, inv);
 #pragma unroll
-      for (int i = 0; i < n; ++i) {  // forward: L y = b
-        float v = rhs[i * r + c];
+    for (int i = 0; i < n; ++i) {
 #pragma unroll
-        for (int k = 0; k < i; ++k) v -= L[i][k] * y[k];
-        y[i] = v * inv[i];
-      }
-#pragma unroll
-      for (int i = n - 1; i >= 0; --i) {  // backward: L' x = y (x overwrites y)
-        float v = y[i];
-#pragma unroll
-        for (int k = i + 1; k < n; ++k) v -= L[k][i] * y[k];
-        y[i] = v * inv[i];
-      }
-#pragma unroll
-      for (int i = 0; i < n; ++i) rhs[i * r + c] = y[i];
+      for (int j = 0; j < i; ++j) mat[i * n + j] = L[i][j];
+      mat[i * n + i] = inv[i];
     }
   }
   __syncthreads();
-  store_items(x + static_cast<size_t>(first) * n * r, sm_b, count, n * r, sb);
+  NPT_STAMP(1);
+  if (k < count) solve_column<n>(sa + k * n * n, sb + k * n * r + c, r);
+  __syncthreads();
+  NPT_STAMP(2);
+  store_run_by_block(x + static_cast<size_t>(first) * n * r, sb, count * n * r, tid, nthreads);
+  NPT_STAMP(3);
+  NPT_STAMP_END;
 }
 
 template <int n>
 cudaError_t launch_cholesky(const float* a, float* L, int N, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(kBatch) * odd_stride(n * n) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      cholesky_kernel<n>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
+  constexpr size_t smem = static_cast<size_t>(kBatch) * (n * n | 1) * sizeof(float);
+  static_assert(smem <= 48 * 1024, "K6a's block fits the shared memory of a plain launch");
   cholesky_kernel<n><<<(N + kBatch - 1) / kBatch, kBatch, smem, stream>>>(a, L, N);
   return cudaGetLastError();
 }
@@ -150,12 +236,11 @@ cudaError_t launch_cholesky(const float* a, float* L, int N, cudaStream_t stream
 template <int n>
 cudaError_t launch_psd_solve(const float* a, const float* b, float* x, int N, int r,
                              cudaStream_t stream) {
-  const size_t smem =
-      static_cast<size_t>(kBatch) * (odd_stride(n * n) + odd_stride(n * r)) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      psd_solve_kernel<n>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  psd_solve_kernel<n><<<(N + kBatch - 1) / kBatch, kBatch, smem, stream>>>(a, b, x, N, r);
+  constexpr int kTile = solve_tile<n>();
+  static_assert(solve_smem_floats(n, kTile, kMaxRhs) * sizeof(float) <= 48 * 1024,
+                "K6b's block fits the shared memory of a plain launch");
+  const size_t smem = solve_smem_floats(n, kTile, r) * sizeof(float);
+  psd_solve_kernel<n><<<(N + kTile - 1) / kTile, dim3(r, kTile), smem, stream>>>(a, b, x, N, r);
   return cudaGetLastError();
 }
 

@@ -3,8 +3,10 @@ numpower_tpu/kernels/cholesky.py ``cholesky_batched`` and
 ``psd_solve_batched``).
 
 The kernels are CUDA C++ in ``csrc/cholesky.cu`` (its note says what bounds
-them on the H100 and how the design answers that): one matrix per thread,
-the factor in registers with its diagonal held inverted. Their plain PyTorch
+them on the H100 and how the design answers that): K6a one matrix per
+thread, the factor in registers; K6b one thread per (column, matrix), the
+block's tile staged by 16-byte copies and factored in shared memory with its
+diagonal held inverted. Their plain PyTorch
 versions are the unrolled recurrences of utils/smallmat.py, which compute the
 same function the same way: ``cholesky_batched_reference`` is
 ``cholesky_unrolled`` and ``psd_solve_batched_reference`` is
@@ -50,9 +52,7 @@ def cholesky_batched(a: torch.Tensor) -> torch.Tensor:
     a = a.contiguous()  # a strided or broadcast view is copied
     _check_operand("a", a, a.device, (N, n, n))
     L = torch.empty_like(a)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        code = _build.library().npt_cholesky_batched(a.data_ptr(), L.data_ptr(), N, n, stream)
+    code = _build.launch("npt_cholesky_batched", a.device, a.data_ptr(), L.data_ptr(), N, n)
     _build.check(code, "cholesky_batched kernel launch")
     cholesky_batched.launches += 1
     return L
@@ -78,10 +78,8 @@ def psd_solve_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _check_operand("a", a, a.device, (N, n, n))
     _check_operand("b", b, a.device, (N, n, r))
     x = torch.empty_like(b)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        code = _build.library().npt_psd_solve_batched(a.data_ptr(), b.data_ptr(), x.data_ptr(),
-                                                      N, n, r, stream)
+    code = _build.launch("npt_psd_solve_batched", a.device, a.data_ptr(), b.data_ptr(),
+                         x.data_ptr(), N, n, r)
     _build.check(code, "psd_solve_batched kernel launch")
     psd_solve_batched.launches += 1
     return x

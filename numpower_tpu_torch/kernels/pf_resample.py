@@ -2,9 +2,10 @@
 numpower_tpu/kernels/pf_resample.py ``resample_onehot_pallas``).
 
 The kernel is CUDA C++ in ``csrc/pf_resample.cu`` (its note says what bounds
-it on the H100 and how the design answers that): one thread per output slot,
-a binary search for the slot's owner over the row's slot boundaries staged
-in shared memory, then a copy of the owner's n floats. It computes the
+it on the H100 and how the design answers that): four output slots a
+thread, their binary searches for the slots' owners advanced together over
+the row's slot boundaries staged in shared memory, then every gather of the
+owners' n floats before any store. It computes the
 function of the TPU kernel, out[b, i] = parts[b, j] for the unique j with
 m[b, j-1] <= i < m[b, j], without its O(N^2) one-hot contraction, which
 existed for the TPU's matrix unit. This module holds its wrapper,
@@ -55,10 +56,8 @@ def resample_systematic(parts, m):
         raise ValueError(f"m must be a contiguous int32 ({B}, {N}) tensor on {device}, got "
                          f"{m.dtype} {tuple(m.shape)} on {m.device}")
     out = torch.empty_like(parts)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = _build.library().npt_resample_systematic(parts.data_ptr(), m.data_ptr(),
-                                                        out.data_ptr(), B, N, n, stream)
+    code = _build.launch("npt_resample_systematic", device, parts.data_ptr(), m.data_ptr(),
+                         out.data_ptr(), B, N, n)
     _build.check(code, "resample_systematic kernel launch")
     resample_systematic.launches += 1
     return out

@@ -8,7 +8,7 @@ Builds two libraries with nvcc into build/probes/: ``before`` from
 probes/ilqr_chain_before.cu (the kernels before their redesign, with cycle
 stamps)
 and ``current`` from probes/ilqr_chain.cu (today's csrc/ilqr_backward.cu and
-ilqr_forward.cu, whose stamp macros probes/ilqr_stamps.cuh fills in). Each
+ilqr_forward.cu, whose stamp macros probes/stamps.cuh fills in). Each
 stamped kernel adds the clock64() cycles of every part of its step to a
 register per part and writes them out per thread at its end (parts in
 ilqr_chain_before.cu's and the sources' notes).
@@ -69,7 +69,7 @@ def build(variant: str) -> ctypes.CDLL:
     src = SOURCES[variant]
     csrc = sorted((ROOT / "numpower_tpu_torch" / "csrc").glob("*.cu*"))
     digest = hashlib.sha256(b"".join(p.read_bytes() for p in [src, *csrc,
-                                                               ROOT / "probes" / "ilqr_stamps.cuh"]))
+                                                               ROOT / "probes" / "stamps.cuh"]))
     out = ROOT / "build" / "probes" / f"lib{variant}_{digest.hexdigest()[:12]}.so"
     if not out.is_file():
         out.parent.mkdir(parents=True, exist_ok=True)

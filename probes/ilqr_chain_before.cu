@@ -1,7 +1,7 @@
 // The iLQR kernels K7 and K8 as they were before their redesign for the
 // H100 (the first port of numpower_tpu_torch/csrc/ilqr_backward.cu and
 // ilqr_forward.cu: lanes per row, one stage staged ahead, chunked
-// write-back), unchanged but for the cycle stamps of probes/ilqr_stamps.cuh
+// write-back), unchanged but for the cycle stamps of probes/stamps.cuh
 // at the end of each part of a step.
 // probes/ilqr_chain.py builds this file into its own library and times its
 // parts beside those of the current kernels. Parts:
@@ -15,7 +15,7 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
-#include "ilqr_stamps.cuh"
+#include "stamps.cuh"
 #include "../numpower_tpu_torch/csrc/plants.cuh"
 
 namespace ilqr_bwd {

@@ -15,7 +15,9 @@ on P0, the JAX package's bound for its fused kernel
 |AX - B| <= 2e-3 (tests/test_kernels.py:77-82); K6a 1e-4. The kernels use
 rsqrtf (<= 2 ulp) where the plain versions use torch.rsqrt; both orders of
 summation are fp32 FMA chains. N = 1003 is ragged for both the 8-scenario
-blocks of K5 and the 32-matrix blocks of K6.
+blocks of K5 and the 32-matrix blocks of K6a and K6b (16 for K6b past
+n = 8); K6b also takes N = 1, 31 and 33, every r at n = 4, and operands at
+a 4-byte offset from a 16-byte boundary, which it stages as aligned spans.
 """
 
 import numpy as np
@@ -128,8 +130,15 @@ def test_riccati_envelope_raises(device):
     assert riccati.riccati_batched_fused.launches == launches and Ks.shape == (8, 5, 4, 17)
 
 
-@pytest.mark.parametrize("N,n,r", [(4096, 4, 12), (4096, 12, 4), (1003, 12, 4),
-                                   (1003, 16, 16), (64, 1, 3)])
+# every r at n = 4 (the Riccati inner solve's n); n = 1, 5, 12, 16; N = 1, 31,
+# 33 and 1003 against the kernel's tiles of 32 (n <= 8) or 16 matrices
+PSD_SHAPES = ([(4096, 4, 12), (4096, 12, 4), (1003, 12, 4), (1003, 16, 16), (64, 1, 3)]
+              + [(1003, 4, r) for r in range(1, 17)]
+              + [(257, 1, 16), (1003, 5, 7), (33, 12, 12), (31, 16, 1), (1, 4, 12), (1, 16, 5),
+                 (31, 4, 12), (33, 4, 12), (33, 16, 16)])
+
+
+@pytest.mark.parametrize("N,n,r", PSD_SHAPES)
 def test_psd_solve_kernel_matches_plain(device, N, n, r):
     a = _spd(N, n, device, seed=n, junk_upper=True)
     b = torch.as_tensor(np.random.default_rng(r).standard_normal((N, n, r)),
@@ -138,9 +147,39 @@ def test_psd_solve_kernel_matches_plain(device, N, n, r):
     X = cholesky.psd_solve_batched(a, b)
     torch.cuda.synchronize()
     assert cholesky.psd_solve_batched.launches == launches + 1
+    _assert_solves(a, b, X)
+
+
+def _assert_solves(a, b, X):
     torch.testing.assert_close(X, psd_solve_unrolled(a, b), rtol=2e-3, atol=2e-4)
     sym = torch.tril(a) + torch.tril(a, -1).transpose(1, 2)
     assert (sym @ X - b).abs().max().item() <= 2e-3
+
+
+def _misaligned(t):
+    """The same values in a contiguous view 4 bytes into a larger buffer:
+    .contiguous() passes it uncopied, its base off every 8- and 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.parametrize("which", ["a", "b", "both"])
+@pytest.mark.parametrize("N,n,r", [(1003, 4, 12), (257, 5, 3), (65, 12, 4)])
+def test_psd_solve_kernel_takes_misaligned_views(device, which, N, n, r):
+    a = _spd(N, n, device, seed=n + 40, junk_upper=True)
+    b = torch.as_tensor(np.random.default_rng(r + 40).standard_normal((N, n, r)),
+                        dtype=torch.float32, device=device)
+    a_in = _misaligned(a) if which in ("a", "both") else a
+    b_in = _misaligned(b) if which in ("b", "both") else b
+    launches = cholesky.psd_solve_batched.launches
+    X = cholesky.psd_solve_batched(a_in, b_in)
+    torch.cuda.synchronize()
+    assert cholesky.psd_solve_batched.launches == launches + 1
+    _assert_solves(a, b, X)
 
 
 @pytest.mark.parametrize("N,n", [(4096, 12), (1003, 16), (1003, 5), (64, 1)])

@@ -166,30 +166,69 @@ def test_mppi_routes(device):
     assert mppi_kernel.mppi_fused.launches == before + 1
 
 
-def _resample_case(B, N, n, device, seed, spike=False):
+def _resample_case(B, N, n, device, seed, weights="spread"):
+    """The cloud and its slot boundaries. weights: "spread" (log-weights
+    2 N(0, 1)), "spike" (one particle of row 0 takes nearly all the weight),
+    "one_owner" (one particle of every row owns every slot) or "half_zero"
+    (every other run of particles has zero weight, long runs own no slot)."""
     rng = np.random.default_rng(seed)
     parts = torch.as_tensor(rng.standard_normal((B, N, n)), dtype=torch.float32, device=device)
     logw = torch.as_tensor(2.0 * rng.standard_normal((B, N)), dtype=torch.float32, device=device)
-    if spike:
+    if weights == "spike":
         logw[0, N // 3] = 40.0
+    elif weights == "one_owner":
+        logw.fill_(-float("inf"))
+        logw[:, (2 * N) // 3] = 0.0
+    elif weights == "half_zero":
+        runs = (torch.arange(N, device=device) // max(1, N // 16)) % 2 == 1
+        logw[:, runs] = -float("inf")
     u0 = torch.as_tensor(rng.uniform(size=B), dtype=torch.float32, device=device)
     return parts, _resample_slots(u0, logw, N)
 
 
-@pytest.mark.parametrize("B,N,n", [(1, 1, 1), (3, 7, 2), (256, 1024, 2), (5, 1023, 6),
-                                   (2, 4099, 3), (2, 12289, 1)])
-@pytest.mark.parametrize("spike", [False, True], ids=["spread", "spike"])
-def test_resample_kernel_matches_plain(device, B, N, n, spike):
-    parts, m = _resample_case(B, N, n, device, seed=B + N + n, spike=spike)
-    before = pf_resample.resample_systematic.launches
-    out = pf_resample.resample_systematic(parts, m)
-    torch.cuda.synchronize()
-    assert pf_resample.resample_systematic.launches == before + 1
+def _assert_resampled(parts, m, out):
+    B, N, n = parts.shape
     assert torch.equal(out, pf_resample.resample_systematic_reference(parts, m))
     counts = torch.diff(m, dim=1, prepend=torch.zeros_like(m[:, :1]))
     lib = parts.reshape(B * N, n).repeat_interleave(counts.reshape(-1).long(), dim=0,
                                                     output_size=B * N)
     assert torch.equal(out.reshape(B * N, n), lib)
+
+
+# n = 1-6 (scalar, 8-byte and 16-byte accesses), B = 1, ragged N, and N past
+# the kernel's shared-memory staging (12,288 boundaries)
+@pytest.mark.parametrize("B,N,n", [(1, 1, 1), (3, 7, 2), (256, 1024, 2), (5, 1023, 6),
+                                   (2, 4099, 3), (2, 12289, 1), (3, 1000, 1), (3, 1001, 3),
+                                   (4, 1024, 4), (3, 999, 5), (1, 1024, 2), (1, 12289, 4),
+                                   (2, 12288, 2)])
+@pytest.mark.parametrize("weights", ["spread", "spike", "one_owner", "half_zero"])
+def test_resample_kernel_matches_plain(device, B, N, n, weights):
+    parts, m = _resample_case(B, N, n, device, seed=B + N + n, weights=weights)
+    before = pf_resample.resample_systematic.launches
+    out = pf_resample.resample_systematic(parts, m)
+    torch.cuda.synchronize()
+    assert pf_resample.resample_systematic.launches == before + 1
+    _assert_resampled(parts, m, out)
+
+
+def _misaligned(t):
+    """The same values in a contiguous view 4 bytes into a larger buffer."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.parametrize("which", ["parts", "m", "both"])
+@pytest.mark.parametrize("B,N,n", [(5, 1024, 2), (3, 1023, 4), (2, 12288, 2)])
+def test_resample_kernel_takes_misaligned_views(device, which, B, N, n):
+    parts, m = _resample_case(B, N, n, device, seed=7 * N + n)
+    parts_in = _misaligned(parts) if which in ("parts", "both") else parts
+    m_in = _misaligned(m) if which in ("m", "both") else m
+    out = pf_resample.resample_systematic(parts_in, m_in)
+    torch.cuda.synchronize()
+    _assert_resampled(parts, m, out)
 
 
 def test_resample_kernel_rejects_bad_operands(device):
