@@ -12,7 +12,8 @@ scenarios, controls boxed to +-1, so d = 120 controls per scenario):
    numpower_tpu_torch/csrc with nvcc (timed); every instance of the box-QP
    templates (K1, K2, K3a, K3b, K1', K2') must hold HGMMA instructions
    (cuobjdump -sass of the library, counted per instance), and they and
-   every instance of K7, K8, K6a/K6b and K14 compile with no spills (ptxas);
+   every instance of K7, K8, K6a/K6b, K14, K13 and K5 compile with no spills
+   (ptxas); the LDS, STS and FFMA counts of each K5 instance are logged;
 1. each kernel against its plain PyTorch version on the card at N = 4096:
    cold and warm starts, all-fp32 (max |dU| <= 1e-5) and the default
    bf16 + fp32 schedules (<= 1e-4), residuals within 1e-5;
@@ -49,8 +50,7 @@ Riccati of bench.py:341-372):
 7. times from CUDA events (median): each kernel and its plain version, one
    config #1 solve, one config #2 batch, the T = 4096 sequential and
    associative Riccati, one tube sweep and lqr_infinite_gain's share of it;
-   each kernel's own duration from torch.profiler (K5, K6a, K6b) beside its
-   wrapper's time and host enqueue (K6a, K6b); one riccati_scan_per_scenario
+   one riccati_scan_per_scenario
    by "psd" at N = 4096, T = 30, its K6b launches counted (T a call).
 
 The two-step box-QP kernels (reference tracking and single-x0 solves):
@@ -125,8 +125,7 @@ and 644-693), OSQP and MHE:
    4096 windows against the RTS smoother; then times from CUDA events: K13
    and K14 (device, wrapper, plain, the eps draw, repeat_interleave, the
    resample constructions), the entry points, rollouts/s and
-   particle-steps/s; K14's own duration from torch.profiler and its
-   wrapper's host enqueue.
+   particle-steps/s.
 
 The box-QP variants and the data-parallel path (the JAX package's sharded
 solvers, which hold the fused kernels against their single-device forms), at
@@ -150,6 +149,12 @@ the flagship QP, N = 4096, 40 iterations:
    products ran on the FMA pipes), the DP solve against the direct
    K2' in turns (the overhead of bench.py's shardmap row), and the mesh tick
    against the single-device tick.
+
+Every kernel's own duration (torch.profiler's CUDA activity, log_own) is
+logged in the times phases (4, 7, 10, 13, 16, 19) beside its wrapper's
+CUDA-event time and host enqueue: K1, K2 (4); K5, K6a, K6b (7); K3a, K3b,
+K7 and K8 at N = 256 and 4096 (10); K9-K12 (13); K13 at the bench's shape
+and, by a direct call, at N = 4096, K14 (16); K1', K2' (19).
 
 The launch counters of each path are zeroed just before it is driven
 (phases 2-3, 6, the path of 8, the path of 9, phase 12, the paths of 14
@@ -192,8 +197,9 @@ PLANT_OPS = {"cartpole_step": 28, "pendulum_step": 8, "unicycle_step": 10,
 
 
 # the kernels whose every instance must compile without spills (phase 0):
-# the box-QP templates, K7, K8, K6a/K6b and K14
-CHECKED_FOR_SPILLS = ("boxqp::", "ilqr_bwd::", "ilqr_fwd::", "smallmat::", "pf_resample::")
+# the box-QP templates, K7, K8, K6a/K6b, K14, K13 and K5
+CHECKED_FOR_SPILLS = ("boxqp::", "ilqr_bwd::", "ilqr_fwd::", "smallmat::", "pf_resample::",
+                      "mppi::", "riccati::")
 
 
 def log(msg: str) -> None:
@@ -268,6 +274,17 @@ def fmt_us(entry) -> str:
         f"{us:.3f} us (mean of {launches} launches)"
 
 
+def log_own(what: str, fn, kernel: str, wrapper_ms: float, smi: str, calls: int = 50):
+    """Log a kernel's own duration (profiled_us over `calls` calls of fn, the
+    kernels whose name holds `kernel`) beside the CUDA-event time of one call
+    (`wrapper_ms`) and fn's host enqueue; returns the (mean us, launches)
+    entry."""
+    own = profiled_us(fn, [kernel], calls)[kernel]
+    log(f"profile {what}: {fmt_us(own)}; wrapper {wrapper_ms:.4f} ms, its host enqueue "
+        f"{enqueue_ms(fn, calls):.4f} ms [{smi}]")
+    return own
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.double() - b.double()).abs().max().item()
 
@@ -317,24 +334,42 @@ def boxqp_passes(coarse: int, tail: int, tail_class: str = "highest") -> int:
     return coarse * TENSOR_PASSES["coarse"] + tail * TENSOR_PASSES[tail_class]
 
 
-def sass_instruction_counts(library, mnemonic: str) -> dict:
-    """{demangled kernel: count of `mnemonic` in its SASS} for the library,
-    from cuobjdump -sass (found beside nvcc)."""
+def sass_by_kernel(library) -> dict:
+    """{demangled kernel: its SASS lines} for the library, from cuobjdump
+    -sass (found beside nvcc)."""
     from numpower_tpu_torch.kernels import _build
 
     cuobjdump = str(Path(_build._nvcc()).with_name("cuobjdump"))
     sass = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True, text=True,
                           check=True).stdout
-    counts, fn = {}, None
+    lines, fn = {}, None
     for line in sass.splitlines():
         if "Function : " in line:
             fn = line.split("Function : ")[1].strip()
-            counts[fn] = 0
-        elif fn is not None and mnemonic in line:
-            counts[fn] += 1
-    names = subprocess.run(["c++filt"], input="\n".join(counts), capture_output=True, text=True,
+            lines[fn] = []
+        elif fn is not None:
+            lines[fn].append(line)
+    names = subprocess.run(["c++filt"], input="\n".join(lines), capture_output=True, text=True,
                            check=True).stdout.splitlines()
-    return {name.split("(")[0]: n for name, n in zip(names, counts.values())}
+    return {name.split("(")[0]: body for name, body in zip(names, lines.values())}
+
+
+def sass_opcode_counts(library, opcodes) -> dict:
+    """{demangled kernel: {opcode: count}} for the library's SASS: an
+    instruction counts under its opcode, the mnemonic before its first "."
+    (LDS.128 as LDS), a predicate (@P0) skipped."""
+    counts = {}
+    for fn, body in sass_by_kernel(library).items():
+        row = dict.fromkeys(opcodes, 0)
+        for line in body:
+            code = line.split("*/", 1)[1].split() if line.lstrip().startswith("/*") else []
+            if code and code[0].startswith("@"):
+                code = code[1:]
+            op = code[0].split(".")[0] if code else ""
+            if op in row:
+                row[op] += 1
+        counts[fn] = row
+    return counts
 
 
 def ptxas_lines(build_log: str) -> list:
@@ -537,22 +572,12 @@ def riccati_family(dev, smi: str) -> list:
     # each kernel's own duration (profiler) beside its wrapper's CUDA-event
     # time and host enqueue; the psd route of the per-scenario Riccati, timed
     # with its launches counted
-    own = {
-        "riccati": profiled_us(lambda: riccati.riccati_batched_fused(As, Bs, *costs, T),
-                               ["riccati_kernel"])["riccati_kernel"],
-        "psd": profiled_us(lambda: cholesky.psd_solve_batched(a4, b4),
-                           ["psd_solve_kernel"])["psd_solve_kernel"],
-        "chol": profiled_us(lambda: cholesky.cholesky_batched(a12),
-                            ["cholesky_kernel"])["cholesky_kernel"],
-    }
-    enq = {"psd": enqueue_ms(lambda: cholesky.psd_solve_batched(a4, b4)),
-           "chol": enqueue_ms(lambda: cholesky.cholesky_batched(a12))}
-    log(f"profile K5 riccati N={N} T={T}: {fmt_us(own['riccati'])}; wrapper "
-        f"{ms['riccati']:.4f} ms [{smi}]")
-    log(f"profile K6b psd_solve ({N},{m},{m})x({N},{m},{n}): {fmt_us(own['psd'])}; wrapper "
-        f"{ms['psd']:.4f} ms, its host enqueue {enq['psd']:.4f} ms [{smi}]")
-    log(f"profile K6a cholesky ({N},{n},{n}): {fmt_us(own['chol'])}; wrapper "
-        f"{ms['chol']:.4f} ms, its host enqueue {enq['chol']:.4f} ms [{smi}]")
+    log_own(f"K5 riccati N={N} T={T}", lambda: riccati.riccati_batched_fused(As, Bs, *costs, T),
+            "riccati_kernel", ms["riccati"], smi)
+    log_own(f"K6b psd_solve ({N},{m},{m})x({N},{m},{n})",
+            lambda: cholesky.psd_solve_batched(a4, b4), "psd_solve_kernel", ms["psd"], smi)
+    log_own(f"K6a cholesky ({N},{n},{n})", lambda: cholesky.cholesky_batched(a12),
+            "cholesky_kernel", ms["chol"], smi)
     cholesky.psd_solve_batched.launches = 0
     psd_route_ms = cuda_ms(lambda: riccati_scan_per_scenario(As, Bs, *costs, T, method="psd"),
                            reps=5, inner=1, warmup=1)
@@ -727,6 +752,10 @@ def boxqp_two_step(dev, smi: str, qp, x0s, rho) -> list:
     for solver, name in (("fista", "K3b fista_boxqp"), ("admm", "K3a admm_boxqp (Minv given)")):
         log(f"time {name} {iters} iters, {N} scenarios: kernel {ms[solver]:.4f} ms, plain "
             f"{plain_ms[solver]:.4f} ms [{smi}]")
+    log_own(f"K3b fista_boxqp {iters} iters, {N} scenarios", lambda: boxqp_fista.fista_boxqp(
+        qp.H, g, LO, HI, qp.lipschitz, iters, fista_ci), "fista_kernel", ms["fista"], smi)
+    log_own(f"K3a admm_boxqp {iters} iters, {N} scenarios", lambda: boxqp_admm.admm_boxqp(
+        qp.H, g, LO, HI, rho, iters, admm_ci, Minv=Minv), "admm_kernel", ms["admm"], smi)
     log(f"time serving tick with x_ref (FISTA, 30 iters, {N} scenarios): {tick_ms:.4f} ms [{smi}]")
     d = T * m
     return [
@@ -953,10 +982,12 @@ def ilqr_family(dev, smi: str) -> list:
         plain_ms[("bwd", N_k)] = cuda_ms(
             lambda: ilqr_backward.ilqr_backward_reference(*bwd, reg=1e-3), **slow)
         plain_ms[("fwd", N_k)] = cuda_ms(lambda: ilqr_forward.ilqr_forward_reference(*fwd), **slow)
-        for k, name in (("bwd", "K7 ilqr_backward"), ("fwd", "K8 ilqr_forward")):
+        for k, name, kern in (("bwd", "K7 ilqr_backward", "backward_"),
+                              ("fwd", "K8 ilqr_forward", "ilqr_forward_kernel")):
             log(f"time {name} cartpole N={N_k} T={T_ILQR}: kernel {ms[(k, N_k)]:.4f} ms "
                 f"(device {dev_ms[(k, N_k)]:.4f} ms, host enqueue {host_ms[(k, N_k)]:.4f} ms), "
                 f"plain {plain_ms[(k, N_k)]:.4f} ms [{smi}]")
+            log_own(f"{name} cartpole N={N_k} T={T_ILQR}", calls[k], kern, ms[(k, N_k)], smi)
     # the chain: device time at T = 10, 50 and 200 (N = 256), whence a fixed
     # cost and a time per step from the line through T = 10 and 200
     by_T = {}
@@ -1253,6 +1284,12 @@ def estimation_family(dev, smi: str) -> list:
     for key in names:
         log(f"time {names[key]} {shapes[key]}: device {device_ms[key]:.4f} ms, wrapper "
             f"{ms[key]:.4f} ms, plain {plain_ms[key]:.4f} ms [{smi}]")
+    for key, fn in (("kf", lambda: kalman_mean.kalman_mean_pass(*kf_args)),
+                    ("rts", lambda: rts_mean.rts_mean_pass(G_Ts, es_t, x_last)),
+                    ("ekf", lambda: ekf.ekf_batched(f, h, *args)),
+                    ("ukf", lambda: ukf.ukf_batched(f, h, *args))):
+        log_own(f"{names[key]} {shapes[key]}", fn, f"{names[key].split()[1]}_kernel", ms[key],
+                smi)
     for key, entry, kern in (("kf", "kalman_filter_batched", "kf"),
                              ("kf_sqrt", "kalman_filter_sqrt_batched", "kf"),
                              ("rts", "kalman_smoother_batched", "rts"),
@@ -1514,13 +1551,10 @@ def sampling_family(dev, smi: str) -> list:
     eps = mppi.eps_kernel_layout(gen(0), N_MPPI, IT_MPPI, T_MPPI, 1, K_MPPI, 1.0)
     us0 = torch.zeros(T_MPPI, device=dev)
     kw = dict(T=T_MPPI, iters=IT_MPPI, m=1, lam=1.0, sigma=1.0)
-    plant, floats, ins, (us_o, ess_o) = mppi.kernel_operands(pendulum_step, cost_p, x0s, eps,
-                                                             us0, T=T_MPPI, iters=IT_MPPI, m=1,
-                                                             sigma=1.0)
-    ptrs = [t.data_ptr() for t in ins] + [us_o.data_ptr(), ess_o.data_ptr()]
-    mppi_args = (N_MPPI, K_MPPI, T_MPPI, IT_MPPI, 1.0, 1.0, 0, -float("inf"), float("inf"))
-    ms = {"mppi_device": cuda_ms(lambda: lib.npt_mppi(plant.plant_id, *floats, *ptrs,
-                                                      *mppi_args, stream)),
+    # a direct library call: the wrapper's arguments, made once (the
+    # tensors they point to held beside them)
+    k13_args, k13_held = mppi.kernel_args(pendulum_step, cost_p, x0s, eps, us0, **kw)
+    ms = {"mppi_device": cuda_ms(lambda: lib.npt_mppi(*k13_args, stream)),
           "mppi": cuda_ms(lambda: mppi.mppi_fused(pendulum_step, cost_p, x0s, eps, us0, **kw)),
           "mppi_plain": cuda_ms(lambda: mppi.mppi_fused_reference(
               pendulum_step, cost_p.rows, x0s, eps, us0, **kw), **slow),
@@ -1550,15 +1584,17 @@ def sampling_family(dev, smi: str) -> list:
     # in the kernel's layout), where the blocks no longer fit in one wave
     x0_big = x0s.repeat(N_MPPI_BIG // N_MPPI, 1).contiguous()
     eps_big = mppi.eps_direct_layout(gen(1), N_MPPI_BIG, IT_MPPI, T_MPPI, 1, K_MPPI, 1.0)
-    _, _, ins_b, outs_b = mppi.kernel_operands(pendulum_step, cost_p, x0_big, eps_big, us0,
-                                               T=T_MPPI, iters=IT_MPPI, m=1, sigma=1.0)
-    ptrs_b = [t.data_ptr() for t in ins_b] + [o.data_ptr() for o in outs_b]
-    big_ms = cuda_ms(lambda: lib.npt_mppi(plant.plant_id, *floats, *ptrs_b, N_MPPI_BIG,
-                                          *mppi_args[1:], stream), reps=3, inner=3, warmup=1)
+    big_args, big_held = mppi.kernel_args(pendulum_step, cost_p, x0_big, eps_big, us0, **kw)
+    big_ms = cuda_ms(lambda: lib.npt_mppi(*big_args, stream), reps=3, inner=3, warmup=1)
     big_bound = 4 * IT_MPPI * T_MPPI * N_MPPI_BIG * K_MPPI / HBM_BYTES_PER_S * 1e3
     log(f"time K13 mppi device N={N_MPPI_BIG} K={K_MPPI} T={T_MPPI} iters={IT_MPPI}: "
         f"{big_ms:.4f} ms (eps bytes bound {big_bound:.4f} ms) [{smi}]")
-    del eps_big
+    log_own(f"K13 mppi N={N_MPPI} K={K_MPPI} T={T_MPPI} iters={IT_MPPI}",
+            lambda: mppi.mppi_fused(pendulum_step, cost_p, x0s, eps, us0, **kw), "mppi_kernel",
+            ms["mppi"], smi)
+    log_own(f"K13 mppi N={N_MPPI_BIG} K={K_MPPI} T={T_MPPI} iters={IT_MPPI} (direct call)",
+            lambda: lib.npt_mppi(*big_args, stream), "mppi_kernel", big_ms, smi, calls=10)
+    del eps_big, big_args, big_held
 
     parts = pf.particles.contiguous()
     logw_t = t32(2.0 * np.random.default_rng(15).standard_normal((B_PF, N_PF)))
@@ -1584,11 +1620,8 @@ def sampling_family(dev, smi: str) -> list:
             *pf_args, *pf_data, gen(0), n_particles=N_PF, resample_method="gather"), **slow),
     })
     steps = B_PF * N_PF * T_PF
-    own = profiled_us(lambda: pf_resample.resample_systematic(parts, m_t),
-                      ["resample_kernel"])["resample_kernel"]
-    res_enq = enqueue_ms(lambda: pf_resample.resample_systematic(parts, m_t))
-    log(f"profile K14 resample B={B_PF} N={N_PF} n=2: {fmt_us(own)}; wrapper {ms['res']:.4f} ms, "
-        f"its host enqueue {res_enq:.4f} ms [{smi}]")
+    log_own(f"K14 resample B={B_PF} N={N_PF} n=2",
+            lambda: pf_resample.resample_systematic(parts, m_t), "resample_kernel", ms["res"], smi)
     log(f"time K14 resample B={B_PF} N={N_PF} n=2 per step: device {ms['res_device']:.4f} ms, "
         f"wrapper {ms['res']:.4f} ms, plain {ms['res_plain']:.4f} ms, repeat_interleave "
         f"{ms['res_library']:.4f} ms; a whole resample step (slots + cloud) by pallas "
@@ -1830,6 +1863,11 @@ def boxqp_variants_and_mesh(dev, smi: str, qp, x0s, rho) -> list:
                 log(f"time {name} ({iters} iters, {N} scenarios): device {device_ms[key]:.4f} "
                     f"ms (FMA version {FMA_DEVICE_MS[key]}), wrapper {ms[key]:.4f} ms, plain "
                     f"{plain_ms[key]:.4f} ms [{smi}]")
+            log_own(f"K2' fista_mpc ({iters} iters, {N} scenarios)", lambda: boxqp_fista.fista_mpc(
+                *fold, x0s, LO, HI, lip, iters, fista_ci), "fista_kernel", ms["fista_g"], smi)
+            log_own(f"K1' admm_mpc ({iters} iters, {N} scenarios)", lambda: boxqp_admm.admm_mpc(
+                *fold, x0s, LO, HI, rho, iters, admm_ci, Minv=Minv), "admm_kernel", ms["admm_g"],
+                smi)
             for key, t_ms in device_ms.items():
                 if key.startswith("K"):
                     log(f"time {key} ({iters} iters, {N} scenarios, warm): device {t_ms:.4f} ms "
@@ -1913,15 +1951,22 @@ def main() -> int:
             if any(ns in entry for ns in CHECKED_FOR_SPILLS) and "spill" in line:
                 require("0 bytes spill stores, 0 bytes spill loads" in line,
                         f"{entry} compiles without spills")
+    sass = sass_opcode_counts(_build.library_path(), ("HGMMA", "LDS", "STS", "FFMA"))
     # the box-QP templates' products on the tensor cores: every instance (K2 in
     # 2 x 3 classes, K3b, K2'; K1 in 3 forms x 3 classes, K3a, K1') holds wgmma
-    hgmma = {k: v for k, v in sass_instruction_counts(_build.library_path(), "HGMMA").items()
+    hgmma = {k: row["HGMMA"] for k, row in sass.items()
              if "boxqp::fista_kernel" in k or "boxqp::admm_kernel" in k}
     for name, count in sorted(hgmma.items()):
         log(f"HGMMA {count:4d} {name}")
     require(sum("fista_kernel" in k for k in hgmma) == 8
             and sum("admm_kernel" in k for k in hgmma) == 11
             and all(hgmma.values()), "every box-QP kernel instance runs its products as wgmma")
+    # K5's shared-memory accesses and FMAs per (NB, MB) bucket: static counts
+    # of each instance, whose step is unrolled (at (12, 4) its step loop
+    # holds 96 of the 120 LDS and 16 of the 31 STS)
+    for name, row in sorted(sass.items()):
+        if "riccati::riccati_kernel" in name:
+            log(f"SASS {name}: LDS {row['LDS']} STS {row['STS']} FFMA {row['FFMA']}")
 
     A, B = quadrotor12(0.02)
     n, m = 12, 4
@@ -2054,6 +2099,10 @@ def main() -> int:
         log(f"time {solver} ({iters} iters) per {N}-scenario solve: kernel {ms[solver]:.4f} ms, "
             f"plain {plain_ms[solver]:.4f} ms; serving tick (30 iters) {tick_ms[solver]:.4f} ms, "
             f"its host enqueue {tick_host_ms[solver]:.4f} ms [{smi}]")
+    log_own(f"K2 fista_mpc_res ({iters} iters, {N} scenarios)", lambda: boxqp_fista.fista_mpc_res(
+        *fold, x0s, LO, HI, qp.lipschitz, iters, fista_ci), "fista_kernel", ms["fista"], smi)
+    log_own(f"K1 admm_mpc_res ({iters} iters, {N} scenarios)", lambda: boxqp_admm.admm_mpc_res(
+        *fold, x0s, LO, HI, rho, iters, admm_ci, Minv=Minv), "admm_kernel", ms["admm"], smi)
     boxqp_iteration_times(qp, x0s, rho, Minv, iters, smi)
 
     # fp32 on the host: the fold W = Sx'(Su'Q)' (K1 also its product with

@@ -11,21 +11,38 @@
 // forward time, straight into the public (N, T, m, n) layout, and P0 = P
 // into (N, n, n). No permute on the host.
 //
-// Design. A scenario's working set (A, B, P, PA, PB, K, S: ~600 floats at
-// n = 12, m = 4) is far over a thread's 255 registers, and one scenario per
-// thread would give 128 warps for 132 SMs at N = 4096. So each scenario gets
-// a group of kGroup = 16 lanes (half a warp; n <= 16) and lane i owns row i:
-// it keeps row i of P in registers for the whole loop and computes row i of
-// PA, PB and P' and column i of K. What a row needs from other rows goes
-// through the scenario's slice of shared memory (A, B, PA, PB, K', P'); the
-// group is inside one warp, so __syncwarp orders it. The m x m Cholesky of S
-// runs redundantly in every lane, in registers. Matrices with a lane-indexed
-// row (A, PA, P', Q) have an odd row stride (kLd = 17) and a lane-indexed
-// column is contiguous, so the 16 lanes hit 16 distinct banks; the two groups
-// of a warp sit 16 banks apart. Q and R are loaded once per block and the
-// whole T loop runs in the kernel. A block holds kScen = 8 scenarios
-// (128 threads, 41 KB of static shared memory): 512 blocks at N = 4096, four
-// resident per SM, so one wave of 16 warps per SM.
+// What bounds it on the H100: shared-memory accesses, not its FMAs. A step
+// is a chain of small products (n = 12, m = 4: ~10k FLOP a scenario), and
+// the first port fed every FMA from a shared load of its own: ~900 accesses
+// per warp-step against ~600 FMAs, 184-188 us at N = 4096, T = 30, where
+// the fp32 operations need 18.4 us (PERF.md, section 6; the probe
+// probes/mppi_riccati.py split it: P' 47%, PA/PB 33%).
+//
+// Design. A group of G lanes per scenario (G = 16, two scenarios a warp,
+// their shared-memory slices 16 banks apart; G = 32 where n + m > 16) and
+// lane c owns column c of M = [A | B] (n + m columns), held in registers
+// for the whole loop with column c of Q (or of R). A step:
+//   1. y = P M[:, c]: column c of PA (c < n) or of PB, over the rows of P,
+//      each read from shared memory as 16-byte broadcasts (P is symmetric);
+//   2. z = M' y: column c of [A B]'P[A B], over the rows of M, the same way.
+//      Lane c < n now holds A'PA[:, c] and B'PA[:, c], lane n + b holds
+//      B'PB[:, b], so S, B'PA and A'PA are each formed once a scenario;
+//   3. lane c writes B'PA[:, c] as a row of W; lane n + b adds R[:, b]
+//      (held in registers) to its column; every lane gathers S's lower
+//      triangle from those lanes by shuffles and factors it in registers
+//      (m <= 8: a short chain, cheaper run in every lane than broadcast);
+//   4. lane c < n solves for column c of K (and stores it to Ks);
+//   5. lane c < n forms column c of P' = Q + A'PA - (B'PA)'K from z, K's
+//      column and the rows of W, writes it as row c of P (16-byte stores),
+//      then its entries above the diagonal into column c, so that P' is the
+//      upper triangle mirrored.
+// Every product sums over j in the order of the first port, so the results
+// are bit for bit the same. A warp-step reads 96 16-byte rows and writes 16
+// times at n = 12, m = 4 (~900 scalar accesses before); chip_smoke.py phase
+// 0 logs the LDS/STS/FFMA counts of each instance's SASS. A block holds
+// 128 threads (8 or 4 scenarios), 12.8 KB of shared memory at (12, 4).
+// Measured (PERF.md, section 6): 184 -> 71 us at N = 4096, T = 30; the step is
+// now 655 instructions a warp, 406 of them FFMA, against a bound of 18 us.
 //
 // The loops run to compile-time bounds NB >= n, MB >= m (one instance per
 // bucket: NB in {4, 8, 12, 16}, MB in {1, 2, 4, 8}) over zero-padded
@@ -35,200 +52,253 @@
 // cycles per warp-step, 0.41 ms at N = 4096, T = 30). The padding is exact:
 // A, B, Q, QF are 0 and R is the identity outside (n, m), which keeps the
 // padded rows of P and K at 0 and the padded pivots of S at 1.
-//
-// What bounds it. ~10k FLOP per scenario-step at n = 12, m = 4, each FMA fed
-// by a shared-memory load, in chains of dependent steps: shared-memory
-// latency and issue, not device memory (As, Bs in once, Ks and P0 out once).
 // Envelope: n <= 16, m <= 8.
 
 #include <cuda_runtime.h>
+
+// The probe (probes/mppi_riccati.py) builds this file with the NPT_STAMP
+// macros filled in (the parts: 0 staging, 1 y = PM, 2 z = M'y, 3 S gathered
+// and factored, 4 K, 5 P' formed and stored, 6 the warp syncs and the
+// write-back); the package builds it with them empty.
+#ifndef NPT_STAMP
+#define NPT_STAMP_BEGIN
+#define NPT_STAMP(part)
+#define NPT_WAIT(v)
+#define NPT_STAMP_END
+#endif
 
 namespace riccati {
 
 constexpr int kMaxN = 16;
 constexpr int kMaxM = 8;
-constexpr int kGroup = 16;  // lanes per scenario (>= kMaxN)
-constexpr int kScen = 8;    // scenarios per block
-constexpr int kThreads = kGroup * kScen;
-constexpr int kLd = 17;     // row stride of the n x n matrices in shared memory
-constexpr int kLdm = 9;     // row stride of the n x m matrices
+constexpr int kThreads = 128;
 
-// Offsets in a scenario's slice of shared memory.
-constexpr int kOffA = 0;
-constexpr int kOffPA = kOffA + kMaxN * kLd;
-constexpr int kOffPn = kOffPA + kMaxN * kLd;
-constexpr int kOffB = kOffPn + kMaxN * kLd;
-constexpr int kOffPB = kOffB + kMaxN * kLdm;
-constexpr int kOffKt = kOffPB + kMaxN * kLdm;
-// 1248 floats, padded to 16 mod 32 so the two groups of a warp use disjoint banks
-constexpr int kScenFloats = kOffKt + kMaxN * kLdm + 16;
-static_assert(kScenFloats % 32 == 16, "scenario slices must sit 16 banks apart");
+__host__ __device__ constexpr int round4(int x) { return (x + 3) / 4 * 4; }
 
+// The layout of a bucket: lanes per scenario, scenarios per block, and the
+// offsets (floats) in a scenario's slice of shared memory, whose size is
+// 16 mod 32 so that the two scenarios of a warp sit 16 banks apart.
 template <int NB, int MB>
-__global__ void __launch_bounds__(kThreads)
+struct Layout {
+  static constexpr int NC = NB + MB;            // columns of M = [A | B]
+  static constexpr int G = NC <= 16 ? 16 : 32;  // lanes per scenario
+  static constexpr int kScen = kThreads / G;    // scenarios per block
+  static constexpr int ldM = round4(NC), ldW = round4(MB);
+  static constexpr int offM = NB * NB;          // P (NB, NB) at 0
+  static constexpr int offW = offM + NB * ldM;  // M (NB, ldM), then W (NB, ldW)
+  static constexpr int used = offW + NB * ldW;
+  static constexpr int slice = (used + 15) / 32 * 32 + 16;
+};
+
+// Row `src` (W floats, 16-byte aligned, W % 4 == 0) of a matrix in shared
+// memory into registers, as 16-byte loads.
+template <int W>
+__device__ __forceinline__ void load_row(const float* src, float (&dst)[W]) {
+#pragma unroll
+  for (int q = 0; q < W / 4; ++q) {
+    const float4 v = reinterpret_cast<const float4*>(src)[q];
+    dst[4 * q] = v.x;
+    dst[4 * q + 1] = v.y;
+    dst[4 * q + 2] = v.z;
+    dst[4 * q + 3] = v.w;
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void store_row(float* dst, const float (&src)[W]) {
+#pragma unroll
+  for (int q = 0; q < W / 4; ++q)
+    reinterpret_cast<float4*>(dst)[q] =
+        make_float4(src[4 * q], src[4 * q + 1], src[4 * q + 2], src[4 * q + 3]);
+}
+
+// One block a multiprocessor in the bound: without it ptxas trades small
+// spills for occupancy (ilqr_backward.cu); (12, 4) fits 128 registers, four
+// blocks a multiprocessor, one wave at N = 4096.
+template <int NB, int MB>
+__global__ void __launch_bounds__(kThreads, 1)
     riccati_kernel(const float* __restrict__ As, const float* __restrict__ Bs,
                    const float* __restrict__ Q, const float* __restrict__ R,
                    const float* __restrict__ QF, float* __restrict__ Ks,
                    float* __restrict__ P0, int N, int n, int m, int T) {
-  __shared__ float q_s[kMaxN * kLd];
-  __shared__ float r_s[kMaxM * kMaxM];
-  __shared__ float scen[kScen * kScenFloats];
+  using L = Layout<NB, MB>;
+  constexpr int NC = L::NC, G = L::G, ldM = L::ldM, ldW = L::ldW;
+  __shared__ __align__(16) float scen[L::kScen * L::slice];
+  NPT_STAMP_BEGIN;
 
-  const int g = threadIdx.x / kGroup, i = threadIdx.x % kGroup;
-  const int s_raw = blockIdx.x * kScen + g;
+  const int g = threadIdx.x / G, c = threadIdx.x % G;
+  const int s_raw = blockIdx.x * L::kScen + g;
   const bool live = s_raw < N;
   const int s = live ? s_raw : N - 1;  // a ragged tail recomputes a real scenario, stores nothing
-  float* const A = scen + g * kScenFloats + kOffA;    // (NB, NB), ld kLd
-  float* const PA = scen + g * kScenFloats + kOffPA;  // (NB, NB), ld kLd
-  float* const Pn = scen + g * kScenFloats + kOffPn;  // (NB, NB), ld kLd
-  float* const B = scen + g * kScenFloats + kOffB;    // (NB, MB), ld kLdm
-  float* const PB = scen + g * kScenFloats + kOffPB;  // (NB, MB), ld kLdm
-  float* const Kt = scen + g * kScenFloats + kOffKt;  // K' (NB, MB), ld kLdm
+  float* const P = scen + g * L::slice;  // (NB, NB), symmetric after the first step
+  float* const M = P + L::offM;          // (NB, ldM) [A | B]
+  float* const W = P + L::offW;          // (NB, ldW) row r = (B'PA)[:, r]
 
-  // Stage the zero-padded matrices (R padded with the identity).
-  for (int e = threadIdx.x; e < NB * NB; e += kThreads) {
-    const int r = e / NB, c = e % NB;
-    q_s[r * kLd + c] = (r < n && c < n) ? Q[r * n + c] : 0.0f;
-  }
-  for (int e = threadIdx.x; e < MB * MB; e += kThreads) {
-    const int r = e / MB, c = e % MB;
-    r_s[r * MB + c] = (r < m && c < m) ? R[r * m + c] : (r == c ? 1.0f : 0.0f);
-  }
+  // Stage the zero-padded [A | B] and P = QF' (the first step reads P by
+  // rows as columns: its transpose gives QF A, as the plain version).
   const float* Ag = As + static_cast<size_t>(s) * n * n;
   const float* Bg = Bs + static_cast<size_t>(s) * n * m;
-  for (int e = i; e < NB * NB; e += kGroup) {
-    const int r = e / NB, c = e % NB;
-    A[r * kLd + c] = (r < n && c < n) ? Ag[r * n + c] : 0.0f;
+  for (int e = c; e < NB * ldM; e += G) {
+    const int r = e / ldM, k = e % ldM;
+    float v = 0.0f;
+    if (r < n && k < n) v = Ag[r * n + k];
+    else if (r < n && k >= NB && k - NB < m) v = Bg[r * m + (k - NB)];
+    M[e] = v;
   }
-  for (int e = i; e < NB * MB; e += kGroup) {
-    const int r = e / MB, c = e % MB;
-    B[r * kLdm + c] = (r < n && c < m) ? Bg[r * m + c] : 0.0f;
+  for (int e = c; e < NB * NB; e += G) {
+    const int r = e / NB, k = e % NB;
+    P[e] = (r < n && k < n) ? QF[k * n + r] : 0.0f;
   }
-  __syncthreads();
-
-  const bool row = i < NB;  // lanes past NB hold no row (NB < kGroup)
-  float p[NB];              // row i of P
+  for (int e = c; e < NB * ldW; e += G) W[e] = 0.0f;
+  // loop invariants in registers: column c of Q (lanes c < NB) or column
+  // c - NB of R (the lanes that hold S's columns; the identity past m)
+  constexpr int NQ = NB > MB ? NB : MB;
+  float qc[NQ];
 #pragma unroll
-  for (int j = 0; j < NB; ++j) p[j] = (i < n && j < n) ? QF[i * n + j] : 0.0f;
+  for (int r = 0; r < NQ; ++r) {
+    const int b = c - NB;
+    qc[r] = c < NB ? ((c < n && r < n) ? Q[r * n + c] : 0.0f)
+                   : (r >= MB ? 0.0f : (r < m && b < m) ? R[r * m + b] : (r == b ? 1.0f : 0.0f));
+  }
+  __syncwarp();  // the scenario's group lies inside one warp
+  float mc[NB];  // column c of M
+#pragma unroll
+  for (int j = 0; j < NB; ++j) mc[j] = c < NC ? M[j * ldM + c] : 0.0f;
+  NPT_WAIT(mc[0] + qc[0]);
+  NPT_STAMP(0);
 
   for (int t = 0; t < T; ++t) {
-    // Row i of PA = P A and of PB = P B.
-    if (row) {
+    // 1. y = P M[:, c], from the rows of P
+    float y[NB];
 #pragma unroll
-      for (int k = 0; k < NB; ++k) {
-        float acc = 0.0f;
+    for (int r = 0; r < NB; ++r) y[r] = 0.0f;
 #pragma unroll
-        for (int j = 0; j < NB; ++j) acc = fmaf(p[j], A[j * kLd + k], acc);
-        PA[i * kLd + k] = acc;
-      }
+    for (int j = 0; j < NB; ++j) {
+      float prow[NB];
+      load_row<NB>(P + j * NB, prow);
 #pragma unroll
-      for (int a = 0; a < MB; ++a) {
-        float acc = 0.0f;
-#pragma unroll
-        for (int j = 0; j < NB; ++j) acc = fmaf(p[j], B[j * kLdm + a], acc);
-        PB[i * kLdm + a] = acc;
-      }
+      for (int r = 0; r < NB; ++r) y[r] = fmaf(prow[r], mc[j], y[r]);
     }
-    __syncwarp();
+    NPT_WAIT(y[NB - 1]);
+    NPT_STAMP(1);
 
-    // S = R + B'(PB), lower triangle, and its Cholesky factor, in every lane.
-    float L[MB][MB], dinv[MB];
+    // 2. z = M' y, from the rows of M
+    float z[NC];
 #pragma unroll
-    for (int a = 0; a < MB; ++a) {
+    for (int r = 0; r < NC; ++r) z[r] = 0.0f;
 #pragma unroll
-      for (int b = 0; b <= a; ++b) {
-        float acc = 0.0f;
+    for (int j = 0; j < NB; ++j) {
+      float mrow[ldM];
+      load_row<ldM>(M + j * ldM, mrow);
 #pragma unroll
-        for (int j = 0; j < NB; ++j) acc = fmaf(B[j * kLdm + a], PB[j * kLdm + b], acc);
-        L[a][b] = acc + r_s[a * MB + b];
-      }
+      for (int r = 0; r < NC; ++r) z[r] = fmaf(mrow[r], y[j], z[r]);
     }
-#pragma unroll
-    for (int c = 0; c < MB; ++c) {
-      float acc = L[c][c];
-#pragma unroll
-      for (int k = 0; k < c; ++k) acc -= L[c][k] * L[c][k];
-      dinv[c] = rsqrtf(acc);
-      L[c][c] = acc * dinv[c];
-#pragma unroll
-      for (int a = c + 1; a < MB; ++a) {
-        float v = L[a][c];
-#pragma unroll
-        for (int k = 0; k < c; ++k) v -= L[a][k] * L[c][k];
-        L[a][c] = v * dinv[c];
-      }
-    }
+    NPT_WAIT(z[NC - 1]);
+    NPT_STAMP(2);
 
-    // Column i of K = S^{-1} (B'PA)[:, i], with (B'PA)[:, i] = B' PA[:, i].
-    float btpa[MB];
-    if (row) {
-      float y[MB];
+    // 3. W row c = (B'PA)[:, c]; S = R + B'PB gathered and factored
+    if (c < NB) {
+      float wr[ldW];
 #pragma unroll
-      for (int a = 0; a < MB; ++a) {
-        float acc = 0.0f;
+      for (int a = 0; a < ldW; ++a) wr[a] = a < MB ? z[NB + a] : 0.0f;
+      store_row<ldW>(W + c * ldW, wr);
+    }
+    float Lf[MB][MB], dinv[MB], sc[MB];
 #pragma unroll
-        for (int j = 0; j < NB; ++j) acc = fmaf(B[j * kLdm + a], PA[j * kLd + i], acc);
-        btpa[a] = acc;
+    for (int a = 0; a < MB; ++a) sc[a] = z[NB + a] + qc[a];  // lane NB + b: S[:, b]
+#pragma unroll
+    for (int a = 0; a < MB; ++a)
+#pragma unroll
+      for (int b = 0; b <= a; ++b) Lf[a][b] = __shfl_sync(0xffffffffu, sc[a], NB + b, G);
+#pragma unroll
+    for (int k = 0; k < MB; ++k) {
+      float acc = Lf[k][k];
+#pragma unroll
+      for (int q = 0; q < k; ++q) acc -= Lf[k][q] * Lf[k][q];
+      dinv[k] = rsqrtf(acc);
+      Lf[k][k] = acc * dinv[k];
+#pragma unroll
+      for (int a = k + 1; a < MB; ++a) {
+        float v = Lf[a][k];
+#pragma unroll
+        for (int q = 0; q < k; ++q) v -= Lf[a][q] * Lf[k][q];
+        Lf[a][k] = v * dinv[k];
       }
+    }
+    NPT_WAIT(Lf[MB - 1][MB - 1]);
+    NPT_STAMP(3);
+
+    // 4. column c of K = S^{-1} (B'PA)[:, c]
+    float kc[MB];
+    if (c < NB) {
 #pragma unroll
-      for (int a = 0; a < MB; ++a) {  // forward: L y = btpa
-        float v = btpa[a];
+      for (int a = 0; a < MB; ++a) {  // forward: L y = B'PA[:, c]
+        float v = z[NB + a];
 #pragma unroll
-        for (int k = 0; k < a; ++k) v -= L[a][k] * y[k];
-        y[a] = v * dinv[a];
+        for (int q = 0; q < a; ++q) v -= Lf[a][q] * kc[q];
+        kc[a] = v * dinv[a];
       }
 #pragma unroll
       for (int a = MB - 1; a >= 0; --a) {  // backward: L' k = y
-        float v = y[a];
+        float v = kc[a];
 #pragma unroll
-        for (int k = a + 1; k < MB; ++k) v -= L[k][a] * y[k];
-        y[a] = v * dinv[a];
+        for (int q = a + 1; q < MB; ++q) v -= Lf[q][a] * kc[q];
+        kc[a] = v * dinv[a];
       }
-#pragma unroll
-      for (int a = 0; a < MB; ++a) Kt[i * kLdm + a] = y[a];
-      if (live && i < n) {
-        float* Kout = Ks + (static_cast<size_t>(s) * T + (T - 1 - t)) * m * n + i;
+      if (live && c < n) {
+        float* Kout = Ks + (static_cast<size_t>(s) * T + (T - 1 - t)) * m * n + c;
 #pragma unroll
         for (int a = 0; a < MB; ++a)
-          if (a < m) Kout[static_cast<size_t>(a) * n] = y[a];
+          if (a < m) Kout[static_cast<size_t>(a) * n] = kc[a];
       }
     }
-    __syncwarp();
+    NPT_STAMP(4);
+    __syncwarp();  // W is complete, and every read of P this step is done
+    NPT_STAMP(6);
 
-    // Row i of P' on and above the diagonal, mirrored below it.
-    if (row) {
-      for (int k = i; k < NB; ++k) {
-        float acc = 0.0f;
+    // 5. column c of P' = Q + A'PA - (B'PA)'K, stored as row c, then its
+    // entries above the diagonal into column c
+    float v[NB];
+    if (c < NB) {
 #pragma unroll
-        for (int j = 0; j < NB; ++j) acc = fmaf(A[j * kLd + i], PA[j * kLd + k], acc);
+      for (int r = 0; r < NB; ++r) {
+        float wr[ldW];
+        load_row<ldW>(W + r * ldW, wr);
         float acc2 = 0.0f;
 #pragma unroll
-        for (int a = 0; a < MB; ++a) acc2 = fmaf(btpa[a], Kt[k * kLdm + a], acc2);
-        const float v = acc - acc2 + q_s[i * kLd + k];
-        Pn[i * kLd + k] = v;
-        Pn[k * kLd + i] = v;
+        for (int a = 0; a < MB; ++a) acc2 = fmaf(wr[a], kc[a], acc2);
+        v[r] = z[r] - acc2 + qc[r];
       }
+      store_row<NB>(P + c * NB, v);
     }
+    NPT_STAMP(5);
     __syncwarp();
-    if (row) {
+    NPT_STAMP(6);
+    if (c < NB) {
 #pragma unroll
-      for (int j = 0; j < NB; ++j) p[j] = Pn[i * kLd + j];
+      for (int r = 0; r < NB; ++r)
+        if (r < c) P[r * NB + c] = v[r];
     }
-    __syncwarp();  // every read of PA, Kt and Pn is done before the next step writes them
+    NPT_STAMP(5);
+    __syncwarp();  // P' is complete before the next step reads it
+    NPT_STAMP(6);
   }
 
-  if (live && i < n) {
-    float* out = P0 + static_cast<size_t>(s) * n * n + i * n;
+  if (live && c < n) {  // row c of P0 from column c of P (QF itself when T = 0)
+    float* out = P0 + static_cast<size_t>(s) * n * n + c * n;
 #pragma unroll
     for (int j = 0; j < NB; ++j)
-      if (j < n) out[j] = p[j];
+      if (j < n) out[j] = P[j * NB + c];
   }
+  NPT_STAMP(6);
+  NPT_STAMP_END;
 }
 
 template <int NB, int MB>
 cudaError_t launch(const float* As, const float* Bs, const float* Q, const float* R,
                    const float* QF, float* Ks, float* P0, int N, int n, int m, int T,
                    cudaStream_t stream) {
+  constexpr int kScen = Layout<NB, MB>::kScen;
   riccati_kernel<NB, MB><<<(N + kScen - 1) / kScen, kThreads, 0, stream>>>(
       As, Bs, Q, R, QF, Ks, P0, N, n, m, T);
   return cudaGetLastError();

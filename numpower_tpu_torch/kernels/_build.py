@@ -78,9 +78,10 @@ _SIGNATURES = {
     "npt_ekf": (_I,) + (_F,) * 8 + (_I, _I) + (_P,) * 11 + (_I, _I, _P),
     # as npt_ekf, with wm0, wmi, wc0, wci, c_half, jitter after p
     "npt_ukf": (_I,) + (_F,) * 8 + (_I, _I) + (_F,) * 6 + (_P,) * 11 + (_I, _I, _P),
-    # plant, 8 plant parameters, consts, x0s, eps, us0, us, ess, N, K, T, iters, lam,
-    # inv_lam, clip, lo, hi, stream
-    "npt_mppi": (_I,) + (_F,) * 8 + (_P,) * 6 + (_I,) * 4 + (_F, _F, _I, _F, _F, _P),
+    # plant, 8 plant parameters, consts (host), x0s, eps, us0, us, ess, N, K, T, iters,
+    # lam, inv_lam, clip, lo, hi, threads, spt, Tc, resident, stream
+    "npt_mppi": (_I,) + (_F,) * 8 + (_P,) * 6 + (_I,) * 4 + (_F, _F, _I, _F, _F) + (_I,) * 4
+                + (_P,),
     # parts, m, out, B, N, n, stream
     "npt_resample_systematic": (_P, _P, _P, _I, _I, _I, _P),
 }

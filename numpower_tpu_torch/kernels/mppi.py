@@ -2,14 +2,16 @@
 ``mppi_pallas``).
 
 The kernel is CUDA C++ in ``csrc/mppi.cu`` (its note says what bounds it on
-the H100 and how the design answers that): one block per scenario, one thread
-per sample, all ``iters`` rounds in one launch, each round a T-step rollout
-of every sample through the registered plant's device function
-(``csrc/plants.cuh``), the quadratic stage costs, the softmax weights and the
-effective sample size (ESS), and the nominal update. This module holds its
-wrapper, :func:`mppi_fused`, its plain PyTorch version,
-:func:`mppi_fused_reference` (the kernel's own formulas on (N, K) tensors),
-and the two layouts of the perturbations the kernel consumes. The wrapper
+the H100 and how the design answers that): one block per scenario, a thread
+per sample (up to four per thread past K = 256), all ``iters`` rounds in one
+launch, each round a T-step rollout of every sample through the registered
+plant's device function (``csrc/plants.cuh``), the quadratic stage costs,
+the softmax weights and the effective sample size (ESS), and the nominal
+update. This module holds its wrapper, :func:`mppi_fused`, its plain PyTorch
+version, :func:`mppi_fused_reference` (the kernel's own formulas on (N, K)
+tensors), the host side of a launch (:func:`chunk_plan`,
+:func:`packed_constants`, :func:`kernel_args`) and the two layouts of the
+perturbations the kernel consumes. The wrapper
 takes the plain version for a tensor on the CPU only (any plant); for a CUDA
 tensor it launches the kernel or raises, and a plant that is not registered
 raises ValueError.
@@ -32,6 +34,7 @@ copy for a moment.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -39,8 +42,40 @@ import torch
 from numpower_tpu_torch.kernels import _build
 from numpower_tpu_torch.kernels.boxqp_fista import _check_operand
 
-MAX_K = 1024   # csrc/mppi.cu: one thread per sample, one block per scenario
-MAX_TM = 1024  # csrc/mppi.cu kMaxTM: the nominal and the update partials in shared memory
+MAX_K = 1024   # csrc/mppi.cu kMaxK: one block per scenario, at most 4 samples a thread
+MAX_TM = 1024  # csrc/mppi.cu kMaxTM: the nominal in shared memory
+# The kernel's plan (csrc/mppi.cu checks it): threads a block, steps a staged
+# chunk, and the bytes of its ring of eps chunks in shared memory when a
+# round's slice stays resident (50 KB: the bench's 48 KB, so that four
+# blocks share a multiprocessor) and when four slots stream it.
+MAX_THREADS = 256
+MAX_TC = 8
+RESIDENT_BUDGET = 50 * 1024
+STREAM_BUDGET = 48 * 1024
+
+
+@functools.lru_cache(maxsize=None)
+def chunk_plan(K: int, T: int, m: int) -> tuple:
+    """The launch plan of K13 for K samples, horizon T and m inputs:
+    (threads, samples a thread, steps a chunk Tc, chunks a round, resident).
+    A thread carries 1 sample up to K = 256, 2 up to 512, else 4. The round's
+    slice stays resident in shared memory where its ceil(T/Tc) chunks and
+    one more (the next round's first, in flight during the softmax and the
+    update) fit RESIDENT_BUDGET, for the largest Tc <= MAX_TC that fits;
+    otherwise four slots of the largest Tc that fits STREAM_BUDGET stream
+    the chunks, twice a round. A staged row holds a float per sample slot
+    (threads * samples a thread)."""
+    spt = 1 if K <= 256 else 2 if K <= 512 else 4
+    threads = (-(-K // spt) + 31) // 32 * 32
+    row = 4 * m * spt * threads  # bytes a step
+    for tc in range(min(MAX_TC, T), 0, -1):
+        nch = -(-T // tc)
+        if (nch + 1) * tc * row <= RESIDENT_BUDGET:
+            return threads, spt, tc, nch, True
+    tc = min(MAX_TC, T)
+    while tc > 1 and 4 * tc * row > STREAM_BUDGET:
+        tc -= 1
+    return threads, spt, tc, -(-T // tc), False
 
 
 def sigma_tuple(sigma, m: int) -> tuple:
@@ -143,11 +178,38 @@ def mppi_fused_reference(f, cost_rows, x0s, eps_all, us0, *, T: int, iters: int,
     return torch.cat(u_nom, dim=1).reshape(N, T, m), torch.stack(ess, dim=1)
 
 
+def packed_constants(cost_fn, sigma, n: int, m: int):
+    """Q, R, QF, x_goal and sigma^-2 of a quadratic cost packed in the
+    order K13 copies them into its parameters: a host array of float32
+    (ctypes), made once per cost and sigma and kept on the cost (its
+    ``.kernel`` form is read once, when the cost is made). ValueError for a
+    cost without that form or with shapes other than (n, m)."""
+    form = getattr(cost_fn, "kernel", None)
+    if form is None:
+        raise ValueError("the MPPI kernel needs a cost with a kernel form (cost_fn.kernel, "
+                         "models/mppi.quadratic_mppi_cost attaches one); use method='xla'")
+    key = (sigma_tuple(sigma, m), n, m)
+    cache = getattr(cost_fn, "__dict__", {}).setdefault("_k13_constants", {})
+    hit = cache.get(key)
+    if hit is not None and hit[0] is form:
+        return hit[1]
+    Q, R, QF, goal = (np.asarray(a, np.float32) for a in form)
+    for name, a, shape in (("Q", Q, (n, n)), ("R", R, (m, m)), ("QF", QF, (n, n)),
+                           ("x_goal", goal, (n,))):
+        if a.shape != shape:
+            raise ValueError(f"{name} has shape {a.shape}, expected {shape}")
+    inv_sig2 = np.array([1.0 / (s * s) for s in key[0]], np.float32)
+    packed = np.concatenate([Q.ravel(), R.ravel(), QF.ravel(), goal, inv_sig2])
+    consts = (ctypes.c_float * packed.size)(*packed.tolist())
+    cache[key] = (form, consts)
+    return consts
+
+
 def kernel_operands(f, cost_fn, x0s, eps_all, us0, *, T: int, iters: int, m: int, sigma):
-    """The registered plant, its parameter floats, the checked float32
-    operands (consts = Q, R, QF, x_goal, sigma^-2 packed in one device
-    tensor, x0s, eps, us0) on x0s's CUDA device and the empty outputs (us,
-    ess) of a launch of K13; ValueError for what the kernel does not take."""
+    """The registered plant, its parameter floats, the packed constants
+    (:func:`packed_constants`, on the host), the checked float32 operands
+    (x0s, eps, us0) on x0s's device and the empty outputs (us, ess) of a
+    launch of K13; ValueError for what the kernel does not take."""
     from numpower_tpu_torch.kernels.ekf import plant_floats
     from numpower_tpu_torch.models.plants import kernel_plant
 
@@ -155,8 +217,7 @@ def kernel_operands(f, cost_fn, x0s, eps_all, us0, *, T: int, iters: int, m: int
     if plant is None:
         raise ValueError(f"plant {f!r} is not registered for the MPPI kernel "
                          "(numpower_tpu_torch.models.plants.kernel_plant); use method='xla'")
-    form = getattr(cost_fn, "kernel", None)
-    if form is None:
+    if getattr(cost_fn, "kernel", None) is None:
         raise ValueError("the MPPI kernel needs a cost with a kernel form (cost_fn.kernel, "
                          "models/mppi.quadratic_mppi_cost attaches one); use method='xla'")
     device = x0s.device
@@ -169,20 +230,32 @@ def kernel_operands(f, cost_fn, x0s, eps_all, us0, *, T: int, iters: int, m: int
     if not 1 <= K <= MAX_K or T * m > MAX_TM or T < 1 or iters < 1:
         raise ValueError(f"K = {K}, T*m = {T * m}: the MPPI kernel takes 1 <= K <= {MAX_K}, "
                          f"T*m <= {MAX_TM}")
-    Q, R, QF, goal = (np.asarray(a, np.float32) for a in form)
-    for name, a, shape in (("Q", Q, (n, n)), ("R", R, (m, m)), ("QF", QF, (n, n)),
-                           ("x_goal", goal, (n,))):
-        if a.shape != shape:
-            raise ValueError(f"{name} has shape {a.shape}, expected {shape}")
-    inv_sig2 = np.array([1.0 / (s * s) for s in sigma_tuple(sigma, m)], np.float32)
-    consts = torch.from_numpy(np.concatenate(
-        [Q.ravel(), R.ravel(), QF.ravel(), goal, inv_sig2])).to(device)
+    consts = packed_constants(cost_fn, sigma, n, m)
     us0 = torch.as_tensor(us0, dtype=torch.float32, device=device).reshape(T * m).contiguous()
     for name, t, shape in (("x0s", x0s, (N, n)), ("eps", eps_all, (R_, N, K))):
         _check_operand(name, t, device, shape)
     outs = (torch.empty((N, T, m), dtype=torch.float32, device=device),
             torch.empty((N, iters), dtype=torch.float32, device=device))
-    return plant, plant_floats(plant), (consts, x0s, eps_all, us0), outs
+    return plant, plant_floats(plant), consts, (x0s, eps_all, us0), outs
+
+
+def kernel_args(f, cost_fn, x0s, eps_all, us0, *, T: int, iters: int, m: int, sigma,
+                lam: float, u_lo=None, u_hi=None) -> tuple:
+    """The arguments of one launch of K13 (``npt_mppi`` but its stream) and
+    the tensors they point to (x0s, eps, us0, us, ess; the outputs last), for
+    the caller to hold while the launch runs."""
+    plant, floats, consts, ins, outs = kernel_operands(f, cost_fn, x0s, eps_all, us0, T=T,
+                                                      iters=iters, m=m, sigma=sigma)
+    N, K = eps_all.shape[1:]
+    clip = int(u_lo is not None or u_hi is not None)
+    lo = -float("inf") if u_lo is None else float(u_lo)
+    hi = float("inf") if u_hi is None else float(u_hi)
+    threads, spt, tc, _, resident = chunk_plan(K, T, m)
+    tensors = (*ins, *outs)
+    args = (plant.plant_id, *floats, ctypes.addressof(consts), *(t.data_ptr() for t in tensors),
+            N, K, T, iters, float(lam), float(1.0 / lam), clip, lo, hi, threads, spt, tc,
+            int(resident))
+    return args, tensors
 
 
 def mppi_fused(f, cost_fn, x0s, eps_all, us0, *, T: int, iters: int, m: int, lam: float,
@@ -203,20 +276,11 @@ def mppi_fused(f, cost_fn, x0s, eps_all, us0, *, T: int, iters: int, m: int, lam
     if x0s.device.type == "cpu":
         return mppi_fused_reference(f, cost_fn.rows, x0s, eps_all, us0, T=T, iters=iters, m=m,
                                     lam=lam, sigma=sigma, u_lo=u_lo, u_hi=u_hi)
-    plant, floats, ins, (us, ess) = kernel_operands(f, cost_fn, x0s, eps_all, us0, T=T,
-                                                    iters=iters, m=m, sigma=sigma)
-    N, K = eps_all.shape[1:]
-    clip = int(u_lo is not None or u_hi is not None)
-    lo = -float("inf") if u_lo is None else float(u_lo)
-    hi = float("inf") if u_hi is None else float(u_hi)
-    with torch.cuda.device(x0s.device):
-        stream = torch.cuda.current_stream(x0s.device).cuda_stream
-        code = _build.library().npt_mppi(
-            plant.plant_id, *floats, *(t.data_ptr() for t in ins), us.data_ptr(), ess.data_ptr(),
-            N, K, T, iters, float(lam), float(1.0 / lam), clip, lo, hi, stream)
-    _build.check(code, "mppi_fused kernel launch")
+    args, tensors = kernel_args(f, cost_fn, x0s, eps_all, us0, T=T, iters=iters, m=m,
+                                sigma=sigma, lam=lam, u_lo=u_lo, u_hi=u_hi)
+    _build.check(_build.launch("npt_mppi", x0s.device, *args), "mppi_fused kernel launch")
     mppi_fused.launches += 1
-    return us, ess
+    return tensors[-2:]
 
 
 mppi_fused.launches = 0

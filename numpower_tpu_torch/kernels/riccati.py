@@ -2,8 +2,9 @@
 numpower_tpu/kernels/riccati.py ``riccati_batched_fused``).
 
 The kernel is CUDA C++ in ``csrc/riccati.cu`` (its note says what bounds it on
-the H100 and how the design answers that): 16 lanes per scenario, lane i
-owning row i of P, the whole T loop in one launch. This module holds its
+the H100 and how the design answers that): 16 lanes per scenario (32 where
+n + m > 16), lane c owning column c of [A | B], P read by rows as 16-byte
+broadcasts, the whole T loop in one launch. This module holds its
 wrapper, :func:`riccati_batched_fused`, and its plain PyTorch version,
 :func:`riccati_batched_reference`, which is also the loop of
 models/lqr.riccati_scan_per_scenario's "plain" and "psd" routes. The wrapper
@@ -77,11 +78,9 @@ def riccati_batched_fused(As, Bs, Q, R, QF, horizon: int):
         _check_operand(name, t, device, shape)
     Ks = torch.empty((N, horizon, m, n), dtype=torch.float32, device=device)
     P0 = torch.empty((N, n, n), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = _build.library().npt_riccati_fused(
-            As.data_ptr(), Bs.data_ptr(), Q.data_ptr(), R.data_ptr(), QF.data_ptr(),
-            Ks.data_ptr(), P0.data_ptr(), N, n, m, horizon, stream)
+    code = _build.launch("npt_riccati_fused", device, As.data_ptr(), Bs.data_ptr(), Q.data_ptr(),
+                         R.data_ptr(), QF.data_ptr(), Ks.data_ptr(), P0.data_ptr(), N, n, m,
+                         horizon)
     _build.check(code, "riccati_batched_fused kernel launch")
     riccati_batched_fused.launches += 1
     return Ks, P0

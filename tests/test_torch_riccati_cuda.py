@@ -9,6 +9,9 @@ it there without the conftest:
 
     python -m pytest --noconftest tests/test_torch_riccati_cuda.py -q
 
+K5 is checked in every (NB, MB) bucket at N = 1003 and N = 1, at T = 0
+with an asymmetric QF, and on operands 4 bytes off a 16-byte boundary.
+
 Tolerances: K5 against its plain version rtol 1e-3, atol 1e-4 on Ks and 1e-3
 on P0, the JAX package's bound for its fused kernel
 (tests/test_kernels.py:133-136); K6b rtol 2e-3, atol 2e-4 and a residual
@@ -44,11 +47,16 @@ def _costs(n, m):
             np.eye(n, dtype=np.float32) * 5.0)
 
 
-def _plant_batch(N, n, m, device, seed=4, per_scenario_b=False):
+def _plant_batch(N, n, m, device, seed=4, per_scenario_b=False, stable=False):
     """The bench recipe (bench.py:345-355) for the quadrotor; a random
-    contraction-ish plant for other (n, m)."""
+    contraction-ish plant for other (n, m); with `stable`, a random plant
+    whose A has its eigenvalues well inside the unit circle (0.8 I + a
+    3% perturbation), for any (n, m)."""
     rng = np.random.default_rng(seed)
-    if (n, m) == (12, 4):
+    if stable:
+        A = (0.8 * np.eye(n) + 0.03 * rng.standard_normal((n, n))).astype(np.float32)
+        B = (0.1 * rng.standard_normal((n, m))).astype(np.float32)
+    elif (n, m) == (12, 4):
         A, B = quadrotor12(0.02)
     else:
         A = (np.eye(n) + 0.05 * rng.standard_normal((n, n))).astype(np.float32)
@@ -92,6 +100,55 @@ def test_riccati_kernel_envelope_shapes(device, n, m):
     As, Bs = _plant_batch(257, n, m, device, seed=n, per_scenario_b=True)
     Ks, P0 = riccati.riccati_batched_fused(As, Bs, *_costs(n, m), 20)
     Ks_ref, P0_ref = riccati.riccati_batched_reference(As, Bs, *_costs(n, m), 20)
+    torch.testing.assert_close(Ks, Ks_ref, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(P0, P0_ref, rtol=1e-3, atol=1e-3)
+
+
+# every (NB, MB) bucket of the kernel (n up to 4, 8, 12, 16; m up to 1, 2,
+# 4, 8), n and m at and below their bucket's bound, at a ragged N and N = 1.
+# The plants are stable: on the unstable random ones of _plant_batch, P
+# grows to 1e4 within 20 steps, and there the plain version itself misses
+# its float64 run by 2-9x these tolerances (n = 12, 16).
+@pytest.mark.parametrize("n", [4, 7, 12, 16])
+@pytest.mark.parametrize("m", [1, 2, 3, 8])
+@pytest.mark.parametrize("N", [1003, 1])
+def test_riccati_kernel_every_bucket(device, n, m, N):
+    As, Bs = _plant_batch(N, n, m, device, seed=10 * n + m, per_scenario_b=True, stable=True)
+    launches = riccati.riccati_batched_fused.launches
+    Ks, P0 = riccati.riccati_batched_fused(As, Bs, *_costs(n, m), 20)
+    torch.cuda.synchronize()
+    assert riccati.riccati_batched_fused.launches == launches + 1
+    Ks_ref, P0_ref = riccati.riccati_batched_reference(As, Bs, *_costs(n, m), 20)
+    torch.testing.assert_close(Ks, Ks_ref, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(P0, P0_ref, rtol=1e-3, atol=1e-3)
+    assert torch.equal(P0, P0.transpose(1, 2))
+
+
+@pytest.mark.parametrize("N", [1, 65, 1003])
+def test_riccati_kernel_returns_qf_at_t0(device, N):
+    """With no stage P0 is QF itself, an asymmetric one as given (the kernel
+    stages QF transposed for its first step and writes P0 by columns), and
+    Ks is empty."""
+    As, Bs = _plant_batch(N, 6, 2, device, seed=6, per_scenario_b=True)
+    Q, R, QF = _costs(6, 2)
+    QF = QF + np.triu(np.random.default_rng(1).standard_normal((6, 6)), 1).astype(np.float32)
+    Ks, P0 = riccati.riccati_batched_fused(As, Bs, Q, R, QF, 0)
+    torch.cuda.synchronize()
+    assert Ks.shape == (N, 0, 2, 6)
+    assert torch.equal(P0, torch.as_tensor(QF, device=device).expand(N, 6, 6))
+
+
+@pytest.mark.parametrize("which", ["As", "Bs", "costs", "all"])
+def test_riccati_kernel_takes_misaligned_views(device, which):
+    """As, Bs and the costs 4 bytes off a 16-byte boundary (contiguous, so
+    passed uncopied), and Bs broadcast where it is not misaligned."""
+    As, Bs = _plant_batch(1003, 12, 4, device)
+    costs = tuple(torch.as_tensor(c, device=device) for c in _costs(12, 4))
+    As_in = _misaligned(As) if which in ("As", "all") else As
+    Bs_in = _misaligned(Bs.contiguous()) if which in ("Bs", "all") else Bs
+    costs_in = tuple(_misaligned(c) for c in costs) if which in ("costs", "all") else costs
+    Ks, P0 = riccati.riccati_batched_fused(As_in, Bs_in, *costs_in, T)
+    Ks_ref, P0_ref = riccati.riccati_batched_reference(As, Bs, *costs, T)
     torch.testing.assert_close(Ks, Ks_ref, rtol=1e-3, atol=1e-4)
     torch.testing.assert_close(P0, P0_ref, rtol=1e-3, atol=1e-3)
 

@@ -10,6 +10,10 @@ it there without the conftest:
 
     python -m pytest --noconftest tests/test_torch_sampling_cuda.py -q
 
+K13 is checked at K = 1-1024 samples on each plant, on rounds that stay
+resident in shared memory and rounds staged twice, with the box and a warm
+start, and on operands 4 bytes off a 16-byte boundary.
+
 Tolerances: K13 on the same perturbations, at most two rounds, us atol 2e-3
 and ess rtol 1e-3 (MPPI is chaotic in its rounding over more rounds, ROADMAP
 queue 3: a near tie between two samples' costs moves the weights); K14 is
@@ -124,6 +128,79 @@ def test_mppi_kernel_options_match_plain(device, opts):
     assert torch.allclose(ess, ess_p, rtol=1e-3, atol=0)
     if "u_lo" in kw:
         assert float(us.abs().max()) <= kw["u_hi"] + 1e-6
+
+
+def _assert_k13(us, ess, us_p, ess_p, K):
+    assert torch.allclose(us, us_p, rtol=0, atol=2e-3), (us - us_p).abs().max().item()
+    assert torch.allclose(ess, ess_p, rtol=1e-3, atol=0), (ess / ess_p - 1).abs().max().item()
+    assert bool(((ess >= 1.0 - 1e-4) & (ess <= K * (1 + 1e-4))).all())
+
+
+# K from 1 to 1024: a sample a thread up to 256, two up to 512, four past it,
+# and counts that leave a warp or a thread's last sample partly empty
+@pytest.mark.parametrize("name", list(PLANTS))
+@pytest.mark.parametrize("K", [1, 31, 33, 255, 256, 257, 1024])
+def test_mppi_kernel_sample_counts(device, name, K):
+    T, iters = 12, 2
+    f, m, x0s, eps, us0 = _k13_case(name, 5, K, T, iters, device, seed=7 * K + T)
+    kw = dict(T=T, iters=iters, m=m, lam=1.0, sigma=1.0)
+    us, ess = mppi_kernel.mppi_fused(f, _cost(name), x0s, eps, us0, **kw)
+    us_p, ess_p = mppi_kernel.mppi_fused_reference(f, _cost(name).rows, x0s, eps, us0, **kw)
+    _assert_k13(us, ess, us_p, ess_p, K)
+
+
+# (plant, K, T, lam): rounds whose slice stays resident in shared memory
+# (with a partial last chunk; 40 chunks of one sample's unaligned rows,
+# staged a float a lane) and rounds the update stages again
+# (kernels/mppi.py chunk_plan; with a partial last chunk; T m = 1024). Past
+# T = 500 the costs reach 1e3-1e4, where a last-bit difference of the
+# plant's sinf/cosf moves a weight visibly (test_mppi_kernel_at_its_envelope):
+# a high temperature keeps those comparisons about the kernel's arithmetic.
+ROUNDS = {"resident_bench": ("pendulum", 256, 40, 1.0, True),
+          "resident_partial_chunk": ("planar_quadrotor", 128, 30, 1.0, True),
+          "resident_40_chunks": ("pendulum", 1, 320, 1.0, True),
+          "streamed_tm_1024": ("unicycle", 4, 512, 1e3, False),
+          "streamed_k1024": ("unicycle", 1024, 16, 1.0, False),
+          "streamed_partial_chunk": ("cartpole", 300, 60, 1.0, False)}
+
+
+@pytest.mark.parametrize("case", list(ROUNDS))
+@pytest.mark.parametrize("opts", ["cold", "box", "warm"])
+def test_mppi_kernel_resident_and_streamed_rounds(device, case, opts):
+    name, K, T, lam, resident = ROUNDS[case]
+    f, m, x0s, eps, us0 = _k13_case(name, 7, K, T, 2, device, seed=K + T, warm=opts == "warm")
+    assert mppi_kernel.chunk_plan(K, T, m)[4] == resident
+    box = dict(u_lo=-1.5, u_hi=1.5) if opts == "box" else {}
+    kw = dict(T=T, iters=2, m=m, lam=lam, sigma=1.0, **box)
+    us, ess = mppi_kernel.mppi_fused(f, _cost(name), x0s, eps, us0, **kw)
+    us_p, ess_p = mppi_kernel.mppi_fused_reference(f, _cost(name).rows, x0s, eps, us0, **kw)
+    _assert_k13(us, ess, us_p, ess_p, K)
+    if box:
+        assert float(us.abs().max()) <= 1.5 + 1e-6
+
+
+@pytest.mark.parametrize("which", ["x0s", "eps", "us0", "all", "us0_broadcast"])
+@pytest.mark.parametrize("K", [256, 33])
+def test_mppi_kernel_takes_misaligned_views(device, which, K):
+    """Operands 4 bytes off a 16-byte boundary (eps's rows then start
+    anywhere in a 16-byte block, and are staged as their aligned spans), and
+    a broadcast warm start, which the wrapper copies."""
+    T, iters = 20, 2
+    f, m, x0s, eps, us0 = _k13_case("unicycle", 9, K, T, iters, device, seed=K,
+                                    sigma=(1.0, 0.5), warm=True)
+    x0_in = _misaligned(x0s) if which in ("x0s", "all") else x0s
+    eps_in = _misaligned(eps) if which in ("eps", "all") else eps
+    us0_in = _misaligned(us0) if which in ("us0", "all") else us0
+    if which == "us0_broadcast":
+        us0 = us0[:1].expand(T * m)
+        us0_in = us0
+    kw = dict(T=T, iters=iters, m=m, lam=1.0, sigma=(1.0, 0.5))
+    before = mppi_kernel.mppi_fused.launches
+    us, ess = mppi_kernel.mppi_fused(f, _cost("unicycle"), x0_in, eps_in, us0_in, **kw)
+    torch.cuda.synchronize()
+    assert mppi_kernel.mppi_fused.launches == before + 1
+    us_p, ess_p = mppi_kernel.mppi_fused_reference(f, _cost("unicycle").rows, x0s, eps, us0, **kw)
+    _assert_k13(us, ess, us_p, ess_p, K)
 
 
 @pytest.mark.parametrize("eps_stream", ["exact", "direct"])

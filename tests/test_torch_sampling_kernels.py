@@ -104,6 +104,57 @@ def test_kernel_operands_are_checked():
                            iters=2, m=1, sigma=1.0)
 
 
+@pytest.mark.parametrize("K", [1, 33, 256, 257, 1024])
+@pytest.mark.parametrize("T,m", [(1, 1), (40, 1), (30, 2), (1024, 1), (512, 2)])
+def test_chunk_plan_fits_the_kernels_budgets(K, T, m):
+    """The plan csrc/mppi.cu checks: whole warps, at most MAX_THREADS, every
+    sample carried; Tc steps a chunk, ceil(T / Tc) chunks; the ring within
+    its budget, resident (a round's chunks and one more) where that fits,
+    for the largest chunk that does, else four slots streaming."""
+    threads, spt, tc, nch, resident = tk.chunk_plan(K, T, m)
+    assert threads % 32 == 0 and threads <= tk.MAX_THREADS and threads * spt >= K
+    assert spt == (1 if K <= 256 else 2 if K <= 512 else 4) and threads - 32 < -(-K // spt)
+    assert 1 <= tc <= min(tk.MAX_TC, T) and nch == -(-T // tc)
+    step_bytes = 4 * m * spt * threads
+    if resident:
+        assert (nch + 1) * tc * step_bytes <= tk.RESIDENT_BUDGET
+        if tc < min(tk.MAX_TC, T):
+            assert (-(-T // (tc + 1)) + 1) * (tc + 1) * step_bytes > tk.RESIDENT_BUDGET
+    else:
+        assert all((-(-T // c) + 1) * c * step_bytes > tk.RESIDENT_BUDGET
+                   for c in range(1, min(tk.MAX_TC, T) + 1))
+        assert 4 * tc * step_bytes <= tk.STREAM_BUDGET or tc == 1
+
+
+def test_chunk_plan_at_the_bench_and_past_the_budget():
+    """The MPPI bench's shape stays resident (5 chunks of 8 steps and one
+    more, 48 KB); 1024 samples of an m = 2 plant over 16 steps stream, a
+    step a chunk; one sample over 320 steps stays resident in 40 chunks."""
+    assert tk.chunk_plan(256, 40, 1) == (256, 1, 8, 5, True)
+    assert 6 * 8 * 4 * 256 == 49152 <= tk.RESIDENT_BUDGET
+    assert tk.chunk_plan(1024, 16, 2) == (256, 4, 1, 16, False)
+    assert tk.chunk_plan(1, 320, 1) == (32, 1, 8, 40, True)
+    assert tk.chunk_plan(257, 20, 1) == (160, 2, 8, 3, True)
+
+
+def test_packed_constants_are_made_once_per_cost_and_sigma():
+    """K13's by-value constants: Q, R, QF, x_goal, sigma^-2 in that order as
+    float32 on the host, made once per cost and sigma (no per-call upload)."""
+    goal = np.array([0.5, -0.25], np.float32)
+    ct = tm.quadratic_mppi_cost(QP, RP, QFP, goal)
+    c1 = tk.packed_constants(ct, 1.0, 2, 1)
+    assert tk.packed_constants(ct, 1.0, 2, 1) is c1
+    c2 = tk.packed_constants(ct, 0.5, 2, 1)
+    assert c2 is not c1
+    want = np.concatenate([np.asarray(QP, np.float32).ravel(), np.asarray(RP, np.float32).ravel(),
+                           np.asarray(QFP, np.float32).ravel(), goal, [4.0]]).astype(np.float32)
+    assert np.array_equal(np.ctypeslib.as_array(c2), want)
+    with pytest.raises(ValueError, match="shape"):
+        tk.packed_constants(ct, 1.0, 3, 1)
+    with pytest.raises(ValueError, match="kernel form"):
+        tk.packed_constants(lambda x, u, t: x, 1.0, 2, 1)
+
+
 def _slots(logw, u0):
     """The JAX package's slot boundaries for each row (its _resample_slots
     with the offset u0 given)."""
