@@ -12,8 +12,8 @@ scenarios, controls boxed to +-1, so d = 120 controls per scenario):
    numpower_tpu_torch/csrc with nvcc (timed); every instance of the box-QP
    templates (K1, K2, K3a, K3b, K1', K2') must hold HGMMA instructions
    (cuobjdump -sass of the library, counted per instance), and they and
-   every instance of K7, K8, K6a/K6b, K14, K13 and K5 compile with no spills
-   (ptxas); the LDS, STS and FFMA counts of each K5 instance are logged;
+   every instance of K7, K8, K6a/K6b, K14, K13, K5, K11 and K12 compile
+   with no spills (ptxas); the LDS, STS and FFMA counts of each K5 instance are logged;
 1. each kernel against its plain PyTorch version on the card at N = 4096:
    cold and warm starts, all-fp32 (max |dU| <= 1e-5) and the default
    bf16 + fp32 schedules (<= 1e-4), residuals within 1e-5;
@@ -197,9 +197,9 @@ PLANT_OPS = {"cartpole_step": 28, "pendulum_step": 8, "unicycle_step": 10,
 
 
 # the kernels whose every instance must compile without spills (phase 0):
-# the box-QP templates, K7, K8, K6a/K6b, K14, K13 and K5
+# the box-QP templates, K7, K8, K6a/K6b, K14, K13, K5, K11 and K12
 CHECKED_FOR_SPILLS = ("boxqp::", "ilqr_bwd::", "ilqr_fwd::", "smallmat::", "pf_resample::",
-                      "mppi::", "riccati::")
+                      "mppi::", "riccati::", "ekf::", "ukf::")
 
 
 def log(msg: str) -> None:

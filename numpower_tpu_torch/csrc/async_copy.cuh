@@ -1,7 +1,9 @@
 // Staging contiguous runs of floats from device memory into shared memory
 // with 16-byte cp.async (LDGSTS.128), for the kernels that stage a chunk of
-// a horizon ahead of their step chain (ilqr_backward.cu, ilqr_forward.cu)
-// and those that stage one tile a block (cholesky.cu, pf_resample.cu).
+// a horizon ahead of their step chain (ilqr_backward.cu, ilqr_forward.cu,
+// ukf.cu) and those that stage one tile a block (cholesky.cu,
+// pf_resample.cu); and the way back, a run stored from shared memory as
+// 16-byte pieces (cholesky.cu, ukf.cu).
 //
 // Why not the TMA's bulk copies (cp.async.bulk on an mbarrier): a block's
 // chunk is 128-160 runs of 16-320 bytes (one per scenario and array), and a
@@ -69,6 +71,23 @@ __device__ __forceinline__ void copy_run_by_block(float* dst, const float* src, 
   const int pieces = span_pieces(src, count);
   for (int q = tid; q < pieces; q += nthreads)
     __pipeline_memcpy_async(dst + 4 * q, from + 16 * q, 16);
+}
+
+// The way back: stores `count` floats from shared memory at src to dst, the
+// threads (`tid` of `nthreads` >= 3: a block's, or a group's lanes) on
+// consecutive 16-byte pieces of dst from its first 16-byte boundary on,
+// 4-byte stores before it and after the last whole piece.
+__device__ __forceinline__ void store_run_by_block(float* __restrict__ dst, const float* src,
+                                                   int count, int tid, int nthreads) {
+  const int head =
+      min(count, static_cast<int>(((16u - (reinterpret_cast<uintptr_t>(dst) & 15u)) & 15u) >> 2));
+  if (tid < head) dst[tid] = src[tid];
+  const int pieces = (count - head) >> 2;
+  for (int q = tid; q < pieces; q += nthreads) {
+    const int e = head + 4 * q;
+    *reinterpret_cast<float4*>(dst + e) = make_float4(src[e], src[e + 1], src[e + 2], src[e + 3]);
+  }
+  for (int e = head + 4 * pieces + tid; e < count; e += nthreads) dst[e] = src[e];
 }
 
 }  // namespace async_copy

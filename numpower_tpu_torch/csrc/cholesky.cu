@@ -11,14 +11,36 @@
 // 1 / L[j][j]. A non-PD pivot gives NaN from its column on; nothing checks or
 // raises, as in the JAX package.
 //
-// K6a. One matrix per thread, one warp per block (kBatch = 32 matrices),
-// so 4096 matrices are 128 blocks on the H100's 132 SMs. The dimension n is
-// a template parameter (1..16): the factor L and its inverse diagonal live in
-// registers, every loop is unrolled. The block copies its 32 matrices from
-// their public row-major layout into shared memory, consecutive threads on
-// consecutive addresses, each matrix at an odd stride so that the 32
-// threads' reads of "element e of my matrix" fall on 32 distinct banks;
-// results go back the same way.
+// K6a. What bounded the first design (one matrix a thread, one warp a
+// block, so 4096 matrices were 128 one-warp blocks, one warp an SM): its
+// staging, one 4-byte load a thread an iteration, each shared store waiting
+// on its load (probes/chol_ukf.py at (4096, 12, 12): 79% of a thread's
+// cycles), and the same 4-byte loop for the write-back (18%); 32 us of
+// device time for 4.7 MB. Now a group of G lanes takes one matrix, G the
+// power of two >= n (16 at n = 12, so two matrices a warp), and a block of
+// 128 threads takes 128 / G matrices:
+//   - staging: the block's matrices are one contiguous run, copied as its
+//     aligned 16-byte span by cp.async shared over the block's threads
+//     (csrc/async_copy.cuh, K6b's staging), all in flight at once, one wait;
+//   - the factor: lane i holds row i of the matrix in registers (its lower
+//     triangle read from shared memory) and the factor runs right-looking:
+//     for column j the pivot travels from lane j by one __shfl_sync, every
+//     lane forms rsqrtf of it, lanes i >= j scale their entry of column j,
+//     and the column's entries travel to the lanes below for the trailing
+//     update. Each entry sees the same operations in the same order as
+//     factor<n> (a[i][k] - sum_j L[i][j] L[k][j] over j ascending, then
+//     times 1 / L[k][k]), so the result is factor<n>'s bit for bit;
+//   - the write-back: each lane writes row i of L (zeros above the
+//     diagonal) over its row in shared memory, and the block's tile, one
+//     contiguous run, is stored as 16-byte pieces.
+// At N = 4096, n = 12 that is 512 blocks of four warps. The dependent chain
+// is n pivots, each a shuffle, an rsqrtf and a multiply, and the column's
+// shuffles and FMAs; a group's lanes beyond n and the matrices past N take
+// part in the shuffles and store nothing. Shared memory is at most 8 KB a
+// block (n = 16); device memory is read and written once (8 N n^2 bytes).
+// (Not taken: one matrix a thread in smaller blocks. The staging fix alone
+// leaves each matrix's factor, about n^3 / 3 dependent FMAs and n pivots,
+// in one thread, and 4096 threads are still one warp an SM.)
 //
 // K6b. What bounded the first design (K6a's, one matrix per thread, one
 // warp a block): its staging loop, one 4-byte load a thread an iteration,
@@ -45,9 +67,8 @@
 // memory is read and written once (4 N n (n + 2r) bytes).
 //
 // The probe builds this file with the NPT_STAMP macros filled in (the parts
-// of K6b: 0 staging, 1 factor, 2 solve, 3 write-back); here they are empty.
-
-#include <cstdint>
+// of K6a: 0 staging, 1 factor, 2 write-back; of K6b: 0 staging, 1 factor,
+// 2 solve, 3 write-back); here they are empty.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -63,25 +84,13 @@
 
 namespace smallmat {
 
-constexpr int kMaxDim = 16;  // matrix dimension
-constexpr int kMaxRhs = 16;  // right-hand-side columns of K6b
-constexpr int kBatch = 32;   // K6a: matrices per block, one per thread
+constexpr int kMaxDim = 16;        // matrix dimension
+constexpr int kMaxRhs = 16;        // right-hand-side columns of K6b
+constexpr int kCholThreads = 128;  // K6a: threads a block, a group of lanes a matrix
 
-// An odd stride >= width: the 32 threads' slots fall on distinct banks.
-__host__ __device__ inline int odd_stride(int width) { return width | 1; }
-
-// Copy `count` items of `width` floats, contiguous from `src`, into shared
-// slots of `stride` floats.
-__device__ inline void load_items(float* dst, const float* __restrict__ src, int count,
-                                  int width, int stride) {
-  for (int e = threadIdx.x; e < count * width; e += blockDim.x)
-    dst[(e / width) * stride + e % width] = src[e];
-}
-
-__device__ inline void store_items(float* __restrict__ dst, const float* src, int count,
-                                   int width, int stride) {
-  for (int e = threadIdx.x; e < count * width; e += blockDim.x)
-    dst[e] = src[(e / width) * stride + e % width];
+// K6a's lanes a matrix: the power of two >= n.
+__host__ __device__ constexpr int chol_group(int n) {
+  return n <= 1 ? 1 : n <= 2 ? 2 : n <= 4 ? 4 : n <= 8 ? 8 : 16;
 }
 
 // Lower Cholesky of the row-major n x n matrix at `a` (lower triangle read),
@@ -105,26 +114,57 @@ __device__ __forceinline__ void factor(const float* a, float L[n][n], float inv[
   }
 }
 
+// Lower Cholesky of one n x n matrix held by a group of G lanes, lane i
+// (< n) holding row i in r; lanes past n hold anything finite or not and
+// take part in the shuffles. On return lane i holds row i of L, exactly 0
+// above the diagonal. Right-looking, in factor<n>'s order of operations.
+template <int n, int G>
+__device__ __forceinline__ void factor_rows(float (&r)[n], int i) {
+#pragma unroll
+  for (int j = 0; j < n; ++j) {
+    const float d = __shfl_sync(0xffffffffu, r[j], j, G);  // lane j's updated pivot
+    const float inv = rsqrtf(d);
+    r[j] = i == j ? d * inv : i > j ? r[j] * inv : 0.0f;
+#pragma unroll
+    for (int k = j + 1; k < n; ++k) {  // the trailing update by column j
+      const float lk = __shfl_sync(0xffffffffu, r[j], k, G);  // L[k][j]
+      if (k <= i) r[k] -= r[j] * lk;
+    }
+  }
+}
+
 template <int n>
-__global__ void __launch_bounds__(kBatch) cholesky_kernel(const float* __restrict__ a,
-                                                          float* __restrict__ out, int N) {
-  extern __shared__ float sm[];
-  const int stride = odd_stride(n * n);
-  const int first = blockIdx.x * kBatch;
-  const int count = min(kBatch, N - first);
-  load_items(sm, a + static_cast<size_t>(first) * n * n, count, n * n, stride);
+__global__ void __launch_bounds__(kCholThreads)
+    cholesky_kernel(const float* __restrict__ a, float* __restrict__ out, int N) {
+  constexpr int G = chol_group(n), kTile = kCholThreads / G;
+  extern __shared__ __align__(16) float chol_sm[];
+  NPT_STAMP_BEGIN;
+  const int tid = threadIdx.x, i = tid % G, q = tid / G;  // row i of the tile's matrix q
+  const int first = blockIdx.x * kTile;
+  const int count = min(kTile, N - first);
+  const float* a_tile = a + static_cast<size_t>(first) * n * n;
+  async_copy::copy_run_by_block(chol_sm, a_tile, count * n * n, tid, kCholThreads);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
   __syncthreads();
-  if (static_cast<int>(threadIdx.x) < count) {
-    float* m = sm + threadIdx.x * stride;
-    float L[n][n], inv[n];
-    factor<n>(m, L, inv);
+  float* const tile = chol_sm + async_copy::run_offset(a_tile);
+  NPT_STAMP(0);
+  const bool mine = q < count && i < n;  // a row of a matrix of the batch
+  float* const row = tile + (q * n + i) * n;
+  float r[n];
 #pragma unroll
-    for (int i = 0; i < n; ++i)
+  for (int k = 0; k < n; ++k) r[k] = mine && k <= i ? row[k] : 0.0f;
+  factor_rows<n, G>(r, i);
+  if (mine) {
 #pragma unroll
-      for (int j = 0; j < n; ++j) m[i * n + j] = j <= i ? L[i][j] : 0.0f;
+    for (int k = 0; k < n; ++k) row[k] = r[k];
   }
   __syncthreads();
-  store_items(out + static_cast<size_t>(first) * n * n, sm, count, n * n, stride);
+  NPT_STAMP(1);
+  async_copy::store_run_by_block(out + static_cast<size_t>(first) * n * n, tile, count * n * n,
+                                 tid, kCholThreads);
+  NPT_STAMP(2);
+  NPT_STAMP_END;
 }
 
 // K6b's matrices a block: the block is (r, tile) threads.
@@ -163,22 +203,6 @@ __device__ __forceinline__ void solve_column(const float* L, float* col, int r) 
   }
 #pragma unroll
   for (int i = 0; i < n; ++i) col[i * r] = y[i];
-}
-
-// Stores `count` floats from shared memory at src to dst, the block's
-// threads on consecutive 16-byte pieces of dst from its first 16-byte
-// boundary on, 4-byte stores before it and after the last whole piece.
-__device__ __forceinline__ void store_run_by_block(float* __restrict__ dst, const float* src,
-                                                   int count, int tid, int nthreads) {
-  const int head =
-      min(count, static_cast<int>(((16u - (reinterpret_cast<uintptr_t>(dst) & 15u)) & 15u) >> 2));
-  if (tid < head) dst[tid] = src[tid];
-  const int pieces = (count - head) >> 2;
-  for (int q = tid; q < pieces; q += nthreads) {
-    const int e = head + 4 * q;
-    *reinterpret_cast<float4*>(dst + e) = make_float4(src[e], src[e + 1], src[e + 2], src[e + 3]);
-  }
-  for (int e = head + 4 * pieces + tid; e < count; e += nthreads) dst[e] = src[e];
 }
 
 template <int n>
@@ -220,16 +244,18 @@ __global__ void __launch_bounds__(solve_tile<n>() * kMaxRhs)
   if (k < count) solve_column<n>(sa + k * n * n, sb + k * n * r + c, r);
   __syncthreads();
   NPT_STAMP(2);
-  store_run_by_block(x + static_cast<size_t>(first) * n * r, sb, count * n * r, tid, nthreads);
+  async_copy::store_run_by_block(x + static_cast<size_t>(first) * n * r, sb, count * n * r, tid,
+                                 nthreads);
   NPT_STAMP(3);
   NPT_STAMP_END;
 }
 
 template <int n>
 cudaError_t launch_cholesky(const float* a, float* L, int N, cudaStream_t stream) {
-  constexpr size_t smem = static_cast<size_t>(kBatch) * (n * n | 1) * sizeof(float);
+  constexpr int kTile = kCholThreads / chol_group(n);
+  constexpr size_t smem = async_copy::slot_floats(kTile * n * n) * sizeof(float);
   static_assert(smem <= 48 * 1024, "K6a's block fits the shared memory of a plain launch");
-  cholesky_kernel<n><<<(N + kBatch - 1) / kBatch, kBatch, smem, stream>>>(a, L, N);
+  cholesky_kernel<n><<<(N + kTile - 1) / kTile, kCholThreads, smem, stream>>>(a, L, N);
   return cudaGetLastError();
 }
 

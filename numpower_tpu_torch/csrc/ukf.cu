@@ -20,24 +20,63 @@
 // double on the host and rounded once, as the JAX package folds them in
 // Python. It writes xs_f, xs_p (B, T, n), Ps_f, Ps_p (B, T, n, n), ll (B,).
 //
-// Design: K11's (ekf.cu). One thread per trajectory, x, P and ll in
-// registers, n, m, p compile-time; each sigma point is built and sent
-// through f in registers as it is formed, so only the 2n+1 images are held
-// (13 x 6 floats for the planar quadrotor, the largest registered plant),
-// and the weighted differences are formed where they are used.
+// What bounded the first design (K11's: one thread a trajectory, one warp a
+// block; probes/chol_ukf.py on the pendulum at B = 1024, T = 50): the
+// latency of one thread's chain of T steps, 1,200 cycles a step, 58% of it
+// the spread factor and the 2n+1 plant evaluations (sinf) one after another;
+// 32 one-warp blocks, so 100 of the 132 SMs idle; and 2n + 2n^2 scattered
+// 4-byte stores a step (29% of the planar quadrotor's time). Now:
+//   - a group of G lanes takes one trajectory, G the power of two >= 2n+1
+//     (8 for the pendulum and the unicycle, 16 for the cartpole and the
+//     planar quadrotor), and a block is one warp (32 / G trajectories), so
+//     the bench's shape is 8,192 threads in 256 blocks over 132 SMs;
+//   - lane k forms sigma point k and runs f on it (lanes past 2n take point
+//     0); every lane gathers the 2n+1 images by K n shuffles, all in flight
+//     together, and forms x_p and P_p itself, in the first port's order of
+//     summation;
+//   - the update is replicated in every lane: the redrawn points, h at each
+//     (the registered measurement is a selection), y_p, S, Pxy, the factor
+//     of S, the substitutions, x_f, P_f and ll, as K5 has factored S in
+//     every lane; so the group exchanges nothing else, and the lanes' state
+//     stays equal bit for bit;
+//   - the inputs are staged two chunks of C = 16 steps ahead by 16-byte
+//     cp.async (csrc/async_copy.cuh), a buffer a chunk;
+//   - each step's outputs are stored straight from the registers, spread
+//     over the group: lane k stores entries k, k + G, ... of x_f, x_p, P_f
+//     and P_p, picked by a select tree on the bits of k, so a step is 4 to
+//     8 stores a lane, the group's lanes on consecutive addresses.
+// Every sum is the first port's, operation for operation, so the results
+// are its results. Tried first (probes/chol_ukf.py on the pendulum, H100):
+// x_p, P_p, y_p, S and Pxy as butterfly sums over the group, the update's
+// point and h a lane: twelve levels of shuffles on each step's chain made
+// it slower than the first port, 33.0 us against 29.3; each step's outputs
+// written to shared memory by one lane and stored a chunk at a time as
+// 16-byte pieces: 26.9 us, against 21.0 for the stores spread over the
+// lanes from registers.
 //
-// What bounds it: the latency of one thread's chain of T steps (two
-// Cholesky factorizations of n x n, 2n+1 plant evaluations with
-// sinf/cosf, ~n^2 (2n+1) FMAs); the bytes are K11's, about a microsecond of
-// HBM time at the bench's shape.
+// The probe builds this file with the NPT_STAMP macros filled in (the parts
+// of a step: 0 the spread factor, the sigma point, f and the gather, 1 the
+// predicted moments, 2 the update's points, h and moments, 3 the factor of
+// S, the substitutions, x_f, P_f and the log-density, 4 the stores; 5 the
+// set-up, 6 the input staging); here they are empty.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include "async_copy.cuh"
 #include "plants.cuh"
+
+#ifndef NPT_STAMP
+#define NPT_STAMP_BEGIN
+#define NPT_STAMP(part)
+#define NPT_WAIT(v)
+#define NPT_STAMP_END
+#endif
 
 namespace ukf {
 
-constexpr int kBlock = 32;
+constexpr int kWarp = 32;  // threads a block
+constexpr int kChunk = 16;  // steps a staged chunk (C)
 
 struct PlantParams {
   float v[plants::kMaxParams];
@@ -53,6 +92,20 @@ struct Args {
   const float *Q, *R, *P0, *x0s, *yss, *uss;
   float *xf, *xp, *Pf, *Pp, *ll;
   int B, T;
+};
+
+// Lanes a trajectory: the power of two >= the 2n+1 sigma points.
+__host__ __device__ constexpr int group_lanes(int n) {
+  return 2 * n + 1 <= 8 ? 8 : 2 * n + 1 <= 16 ? 16 : 32;
+}
+
+// Shared floats of one group: two input buffers, each the u and y runs of
+// a chunk (each run at any 4-byte alignment).
+template <int m, int p>
+struct Stage {
+  static constexpr int kU = async_copy::slot_floats(kChunk * m);
+  static constexpr int kIn = kU + async_copy::slot_floats(kChunk * p);
+  static constexpr int kFloats = 2 * kIn;
 };
 
 // Lower row Cholesky of the n x n M (lower triangle read) plus `jitter` on
@@ -90,221 +143,286 @@ __device__ __forceinline__ void spread(const float (&P)[n][n], const Weights& w,
   chol_rows<n>(M, w.jitter, S, Sinv);
 }
 
-// Sigma point k of (x, S): x, then x + column i of S, then x - column i.
+// Sigma point k of (x, S): x for k = 0, x + column c of S for k = c + 1,
+// x - column c for k = n + c + 1; a lane past 2n gets x. Column c is picked
+// by selects (S[j][c] for c <= j: the factor's lower triangle only).
 template <int n>
 __device__ __forceinline__ void sigma_point(int k, const float (&x)[n], const float (&S)[n][n],
                                             float (&pt)[n]) {
+  const int c_sel = k <= n ? k - 1 : k - 1 - n;
+  const bool minus = k > n;
 #pragma unroll
   for (int j = 0; j < n; ++j) {
-    if (k == 0) {
-      pt[j] = x[j];
-    } else if (k <= n) {
-      pt[j] = k - 1 <= j ? x[j] + S[j][k - 1] : x[j];
-    } else {
-      pt[j] = k - 1 - n <= j ? x[j] - S[j][k - 1 - n] : x[j];
-    }
+    float col = 0.0f;
+#pragma unroll
+    for (int c = 0; c <= j; ++c) col = c == c_sel ? S[j][c] : col;
+    pt[j] = minus ? x[j] - col : x[j] + col;
+  }
+}
+
+// Stores the N floats of v at dst[0..N), spread over the group: lane k
+// stores entries k, k + G, ..., each picked from the lane's copy by a select
+// tree on the bits of k (G - 1 selects a slot, no memory round trip), so a
+// slot is one store a lane, the group's lanes on consecutive addresses.
+// Lanes past the end store entry N - 1 again, the same value at the same
+// address: a store under a branch instead cost the pendulum a fifth of the
+// kernel (probes/ukf_ablation.py).
+template <int G, int N>
+__device__ __forceinline__ void store_spread(float* __restrict__ dst, const float (&v)[N], int k) {
+#pragma unroll
+  for (int s = 0; s < N; s += G) {
+    float c[G];
+#pragma unroll
+    for (int i = 0; i < G; ++i) c[i] = v[s + i < N ? s + i : N - 1];
+#pragma unroll
+    for (int w = 1; w < G; w <<= 1)
+#pragma unroll
+      for (int i = 0; i + w < G; i += 2 * w) c[i] = (k & w) ? c[i + w] : c[i];
+    dst[min(s + k, N - 1)] = c[0];
   }
 }
 
 template <int P, int H, int p>
-__global__ void __launch_bounds__(kBlock) ukf_kernel(PlantParams params, Weights w, Args a) {
+__global__ void __launch_bounds__(kWarp, 1) ukf_kernel(PlantParams params, Weights w, Args a) {
   using F = plants::Plant<P>;
-  constexpr int n = F::n, m = F::m, K = 2 * n + 1;
-  __shared__ float sQ[n * n], sR[p * p], sP0[n * n], spar[plants::kMaxParams];
-  for (int e = threadIdx.x; e < n * n; e += kBlock) {
-    sQ[e] = a.Q[e];
-    sP0[e] = a.P0[e];
-  }
-  for (int e = threadIdx.x; e < p * p; e += kBlock) sR[e] = a.R[e];
-  for (int e = threadIdx.x; e < plants::kMaxParams; e += kBlock) spar[e] = params.v[e];
-  __syncthreads();
-  const int b = blockIdx.x * kBlock + threadIdx.x;
-  if (b >= a.B) return;
+  using St = Stage<F::m, p>;
+  constexpr int n = F::n, m = F::m, K = 2 * n + 1, G = group_lanes(n), kGroups = kWarp / G;
+  __shared__ __align__(16) float stage_sm[kGroups * St::kFloats];
+  NPT_STAMP_BEGIN;
+  const int lane = threadIdx.x, k = lane % G, grp = lane / G;
+  const int b = blockIdx.x * kGroups + grp;
+  if (b >= a.B) return;  // a whole group: its shuffles name its own lanes only
+  const unsigned mask = (G == 32 ? 0xffffffffu : (1u << G) - 1u) << (grp * G);
   const int T = a.T;
-  const float* ub = a.uss + static_cast<size_t>(b) * T * m;
-  const float* yb = a.yss + static_cast<size_t>(b) * T * p;
-  const float c0 = static_cast<float>(p) * logf(6.28318530717958647692f);
+  float* const sm = stage_sm + grp * St::kFloats;
+  const float* const ub = a.uss + static_cast<size_t>(b) * T * m;
+  const float* const yb = a.yss + static_cast<size_t>(b) * T * p;
+  auto stage_chunk = [&](int c) {  // the inputs of chunk c into buffer c % 2
+    const int t0 = c * kChunk;
+    if (t0 < T) {
+      float* const buf = sm + (c & 1) * St::kIn;
+      const int steps = min(kChunk, T - t0);
+      async_copy::copy_run_by_block(buf, ub + t0 * m, steps * m, k, G);
+      async_copy::copy_run_by_block(buf + St::kU, yb + t0 * p, steps * p, k, G);
+    }
+    __pipeline_commit();
+  };
+  stage_chunk(0);
+  stage_chunk(1);
 
+  float par[plants::kMaxParams];
+#pragma unroll
+  for (int e = 0; e < plants::kMaxParams; ++e) par[e] = params.v[e];
+  const float c0 = static_cast<float>(p) * logf(6.28318530717958647692f);
+  float Qu[n][n], Ru[p][p];  // upper triangles
+#pragma unroll
+  for (int i = 0; i < n; ++i)
+#pragma unroll
+    for (int j = i; j < n; ++j) Qu[i][j] = a.Q[i * n + j];
+#pragma unroll
+  for (int i = 0; i < p; ++i)
+#pragma unroll
+    for (int j = i; j < p; ++j) Ru[i][j] = a.R[i * p + j];
   float x[n], Pm[n][n];
 #pragma unroll
   for (int j = 0; j < n; ++j) x[j] = a.x0s[static_cast<size_t>(b) * n + j];
 #pragma unroll
   for (int i = 0; i < n; ++i)
 #pragma unroll
-    for (int j = 0; j < n; ++j) Pm[i][j] = sP0[i * n + j];
+    for (int j = 0; j < n; ++j) Pm[i][j] = a.P0[i * n + j];
   float ll = 0.0f;
-  float u_nx[m], y_nx[p];
-#pragma unroll
-  for (int k = 0; k < m; ++k) u_nx[k] = ub[k];
-#pragma unroll
-  for (int c = 0; c < p; ++c) y_nx[c] = yb[c];
+  NPT_WAIT(x[0] + Pm[0][0]);
+  NPT_STAMP(5);
 
-  for (int t = 0; t < T; ++t) {
-    float u[m], y[p];
+  for (int c = 0, t0 = 0; t0 < T; ++c, t0 += kChunk) {
+    const int steps = min(kChunk, T - t0);
+    __pipeline_wait_prior(1);  // chunk c's copies; chunk c + 1's may be in flight
+    __syncwarp(mask);
+    const float* const us = sm + (c & 1) * St::kIn + async_copy::run_offset(ub + t0 * m);
+    const float* const ys =
+        sm + (c & 1) * St::kIn + St::kU + async_copy::run_offset(yb + t0 * p);
+    NPT_STAMP(6);
+    for (int tc = 0; tc < steps; ++tc) {
+      float u[m], y[p];
 #pragma unroll
-    for (int k = 0; k < m; ++k) u[k] = u_nx[k];
+      for (int e = 0; e < m; ++e) u[e] = us[tc * m + e];
 #pragma unroll
-    for (int c = 0; c < p; ++c) y[c] = y_nx[c];
-    if (t + 1 < T) {  // the next step's inputs, in flight while this step computes
-#pragma unroll
-      for (int k = 0; k < m; ++k) u_nx[k] = ub[(t + 1) * m + k];
-#pragma unroll
-      for (int c = 0; c < p; ++c) y_nx[c] = yb[(t + 1) * p + c];
-    }
+      for (int e = 0; e < p; ++e) y[e] = ys[tc * p + e];
 
-    // 1-2. predict: every sigma point through f
-    float S[n][n], fx[K][n];
-    spread<n>(Pm, w, S);
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      float pt[n];
+      // 1-2. predict: sigma point k through f in lane k, the images gathered
+      // by every lane (K n shuffles in flight together), the moments summed
+      // in every lane in the first port's order
+      float S[n][n], pt[n], fx[n];
+      spread<n>(Pm, w, S);
       sigma_point<n>(k, x, S, pt);
-      F::step(pt, u, spar, fx[k]);
-    }
-    float xpv[n], Pp[n][n];
+      F::step(pt, u, par, fx);
+      float fxa[K][n];
 #pragma unroll
-    for (int j = 0; j < n; ++j) {
-      float acc = w.wm0 * fx[0][j];
+      for (int q = 0; q < K; ++q)
 #pragma unroll
-      for (int k = 1; k < K; ++k) acc = acc + w.wmi * fx[k][j];
-      xpv[j] = acc;
-    }
+        for (int j = 0; j < n; ++j) fxa[q][j] = __shfl_sync(mask, fx[j], q, G);
+      NPT_STAMP(0);
+      float xpv[n], Pp[n][n];
 #pragma unroll
-    for (int i = 0; i < n; ++i)
+      for (int j = 0; j < n; ++j) {
+        float acc = w.wm0 * fxa[0][j];
 #pragma unroll
-      for (int j = i; j < n; ++j) {
-        float acc = w.wc0 * (fx[0][i] - xpv[i]) * (fx[0][j] - xpv[j]);
-#pragma unroll
-        for (int k = 1; k < K; ++k) acc = acc + w.wci * (fx[k][i] - xpv[i]) * (fx[k][j] - xpv[j]);
-        acc = acc + sQ[i * n + j];
-        Pp[i][j] = acc;
-        Pp[j][i] = acc;
+        for (int q = 1; q < K; ++q) acc = acc + w.wmi * fxa[q][j];
+        xpv[j] = acc;
       }
+#pragma unroll
+      for (int i = 0; i < n; ++i)
+#pragma unroll
+        for (int j = i; j < n; ++j) {
+          float acc = w.wc0 * (fxa[0][i] - xpv[i]) * (fxa[0][j] - xpv[j]);
+#pragma unroll
+          for (int q = 1; q < K; ++q)
+            acc = acc + w.wci * (fxa[q][i] - xpv[i]) * (fxa[q][j] - xpv[j]);
+          acc = acc + Qu[i][j];
+          Pp[i][j] = acc;
+          Pp[j][i] = acc;
+        }
+      NPT_STAMP(1);
 
-    // 3. update: the points redrawn from (x_p, P_p), h at each
-    float pts[K][n], hy[K][p];
-    spread<n>(Pp, w, S);
+      // 3. update: every point redrawn from (x_p, P_p) and h at each, in
+      // every lane (h is the cheap part: no shuffle), the moments as above
+      float pts[K][n], hy[K][p];
+      spread<n>(Pp, w, S);
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      sigma_point<n>(k, xpv, S, pts[k]);
-      plants::Measure<H>::template eval<p>(pts[k], hy[k]);
-    }
-    float yp[p];
-#pragma unroll
-    for (int c = 0; c < p; ++c) {
-      float acc = w.wm0 * hy[0][c];
-#pragma unroll
-      for (int k = 1; k < K; ++k) acc = acc + w.wmi * hy[k][c];
-      yp[c] = acc;
-    }
-    float Sm[p][p], Pxy[n][p];
-#pragma unroll
-    for (int i = 0; i < p; ++i)
-#pragma unroll
-      for (int j = i; j < p; ++j) {
-        float acc = w.wc0 * (hy[0][i] - yp[i]) * (hy[0][j] - yp[j]);
-#pragma unroll
-        for (int k = 1; k < K; ++k) acc = acc + w.wci * (hy[k][i] - yp[i]) * (hy[k][j] - yp[j]);
-        acc = acc + sR[i * p + j];
-        Sm[i][j] = acc;
-        Sm[j][i] = acc;
+      for (int q = 0; q < K; ++q) {
+        sigma_point<n>(q, xpv, S, pts[q]);
+        plants::Measure<H>::template eval<p>(pts[q], hy[q]);
       }
-#pragma unroll
-    for (int j = 0; j < n; ++j)
+      float yp[p];
 #pragma unroll
       for (int c = 0; c < p; ++c) {
-        float acc = w.wc0 * (pts[0][j] - xpv[j]) * (hy[0][c] - yp[c]);
+        float acc = w.wm0 * hy[0][c];
 #pragma unroll
-        for (int k = 1; k < K; ++k)
-          acc = acc + w.wci * (pts[k][j] - xpv[j]) * (hy[k][c] - yp[c]);
-        Pxy[j][c] = acc;
+        for (int q = 1; q < K; ++q) acc = acc + w.wmi * hy[q][c];
+        yp[c] = acc;
       }
+      float Sm[p][p], Pxy[n][p];
+#pragma unroll
+      for (int i = 0; i < p; ++i)
+#pragma unroll
+        for (int j = i; j < p; ++j) {
+          float acc = w.wc0 * (hy[0][i] - yp[i]) * (hy[0][j] - yp[j]);
+#pragma unroll
+          for (int q = 1; q < K; ++q)
+            acc = acc + w.wci * (hy[q][i] - yp[i]) * (hy[q][j] - yp[j]);
+          acc = acc + Ru[i][j];
+          Sm[i][j] = acc;
+          Sm[j][i] = acc;
+        }
+#pragma unroll
+      for (int j = 0; j < n; ++j)
+#pragma unroll
+        for (int c = 0; c < p; ++c) {
+          float acc = w.wc0 * (pts[0][j] - xpv[j]) * (hy[0][c] - yp[c]);
+#pragma unroll
+          for (int q = 1; q < K; ++q)
+            acc = acc + w.wci * (pts[q][j] - xpv[j]) * (hy[q][c] - yp[c]);
+          Pxy[j][c] = acc;
+        }
+      NPT_STAMP(2);
 
-    // 4. W = S^-1 Pxy': forward (L G = Pxy'), then backward (L' W = G)
-    float L[p][p], Linv[p];
-    chol_rows<p>(Sm, 0.0f, L, Linv);
-    float G[p][n], W[p][n];
+      // 4. W = S^-1 Pxy': forward (L G = Pxy'), then backward (L' W = G)
+      float L[p][p], Linv[p];
+      chol_rows<p>(Sm, 0.0f, L, Linv);
+      float Gm[p][n], W[p][n];
 #pragma unroll
-    for (int i = 0; i < p; ++i)
+      for (int i = 0; i < p; ++i)
 #pragma unroll
-      for (int j = 0; j < n; ++j) {
-        float acc = Pxy[j][i];
+        for (int j = 0; j < n; ++j) {
+          float acc = Pxy[j][i];
 #pragma unroll
-        for (int k = 0; k < i; ++k) acc = acc - L[i][k] * G[k][j];
-        G[i][j] = acc * Linv[i];
-      }
+          for (int q = 0; q < i; ++q) acc = acc - L[i][q] * Gm[q][j];
+          Gm[i][j] = acc * Linv[i];
+        }
 #pragma unroll
-    for (int i = p - 1; i >= 0; --i)
+      for (int i = p - 1; i >= 0; --i)
 #pragma unroll
-      for (int j = 0; j < n; ++j) {
-        float acc = G[i][j];
+        for (int j = 0; j < n; ++j) {
+          float acc = Gm[i][j];
 #pragma unroll
-        for (int k = i + 1; k < p; ++k) acc = acc - L[k][i] * W[k][j];
-        W[i][j] = acc * Linv[i];
-      }
-    float v[p];
+          for (int q = i + 1; q < p; ++q) acc = acc - L[q][i] * W[q][j];
+          W[i][j] = acc * Linv[i];
+        }
+      float v[p];
 #pragma unroll
-    for (int c = 0; c < p; ++c) v[c] = y[c] - yp[c];
-#pragma unroll
-    for (int j = 0; j < n; ++j) {
-      float acc = xpv[j];
-#pragma unroll
-      for (int c = 0; c < p; ++c) acc = acc + W[c][j] * v[c];
-      x[j] = acc;
-    }
-    float SK[p][n];  // S W
-#pragma unroll
-    for (int i = 0; i < p; ++i)
+      for (int q = 0; q < p; ++q) v[q] = y[q] - yp[q];
 #pragma unroll
       for (int j = 0; j < n; ++j) {
-        float acc = Sm[i][0] * W[0][j];
+        float acc = xpv[j];
 #pragma unroll
-        for (int c = 1; c < p; ++c) acc = acc + Sm[i][c] * W[c][j];
-        SK[i][j] = acc;
+        for (int q = 0; q < p; ++q) acc = acc + W[q][j] * v[q];
+        x[j] = acc;
       }
+      float SK[p][n];  // S W
 #pragma unroll
-    for (int i = 0; i < n; ++i)
+      for (int i = 0; i < p; ++i)
 #pragma unroll
-      for (int j = i; j < n; ++j) {
-        float acc = Pp[i][j];
+        for (int j = 0; j < n; ++j) {
+          float acc = Sm[i][0] * W[0][j];
 #pragma unroll
-        for (int c = 0; c < p; ++c) acc = acc - W[c][i] * SK[c][j];
-        Pm[i][j] = acc;
-        Pm[j][i] = acc;
+          for (int q = 1; q < p; ++q) acc = acc + Sm[i][q] * W[q][j];
+          SK[i][j] = acc;
+        }
+#pragma unroll
+      for (int i = 0; i < n; ++i)
+#pragma unroll
+        for (int j = i; j < n; ++j) {
+          float acc = Pp[i][j];
+#pragma unroll
+          for (int q = 0; q < p; ++q) acc = acc - W[q][i] * SK[q][j];
+          Pm[i][j] = acc;
+          Pm[j][i] = acc;
+        }
+      float sq = 0.0f, logdet = 0.0f;
+      float al[p];
+#pragma unroll
+      for (int i = 0; i < p; ++i) {
+        float acc = v[i];
+#pragma unroll
+        for (int q = 0; q < i; ++q) acc = acc - L[i][q] * al[q];
+        al[i] = acc * Linv[i];
+        sq = sq + al[i] * al[i];
+        logdet = logdet + logf(L[i][i]);
       }
-    float sq = 0.0f, logdet = 0.0f;
-    float al[p];
-#pragma unroll
-    for (int i = 0; i < p; ++i) {
-      float acc = v[i];
-#pragma unroll
-      for (int k = 0; k < i; ++k) acc = acc - L[i][k] * al[k];
-      al[i] = acc * Linv[i];
-      sq = sq + al[i] * al[i];
-      logdet = logdet + logf(L[i][i]);
-    }
-    ll = ll - 0.5f * (sq + c0) - logdet;
+      ll = ll - 0.5f * (sq + c0) - logdet;
+      NPT_STAMP(3);
 
-    const size_t row = static_cast<size_t>(b) * T + t;
+      // the step's outputs, spread over the group's lanes
+      const size_t row = static_cast<size_t>(b) * T + t0 + tc;
+      float pf[n * n], pp[n * n];
 #pragma unroll
-    for (int j = 0; j < n; ++j) {
-      a.xf[row * n + j] = x[j];
-      a.xp[row * n + j] = xpv[j];
+      for (int i = 0; i < n; ++i)
+#pragma unroll
+        for (int j = 0; j < n; ++j) {
+          pf[i * n + j] = Pm[i][j];
+          pp[i * n + j] = Pp[i][j];
+        }
+      store_spread<G>(a.xf + row * n, x, k);
+      store_spread<G>(a.xp + row * n, xpv, k);
+      store_spread<G>(a.Pf + row * n * n, pf, k);
+      store_spread<G>(a.Pp + row * n * n, pp, k);
+      NPT_STAMP(4);
     }
-#pragma unroll
-    for (int i = 0; i < n; ++i)
-#pragma unroll
-      for (int j = 0; j < n; ++j) {
-        a.Pf[(row * n + i) * n + j] = Pm[i][j];
-        a.Pp[(row * n + i) * n + j] = Pp[i][j];
-      }
+    __syncwarp(mask);  // the chunk's input buffer read by every lane
+    stage_chunk(c + 2);
+    NPT_STAMP(6);
   }
-  a.ll[b] = ll;
+  if (k == 0) a.ll[b] = ll;
+  NPT_STAMP_END;
 }
 
 template <int P, int H, int p>
 int launch(const PlantParams& params, const Weights& w, const Args& a, cudaStream_t stream) {
-  ukf_kernel<P, H, p><<<(a.B + kBlock - 1) / kBlock, kBlock, 0, stream>>>(params, w, a);
+  using F = plants::Plant<P>;
+  constexpr int kGroups = kWarp / group_lanes(F::n);
+  static_assert(kGroups * Stage<F::m, p>::kFloats * sizeof(float) <= 48 * 1024,
+                "K12's block fits the static shared memory of a plain launch");
+  ukf_kernel<P, H, p><<<(a.B + kGroups - 1) / kGroups, kWarp, 0, stream>>>(params, w, a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,10 +3,11 @@ numpower_tpu/kernels/cholesky.py ``cholesky_batched`` and
 ``psd_solve_batched``).
 
 The kernels are CUDA C++ in ``csrc/cholesky.cu`` (its note says what bounds
-them on the H100 and how the design answers that): K6a one matrix per
-thread, the factor in registers; K6b one thread per (column, matrix), the
-block's tile staged by 16-byte copies and factored in shared memory with its
-diagonal held inverted. Their plain PyTorch
+them on the H100 and how the design answers that): K6a a group of lanes per
+matrix, lane i holding row i in registers, the pivots and columns passed by
+shuffles; K6b one thread per (column, matrix), the block's tile factored in
+shared memory with its diagonal held inverted. Both stage the block's tile
+by 16-byte copies and write it back as 16-byte pieces. Their plain PyTorch
 versions are the unrolled recurrences of utils/smallmat.py, which compute the
 same function the same way: ``cholesky_batched_reference`` is
 ``cholesky_unrolled`` and ``psd_solve_batched_reference`` is

@@ -85,7 +85,7 @@ def ekf_reference(f, h, Q, R, x0s, P0, yss, uss):
         P = upper_mirror(P_p - W.transpose(1, 2) @ CP)
         ll = ll + l
         outs.append((x, P, x_p, P_p))
-    xs_f, Ps_f, xs_p, Ps_p = _stack_time(outs)
+    xs_f, Ps_f, xs_p, Ps_p = _stack_time(outs, x, P)
     return xs_f, Ps_f, xs_p, Ps_p, ll
 
 

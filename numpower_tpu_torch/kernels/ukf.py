@@ -2,10 +2,11 @@
 ``ukf_pallas``).
 
 The kernel is CUDA C++ in ``csrc/ukf.cu`` (its note says what bounds it on
-the H100 and how the design answers that): one thread per trajectory, the
-2n+1 Wan-Merwe sigma points built in registers and sent through the
-registered plant (``csrc/plants.cuh``) in the kernel. This module holds its
-wrapper, :func:`ukf_batched`, and its plain PyTorch version,
+the H100 and how the design answers that): a group of 8 or 16 lanes per
+trajectory, lane k forming Wan-Merwe sigma point k and sending it through
+the registered plant (``csrc/plants.cuh``) in the kernel; every lane
+gathers the images and forms the moments and the update itself. This
+module holds its wrapper, :func:`ukf_batched`, and its plain PyTorch version,
 :func:`ukf_reference`, which follows the kernel's algebra (the spread
 c_sig 0.5 (P + P') + 1e-9 I, covariances' upper triangles mirrored, S^-1
 applied by substitution). The wrapper takes the plain version for a tensor
@@ -80,7 +81,7 @@ def ukf_reference(f, h, Q, R, x0s, P0, yss, uss, alpha: float = 1.0, beta: float
         P = upper_mirror(P_p - W.transpose(1, 2) @ (S @ W))
         ll = ll + l
         outs.append((x, P, x_p, P_p))
-    xs_f, Ps_f, xs_p, Ps_p = _stack_time(outs)
+    xs_f, Ps_f, xs_p, Ps_p = _stack_time(outs, x, P)
     return xs_f, Ps_f, xs_p, Ps_p, ll
 
 

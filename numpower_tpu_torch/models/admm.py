@@ -97,13 +97,16 @@ def route_mpc_boxqp_admm(device_type: str, d: int, has_x_ref: bool, x0_ndim: int
     (admm.py:134-136); with or without an x_ref. On the kernel route,
     solve_mpc_boxqp_admm takes the fused kernel for a batch of regulation
     problems and the two-step one (g given) for an x_ref, or for a single x0
-    asked for by method="kernel", as the JAX package does (admm.py:149-179)."""
+    asked for by method="kernel", as the JAX package does (admm.py:149-179).
+    The JAX package's names are taken too: "pallas" is "kernel", "xla"
+    "plain" (admm.py:134-137)."""
     del has_x_ref  # both kernel routes take an x_ref
+    method = {"pallas": "kernel", "xla": "plain"}.get(method, method)
     if method == "auto":
         on_cuda = device_type == "cuda"
         method = "kernel" if on_cuda and d <= boxqp_admm.MAX_D and x0_ndim == 2 else "plain"
     if method not in ("kernel", "plain"):
-        raise ValueError(f"unknown method {method!r} (auto|kernel|plain)")
+        raise ValueError(f"unknown method {method!r} (auto|kernel|plain|pallas|xla)")
     return method
 
 

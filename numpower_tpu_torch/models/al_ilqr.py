@@ -27,7 +27,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from numpower_tpu_torch.models.ilqr import (
-    ALPHAS, _as, _backward_pass as _ilqr_backward_pass, _check_forward, _forward_pass,
+    ALPHAS, _as, _backward_pass as _ilqr_backward_pass, _forward_pass, _forward_route,
     _fused_backward, _init_controls, _line_search, _select, _total_cost,
 )
 from numpower_tpu_torch.models.rollout import linearize_trajectory, rollout_nonlinear
@@ -173,6 +173,6 @@ def _al_ilqr_solve_batched_fused(
     forward: str = "kernel",
 ) -> ALILQRResult:
     """The fused backend (see al_ilqr_solve_batched)."""
-    _check_forward(forward)
+    forward = _forward_route(forward)
     return _solve(f, x0s, Q, R, QF, x_goal, horizon, u_lo, u_hi, al_iters, ilqr_iters, mu0,
                   mu_scale, reg, use_fd, fd_eps, us_init, alphas, fused=True, forward=forward)

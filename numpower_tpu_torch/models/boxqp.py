@@ -106,12 +106,17 @@ def route_mpc_boxqp(device_type: str, d: int, has_x_ref: bool, x0_ndim: int,
     (boxqp.py:156-161). On the kernel route, solve_mpc_boxqp takes the fused
     kernel for a batch of regulation problems and the two-step one (g given)
     for an x_ref or a single x0, as the JAX package does (boxqp.py:162-197);
-    has_x_ref and x0_ndim choose between the two there, not here."""
+    has_x_ref and x0_ndim choose between the two there, not here.
+
+    The JAX package's names are taken too: "pallas" is "kernel", and "xla"
+    is "pg", as its solve_mpc_boxqp runs projected gradient for every name
+    but "pallas" and "fista" (boxqp.py:198-203)."""
     del has_x_ref, x0_ndim  # both kernel routes take every x_ref and x0 rank
+    method = {"pallas": "kernel", "xla": "pg"}.get(method, method)
     if method == "auto":
         method = "kernel" if device_type == "cuda" and d <= boxqp_fista.MAX_D else "fista"
     if method not in ("kernel", "fista", "pg"):
-        raise ValueError(f"unknown method {method!r} (auto|kernel|fista|pg)")
+        raise ValueError(f"unknown method {method!r} (auto|kernel|fista|pg|pallas|xla)")
     return method
 
 

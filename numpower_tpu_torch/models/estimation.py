@@ -137,9 +137,14 @@ def _filter_step(A, C, Q, R, x, P, y, u_term):
     return x_f, P_f, x_p, P_p, _log_density(_trisolve(L, v), L)
 
 
-def _stack_time(outs):
+def _stack_time(outs, x0, P0):
     """Per-step (mean, cov, ...) tuples -> time-stacked (..., T, n) means and
-    (..., T, n, n) covariances, alternating as in the tuples."""
+    (..., T, n, n) covariances, alternating as in the tuples. With no step
+    (T = 0) each is empty, (..., 0, n) and (..., 0, n, n) after x0 (..., n)
+    and P0 (..., n, n), as the JAX package's scans return."""
+    if not outs:
+        mean, cov = x0[..., None, :][..., :0, :], P0[..., None, :, :][..., :0, :, :]
+        return (mean, cov, mean, cov)
     return tuple(torch.stack(seq, dim=-2 if k % 2 == 0 else -3)
                  for k, seq in enumerate(zip(*outs)))
 
@@ -167,7 +172,7 @@ def kalman_filter(A, C, Q, R, x0, P0, ys, B=None, us=None) -> KalmanResult:
         x, P, x_p, P_p, l = _filter_step(A, C, Q, R, x, P, ys[..., t, :], u_terms[..., t, :])
         ll = ll + l
         outs.append((x, P, x_p, P_p))
-    xs_f, Ps_f, xs_p, Ps_p = _stack_time(outs)
+    xs_f, Ps_f, xs_p, Ps_p = _stack_time(outs, x, P)
     return KalmanResult(means=xs_f, covs=Ps_f, pred_means=xs_p, pred_covs=Ps_p,
                         log_likelihood=ll)
 
@@ -450,7 +455,7 @@ def ekf_filter(f: Callable, h: Callable, Q, R, x0, P0, ys, us) -> KalmanResult:
         P = _sym(P_p - _mT(W) @ CP)
         ll = ll + _log_density(_trisolve(L, v), L)
         outs.append((x, P, x_p, P_p))
-    xs_f, Ps_f, xs_p, Ps_p = _stack_time(outs)
+    xs_f, Ps_f, xs_p, Ps_p = _stack_time(outs, x, P)
     return KalmanResult(means=xs_f, covs=Ps_f, pred_means=xs_p, pred_covs=Ps_p,
                         log_likelihood=ll)
 
@@ -515,7 +520,7 @@ def kalman_filter_sqrt(A, C, Q, R, x0, P0, ys, B=None, us=None) -> SqrtKalmanRes
         x = x_p + _mv(Kbar, alpha)
         ll = ll + _log_density(alpha, S_y)
         outs.append((x, S, x_p, S_p))
-    xs_f, Ss_f, xs_p, Ss_p = _stack_time(outs)
+    xs_f, Ss_f, xs_p, Ss_p = _stack_time(outs, x, S)
     return SqrtKalmanResult(means=xs_f, chol_covs=Ss_f, pred_means=xs_p, pred_chol_covs=Ss_p,
                             log_likelihood=ll)
 
@@ -698,7 +703,7 @@ def ukf_filter(f: Callable, h: Callable, Q, R, x0, P0, ys, us, alpha: float = 1.
         P = _sym(P_p - _mT(K_T) @ S @ K_T)
         ll = ll + _log_density(_trisolve(L, v), L)
         outs.append((x, P, x_p, P_p))
-    xs_f, Ps_f, xs_p, Ps_p = _stack_time(outs)
+    xs_f, Ps_f, xs_p, Ps_p = _stack_time(outs, x, P)
     return KalmanResult(means=xs_f, covs=Ps_f, pred_means=xs_p, pred_covs=Ps_p,
                         log_likelihood=ll)
 

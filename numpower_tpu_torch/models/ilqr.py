@@ -235,9 +235,13 @@ def _line_search(f, forward: str, x0s, xs, us, ks, Ks, alpha, Q, R, QF, x_goal):
     return us_all, xs_all, _total_cost(xs_all, us_all, Q, R, QF, x_goal)
 
 
-def _check_forward(forward: str) -> None:
+def _forward_route(forward: str) -> str:
+    """The line search's route, "kernel" or "plain"; the JAX package's
+    "pallas" is "kernel" and its "xla" "plain" (ilqr.py:207-245)."""
+    forward = {"pallas": "kernel", "xla": "plain"}.get(forward, forward)
     if forward not in ("kernel", "plain"):
-        raise ValueError(f"unknown forward {forward!r} (kernel|plain)")
+        raise ValueError(f"unknown forward {forward!r} (kernel|plain|pallas|xla)")
+    return forward
 
 
 def _ilqr_solve_batched_fused(
@@ -249,7 +253,7 @@ def _ilqr_solve_batched_fused(
     out ALL line-search alphas for all scenarios in one K8 launch (the plant
     must be registered, models/plants.kernel_plant), "plain" in batched
     PyTorch. Assumes symmetric Q/QF, as K8's cost does."""
-    _check_forward(forward)
+    forward = _forward_route(forward)
     Q, R, QF, x_goal = (_as(a, x0s) for a in (Q, R, QF, x_goal))
     N, m, T = x0s.shape[0], R.shape[0], horizon
     us = _init_controls(us_init, (N, T, m), x0s)

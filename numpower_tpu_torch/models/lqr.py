@@ -51,6 +51,15 @@ def _psd_solve(M: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return torch.cholesky_solve(rhs, L)
 
 
+def _stack(seq, like: torch.Tensor, empty_shape, dim: int = 0) -> torch.Tensor:
+    """torch.stack(seq, dim), or for an empty seq (a zero-length horizon) an
+    empty tensor of `empty_shape` in like's dtype and device, as the JAX
+    package's scans return."""
+    if seq:
+        return torch.stack(seq, dim=dim)
+    return like.new_empty(empty_shape)
+
+
 def riccati_scan(A, B, Q, R, QF, horizon: int):
     """Backward Riccati recursion.
 
@@ -67,7 +76,7 @@ def riccati_scan(A, B, Q, R, QF, horizon: int):
         P = Q + AtP @ A - (BtP @ A).T @ K
         P = 0.5 * (P + P.T)  # keep symmetric under fp32 accumulation
         Ks[t], Ps[t] = K, P
-    return torch.stack(Ks), torch.stack(Ps)
+    return _stack(Ks, A, (0,) + B.T.shape), torch.stack(Ps)
 
 
 class _RiccatiElement(NamedTuple):
@@ -164,7 +173,7 @@ def lqt_solve(A, B, Q, R, QF, x0, x_refs, horizon: int):
         u = -(K @ xs[-1]) - k
         us.append(u)
         xs.append(A @ xs[-1] + B @ u)
-    return torch.stack(us), torch.stack(xs)
+    return _stack(us, x0, (0, B.shape[1])), torch.stack(xs)
 
 
 def lqr_infinite_gain(A, B, Q, R, iters: int = 200):
@@ -195,7 +204,7 @@ def lqr_solve(A, B, Q, R, QF, x0, horizon: int, parallel: bool = False):
         u = -(K @ xs[-1])
         us.append(u)
         xs.append(A @ xs[-1] + B @ u)
-    return torch.stack(us), torch.stack(xs)
+    return _stack(us, x0, (0, B.shape[1])), torch.stack(xs)
 
 
 def route_riccati_per_scenario(device_type: str, n: int, m: int, method: str = "auto") -> str:
@@ -207,12 +216,15 @@ def route_riccati_per_scenario(device_type: str, n: int, m: int, method: str = "
     as the JAX package takes "xla" off the TPU (lqr.py:261-265). "psd" (the
     JAX package's "pallas") keeps the batched products plain and sends each
     step's SPD solve to the batched-solve kernel. An explicit "fused" or "psd"
-    outside its kernel's envelope raises ValueError, as does any other name."""
+    outside its kernel's envelope raises ValueError, as does any other name.
+    The JAX package's names are taken too: "pallas" is "psd", "xla" "plain"
+    (lqr.py:261-276)."""
     fused_ok = n <= riccati.MAX_N and m <= riccati.MAX_M
+    method = {"pallas": "psd", "xla": "plain"}.get(method, method)
     if method == "auto":
         return "fused" if device_type == "cuda" and fused_ok else "plain"
     if method not in ("fused", "psd", "plain"):
-        raise ValueError(f"unknown method {method!r} (auto|fused|psd|plain)")
+        raise ValueError(f"unknown method {method!r} (auto|fused|psd|plain|pallas|xla)")
     if method == "fused" and not fused_ok:
         raise ValueError(f"(n, m) = ({n}, {m}) is outside the fused kernel's envelope "
                          f"(n <= {riccati.MAX_N}, m <= {riccati.MAX_M})")
@@ -258,4 +270,4 @@ def lqr_solve_batched(A, B, Q, R, QF, x0s, horizon: int):
         u = -(xs[-1] @ K.T)
         us.append(u)
         xs.append(xs[-1] @ A.T + u @ B.T)
-    return torch.stack(us, dim=1), torch.stack(xs, dim=1)
+    return _stack(us, x0s, (x0s.shape[0], 0, B.shape[1]), dim=1), torch.stack(xs, dim=1)

@@ -17,7 +17,7 @@ all_reduce MAX/SUM here):
 
 method follows the port's names (models/boxqp.route_mpc_boxqp): "kernel" is
 the JAX package's "pallas", the fused box-QP kernel per rank (K2 FISTA, K1
-ADMM), and "plain" its "xla" scan. "auto" takes the kernel for a mesh of
+ADMM), and "plain" its "xla" scan; either name is taken. "auto" takes the kernel for a mesh of
 CUDA devices with d <= MAX_D (the kernels' shared-memory envelope) and the
 plain scan otherwise; on a CUDA tensor the kernel route launches its kernel
 or raises. On a CPU mesh the kernel route runs the kernel's plain version,
@@ -50,11 +50,14 @@ def _all_reduce(t: torch.Tensor, op, mesh: Mesh, axes) -> torch.Tensor:
 
 
 def _pick_method(qp: CondensedQP, mesh: Mesh, method: str) -> str:
-    """The route of a DP solver: "kernel" or "plain" (see the module note)."""
+    """The route of a DP solver: "kernel" or "plain" (see the module note);
+    the JAX package's "pallas" is "kernel", its "xla" "plain"
+    (sharding.py:41-49, 186-193)."""
+    method = {"pallas": "kernel", "xla": "plain"}.get(method, method)
     if method == "auto":
         return "kernel" if mesh.device.type == "cuda" and qp.H.shape[0] <= MAX_D else "plain"
     if method not in ("kernel", "plain"):
-        raise ValueError(f"unknown method {method!r} (auto|kernel|plain)")
+        raise ValueError(f"unknown method {method!r} (auto|kernel|plain|pallas|xla)")
     return method
 
 

@@ -1,5 +1,5 @@
 // Cycle stamps for the kernels' probes (probes/ilqr_chain.py,
-// probes/psd_resample.py).
+// probes/psd_resample.py, probes/mppi_riccati.py, probes/chol_ukf.py).
 //
 // A kernel marks the end of each part of its work with NPT_STAMP(part): the
 // clock64() cycles since the previous stamp are added to that part's

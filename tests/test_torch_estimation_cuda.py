@@ -18,7 +18,15 @@ were set on data of order one; the test problems here stay there: stable
 random LTI systems, and measurements of each plant's own rollout over a
 horizon short enough that the unstable cartpole and the barely observed
 planar quadrotor keep their covariances under one. N = 1003 and B = 257 are
-ragged for every block (64 and 32 trajectories).
+ragged for every block (64 and 32 trajectories). K12 is also checked on
+every plant x measurement width x B in {1, 3, 1003, 1024} x T in {1, 2, 50,
+67} (its 16-step input and output chunks) and on misaligned operands. Past
+those horizons the data keep to a regime of order one (X_NOM): from 0.3
+N(0, 1) with only the cart position (or px) measured, the cartpole's and
+the planar quadrotor's unmeasured covariances grow to 13-156 by T = 50-67,
+where the float32 plain version alone is 1e-4 to 2e-3 off float64, so an
+absolute bound of 1e-5 would measure the data, not the kernel (the first
+port's kernel gave the same numbers there, bit for bit).
 """
 
 import functools
@@ -42,6 +50,11 @@ PLANTS = [(pendulum_step, 2, 1), (unicycle_step, 3, 2), (planar_quadrotor_step, 
 HORIZON = {pendulum_step: 30, unicycle_step: 30, planar_quadrotor_step: 10, cartpole_step: 5}
 # the planar quadrotor hovers (m g / 2 per rotor); with zero thrust it falls
 U_NOM = {planar_quadrotor_step: 0.5 * 9.81}
+# the long-horizon regime (T past HORIZON): the cartpole hangs (pole down),
+# every plant starts within 0.05 of its nominal state, Q = 1e-4 and P0 =
+# 0.01, so that measuring only the first component keeps every covariance
+# of order one over 67 steps
+X_NOM = {cartpole_step: (0.0, np.pi, 0.0, 0.0)}
 
 
 @pytest.fixture(scope="module")
@@ -97,15 +110,19 @@ def test_rts_mean_kernel_matches_plain(device, n, T):
 def _nonlinear(f, n, m, p, device, B=257, T=None, seed=2):
     """(Q, R, x0s, P0, yss, uss): the first p components of the plant's own
     rollout from 0.3 N(0, 1) under small controls, measured with noise 0.05;
-    the filters start 0.1 N(0, 1) off."""
+    the filters start 0.1 N(0, 1) off. Past HORIZON[f] steps, the
+    long-horizon regime (X_NOM)."""
     rng = np.random.default_rng(seed)
     T = HORIZON[f] if T is None else T
-    x0 = _f32(0.3 * rng.standard_normal((B, n)), device)
+    long = T > HORIZON[f]
+    x_nom = np.asarray(X_NOM.get(f, np.zeros(n))) if long else np.zeros(n)
+    x0 = _f32((0.05 if long else 0.3) * rng.standard_normal((B, n)) + x_nom, device)
     us = _f32(0.1 * rng.standard_normal((B, T, m)) + U_NOM.get(f, 0.0), device)
     xs = rollout_nonlinear(f, x0, us)
     ys = xs[:, 1:, :p] + _f32(0.05 * rng.standard_normal((B, T, p)), device)
-    return (_f32(np.eye(n) * 1e-3, device), _f32(np.eye(p) * 1e-2, device),
-            x0 + _f32(0.1 * rng.standard_normal((B, n)), device), _f32(np.eye(n) * 0.1, device),
+    q, p0 = (1e-4, 0.01) if long else (1e-3, 0.1)
+    return (_f32(np.eye(n) * q, device), _f32(np.eye(p) * 1e-2, device),
+            x0 + _f32(0.1 * rng.standard_normal((B, n)), device), _f32(np.eye(n) * p0, device),
             ys, us)
 
 
@@ -125,6 +142,58 @@ def test_whole_filter_kernels_match_plain_on_every_plant_and_width(device, f, n,
         for k, atol in enumerate((1e-4, 1e-5, 1e-4, 1e-5)):
             assert torch.allclose(got[k], want[k], rtol=0, atol=atol), (p, k)
         assert torch.allclose(got[4], want[4], rtol=1e-3, atol=5e-3), p
+
+
+def _misaligned(t):
+    """The same values in a contiguous view 4 bytes into a larger buffer:
+    .contiguous() passes it uncopied, its base off every 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+def _assert_ukf_matches_plain(got, want, what):
+    for k, atol in enumerate((1e-4, 1e-5, 1e-4, 1e-5)):
+        assert torch.allclose(got[k], want[k], rtol=0, atol=atol), (what, k)
+    assert torch.allclose(got[4], want[4], rtol=1e-3, atol=5e-3), what
+
+
+@pytest.mark.parametrize("T", [1, 2, 50, 67])
+@pytest.mark.parametrize("B", [1, 3, 1003, 1024])
+@pytest.mark.parametrize("f,n,m", PLANTS, ids=[f.__name__ for f, _, _ in PLANTS])
+def test_ukf_kernel_every_plant_width_batch_and_horizon(device, f, n, m, B, T):
+    """K12 on every registered plant and measurement width, at batches that
+    leave a block's groups (32 / G trajectories, G = 8 or 16 lanes) empty or
+    ragged, and at horizons inside one staged chunk of 16 steps and across
+    three and four (the last one partial), every output against the plain
+    version."""
+    for p in range(1, min(n, 4) + 1):
+        h = functools.partial(first_components, k=p)
+        args = _nonlinear(f, n, m, p, device, B=B, T=T, seed=10 + p)
+        before = ukf.ukf_batched.launches
+        got = ukf.ukf_batched(f, h, *args)
+        torch.cuda.synchronize()
+        assert ukf.ukf_batched.launches == before + 1
+        _assert_ukf_matches_plain(got, ukf.ukf_reference(f, h, *args), p)
+
+
+@pytest.mark.parametrize("which", ["x0s", "yss", "uss", "all"])
+@pytest.mark.parametrize("f,n,m", PLANTS, ids=[f.__name__ for f, _, _ in PLANTS])
+def test_ukf_kernel_takes_misaligned_views(device, f, n, m, which):
+    """K12 stages each trajectory's inputs as aligned 16-byte spans: operands
+    4 bytes off a 16-byte boundary are read at their offsets."""
+    p = min(n, 2)
+    h = functools.partial(first_components, k=p)
+    args = list(_nonlinear(f, n, m, p, device, B=1003, T=37, seed=20))
+    want = ukf.ukf_reference(f, h, *args)
+    for i, name in ((2, "x0s"), (4, "yss"), (5, "uss")):
+        if which in (name, "all"):
+            args[i] = _misaligned(args[i])
+    got = ukf.ukf_batched(f, h, *args)
+    torch.cuda.synchronize()
+    _assert_ukf_matches_plain(got, want, which)
 
 
 @pytest.mark.parametrize("f,n,m", PLANTS, ids=[f.__name__ for f, _, _ in PLANTS])

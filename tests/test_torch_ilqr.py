@@ -142,9 +142,9 @@ def test_options_are_checked():
     x0s = _t(_x0s(2))
     with pytest.raises(ValueError, match="backend"):
         tm.ilqr_solve_batched(tm.cartpole_step, x0s, Q, R, QF, GOAL, 5, backend="pallas")
-    with pytest.raises(ValueError, match="forward"):
+    with pytest.raises(ValueError, match="forward"):  # JAX's "xla" is taken, this is not
         tm.ilqr_solve_batched(tm.cartpole_step, x0s, Q, R, QF, GOAL, 5, backend="fused",
-                              forward="xla")
+                              forward="cuda")
     # the vmap backend drops the fused-only knob, as the JAX package does
     r = tm.ilqr_solve_batched(tm.cartpole_step, x0s, Q, R, QF, GOAL, 5, iters=1, forward="plain")
     assert r.us.shape == (2, 5, 1)

@@ -215,8 +215,8 @@ def test_route_riccati_per_scenario(args, want):
 
 
 @pytest.mark.parametrize("args", [
-    ("cuda", 12, 4, "pallas"),  # the JAX package's names are not the port's
-    ("cuda", 12, 4, "xla"),
+    ("cuda", 12, 4, "cuda"),    # a name neither package knows
+    ("cuda", 12, 17, "pallas"),  # JAX's name for "psd", outside the solve kernel's envelope
     ("cpu", 12, 4, "cholesky"),
     ("cuda", 17, 4, "fused"),   # explicit kernel routes outside the envelopes
     ("cuda", 12, 9, "fused"),

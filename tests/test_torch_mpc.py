@@ -204,10 +204,12 @@ def test_route_to_unported_kernel_raises(route, args):
 
 
 def test_route_rejects_unknown_method():
+    # a name neither package knows ("pallas" and "xla" are the JAX package's:
+    # tests/test_torch_jax_route_names.py)
     with pytest.raises(ValueError):
-        route_mpc_boxqp("cpu", 120, False, 2, "pallas")
+        route_mpc_boxqp("cpu", 120, False, 2, "cuda")
     with pytest.raises(ValueError):
-        route_mpc_boxqp_admm("cpu", 120, False, 2, "xla")
+        route_mpc_boxqp_admm("cpu", 120, False, 2, "cuda")
 
 
 def test_import_leaves_jax_out():

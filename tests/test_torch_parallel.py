@@ -412,8 +412,8 @@ def test_dp_routes_and_options(group1, problem):
     assert torch.equal(auto.U, plain.U)
     solve_mpc_boxqp_admm_dp(qp, prob["x0s"], -1.0, 1.0, mesh, iters=6, method="kernel")
     assert [c.launches for c in counters] == before
-    with pytest.raises(ValueError):
-        solve_mpc_boxqp_dp(qp, prob["x0s"], -1.0, 1.0, mesh, method="pallas")
+    with pytest.raises(ValueError):  # JAX's "pallas" is taken, this is not
+        solve_mpc_boxqp_dp(qp, prob["x0s"], -1.0, 1.0, mesh, method="cuda")
     with pytest.raises(ValueError):
         MPCController(prob["di_A"], prob["di_B"], *_ctrl_costs(), mesh=mesh,
                       x_ref=np.zeros(2, np.float32), **CTRL)

@@ -11,15 +11,17 @@ it there without the conftest:
 
 K5 is checked in every (NB, MB) bucket at N = 1003 and N = 1, at T = 0
 with an asymmetric QF, and on operands 4 bytes off a 16-byte boundary.
+K6a is checked at every n = 1..16 and N in {1, 31, 33, 1003, 4096}, and on
+misaligned and strided views, with exact zeros above the diagonal.
 
 Tolerances: K5 against its plain version rtol 1e-3, atol 1e-4 on Ks and 1e-3
 on P0, the JAX package's bound for its fused kernel
 (tests/test_kernels.py:133-136); K6b rtol 2e-3, atol 2e-4 and a residual
 |AX - B| <= 2e-3 (tests/test_kernels.py:77-82); K6a 1e-4. The kernels use
 rsqrtf (<= 2 ulp) where the plain versions use torch.rsqrt; both orders of
-summation are fp32 FMA chains. N = 1003 is ragged for both the 8-scenario
-blocks of K5 and the 32-matrix blocks of K6a and K6b (16 for K6b past
-n = 8); K6b also takes N = 1, 31 and 33, every r at n = 4, and operands at
+summation are fp32 FMA chains. N = 1003 is ragged for the 8-scenario
+blocks of K5, K6a's tiles (128 / 2^ceil(log2 n) matrices) and K6b's
+32-matrix blocks (16 past n = 8); K6b also takes N = 1, 31 and 33, every r at n = 4, and operands at
 a 4-byte offset from a 16-byte boundary, which it stages as aligned spans.
 """
 
@@ -249,6 +251,37 @@ def test_cholesky_kernel_matches_plain_and_torch(device, N, n):
     torch.testing.assert_close(L, cholesky_unrolled(a), rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(L, torch.linalg.cholesky(torch.tril(a) + torch.tril(a, -1).mT),
                                rtol=1e-4, atol=1e-4)
+    assert torch.count_nonzero(torch.triu(L, 1)).item() == 0
+
+
+@pytest.mark.parametrize("N", [1, 31, 33, 1003, 4096])
+@pytest.mark.parametrize("n", list(range(1, 17)))
+def test_cholesky_kernel_every_dim_and_batch(device, N, n):
+    """K6a at every n of its envelope (each a template instance, with its own
+    group of lanes: 1, 2, 4, 8 or 16) and at batches below, across and past
+    a block's tile (128 / the group's lanes matrices)."""
+    a = _spd(N, n, device, seed=200 + n, junk_upper=True)
+    launches = cholesky.cholesky_batched.launches
+    L = cholesky.cholesky_batched(a)
+    torch.cuda.synchronize()
+    assert cholesky.cholesky_batched.launches == launches + 1
+    torch.testing.assert_close(L, cholesky_unrolled(a), rtol=1e-4, atol=1e-4)
+    assert torch.count_nonzero(torch.triu(L, 1)).item() == 0
+
+
+@pytest.mark.parametrize("view", ["misaligned", "strided"])
+@pytest.mark.parametrize("N,n", [(1003, 12), (33, 5), (4096, 3), (31, 16)])
+def test_cholesky_kernel_takes_misaligned_and_strided_views(device, view, N, n):
+    """K6a stages its tile as an aligned 16-byte span: a base 4 bytes off a
+    16-byte boundary is read at its offset; a strided view is copied by the
+    wrapper."""
+    a = _spd(N, n, device, seed=300 + n, junk_upper=True)
+    a_in = _misaligned(a) if view == "misaligned" else \
+        torch.tril(a).mT.contiguous().mT  # the lower triangle, column-major
+    assert view == "misaligned" or not a_in.is_contiguous()
+    L = cholesky.cholesky_batched(a_in)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(L, cholesky_unrolled(a), rtol=1e-4, atol=1e-4)
     assert torch.count_nonzero(torch.triu(L, 1)).item() == 0
 
 
