@@ -12,7 +12,7 @@ scenarios, controls boxed to +-1, so d = 120 controls per scenario):
    numpower_tpu_torch/csrc with nvcc (timed); every instance of the box-QP
    templates (K1, K2, K3a, K3b, K1', K2') must hold HGMMA instructions
    (cuobjdump -sass of the library, counted per instance), and they and
-   every instance of K7, K8, K6a/K6b, K14, K13, K5, K11 and K12 compile
+   every instance of K7, K8, K6a/K6b, K14, K13, K5, K11, K12 and K9 compile
    with no spills (ptxas); the LDS, STS and FFMA counts of each K5 instance are logged;
 1. each kernel against its plain PyTorch version on the card at N = 4096:
    cold and warm starts, all-fp32 (max |dU| <= 1e-5) and the default
@@ -153,7 +153,8 @@ the flagship QP, N = 4096, 40 iterations:
 Every kernel's own duration (torch.profiler's CUDA activity, log_own) is
 logged in the times phases (4, 7, 10, 13, 16, 19) beside its wrapper's
 CUDA-event time and host enqueue: K1, K2 (4); K5, K6a, K6b (7); K3a, K3b,
-K7 and K8 at N = 256 and 4096 (10); K9-K12 (13); K13 at the bench's shape
+K7 and K8 at N = 256 and 4096 (10); K9-K12, K9 also with inputs and K11
+also on the unicycle and the planar quadrotor (13); K13 at the bench's shape
 and, by a direct call, at N = 4096, K14 (16); K1', K2' (19).
 
 The launch counters of each path are zeroed just before it is driven
@@ -197,9 +198,9 @@ PLANT_OPS = {"cartpole_step": 28, "pendulum_step": 8, "unicycle_step": 10,
 
 
 # the kernels whose every instance must compile without spills (phase 0):
-# the box-QP templates, K7, K8, K6a/K6b, K14, K13, K5, K11 and K12
+# the box-QP templates, K7, K8, K6a/K6b, K14, K13, K5, K11, K12 and K9
 CHECKED_FOR_SPILLS = ("boxqp::", "ilqr_bwd::", "ilqr_fwd::", "smallmat::", "pf_resample::",
-                      "mppi::", "riccati::", "ekf::", "ukf::")
+                      "mppi::", "riccati::", "ekf::", "ukf::", "kalman_mean::")
 
 
 def log(msg: str) -> None:
@@ -1290,6 +1291,15 @@ def estimation_family(dev, smi: str) -> list:
                     ("ukf", lambda: ukf.ukf_batched(f, h, *args))):
         log_own(f"{names[key]} {shapes[key]}", fn, f"{names[key].split()[1]}_kernel", ms[key],
                 smi)
+    kf_args_u = kf_args + ((uss @ Bu.T).transpose(0, 1).contiguous(),)
+    log_own(f"K9 kalman_mean {shapes['kf']} with inputs",
+            lambda: kalman_mean.kalman_mean_pass(*kf_args_u), "kalman_mean_kernel",
+            cuda_ms(lambda: kalman_mean.kalman_mean_pass(*kf_args_u)), smi)
+    for name in ("unicycle_step", "planar_quadrotor_step"):
+        f_, h_, args_ = nonlinear[name]
+        log_own(f"K11 ekf {name.split('_step')[0]} N={N_NL} T={T_KF}",
+                lambda: ekf.ekf_batched(f_, h_, *args_), "ekf_kernel",
+                cuda_ms(lambda: ekf.ekf_batched(f_, h_, *args_)), smi)
     for key, entry, kern in (("kf", "kalman_filter_batched", "kf"),
                              ("kf_sqrt", "kalman_filter_sqrt_batched", "kf"),
                              ("rts", "kalman_smoother_batched", "rts"),

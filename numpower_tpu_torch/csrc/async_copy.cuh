@@ -1,9 +1,10 @@
 // Staging contiguous runs of floats from device memory into shared memory
 // with 16-byte cp.async (LDGSTS.128), for the kernels that stage a chunk of
 // a horizon ahead of their step chain (ilqr_backward.cu, ilqr_forward.cu,
-// ukf.cu) and those that stage one tile a block (cholesky.cu,
+// ukf.cu, ekf.cu) and those that stage one tile a block (cholesky.cu,
 // pf_resample.cu); and the way back, a run stored from shared memory as
-// 16-byte pieces (cholesky.cu, ukf.cu).
+// 16-byte pieces (cholesky.cu), or a group's values stored from registers
+// spread over its lanes (ukf.cu, ekf.cu).
 //
 // Why not the TMA's bulk copies (cp.async.bulk on an mbarrier): a block's
 // chunk is 128-160 runs of 16-320 bytes (one per scenario and array), and a
@@ -88,6 +89,28 @@ __device__ __forceinline__ void store_run_by_block(float* __restrict__ dst, cons
     *reinterpret_cast<float4*>(dst + e) = make_float4(src[e], src[e + 1], src[e + 2], src[e + 3]);
   }
   for (int e = head + 4 * pieces + tid; e < count; e += nthreads) dst[e] = src[e];
+}
+
+// Stores the N floats of v at dst[0..N), spread over the group: lane k
+// stores entries k, k + G, ..., each picked from the lane's copy by a select
+// tree on the bits of k (G - 1 selects a slot, no memory round trip), so a
+// slot is one store a lane, the group's lanes on consecutive addresses.
+// Lanes past the end store entry N - 1 again, the same value at the same
+// address: a store under a branch instead cost the pendulum a fifth of the
+// kernel (probes/ukf_ablation.py; ukf.cu, ekf.cu).
+template <int G, int N>
+__device__ __forceinline__ void store_spread(float* __restrict__ dst, const float (&v)[N], int k) {
+#pragma unroll
+  for (int s = 0; s < N; s += G) {
+    float c[G];
+#pragma unroll
+    for (int i = 0; i < G; ++i) c[i] = v[s + i < N ? s + i : N - 1];
+#pragma unroll
+    for (int w = 1; w < G; w <<= 1)
+#pragma unroll
+      for (int i = 0; i + w < G; i += 2 * w) c[i] = (k & w) ? c[i + w] : c[i];
+    dst[min(s + k, N - 1)] = c[0];
+  }
 }
 
 }  // namespace async_copy

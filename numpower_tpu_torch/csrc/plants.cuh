@@ -20,9 +20,10 @@
 //    tensor.
 //  - One thread steps one state: x (n), u (m) and the result in registers.
 //  - step() is a template on the scalar type S of the state: S = float for a
-//    rollout (K8, K12), S = Dual for a forward-mode derivative (K11). The
-//    controls and parameters stay float: the EKF differentiates in x only.
-//    With S = float every operation is the float one it always was.
+//    rollout (K8, K12), S = Dual<n> for the value and the Jacobian in one
+//    evaluation (K11). The controls and parameters stay float: the EKF
+//    differentiates in x only. With S = float every operation is the float
+//    one it always was.
 
 #pragma once
 
@@ -40,37 +41,111 @@ __device__ __forceinline__ float neg(float a) { return -a; }
 __device__ __forceinline__ float sin_(float a) { return sinf(a); }
 __device__ __forceinline__ float cos_(float a) { return cosf(a); }
 
-// A forward-mode dual number: the value and one directional derivative
-// (tangent). The operations follow JAX's jvp rules, each tangent term one
-// IEEE operation as above: d(ab) = da b + a db, d(a/b) = da / b - (a/b) db / b,
-// d sin a = cos a da, d cos a = -(sin a) da; a float operand has no tangent.
+// A forward-mode dual number with K tangents: the value and K directional
+// derivatives, so that one evaluation of a plant on Dual<n> gives its value
+// and every column of its Jacobian (K11: A = df/dx and C = dh/dx, one
+// evaluation each a step). The operations follow JAX's jvp rules, each
+// tangent term one IEEE operation as above, tangent by tangent:
+// d(ab) = da b + a db, d(a/b) = da / b - (a/b) db / b, d sin a = cos a da,
+// d cos a = -(sin a) da; a float operand has no tangent. Tangent k is thus
+// the same operations on the same operands as a single-tangent pass seeded
+// with basis vector k, and the value part is the float plant's.
+template <int K>
 struct Dual {
-  float v, t;
+  float v, t[K];
 };
 
-__device__ __forceinline__ Dual mul(Dual a, Dual b) {
-  return {mul(a.v, b.v), add(mul(a.t, b.v), mul(a.v, b.t))};
+// The dual number of value v whose tangent k is tangent(k).
+template <int K, class Fn>
+__device__ __forceinline__ Dual<K> dual(float v, Fn tangent) {
+  Dual<K> r;
+  r.v = v;
+#pragma unroll
+  for (int k = 0; k < K; ++k) r.t[k] = tangent(k);
+  return r;
 }
-__device__ __forceinline__ Dual mul(float a, Dual b) { return {mul(a, b.v), mul(a, b.t)}; }
-__device__ __forceinline__ Dual mul(Dual a, float b) { return {mul(a.v, b), mul(a.t, b)}; }
-__device__ __forceinline__ Dual dvd(Dual a, Dual b) {
+
+template <int K>
+__device__ __forceinline__ Dual<K> mul(Dual<K> a, Dual<K> b) {
+  return dual<K>(mul(a.v, b.v), [&](int k) { return add(mul(a.t[k], b.v), mul(a.v, b.t[k])); });
+}
+template <int K>
+__device__ __forceinline__ Dual<K> mul(float a, Dual<K> b) {
+  return dual<K>(mul(a, b.v), [&](int k) { return mul(a, b.t[k]); });
+}
+template <int K>
+__device__ __forceinline__ Dual<K> mul(Dual<K> a, float b) {
+  return dual<K>(mul(a.v, b), [&](int k) { return mul(a.t[k], b); });
+}
+template <int K>
+__device__ __forceinline__ Dual<K> dvd(Dual<K> a, Dual<K> b) {
   const float q = dvd(a.v, b.v);
-  return {q, sub(dvd(a.t, b.v), dvd(mul(q, b.t), b.v))};
+  return dual<K>(q, [&](int k) { return sub(dvd(a.t[k], b.v), dvd(mul(q, b.t[k]), b.v)); });
 }
-__device__ __forceinline__ Dual dvd(float a, Dual b) {
+template <int K>
+__device__ __forceinline__ Dual<K> dvd(float a, Dual<K> b) {
   const float q = dvd(a, b.v);
-  return {q, neg(dvd(mul(q, b.t), b.v))};
+  return dual<K>(q, [&](int k) { return neg(dvd(mul(q, b.t[k]), b.v)); });
 }
-__device__ __forceinline__ Dual dvd(Dual a, float b) { return {dvd(a.v, b), dvd(a.t, b)}; }
-__device__ __forceinline__ Dual add(Dual a, Dual b) { return {add(a.v, b.v), add(a.t, b.t)}; }
-__device__ __forceinline__ Dual add(float a, Dual b) { return {add(a, b.v), b.t}; }
-__device__ __forceinline__ Dual add(Dual a, float b) { return {add(a.v, b), a.t}; }
-__device__ __forceinline__ Dual sub(Dual a, Dual b) { return {sub(a.v, b.v), sub(a.t, b.t)}; }
-__device__ __forceinline__ Dual sub(float a, Dual b) { return {sub(a, b.v), neg(b.t)}; }
-__device__ __forceinline__ Dual sub(Dual a, float b) { return {sub(a.v, b), a.t}; }
-__device__ __forceinline__ Dual neg(Dual a) { return {neg(a.v), neg(a.t)}; }
-__device__ __forceinline__ Dual sin_(Dual a) { return {sinf(a.v), mul(cosf(a.v), a.t)}; }
-__device__ __forceinline__ Dual cos_(Dual a) { return {cosf(a.v), neg(mul(sinf(a.v), a.t))}; }
+template <int K>
+__device__ __forceinline__ Dual<K> dvd(Dual<K> a, float b) {
+  return dual<K>(dvd(a.v, b), [&](int k) { return dvd(a.t[k], b); });
+}
+template <int K>
+__device__ __forceinline__ Dual<K> add(Dual<K> a, Dual<K> b) {
+  return dual<K>(add(a.v, b.v), [&](int k) { return add(a.t[k], b.t[k]); });
+}
+template <int K>
+__device__ __forceinline__ Dual<K> add(float a, Dual<K> b) {
+  b.v = add(a, b.v);
+  return b;
+}
+template <int K>
+__device__ __forceinline__ Dual<K> add(Dual<K> a, float b) {
+  a.v = add(a.v, b);
+  return a;
+}
+template <int K>
+__device__ __forceinline__ Dual<K> sub(Dual<K> a, Dual<K> b) {
+  return dual<K>(sub(a.v, b.v), [&](int k) { return sub(a.t[k], b.t[k]); });
+}
+template <int K>
+__device__ __forceinline__ Dual<K> sub(float a, Dual<K> b) {
+  return dual<K>(sub(a, b.v), [&](int k) { return neg(b.t[k]); });
+}
+template <int K>
+__device__ __forceinline__ Dual<K> sub(Dual<K> a, float b) {
+  a.v = sub(a.v, b);
+  return a;
+}
+template <int K>
+__device__ __forceinline__ Dual<K> neg(Dual<K> a) {
+  return dual<K>(neg(a.v), [&](int k) { return neg(a.t[k]); });
+}
+// One accurate sinf and one cosf of the angle for the value and every
+// tangent's factor (probes/ekf_kalman.py counts the range reductions in each
+// K11 instance's step loop).
+template <int K>
+__device__ __forceinline__ Dual<K> sin_(Dual<K> a) {
+  const float c = cosf(a.v);
+  return dual<K>(sinf(a.v), [&](int k) { return mul(c, a.t[k]); });
+}
+template <int K>
+__device__ __forceinline__ Dual<K> cos_(Dual<K> a) {
+  const float s = sinf(a.v);
+  return dual<K>(cosf(a.v), [&](int k) { return neg(mul(s, a.t[k])); });
+}
+
+// Dual<K> seeded at x with the basis tangents: x[j] carries tangent j.
+template <int K>
+__device__ __forceinline__ void seed(const float (&x)[K], Dual<K> (&xd)[K]) {
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    xd[j].v = x[j];
+#pragma unroll
+    for (int k = 0; k < K; ++k) xd[j].t[k] = j == k ? 1.0f : 0.0f;
+  }
+}
 
 template <int P>
 struct Plant;

@@ -160,28 +160,6 @@ __device__ __forceinline__ void sigma_point(int k, const float (&x)[n], const fl
   }
 }
 
-// Stores the N floats of v at dst[0..N), spread over the group: lane k
-// stores entries k, k + G, ..., each picked from the lane's copy by a select
-// tree on the bits of k (G - 1 selects a slot, no memory round trip), so a
-// slot is one store a lane, the group's lanes on consecutive addresses.
-// Lanes past the end store entry N - 1 again, the same value at the same
-// address: a store under a branch instead cost the pendulum a fifth of the
-// kernel (probes/ukf_ablation.py).
-template <int G, int N>
-__device__ __forceinline__ void store_spread(float* __restrict__ dst, const float (&v)[N], int k) {
-#pragma unroll
-  for (int s = 0; s < N; s += G) {
-    float c[G];
-#pragma unroll
-    for (int i = 0; i < G; ++i) c[i] = v[s + i < N ? s + i : N - 1];
-#pragma unroll
-    for (int w = 1; w < G; w <<= 1)
-#pragma unroll
-      for (int i = 0; i + w < G; i += 2 * w) c[i] = (k & w) ? c[i + w] : c[i];
-    dst[min(s + k, N - 1)] = c[0];
-  }
-}
-
 template <int P, int H, int p>
 __global__ void __launch_bounds__(kWarp, 1) ukf_kernel(PlantParams params, Weights w, Args a) {
   using F = plants::Plant<P>;
@@ -402,10 +380,10 @@ __global__ void __launch_bounds__(kWarp, 1) ukf_kernel(PlantParams params, Weigh
           pf[i * n + j] = Pm[i][j];
           pp[i * n + j] = Pp[i][j];
         }
-      store_spread<G>(a.xf + row * n, x, k);
-      store_spread<G>(a.xp + row * n, xpv, k);
-      store_spread<G>(a.Pf + row * n * n, pf, k);
-      store_spread<G>(a.Pp + row * n * n, pp, k);
+      async_copy::store_spread<G>(a.xf + row * n, x, k);
+      async_copy::store_spread<G>(a.xp + row * n, xpv, k);
+      async_copy::store_spread<G>(a.Pf + row * n * n, pf, k);
+      async_copy::store_spread<G>(a.Pp + row * n * n, pp, k);
       NPT_STAMP(4);
     }
     __syncwarp(mask);  // the chunk's input buffer read by every lane

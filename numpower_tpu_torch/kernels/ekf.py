@@ -2,9 +2,10 @@
 ``ekf_pallas``).
 
 The kernel is CUDA C++ in ``csrc/ekf.cu`` (its note says what bounds it on
-the H100 and how the design answers that): one thread per trajectory, the
-state and covariance in registers, the Jacobians by forward-mode dual
-numbers of the registered plant and measurement (``csrc/plants.cuh``). This
+the H100 and how the design answers that): a group of 4 or 8 lanes per
+trajectory, the state and covariance in registers, the value and the
+Jacobian by one evaluation of the registered plant and measurement on
+forward-mode dual numbers of n tangents (``csrc/plants.cuh``). This
 module holds its wrapper, :func:`ekf_batched`, and its plain PyTorch version,
 :func:`ekf_reference`. The plain version follows the kernel's algebra: the
 covariances' upper triangles mirrored (not ``0.5 (P + P')`` as
@@ -148,12 +149,10 @@ def ekf_batched(f, h, Q, R, x0s, P0, yss, uss):
         return ekf_reference(f, h, Q, R, x0s, P0, yss, uss)
     plant, meas, ins, outs = kernel_operands(f, h, Q, R, x0s, P0, yss, uss, "EKF")
     B, T = yss.shape[:2]
-    with torch.cuda.device(x0s.device):
-        stream = torch.cuda.current_stream(x0s.device).cuda_stream
-        code = _build.library().npt_ekf(
-            plant.plant_id, *plant_floats(plant), meas.measure_id, meas.p,
-            *(t.data_ptr() for t in ins), outs[0].data_ptr(), outs[2].data_ptr(),
-            outs[1].data_ptr(), outs[3].data_ptr(), outs[4].data_ptr(), B, T, stream)
+    code = _build.launch(
+        "npt_ekf", x0s.device, plant.plant_id, *plant_floats(plant), meas.measure_id, meas.p,
+        *(t.data_ptr() for t in ins), outs[0].data_ptr(), outs[2].data_ptr(),
+        outs[1].data_ptr(), outs[3].data_ptr(), outs[4].data_ptr(), B, T)
     _build.check(code, "ekf_batched kernel launch")
     ekf_batched.launches += 1
     return outs

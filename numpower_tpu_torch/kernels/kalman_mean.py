@@ -2,12 +2,12 @@
 numpower_tpu/kernels/kalman_batched.py ``kalman_mean_pass_pallas``).
 
 The kernel is CUDA C++ in ``csrc/kalman_mean.cu`` (its note says what bounds
-it on the H100 and how the design answers that): one thread per trajectory,
-the whole horizon in one launch, the shared gains streamed through shared
-memory. This module holds its wrapper, :func:`kalman_mean_pass`, and its
-plain PyTorch version, :func:`kalman_mean_pass_reference`. The wrapper takes
-the plain version for a tensor on the CPU only; for a CUDA tensor it launches
-the kernel or raises.
+it on the H100 and how the design answers that): one lane per trajectory,
+one warp a block, the whole horizon in one launch, the shared gains and each
+lane's rows staged two chunks ahead through shared memory. This module holds
+its wrapper, :func:`kalman_mean_pass`, and its plain PyTorch version,
+:func:`kalman_mean_pass_reference`. The wrapper takes the plain version for a
+tensor on the CPU only; for a CUDA tensor it launches the kernel or raises.
 
 Layout: the JAX package's time-major one, ys_t (T, N, p), us_t (T, N, n) ->
 xs_f, xs_p (T, N, n), so the rows of one step are one contiguous run.
@@ -92,12 +92,11 @@ def kalman_mean_pass(A, C, Ws, invLs, logdets, x0s, ys_t, us_t=None):
     xs_f = torch.empty((T, N, n), dtype=torch.float32, device=device)
     xs_p = torch.empty((T, N, n), dtype=torch.float32, device=device)
     ll = torch.empty((N,), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = _build.library().npt_kalman_mean(
-            A.data_ptr(), C.data_ptr(), Ws.data_ptr(), invLs.data_ptr(), cst.data_ptr(),
-            x0s.data_ptr(), ys_t.data_ptr(), None if us_t is None else us_t.data_ptr(),
-            xs_f.data_ptr(), xs_p.data_ptr(), ll.data_ptr(), N, T, n, p, stream)
+    code = _build.launch(
+        "npt_kalman_mean", device, A.data_ptr(), C.data_ptr(), Ws.data_ptr(), invLs.data_ptr(),
+        cst.data_ptr(), x0s.data_ptr(), ys_t.data_ptr(),
+        None if us_t is None else us_t.data_ptr(), xs_f.data_ptr(), xs_p.data_ptr(),
+        ll.data_ptr(), N, T, n, p)
     _build.check(code, "kalman_mean_pass kernel launch")
     kalman_mean_pass.launches += 1
     return xs_f, xs_p, ll

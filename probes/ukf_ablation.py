@@ -5,8 +5,9 @@ timed beside the unchanged kernel.
 
     python probes/ukf_ablation.py        (from the repository root, on the GPU machine)
 
-Variants, each a text substitution into a copy of csrc/ukf.cu built by nvcc
-into build/probes/ukf_ablation/<name>/ (one nvcc each, side by side):
+Variants, each a text substitution into a copy of csrc/ukf.cu or of a
+header it includes, built by nvcc into build/probes/ukf_ablation/<name>/
+(one nvcc each, side by side):
 - ``kernel``: the source as it is;
 - ``no_stores``: the step's four output stores taken out (xs_f, xs_p, Ps_f
   and Ps_p are left unwritten);
@@ -29,7 +30,6 @@ from __future__ import annotations
 
 import ctypes
 import json
-import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -45,10 +45,10 @@ from chol_ukf import ukf_direct_args, ukf_errors, ukf_problems  # noqa: E402
 from numpower_tpu_torch.kernels import _build  # noqa: E402
 
 CSRC = ROOT / "numpower_tpu_torch" / "csrc"
-STORES = ("      store_spread<G>(a.xf + row * n, x, k);\n"
-          "      store_spread<G>(a.xp + row * n, xpv, k);\n"
-          "      store_spread<G>(a.Pf + row * n * n, pf, k);\n"
-          "      store_spread<G>(a.Pp + row * n * n, pp, k);\n")
+STORES = ("      async_copy::store_spread<G>(a.xf + row * n, x, k);\n"
+          "      async_copy::store_spread<G>(a.xp + row * n, xpv, k);\n"
+          "      async_copy::store_spread<G>(a.Pf + row * n * n, pf, k);\n"
+          "      async_copy::store_spread<G>(a.Pp + row * n * n, pp, k);\n")
 UNIFORM_STORE = "    dst[min(s + k, N - 1)] = c[0];"
 PLANTS = '#include "plants.cuh"'
 VARIANTS = {
@@ -64,20 +64,19 @@ def say(msg: str) -> None:
 
 
 def build_all() -> dict:
-    src = (CSRC / "ukf.cu").read_text()
     out = ROOT / "build" / "probes" / "ukf_ablation"
     procs = {}
     for name, subs in VARIANTS.items():
-        text = src
+        texts = {f: (CSRC / f).read_text() for f in ("ukf.cu", "plants.cuh", "async_copy.cuh")}
         for old, new in subs:
-            if text.count(old) != 1:
-                raise RuntimeError(f"{name}: the text to replace is not in csrc/ukf.cu once")
-            text = text.replace(old, new)
+            holders = [f for f, text in texts.items() if text.count(old) == 1]
+            if len(holders) != 1:
+                raise RuntimeError(f"{name}: the text to replace is not in one source once")
+            texts[holders[0]] = texts[holders[0]].replace(old, new)
         d = out / name
         d.mkdir(parents=True, exist_ok=True)
-        (d / "ukf.cu").write_text(text)
-        for header in ("plants.cuh", "async_copy.cuh"):
-            shutil.copy(CSRC / header, d / header)
+        for f, text in texts.items():
+            (d / f).write_text(text)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
                str(d / "ukf.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

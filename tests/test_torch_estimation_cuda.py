@@ -18,9 +18,11 @@ were set on data of order one; the test problems here stay there: stable
 random LTI systems, and measurements of each plant's own rollout over a
 horizon short enough that the unstable cartpole and the barely observed
 planar quadrotor keep their covariances under one. N = 1003 and B = 257 are
-ragged for every block (64 and 32 trajectories). K12 is also checked on
-every plant x measurement width x B in {1, 3, 1003, 1024} x T in {1, 2, 50,
-67} (its 16-step input and output chunks) and on misaligned operands. Past
+ragged for every block (32 trajectories, or 32 / G). K11 and K12 are also
+checked on every plant x measurement width x B in {1, 3, 1003, 1024} x T in
+{1, 2, 50, 67} (their 16-step input chunks) and on misaligned operands, and
+K9 on N in {1, 63, 1003, 4096} x T in {1, 2, 50, 130} x (n, p) in {(2, 1),
+(4, 4), (16, 8)}, with and without inputs, and on misaligned operands. Past
 those horizons the data keep to a regime of order one (X_NOM): from 0.3
 N(0, 1) with only the cart position (or px) measured, the cartpole's and
 the planar quadrotor's unmeasured covariances grow to 13-156 by T = 50-67,
@@ -154,7 +156,7 @@ def _misaligned(t):
     return view
 
 
-def _assert_ukf_matches_plain(got, want, what):
+def _assert_whole_filter_matches_plain(got, want, what):
     for k, atol in enumerate((1e-4, 1e-5, 1e-4, 1e-5)):
         assert torch.allclose(got[k], want[k], rtol=0, atol=atol), (what, k)
     assert torch.allclose(got[4], want[4], rtol=1e-3, atol=5e-3), what
@@ -176,7 +178,7 @@ def test_ukf_kernel_every_plant_width_batch_and_horizon(device, f, n, m, B, T):
         got = ukf.ukf_batched(f, h, *args)
         torch.cuda.synchronize()
         assert ukf.ukf_batched.launches == before + 1
-        _assert_ukf_matches_plain(got, ukf.ukf_reference(f, h, *args), p)
+        _assert_whole_filter_matches_plain(got, ukf.ukf_reference(f, h, *args), p)
 
 
 @pytest.mark.parametrize("which", ["x0s", "yss", "uss", "all"])
@@ -193,7 +195,95 @@ def test_ukf_kernel_takes_misaligned_views(device, f, n, m, which):
             args[i] = _misaligned(args[i])
     got = ukf.ukf_batched(f, h, *args)
     torch.cuda.synchronize()
-    _assert_ukf_matches_plain(got, want, which)
+    _assert_whole_filter_matches_plain(got, want, which)
+
+
+@pytest.mark.parametrize("T", [1, 2, 50, 67])
+@pytest.mark.parametrize("B", [1, 3, 1003, 1024])
+@pytest.mark.parametrize("f,n,m", PLANTS, ids=[f.__name__ for f, _, _ in PLANTS])
+def test_ekf_kernel_every_plant_width_batch_and_horizon(device, f, n, m, B, T):
+    """K11 on every registered plant and measurement width, at batches that
+    leave a block's groups (32 / G trajectories, G = 4 or 8 lanes) empty or
+    ragged, and at horizons inside one staged chunk of 16 steps and across
+    three and four (the last one partial), every output against the plain
+    version."""
+    for p in range(1, min(n, 4) + 1):
+        h = functools.partial(first_components, k=p)
+        args = _nonlinear(f, n, m, p, device, B=B, T=T, seed=30 + p)
+        before = ekf.ekf_batched.launches
+        got = ekf.ekf_batched(f, h, *args)
+        torch.cuda.synchronize()
+        assert ekf.ekf_batched.launches == before + 1
+        _assert_whole_filter_matches_plain(got, ekf.ekf_reference(f, h, *args), p)
+
+
+@pytest.mark.parametrize("which", ["x0s", "yss", "uss", "all"])
+@pytest.mark.parametrize("f,n,m", PLANTS, ids=[f.__name__ for f, _, _ in PLANTS])
+def test_ekf_kernel_takes_misaligned_views(device, f, n, m, which):
+    """K11 stages each trajectory's inputs as aligned 16-byte spans: operands
+    4 bytes off a 16-byte boundary are read at their offsets."""
+    p = min(n, 2)
+    h = functools.partial(first_components, k=p)
+    args = list(_nonlinear(f, n, m, p, device, B=1003, T=37, seed=40))
+    want = ekf.ekf_reference(f, h, *args)
+    for i, name in ((2, "x0s"), (4, "yss"), (5, "uss")):
+        if which in (name, "all"):
+            args[i] = _misaligned(args[i])
+    got = ekf.ekf_batched(f, h, *args)
+    torch.cuda.synchronize()
+    _assert_whole_filter_matches_plain(got, want, which)
+
+
+def _mean_pass_operands(n, p, N, T, inputs, device, seed):
+    """kalman_mean_pass's operands: the gains of a stable random system over
+    T steps (shared_gains) and time-major data, with u_t = B u the inputs."""
+    from numpower_tpu_torch.models.estimation import shared_gains
+
+    (A, C, Q, R, P0), B, (x0s, yss, uss) = _lti(n, p, device, seed, N=N, T=T)
+    Ws, _, _, invLs, logdets = shared_gains(A, C, Q, R, P0, T)
+    us_t = (uss @ B.T).transpose(0, 1).contiguous() if inputs else None
+    return [A, C, Ws, invLs, logdets, x0s, yss.transpose(0, 1).contiguous(), us_t]
+
+
+def _assert_mean_pass_matches_plain(got, want, what):
+    for k in range(2):
+        assert torch.allclose(got[k], want[k], rtol=0, atol=2e-5), (what, k)
+    assert torch.allclose(got[2], want[2], rtol=2e-4, atol=2e-3), what
+
+
+@pytest.mark.parametrize("inputs", [False, True], ids=["no_inputs", "inputs"])
+@pytest.mark.parametrize("n,p", [(2, 1), (4, 4), (16, 8)])
+@pytest.mark.parametrize("T", [1, 2, 50, 130])
+@pytest.mark.parametrize("N", [1, 63, 1003, 4096])
+def test_kalman_mean_kernel_every_batch_horizon_and_bucket(device, N, T, n, p, inputs):
+    """K9 at batches that leave a block of 32 trajectories ragged (1, 63,
+    1003) or fill it (4096), at horizons inside one staged chunk and across
+    several (130 crosses any chunk of 4, 8 or 16 steps), in the smallest and
+    largest buckets and a full one, without and with inputs, against the
+    plain version."""
+    args = _mean_pass_operands(n, p, N, T, inputs, device, seed=N + T + n)
+    before = kalman_mean.kalman_mean_pass.launches
+    got = kalman_mean.kalman_mean_pass(*args)
+    torch.cuda.synchronize()
+    assert kalman_mean.kalman_mean_pass.launches == before + 1
+    _assert_mean_pass_matches_plain(got, kalman_mean.kalman_mean_pass_reference(*args),
+                                    (N, T, n, p))
+
+
+@pytest.mark.parametrize("which", ["ys_t", "us_t", "x0s", "all"])
+@pytest.mark.parametrize("n,p", [(2, 1), (3, 2), (16, 8)])
+def test_kalman_mean_kernel_takes_misaligned_views(device, n, p, which):
+    """K9 stages each step's rows of a block as the aligned 16-byte span that
+    holds them: operands 4 bytes off a 16-byte boundary are read at their
+    offsets."""
+    args = _mean_pass_operands(n, p, 1003, 37, True, device, seed=7)
+    want = kalman_mean.kalman_mean_pass_reference(*args)
+    for i, name in ((6, "ys_t"), (7, "us_t"), (5, "x0s")):
+        if which in (name, "all"):
+            args[i] = _misaligned(args[i])
+    got = kalman_mean.kalman_mean_pass(*args)
+    torch.cuda.synchronize()
+    _assert_mean_pass_matches_plain(got, want, which)
 
 
 @pytest.mark.parametrize("f,n,m", PLANTS, ids=[f.__name__ for f, _, _ in PLANTS])
