@@ -12,8 +12,8 @@ scenarios, controls boxed to +-1, so d = 120 controls per scenario):
    numpower_tpu_torch/csrc with nvcc (timed); every instance of the box-QP
    templates (K1, K2, K3a, K3b, K1', K2') must hold HGMMA instructions
    (cuobjdump -sass of the library, counted per instance), and they and
-   every instance of K7, K8, K6a/K6b, K14, K13, K5, K11, K12 and K9 compile
-   with no spills (ptxas); the LDS, STS and FFMA counts of each K5 instance are logged;
+   every instance of K7, K8, K6a/K6b, K14, K13, K5, K11, K12, K9 and K10
+   compile with no spills (ptxas); the LDS, STS and FFMA counts of each K5 instance are logged;
 1. each kernel against its plain PyTorch version on the card at N = 4096:
    cold and warm starts, all-fp32 (max |dU| <= 1e-5) and the default
    bf16 + fp32 schedules (<= 1e-4), residuals within 1e-5;
@@ -150,6 +150,19 @@ the flagship QP, N = 4096, 40 iterations:
    K2' in turns (the overhead of bench.py's shardmap row), and the mesh tick
    against the single-device tick.
 
+The op surface (numpower_tpu_torch.ops, plain torch calls, no kernel of its
+own):
+
+20. every exported op of creation, dtypes, elementwise, logic, reductions,
+   statistics and manipulation on CUDA tensors at 4096 x 4096 float32 (64 MB
+   an operand), each against the same op on CPU copies of its inputs (exact;
+   transcendentals and sqrt rtol 1e-6, atol 1e-7; reductions rtol 1e-6,
+   atol 1e-6, on positive data; cumsum, cumprod and prod along 4096 terms
+   both within (K - 1) 2^-24 of float64), its dtype equal and its result on
+   the card; median and quantile also at 4100 x 4100, past torch.quantile's
+   2^24 elements; numpy operands and creation with no device land on the
+   card; CUDA-event times of add, exp, sum, sort, median and concatenate.
+
 Every kernel's own duration (torch.profiler's CUDA activity, log_own) is
 logged in the times phases (4, 7, 10, 13, 16, 19) beside its wrapper's
 CUDA-event time and host enqueue: K1, K2 (4); K5, K6a, K6b (7); K3a, K3b,
@@ -198,9 +211,9 @@ PLANT_OPS = {"cartpole_step": 28, "pendulum_step": 8, "unicycle_step": 10,
 
 
 # the kernels whose every instance must compile without spills (phase 0):
-# the box-QP templates, K7, K8, K6a/K6b, K14, K13, K5, K11, K12 and K9
+# the box-QP templates, K7, K8, K6a/K6b, K14, K13, K5, K11, K12, K9 and K10
 CHECKED_FOR_SPILLS = ("boxqp::", "ilqr_bwd::", "ilqr_fwd::", "smallmat::", "pf_resample::",
-                      "mppi::", "riccati::", "ekf::", "ukf::", "kalman_mean::")
+                      "mppi::", "riccati::", "ekf::", "ukf::", "kalman_mean::", "rts_mean::")
 
 
 def log(msg: str) -> None:
@@ -1930,6 +1943,257 @@ def boxqp_variants_and_mesh(dev, smi: str, qp, x0s, rho) -> list:
     ]
 
 
+# The op-surface phase (20): 4096 x 4096 float32 operands, and the 4100 x 4100
+# one past torch.quantile's 2^24 elements
+N_OPS, N_OPS_BIG = 4096, 4100
+# tolerance classes of the op surface (tests/torch_ops_twins.py's): exact, the
+# transcendentals, the reductions (on positive data, so that the relative
+# bound measures the summation order and not a cancellation)
+OPS_EXACT = {"rtol": 0.0, "atol": 0.0}
+OPS_TRANSCENDENTAL = {"rtol": 1e-6, "atol": 1e-7}
+OPS_REDUCTION = {"rtol": 1e-6, "atol": 1e-6}
+# a running sum or product of K = 4096 positive terms (cumsum, cumprod,
+# prod along an axis): the card's parallel order and the CPU's sequential
+# one sit 1.5e-6 to 1.4e-5 apart (relative), past the reductions' class, so
+# each is held to the float64 result within fp32's bound for K-term
+# accumulation, (K - 1) 2^-24 relative
+OPS_ACCUMULATION = {"rtol": (N_OPS - 1) * 2.0 ** -24, "atol": 0.0, "float64": True}
+
+
+def ops_inputs(n: int = N_OPS, seed: int = 0) -> dict:
+    """The op phase's operands as CPU tensors, from one numpy generator:
+    a, b in [-3, 3] (b kept 0.1 away from 0), rounded copies ra, rb (for the
+    comparisons' ties), pos in [0.01, 10], unit in [-0.99, 0.99], ge1 in
+    [1, 5], red in [0.5, 1.5], near1 in [0.995, 1.005] (n x n); v in [-3, 3],
+    vpos in [0.1, 2], its sorted copy sv, int32 indices idx (n); a 0/1 float
+    mask."""
+    rng = np.random.default_rng(seed)
+
+    def u(lo, hi, shape=(n, n)):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    b = u(-3, 3)
+    b[np.abs(b) < 0.1] = 0.5
+    a = u(-3, 3)
+    x = {"a": a, "b": b, "ra": np.round(a), "rb": np.round(b), "pos": u(0.01, 10),
+         "unit": u(-0.99, 0.99), "ge1": u(1, 5), "red": u(0.5, 1.5), "near1": u(0.995, 1.005),
+         "v": u(-3, 3, (n,)), "vpos": u(0.1, 2, (n,)), "mask": (u(0, 1) > 0.5).astype(np.float32),
+         "idx": rng.integers(0, n, n).astype(np.int32)}
+    x["sv"] = np.sort(x["v"])
+    return {k: torch.from_numpy(v) for k, v in x.items()}
+
+
+def op_cases(n: int = N_OPS) -> list:
+    """[(name, fn, tolerance)] covering every name numpower_tpu_torch.ops
+    exports from creation, dtypes, elementwise, logic, reductions, statistics
+    and manipulation: fn(ops, X, device) runs the op on the operands X (a dict
+    of ops_inputs on `device`), creation functions on `device`."""
+    E, T, R = OPS_EXACT, OPS_TRANSCENDENTAL, OPS_REDUCTION
+    cases = [
+        # creation
+        ("array", lambda o, X, d: o.array(X["a"]), E),
+        ("asarray", lambda o, X, d: o.asarray(X["a"], dtype="float64"), E),
+        ("zeros", lambda o, X, d: o.zeros((n, n), device=d), E),
+        ("ones", lambda o, X, d: o.ones((n, n), dtype="int32", device=d), E),
+        ("full", lambda o, X, d: o.full((n, n), 7.5, device=d), E),
+        ("empty", lambda o, X, d: o.empty((n, n), device=d), E),
+        ("empty_like", lambda o, X, d: o.empty_like(X["a"]), E),
+        ("zeros_like", lambda o, X, d: o.zeros_like(X["a"]), E),
+        ("ones_like", lambda o, X, d: o.ones_like(X["idx"]), E),
+        ("identity", lambda o, X, d: o.identity(n, device=d), E),
+        ("eye", lambda o, X, d: o.eye(n, n + 3, k=2, device=d), E),
+        ("arange", lambda o, X, d: o.arange(0, n * n, 1, device=d), E),
+        ("linspace", lambda o, X, d: o.linspace(-2.5, 3.7, n * n, device=d), E),
+        ("diag", lambda o, X, d: o.diag(X["v"], k=1), E),
+        ("diagonal", lambda o, X, d: o.diagonal(X["a"], offset=-3), E),
+        ("fill", lambda o, X, d: o.fill(X["a"], 3.0), E),
+        ("copy", lambda o, X, d: o.copy(X["a"]), E),
+        ("tri", lambda o, X, d: o.tri(n, k=-1, device=d), E),
+        # dtypes
+        ("resolve_dtype", lambda o, X, d: o.resolve_dtype("double64"), E),
+        ("get_type_size", lambda o, X, d: o.get_type_size("float32"), E),
+        ("is_type", lambda o, X, d: o.is_type("float32", "double64"), E),
+        # elementwise: binary
+        ("pow", lambda o, X, d: o.pow(X["a"], 3), E),
+        # torch.sqrt on the card is within an ulp of the CPU's correctly
+        # rounded one (2.4e-7 at 3.2): the transcendentals' class there
+        ("sqrt", lambda o, X, d: o.sqrt(X["pos"]), T),
+        ("power", lambda o, X, d: o.power(X["pos"], X["b"]), T),
+        ("arctan2", lambda o, X, d: o.arctan2(X["a"], X["b"]), T),
+    ]
+    cases += [(name, lambda o, X, d, name=name: getattr(o, name)(X["a"], X["b"]), E)
+              for name in ("add", "subtract", "multiply", "divide", "mod", "maximum",
+                           "minimum")]
+    # elementwise: unary, each on its domain
+    unary = {"a": ("abs", "absolute", "floor", "ceil", "trunc", "fix", "rint", "negative",
+                   "positive", "sign", "square", "round", "degrees", "radians"),
+             "pos": ("logb",), "b": ("reciprocal",)}
+    cases += [(name, lambda o, X, d, name=name, k=k: getattr(o, name)(X[k]), E)
+              for k, names in unary.items() for name in names]
+    unary_t = {"a": ("exp", "exp2", "expm1", "sin", "cos", "arctan", "sinh", "cosh", "tanh",
+                     "arcsinh", "sinc"),
+               "pos": ("log", "log2", "log10", "log1p", "rsqrt"),
+               "unit": ("arcsin", "arccos", "arctanh", "tan"), "ge1": ("arccosh",)}
+    cases += [(name, lambda o, X, d, name=name, k=k: getattr(o, name)(X[k]), T)
+              for k, names in unary_t.items() for name in names]
+    cases += [("clip", lambda o, X, d: o.clip(X["a"], -1.0, 1.5), E)]
+    # logic
+    cases += [(name, lambda o, X, d, name=name: getattr(o, name)(X["ra"], X["rb"]), E)
+              for name in ("equal", "not_equal", "greater", "greater_equal", "less",
+                           "less_equal")]
+    cases += [
+        ("all", lambda o, X, d: o.all(X["mask"], axis=0), E),
+        ("any", lambda o, X, d: o.any(X["mask"], axis=1), E),
+        ("allclose", lambda o, X, d: o.allclose(X["a"], X["a"] + 1e-7), E),
+        ("array_equal", lambda o, X, d: o.array_equal(X["ra"], X["rb"]), E),
+        ("isnan", lambda o, X, d: o.isnan(o.log(X["a"])), E),
+        ("isinf", lambda o, X, d: o.isinf(o.divide(X["ra"], 0.0)), E),
+        ("isfinite", lambda o, X, d: o.isfinite(o.log(X["a"])), E),
+        ("where", lambda o, X, d: o.where(X["mask"], X["a"], X["b"]), E),
+        # reductions
+        ("sum", lambda o, X, d: o.sum(X["red"], axis=0), R),
+        ("prod", lambda o, X, d: o.prod(X["near1"], axis=1), OPS_ACCUMULATION),
+        ("mean", lambda o, X, d: o.mean(X["red"]), R),
+        ("median", lambda o, X, d: o.median(X["a"], axis=1), E),
+        ("min", lambda o, X, d: o.min(X["a"], axis=0), E),
+        ("max", lambda o, X, d: o.max(X["a"]), E),
+        ("argmin", lambda o, X, d: o.argmin(X["a"], axis=1), E),
+        ("argmax", lambda o, X, d: o.argmax(X["a"]), E),
+        ("cumsum", lambda o, X, d: o.cumsum(X["red"], axis=1), OPS_ACCUMULATION),
+        ("cumprod", lambda o, X, d: o.cumprod(X["near1"], axis=1), OPS_ACCUMULATION),
+        ("sort", lambda o, X, d: o.sort(X["a"], axis=1), E),
+        ("argsort", lambda o, X, d: o.argsort(X["a"], axis=0), E),
+        ("take", lambda o, X, d: o.take(X["a"], X["idx"], axis=1), E),
+        ("searchsorted", lambda o, X, d: o.searchsorted(X["sv"], X["a"]), E),
+        # statistics
+        ("quantile", lambda o, X, d: o.quantile(X["red"], 0.37, axis=1), R),
+        ("percentile", lambda o, X, d: o.percentile(X["red"], [10.0, 90.0], axis=0), R),
+        ("std", lambda o, X, d: o.std(X["red"], axis=0), R),
+        ("variance", lambda o, X, d: o.variance(X["red"], axis=1), R),
+        ("var", lambda o, X, d: o.var(X["red"]), R),
+        ("average", lambda o, X, d: o.average(X["red"], axis=1, weights=X["vpos"]), R),
+        # manipulation
+        ("transpose", lambda o, X, d: o.transpose(X["a"]), E),
+        ("reshape", lambda o, X, d: o.reshape(X["a"], (n // 2, 2 * n)), E),
+        ("flatten", lambda o, X, d: o.flatten(X["a"]), E),
+        ("ravel", lambda o, X, d: o.ravel(X["a"]), E),
+        ("flip", lambda o, X, d: o.flip(X["a"], 0), E),
+        ("expand_dims", lambda o, X, d: o.expand_dims(X["a"], (0, 3)), E),
+        ("squeeze", lambda o, X, d: o.squeeze(X["a"][None]), E),
+        ("swapaxes", lambda o, X, d: o.swapaxes(X["a"], 0, 1), E),
+        ("rollaxis", lambda o, X, d: o.rollaxis(X["a"][None], 2), E),
+        ("moveaxis", lambda o, X, d: o.moveaxis(X["a"][None], 0, -1), E),
+        ("concatenate", lambda o, X, d: o.concatenate([X["a"], X["b"]], axis=1), E),
+        ("append", lambda o, X, d: o.append(X["a"], X["b"], axis=0), E),
+        ("vstack", lambda o, X, d: o.vstack([X["a"], X["v"]]), E),
+        ("hstack", lambda o, X, d: o.hstack([X["a"], X["b"]]), E),
+        ("dstack", lambda o, X, d: o.dstack([X["a"], X["b"]]), E),
+        ("column_stack", lambda o, X, d: o.column_stack([X["a"], X["v"]]), E),
+        ("stack", lambda o, X, d: o.stack([X["a"], X["b"]], axis=1), E),
+        ("atleast_1d", lambda o, X, d: o.atleast_1d(X["a"]), E),
+        ("atleast_2d", lambda o, X, d: o.atleast_2d(X["v"]), E),
+        ("atleast_3d", lambda o, X, d: o.atleast_3d(X["a"]), E),
+        ("split", lambda o, X, d: o.split(X["a"], 4, axis=1), E),
+        ("tile", lambda o, X, d: o.tile(X["v"], (2, 3)), E),
+        ("repeat", lambda o, X, d: o.repeat(X["a"], 2, axis=0), E),
+        ("roll", lambda o, X, d: o.roll(X["a"], 5, 1), E),
+        ("broadcast_to", lambda o, X, d: o.broadcast_to(X["v"], (n, n)), E),
+        ("is_broadcastable", lambda o, X, d: o.is_broadcastable(X["a"], X["v"]), E),
+        ("slice", lambda o, X, d: o.slice(X["a"], [0, n, 2], [None, None, -1]), E),
+    ]
+    return cases
+
+
+def ops_agree(got, want, tol, on: str, want64=None) -> str:
+    """'' where the card's result `got` matches the CPU's `want` (values at
+    `tol`, shape, dtype, got on the card), else what differs. Under
+    OPS_ACCUMULATION both are held to `want64`, the float64 result."""
+    if isinstance(want, (list, tuple)):
+        if not isinstance(got, (list, tuple)) or len(got) != len(want):
+            return "not the same sequence"
+        return next((m for g, w in zip(got, want) if (m := ops_agree(g, w, tol, on))), "")
+    if not isinstance(want, torch.Tensor):
+        return "" if got == want else f"{got!r} != {want!r}"
+    if got.device.type != on:
+        return f"on {got.device}"
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return f"{got.dtype} {tuple(got.shape)} against {want.dtype} {tuple(want.shape)}"
+    g, w = got.cpu(), want
+    if tol is OPS_EXACT:
+        same = torch.equal(g, w) or bool(((g == w) | (torch.isnan(g) & torch.isnan(w))).all())
+        return "" if same else f"max |d| {max_err(g, w):.3e} (exact)"
+    if tol.get("float64"):
+        ok = all(torch.allclose(x.double(), want64, rtol=tol["rtol"], atol=0.0) for x in (g, w))
+        return "" if ok else (f"card {max_err(g, want64):.3e}, CPU {max_err(w, want64):.3e} "
+                              f"from float64 (rtol {tol['rtol']:.3e})")
+    ok = torch.allclose(g.double(), w.double(), equal_nan=True, **tol)
+    return "" if ok else f"max |d| {max_err(g, w):.3e} ({tol})"
+
+
+def ops_check(fn, tol, X: dict, host: dict) -> str:
+    """Run one op case on the card's operands X and on their CPU copies
+    `host` (and, under OPS_ACCUMULATION, on float64 copies); ops_agree's
+    verdict."""
+    from numpower_tpu_torch import ops
+
+    cpu = torch.device("cpu")
+    got = fn(ops, X, next(iter(X.values())).device)
+    torch.cuda.synchronize()
+    want64 = None
+    if isinstance(tol, dict) and tol.get("float64"):
+        want64 = fn(ops, {k: v.double() if v.is_floating_point() else v
+                          for k, v in host.items()}, cpu)
+    return ops_agree(got, fn(ops, host, cpu), tol, "cuda", want64)
+
+
+def ops_family(dev, smi: str) -> None:
+    """Phase 20: every op of the ported op surface on the card against the CPU."""
+    from numpower_tpu_torch import ops
+
+    host = ops_inputs()
+    X = {k: v.to(dev) for k, v in host.items()}
+    failed = []
+    cases = op_cases()
+    for name, fn, tol in cases:
+        if msg := ops_check(fn, tol, X, host):
+            failed.append(f"{name}: {msg}")
+    exported = {n for n in dir(ops) if not n.startswith("_") and callable(getattr(ops, n))
+                and getattr(getattr(ops, n), "__module__", "").startswith("numpower_tpu_torch")}
+    missing = sorted(exported - {name for name, _, _ in cases})
+    log(f"ops: {len(cases)} ops at {N_OPS}x{N_OPS} float32 on the card against the CPU: "
+        f"{len(cases) - len(failed)} agree; not run: {missing or 'none'}")
+    for line in failed:
+        log(f"ops mismatch {line}")
+    require(not failed and not missing, "every op of the ported surface agrees with the CPU")
+
+    big = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (N_OPS_BIG, N_OPS_BIG)).astype(np.float32))
+    big_d = big.to(dev)
+    for name, fn in (("median", lambda t: ops.median(t)),
+                     ("quantile", lambda t: ops.quantile(t, [0.3, 0.99])),
+                     ("median axis=0", lambda t: ops.median(t, axis=0))):
+        msg = ops_agree(fn(big_d), fn(big), OPS_EXACT if "median" in name else OPS_REDUCTION,
+                        "cuda")
+        log(f"ops {name} at {N_OPS_BIG}x{N_OPS_BIG} ({N_OPS_BIG ** 2} elements, past "
+            f"torch.quantile's 2^24): {msg or 'agrees with the CPU'}")
+        require(not msg, f"{name} past 2^24 elements")
+    on_card = {"numpy operands": ops.add(host["a"].numpy(), host["b"].numpy()),
+               "list operand": ops.asarray([1.0, 2.0]), "zeros()": ops.zeros(3),
+               "arange()": ops.arange(4), "numpy + tensor": ops.multiply(host["v"].numpy(),
+                                                                         X["v"])}
+    log("ops default device: " + ", ".join(f"{k} -> {v.device}" for k, v in on_card.items()))
+    require(all(v.device.type == "cuda" for v in on_card.values()),
+            "numpy operands and creation with no device land on the card")
+
+    times = {"add": lambda: ops.add(X["a"], X["b"]), "exp": lambda: ops.exp(X["a"]),
+             "sum": lambda: ops.sum(X["red"]), "sort": lambda: ops.sort(X["a"], axis=1),
+             "median": lambda: ops.median(X["a"]),
+             "concatenate": lambda: ops.concatenate([X["a"], X["b"]], axis=1)}
+    for name, fn in times.items():
+        log(f"time ops.{name} {N_OPS}x{N_OPS} float32: "
+            f"{cuda_ms(fn, reps=5, inner=5, warmup=2):.4f} ms [{smi}]")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2139,6 +2403,7 @@ def main() -> int:
     kernels += estimation_family(dev, smi)
     kernels += sampling_family(dev, smi)
     kernels += boxqp_variants_and_mesh(dev, smi, qp, x0s, rho)
+    ops_family(dev, smi)
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

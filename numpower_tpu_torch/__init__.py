@@ -11,12 +11,17 @@ torch and numpy, never jax. Its entry points run on the card
                                    the serving controller, iLQR / AL-iLQR, the
                                    state estimators and the closed-loop
                                    simulation
+- ``numpower_tpu_torch.ops``     — the NumPower op surface as functions on
+                                   tensors: creation, dtypes, elementwise,
+                                   logic, reductions, statistics and
+                                   manipulation
 - ``numpower_tpu_torch.kernels`` — hand-written CUDA kernels for Hopper
                                    (``csrc/*.cu``, built at first use)
 - ``numpower_tpu_torch.parallel`` — the mesh, the data-parallel solvers and
                                    the runtime setup on torch.distributed
-- ``numpower_tpu_torch.utils``   — unrolled small-matrix linear algebra and
-                                   the associative scan
+- ``numpower_tpu_torch.utils``   — unrolled small-matrix linear algebra, the
+                                   associative scan, the default device and
+                                   the ops' configuration
 """
 
 __version__ = "0.1.0"
@@ -28,4 +33,4 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
-from numpower_tpu_torch import kernels, models, parallel, utils  # noqa: E402, F401
+from numpower_tpu_torch import kernels, models, ops, parallel, utils  # noqa: E402, F401

@@ -2,7 +2,9 @@
 numpower_tpu/kernels/rts_batched.py ``rts_mean_pass_pallas``).
 
 The kernel is CUDA C++ in ``csrc/rts_mean.cu`` (its note says what bounds it
-on the H100 and how the design answers that): K9's design backward in time.
+on the H100 and how the design answers that): K9's design backward in time,
+one lane per trajectory, one warp a block, the shared gains and each lane's
+rows of e_t staged two chunks ahead through shared memory.
 This module holds its wrapper, :func:`rts_mean_pass`, and its plain PyTorch
 version, :func:`rts_mean_pass_reference`, which is also the "xla" route of
 models/estimation.kalman_smoother_batched. The wrapper takes the plain
@@ -52,11 +54,8 @@ def rts_mean_pass(G_Ts, es_t, x_last):
                            ("x_last", x_last, (N, n))):
         _check_operand(name, t, device, shape)
     xs = torch.empty((Tm1 + 1, N, n), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = _build.library().npt_rts_mean(G_Ts.data_ptr(), es_t.data_ptr(),
-                                             x_last.data_ptr(), xs.data_ptr(), N, Tm1 + 1, n,
-                                             stream)
+    code = _build.launch("npt_rts_mean", device, G_Ts.data_ptr(), es_t.data_ptr(),
+                         x_last.data_ptr(), xs.data_ptr(), N, Tm1 + 1, n)
     _build.check(code, "rts_mean_pass kernel launch")
     rts_mean_pass.launches += 1
     return xs

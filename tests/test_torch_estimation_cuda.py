@@ -22,7 +22,9 @@ ragged for every block (32 trajectories, or 32 / G). K11 and K12 are also
 checked on every plant x measurement width x B in {1, 3, 1003, 1024} x T in
 {1, 2, 50, 67} (their 16-step input chunks) and on misaligned operands, and
 K9 on N in {1, 63, 1003, 4096} x T in {1, 2, 50, 130} x (n, p) in {(2, 1),
-(4, 4), (16, 8)}, with and without inputs, and on misaligned operands. Past
+(4, 4), (16, 8)}, with and without inputs, and on misaligned operands; K10
+at every bucket x N in {1, 31, 33, 4096} x T on its chunk edges {2, 17, 18,
+33, 50, 130}, and on misaligned e_t and x_last. Past
 those horizons the data keep to a regime of order one (X_NOM): from 0.3
 N(0, 1) with only the cart position (or px) measured, the cartpole's and
 the planar quadrotor's unmeasured covariances grow to 13-156 by T = 50-67,
@@ -96,8 +98,13 @@ def test_kalman_mean_kernel_matches_plain(device, n, p, inputs):
     assert torch.allclose(got.log_likelihood, want.log_likelihood, rtol=2e-4, atol=2e-3)
 
 
-@pytest.mark.parametrize("n", [2, 3, 12, 16])
-@pytest.mark.parametrize("T", [2, 37, 130])
+# K10's horizons: T - 1 steps inside one 16-step chunk, on its edges and
+# across several (chunks of 16, 8 and 4 steps for n <= 4, <= 8 and <= 16)
+RTS_T = [2, 17, 18, 33, 37, 50, 130]
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 8, 12, 16])
+@pytest.mark.parametrize("T", RTS_T)
 def test_rts_mean_kernel_matches_plain(device, n, T):
     (A, C, Q, R, P0), _, (x0s, yss, _) = _lti(n, 1, device, seed=n, T=T)
     filt = kalman_filter_batched(A, C, Q, R, x0s, P0, yss)
@@ -107,6 +114,50 @@ def test_rts_mean_kernel_matches_plain(device, n, T):
     assert rts_mean.rts_mean_pass.launches == before + 1
     want = kalman_smoother_batched(A, filt, method="xla")
     assert torch.allclose(got.means, want.means, rtol=0, atol=2e-5)
+
+
+def _rts_operands(n, N, T, device, seed):
+    """K10's operands: gains G_t' of spectral radius about 0.5, e_t and
+    x_last of order one."""
+    rng = np.random.default_rng(seed)
+    G = 0.5 * rng.standard_normal((T - 1, n, n)) / np.sqrt(n)
+    return [_f32(a, device) for a in (G, rng.standard_normal((T - 1, N, n)),
+                                      rng.standard_normal((N, n)))]
+
+
+@pytest.mark.parametrize("T", [2, 17, 18, 33, 50, 130])
+@pytest.mark.parametrize("N", [1, 31, 33, 4096])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 8, 16])
+def test_rts_mean_kernel_every_bucket_batch_and_horizon(device, n, N, T):
+    """K10 at every bucket, at batches that leave a warp's lanes past N (1,
+    31, 33) or fill 128 warps (4096), at the chunk edges: one launch, every
+    row against the plain version."""
+    G, es, x_last = _rts_operands(n, N, T, device, seed=100 * n + T)
+    before = rts_mean.rts_mean_pass.launches
+    got = rts_mean.rts_mean_pass(G, es, x_last)
+    torch.cuda.synchronize()
+    assert rts_mean.rts_mean_pass.launches == before + 1
+    want = rts_mean.rts_mean_pass_reference(G, es, x_last)
+    assert got.shape == (T, N, n)
+    assert torch.allclose(got, want, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("which", ["es_t", "x_last", "both"])
+@pytest.mark.parametrize("n", [1, 2, 3, 16])
+def test_rts_mean_kernel_takes_misaligned_views(device, n, which):
+    """K10 with e_t and x_last as views 4 bytes into a larger buffer (n = 2
+    then takes its 4-byte rows, not its 8-byte ones)."""
+    G, es, x_last = _rts_operands(n, 1003, 37, device, seed=7 + n)
+    want = rts_mean.rts_mean_pass_reference(G, es, x_last)
+    if which in ("es_t", "both"):
+        es = _misaligned(es)
+    if which in ("x_last", "both"):
+        x_last = _misaligned(x_last)
+    before = rts_mean.rts_mean_pass.launches
+    got = rts_mean.rts_mean_pass(G, es, x_last)
+    torch.cuda.synchronize()
+    assert rts_mean.rts_mean_pass.launches == before + 1
+    assert torch.allclose(got, want, rtol=0, atol=2e-5)
 
 
 def _nonlinear(f, n, m, p, device, B=257, T=None, seed=2):

@@ -213,7 +213,7 @@ def test_route_rejects_unknown_method():
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, numpower_tpu_torch; "
+    code = ("import sys, numpower_tpu_torch, numpower_tpu_torch.ops; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'numpower_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -225,6 +225,7 @@ def test_import_leaves_jax_out():
 def test_port_sources_never_import_jax():
     paths = [*(REPO / "numpower_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]
     assert REPO / "numpower_tpu_torch" / "parallel" / "sharding.py" in paths
+    assert REPO / "numpower_tpu_torch" / "ops" / "statistics.py" in paths
     for path in paths:
         for line in path.read_text().splitlines():
             words = line.split()
