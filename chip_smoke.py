@@ -153,15 +153,33 @@ the flagship QP, N = 4096, 40 iterations:
 The op surface (numpower_tpu_torch.ops, plain torch calls, no kernel of its
 own):
 
-20. every exported op of creation, dtypes, elementwise, logic, reductions,
-   statistics and manipulation on CUDA tensors at 4096 x 4096 float32 (64 MB
-   an operand), each against the same op on CPU copies of its inputs (exact;
-   transcendentals and sqrt rtol 1e-6, atol 1e-7; reductions rtol 1e-6,
-   atol 1e-6, on positive data; cumsum, cumprod and prod along 4096 terms
-   both within (K - 1) 2^-24 of float64), its dtype equal and its result on
-   the card; median and quantile also at 4100 x 4100, past torch.quantile's
-   2^24 elements; numpy operands and creation with no device land on the
-   card; CUDA-event times of add, exp, sum, sort, median and concatenate.
+20. every exported op (creation, dtypes, elementwise, logic, reductions,
+   statistics, manipulation, linalg, signal, dnn, io, image and the random
+   draws) on CUDA tensors: elementwise-style ops, products and filters at
+   4096 x 4096 float32 (64 MB an operand), the decompositions at 1024 and
+   on 4096 12 x 12 stacks (the MPC state size), conv2d at (32, 64, 128, 128)
+   x (64, 64, 3, 3), each against the same op on CPU copies of its inputs
+   (exact; transcendentals and sqrt rtol 1e-6, atol 1e-7; reductions rtol
+   1e-6, atol 1e-6, on positive data; cumsum, cumprod and prod along 4096
+   terms, and every product of K terms, card and CPU each within (K - 1)
+   2^-24 of float64; solves, inverses, least squares and spectra of
+   well-conditioned operands rtol 1e-4, atol 1e-4 of float64), its dtype
+   equal and its result on the card; the factorizations (cholesky, lu, qr,
+   svd, eig, eig_complex, eigh) on the card by their reconstruction within
+   4 n eps max(1, max |A|) and their invariants; the random draws by their
+   moments over 2^24 samples (6 standard errors) and bounds, and the same
+   draws after the same seed or key; median and quantile also at 4100 x
+   4100, past torch.quantile's 2^24 elements; numpy operands and creation
+   with no device land on the card; CUDA-event times of add, exp, sum,
+   sort, median, concatenate, matmul (its share of the fp32 peak),
+   conv2d_forward, svd and eig at 1024, and the host times of save and load
+   of 64 MB;
+21. the NDArray on the card: construction from lists and numpy arrays (on
+   the card) and from CPU tensors (kept there), gpu()/cpu()/isGPU(), the
+   operators and methods against the CPU's, 0-d results as floats, indexing,
+   its bounds check and __setitem__, a non-PD cholesky raising, the native
+   registry's counts rising and falling with NDArrays, a save/load round
+   trip of 64 MB through the native reader, and pickling.
 
 Every kernel's own duration (torch.profiler's CUDA activity, log_own) is
 logged in the times phases (4, 7, 10, 13, 16, 19) beside its wrapper's
@@ -184,9 +202,11 @@ from __future__ import annotations
 import ctypes
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1958,6 +1978,166 @@ OPS_REDUCTION = {"rtol": 1e-6, "atol": 1e-6}
 # each is held to the float64 result within fp32's bound for K-term
 # accumulation, (K - 1) 2^-24 relative
 OPS_ACCUMULATION = {"rtol": (N_OPS - 1) * 2.0 ** -24, "atol": 0.0, "float64": True}
+# the second half of the op surface: the decompositions at N_LINALG (host
+# LAPACK takes minutes at 4096), the batched stacks of N_STACK 12 x 12
+# matrices (the MPC state size), the random draws over N_DRAWS samples, a
+# DNN convolution at a ResNet stage's shape (CONV_X x CONV_W)
+N_LINALG, N_STACK, N_DRAWS = 1024, 4096, 1 << 24
+CONV_X, CONV_W, CONV_G = (32, 64, 128, 128), (64, 64, 3, 3), (8, 64, 64, 64)
+# solves, inverses, determinants, least squares, pseudo-inverses, spectra
+# and norms of well-conditioned operands (condition number below ~10)
+# against the float64 result, card and CPU alike
+OPS_LINALG = {"rtol": 1e-4, "atol": 1e-4, "float64": True}
+
+
+def ops_product(*terms: int) -> dict:
+    """The class of a product (matmul, dot, einsum, the convolutions, ...):
+    each output a sum of K terms (one K an output of a tuple), card and CPU
+    each within (K - 1) 2^-24 of the float64 result relative to the sum of
+    the terms' magnitudes (the op on |operands| in float64), the bound of
+    fp32 accumulation."""
+    return {"product": terms}
+
+
+def ops_factorization(check) -> dict:
+    """The class of a factorization: check(result, X) holds the card's
+    result by its reconstruction and invariants (factor by factor two
+    correct implementations differ in signs and order)."""
+    return {"check": check}
+
+
+def _fact_bound(A: torch.Tensor) -> float:
+    """4 n eps max(1, max |A|): the backward-error scale of a float32
+    factorization of order n."""
+    return 4 * A.shape[-1] * 2.0 ** -24 * max(1.0, A.abs().max().item())
+
+
+def _residual(what: str, got: torch.Tensor, want: torch.Tensor, bound: float) -> str:
+    err = (got.double() - want.double()).abs().max().item()
+    return "" if err <= bound else f"{what} {err:.3e} > {bound:.3e}"
+
+
+def _orthonormal(what: str, Q: torch.Tensor) -> str:
+    Qd = Q.double()
+    eye = torch.eye(Q.shape[-1], dtype=Qd.dtype, device=Q.device)
+    return _residual(what, Qd.mT.conj() @ Qd, eye.expand(Qd.shape[:-2] + eye.shape),
+                     _fact_bound(eye.expand(Qd.shape[:-2] + eye.shape)) * Q.shape[-2] / Q.shape[-1])
+
+
+def check_cholesky(got, X) -> str:
+    """L lower triangular (zeros above, exactly), L L' = A for the stack and
+    the 1024 matrix; a matrix that is not PD gives the CPU's NaN pattern."""
+    msgs = []
+    for L, A in zip(got[:2], (X["spd12"], X["spd"])):
+        Ld = L.double()
+        msgs += [_residual("L L' - A", Ld @ Ld.mT, A, _fact_bound(A)),
+                 "" if bool((torch.triu(L, 1) == 0).all()) else "L not lower"]
+    want = torch.tensor([[float("nan"), 0.0], [float("nan"), float("nan")]])
+    same = torch.equal(torch.isnan(got[2]).cpu(), torch.isnan(want))
+    msgs.append("" if same and got[2][0, 1].item() == 0 else "non-PD NaN pattern")
+    return "; ".join(m for m in msgs if m)
+
+
+def check_lu(got, X) -> str:
+    P, L, U = got
+    A = X["wc"]
+    msgs = [_residual("P L U - A", P.double() @ L.double() @ U.double(), A, _fact_bound(A)),
+            "" if bool((torch.triu(L, 1) == 0).all() and (torch.diagonal(L) == 1).all())
+            else "L not unit lower", "" if bool((torch.tril(U, -1) == 0).all()) else "U not upper"]
+    return "; ".join(m for m in msgs if m)
+
+
+def check_qr(got, X) -> str:
+    Q, R = got
+    A = X["tall"]
+    msgs = [_residual("Q R - A", Q.double() @ R.double(), A, _fact_bound(A)),
+            _orthonormal("Q'Q - I", Q), "" if bool((torch.tril(R, -1) == 0).all()) else "R"]
+    return "; ".join(m for m in msgs if m)
+
+
+def check_svd(got, X) -> str:
+    U, S, Vt = got
+    A = X["wc"]
+    msgs = [_residual("U S V' - A", (U.double() * S.double()) @ Vt.double(), A, _fact_bound(A)),
+            _orthonormal("U'U - I", U), _orthonormal("V'V - I", Vt.mT),
+            "" if bool((S[:-1] >= S[1:]).all()) else "S not descending"]
+    return "; ".join(m for m in msgs if m)
+
+
+def check_eig(got, X) -> str:
+    """A v = v diag(w) (real: the SPD matrix's spectrum is real)."""
+    w, v = got
+    A = X["spd"]
+    return _residual("A v - v w", A.double() @ v.double(), v.double() * w.double(), _fact_bound(A))
+
+
+def check_eig_complex(got, X) -> str:
+    w, v = got
+    A = X["wc"]
+    av = A.to(torch.complex128) @ v.to(torch.complex128)
+    err = (av - v.to(torch.complex128) * w.to(torch.complex128)).abs().max().item()
+    bound = _fact_bound(A)
+    ok = w.dtype == torch.complex64 and w.device.type == "cuda" and err <= bound
+    return "" if ok else f"A v - v w {err:.3e} > {bound:.3e} ({w.dtype}, {w.device})"
+
+
+def check_eigh(got, X) -> str:
+    msgs = []
+    for (w, v), A in zip(got, (X["spd"], X["spd12"])):
+        vd = v.double()
+        msgs += [_residual("V w V' - A", (vd * w.double()[..., None, :]) @ vd.mT, A,
+                           _fact_bound(A)), _orthonormal("V'V - I", v),
+                 "" if bool((w[..., :-1] <= w[..., 1:]).all()) else "w not ascending"]
+    return "; ".join(m for m in msgs if m)
+
+
+def ops_draws(mean: float, std: float, lo=-math.inf, hi=math.inf, integer=False) -> dict:
+    """The class of a random draw of N_DRAWS samples on the card: its mean
+    and standard deviation within 6 standard errors of the distribution's,
+    every sample within [lo, hi] (and an integer where `integer`)."""
+    def check(x, X):
+        xd = x.double()
+        n = x.numel()
+        m, var = xd.mean().item(), xd.var(unbiased=False).item()
+        se_var = math.sqrt(max(((xd - mean) ** 4).mean().item() - std ** 4, 1e-12) / n)
+        msgs = ["" if x.device.type == "cuda" and n == N_DRAWS else f"{n} on {x.device}",
+                "" if abs(m - mean) <= 6 * std / math.sqrt(n) else f"mean {m:.6f} vs {mean}",
+                "" if abs(var - std ** 2) <= 6 * se_var else f"var {var:.6f} vs {std ** 2:.6f}",
+                "" if lo <= xd.min().item() and xd.max().item() <= hi else "out of bounds",
+                "" if not integer or bool((xd == xd.round()).all()) else "not integers"]
+        return "; ".join(msg for msg in msgs if msg)
+    return {"check": check}
+
+
+def check_same_draws(got, X) -> str:
+    """The same draws after the same seed (or from the same key), others
+    after another."""
+    a, b, c = got
+    ok = a.device.type == "cuda" and torch.equal(a, b) and not torch.equal(a, c)
+    return "" if ok else "the same seed did not give the same draws on the card"
+
+
+def _tmp_npy() -> str:
+    fd, path = tempfile.mkstemp(suffix=".npy")
+    os.close(fd)
+    return path
+
+
+def _io_roundtrip(o, x: torch.Tensor, device, how: str):
+    """x written and read back: "save" by ops.save then numpy, "load" by
+    numpy then ops.load (the native reader past 1 MiB), "serialize" both
+    ways in memory."""
+    if how == "serialize":
+        return o.deserialize(o.serialize(x), device=device)
+    path = _tmp_npy()
+    try:
+        if how == "save":
+            o.save(path, x)
+            return torch.from_numpy(np.load(path)).to(device)
+        np.save(path, x.cpu().numpy())
+        return o.load(path, device=device)
+    finally:
+        os.unlink(path)
 
 
 def ops_inputs(n: int = N_OPS, seed: int = 0) -> dict:
@@ -1980,7 +2160,26 @@ def ops_inputs(n: int = N_OPS, seed: int = 0) -> dict:
          "v": u(-3, 3, (n,)), "vpos": u(0.1, 2, (n,)), "mask": (u(0, 1) > 0.5).astype(np.float32),
          "idx": rng.integers(0, n, n).astype(np.int32)}
     x["sv"] = np.sort(x["v"])
-    return {k: torch.from_numpy(v) for k, v in x.items()}
+    # the second half: well-conditioned matrices of order N_LINALG (spd, its
+    # Cholesky factor chol, wc nonsymmetric, tall N x N/2 and lowrank its
+    # rank-N/2 Gram matrix), right-hand sides, N_STACK SPD 12 x 12 stacks, 2-d
+    # and 1-d filters, the DNN operands and an RGB image
+    m = N_LINALG
+    g = rng.standard_normal((m, m))
+    spd = g @ g.T / m + np.eye(m)
+    tall = rng.standard_normal((m, m // 2)) / np.sqrt(m) + np.eye(m, m // 2)
+    s12 = rng.standard_normal((N_STACK, 12, 12))
+    x.update({"spd": spd, "chol": np.linalg.cholesky(spd), "tall": tall,
+              "wc": rng.standard_normal((m, m)) / np.sqrt(m) + 2 * np.eye(m),
+              "lowrank": tall @ tall.T, "rhs": u(-1, 1, (m, 8)),
+              "spd12": s12 @ s12.transpose(0, 2, 1) / 12 + np.eye(12),
+              "rhs12": u(-1, 1, (N_STACK, 12, 4)), "k5": u(-1, 1, (5, 5)),
+              "k64": u(-1, 1, (64,)), "cx": u(-1, 1, CONV_X), "cw": u(-0.1, 0.1, CONV_W),
+              "cg": u(-1, 1, CONV_G), "x1": u(-1, 1, (32, 64, n)), "w1": u(-0.2, 0.2, (64, 32, 5)),
+              "img": rng.integers(0, 256, (n, n, 3)).astype(np.uint8),
+              "half": (rng.integers(-20, 531, (3, n, n)) / 2).astype(np.float32)})
+    return {k: torch.from_numpy(v.astype(np.float32) if v.dtype == np.float64 else v)
+            for k, v in x.items()}
 
 
 def op_cases(n: int = N_OPS) -> list:
@@ -2101,17 +2300,123 @@ def op_cases(n: int = N_OPS) -> list:
         ("is_broadcastable", lambda o, X, d: o.is_broadcastable(X["a"], X["v"]), E),
         ("slice", lambda o, X, d: o.slice(X["a"], [0, n, 2], [None, None, -1]), E),
     ]
+    return cases + second_half_cases(n)
+
+
+def second_half_cases(n: int = N_OPS) -> list:
+    """The cases of linalg, signal, dnn, io, image and random (the names
+    `random.<draw>`): products, filters and elementwise-style ops at n x n,
+    the decompositions at N_LINALG and on N_STACK 12 x 12 stacks."""
+    E, L, P = OPS_EXACT, OPS_LINALG, ops_product
+    m = N_LINALG
+    nan_pd = [[1.0, 2.0], [2.0, 1.0]]
+    cases = [
+        # linalg: products
+        ("matmul", lambda o, X, d: o.matmul(X["a"], X["b"]), P(n)),
+        ("dot", lambda o, X, d: o.dot(X["a"], X["v"]), P(n)),
+        ("inner", lambda o, X, d: o.inner(X["b"], X["v"]), P(n)),
+        ("outer", lambda o, X, d: o.outer(X["v"], X["vpos"]), E),
+        ("trace", lambda o, X, d: o.trace(X["red"]), P(n)),
+        ("kron", lambda o, X, d: o.kron(X["a"][:64, :64], X["b"][:64, :64]), E),
+        ("einsum", lambda o, X, d: o.einsum("ij,ij->i", X["a"], X["b"]), P(n)),
+        ("matrix_power", lambda o, X, d: o.matrix_power(X["wc"], 3), P(2 * m)),
+        # linalg: solves and spectra against float64
+        ("solve", lambda o, X, d: (o.solve(X["spd"], X["rhs"]), o.solve(X["spd12"], X["rhs12"]),
+                                   o.solve(X["spd"], X["rhs"][:, 0])), L),
+        ("solve_triangular", lambda o, X, d: (
+            o.solve_triangular(X["chol"], X["rhs"]),
+            o.solve_triangular(X["chol"], X["rhs"][:, 0], trans=True)), L),
+        ("cho_solve", lambda o, X, d: o.cho_solve(X["chol"], X["rhs"]), L),
+        ("inv", lambda o, X, d: (o.inv(X["spd"]), o.inv(X["spd12"])), L),
+        ("det", lambda o, X, d: o.det(X["spd12"]), L),
+        ("svdvals", lambda o, X, d: o.svdvals(X["wc"]), L),
+        ("eigvals", lambda o, X, d: o.sort(o.eigvals(X["spd"])), L),
+        ("norm", lambda o, X, d: (o.norm(X["wc"], "l2"), o.norm(X["a"], "l1"), o.norm(X["v"])), L),
+        ("cond", lambda o, X, d: (o.cond(X["spd"]), o.cond(X["spd"], 1)), L),
+        ("lstsq", lambda o, X, d: o.lstsq(X["tall"], X["rhs"]), L),
+        ("pinv", lambda o, X, d: o.pinv(X["tall"]), L),
+        ("matrix_rank", lambda o, X, d: (o.matrix_rank(X["wc"]), o.matrix_rank(X["lowrank"])), E),
+        # linalg: factorizations by reconstruction
+        ("cholesky", lambda o, X, d: (o.cholesky(X["spd12"]), o.cholesky(X["spd"]),
+                                      o.cholesky(torch.tensor(nan_pd, device=d))),
+         ops_factorization(check_cholesky)),
+        ("lu", lambda o, X, d: o.lu(X["wc"]), ops_factorization(check_lu)),
+        ("qr", lambda o, X, d: o.qr(X["tall"]), ops_factorization(check_qr)),
+        ("svd", lambda o, X, d: o.svd(X["wc"], full_matrices=False),
+         ops_factorization(check_svd)),
+        ("eig", lambda o, X, d: o.eig(X["spd"]), ops_factorization(check_eig)),
+        ("eig_complex", lambda o, X, d: o.eig_complex(X["wc"]),
+         ops_factorization(check_eig_complex)),
+        ("eigh", lambda o, X, d: (o.eigh(X["spd"]), o.eigh(X["spd12"])),
+         ops_factorization(check_eigh)),
+        # signal
+        ("convolve2d", lambda o, X, d: o.convolve2d(X["a"], X["k5"], "same", "symm"), P(25)),
+        ("correlate2d", lambda o, X, d: o.correlate2d(X["a"], X["k5"], "full", "wrap"), P(25)),
+        ("convolve1d", lambda o, X, d: o.convolve1d(o.flatten(X["a"]), X["k64"], "same"), P(64)),
+        # dnn
+        ("conv2d_forward", lambda o, X, d: o.conv2d_forward(X["cx"], X["cw"], None, 1, "SAME"),
+         P(CONV_W[1] * 9)),
+        ("conv2d_backward", lambda o, X, d: o.conv2d_backward(
+            X["cx"][:CONV_G[0], :, :CONV_G[2], :CONV_G[3]], X["cw"], X["cg"], 1, "SAME"),
+         P(CONV_W[0] * 9, CONV_G[0] * CONV_G[2] * CONV_G[3])),
+        ("conv1d_forward", lambda o, X, d: o.conv1d_forward(X["x1"], X["w1"], 1, "same", 2, 2),
+         P(32 * 5)),
+        # io (64 MB through a file, the native reader past 1 MiB) and image
+        ("save", lambda o, X, d: _io_roundtrip(o, X["a"], d, "save"), E),
+        ("load", lambda o, X, d: _io_roundtrip(o, X["a"], d, "load"), E),
+        ("serialize", lambda o, X, d: _io_roundtrip(o, X["b"], d, "serialize"), E),
+        ("deserialize", lambda o, X, d: _io_roundtrip(o, X["idx"], d, "serialize"), E),
+        ("to_list", lambda o, X, d: o.to_list(X["a"][:64, :64]), E),
+        ("from_image", lambda o, X, d: o.from_image(X["img"].cpu().numpy(), device=d), E),
+        ("to_image", lambda o, X, d: o.to_image(X["half"]), E),
+        # random: moments over N_DRAWS draws on the card, the same draws again
+        ("random.seed", lambda o, X, d: _seeded(o, d), ops_factorization(check_same_draws)),
+        ("random.key", lambda o, X, d: tuple(o.random.uniform(N_DRAWS, key=o.random.key(s, d))
+                                             for s in (7, 7, 8)),
+         ops_factorization(check_same_draws)),
+        ("random.uniform", lambda o, X, d: o.random.uniform(N_DRAWS, 2.0, 4.0, device=d),
+         ops_draws(3.0, 2 / math.sqrt(12), 2.0, 4.0)),
+        ("random.normal", lambda o, X, d: o.random.normal(N_DRAWS, 5.0, 2.0, device=d),
+         ops_draws(5.0, 2.0)),
+        ("random.standard_normal", lambda o, X, d: o.random.standard_normal(N_DRAWS, device=d),
+         ops_draws(0.0, 1.0)),
+        ("random.poisson", lambda o, X, d: o.random.poisson(N_DRAWS, 4.0, device=d),
+         ops_draws(4.0, 2.0, 0, math.inf, True)),
+        ("random.random_binomial", lambda o, X, d: o.random.random_binomial(N_DRAWS, 10, 0.3,
+                                                                              device=d),
+         ops_draws(3.0, math.sqrt(2.1), 0, 10, True)),
+        ("random.randint", lambda o, X, d: o.random.randint(N_DRAWS, -3, 7, device=d),
+         ops_draws(1.5, math.sqrt(99 / 12), -3, 6, True)),
+        ("random.truncated_normal", lambda o, X, d: o.random.truncated_normal(N_DRAWS, device=d),
+         ops_draws(0.0, math.sqrt(1 - 4 * math.exp(-2) / math.sqrt(2 * math.pi)
+                                  / math.erf(math.sqrt(2))), -2.0, 2.0)),
+    ]
     return cases
+
+
+def _seeded(o, d) -> tuple:
+    draws = []
+    for s in (123, 123, 124):
+        o.random.seed(s)
+        draws.append(o.random.normal(N_DRAWS, device=d))
+    return tuple(draws)
 
 
 def ops_agree(got, want, tol, on: str, want64=None) -> str:
     """'' where the card's result `got` matches the CPU's `want` (values at
-    `tol`, shape, dtype, got on the card), else what differs. Under
-    OPS_ACCUMULATION both are held to `want64`, the float64 result."""
+    `tol`, shape, dtype, got on the card), else what differs. Under a
+    float64 class (OPS_ACCUMULATION, OPS_LINALG) both are held to `want64`,
+    the float64 result."""
     if isinstance(want, (list, tuple)):
         if not isinstance(got, (list, tuple)) or len(got) != len(want):
             return "not the same sequence"
-        return next((m for g, w in zip(got, want) if (m := ops_agree(g, w, tol, on))), "")
+        w64 = want64 if want64 is not None else [None] * len(want)
+        return next((m for g, w, w6 in zip(got, want, w64)
+                     if (m := ops_agree(g, w, tol, on, w6))), "")
+    if isinstance(want, np.ndarray):  # to_image's host image
+        same = isinstance(got, np.ndarray) and got.dtype == want.dtype and \
+            np.array_equal(got, want)
+        return "" if same else "not the CPU's image"
     if not isinstance(want, torch.Tensor):
         return "" if got == want else f"{got!r} != {want!r}"
     if got.device.type != on:
@@ -2123,27 +2428,79 @@ def ops_agree(got, want, tol, on: str, want64=None) -> str:
         same = torch.equal(g, w) or bool(((g == w) | (torch.isnan(g) & torch.isnan(w))).all())
         return "" if same else f"max |d| {max_err(g, w):.3e} (exact)"
     if tol.get("float64"):
-        ok = all(torch.allclose(x.double(), want64, rtol=tol["rtol"], atol=0.0) for x in (g, w))
+        ok = all(torch.allclose(x.double(), want64, rtol=tol["rtol"], atol=tol["atol"])
+                 for x in (g, w))
         return "" if ok else (f"card {max_err(g, want64):.3e}, CPU {max_err(w, want64):.3e} "
-                              f"from float64 (rtol {tol['rtol']:.3e})")
+                              f"from float64 (rtol {tol['rtol']:.3e}, atol {tol['atol']:.3e})")
     ok = torch.allclose(g.double(), w.double(), equal_nan=True, **tol)
     return "" if ok else f"max |d| {max_err(g, w):.3e} ({tol})"
 
 
+class _Converted(dict):
+    """The operands X, each converted by `conv` when a case first reads it."""
+
+    def __init__(self, X: dict, conv):
+        super().__init__()
+        self._X, self._conv = X, conv
+
+    def __missing__(self, key):
+        value = self[key] = self._conv(self._X[key])
+        return value
+
+
+def ops_product_agree(fn, terms, got, want, X: dict, on: str = "cuda") -> str:
+    """Under ops_product: the card's and the CPU's results each within
+    (K - 1) 2^-24 of the float64 result, relative to the op on the operands'
+    magnitudes (both in float64 on the card), K each output's terms."""
+    from numpower_tpu_torch import ops
+
+    dev = next(iter(X.values())).device
+    X64 = _Converted(X, lambda t: t.double() if t.is_floating_point() else t)
+    mags = _Converted(X, lambda t: t.double().abs() if t.is_floating_point() else t)
+    outs = lambda r: r if isinstance(r, (list, tuple)) else (r,)  # noqa: E731
+    for g, w, w64, mag, k in zip(outs(got), outs(want), outs(fn(ops, X64, dev)),
+                                 outs(fn(ops, mags, dev)), terms):
+        if g.device.type != on or g.dtype != w.dtype or g.shape != w.shape:
+            return f"{g.dtype} {tuple(g.shape)} on {g.device} against {w.dtype} {tuple(w.shape)}"
+        bound = (k - 1) * 2.0 ** -24 * mag
+        for where, x in (("card", g), ("CPU", w.to(dev))):
+            excess = ((x.double() - w64).abs() - bound).max().item()
+            if excess > 0:
+                return f"{where} past (K - 1) 2^-24 of float64 by {excess:.3e} (K {k})"
+    return ""
+
+
 def ops_check(fn, tol, X: dict, host: dict) -> str:
     """Run one op case on the card's operands X and on their CPU copies
-    `host` (and, under OPS_ACCUMULATION, on float64 copies); ops_agree's
-    verdict."""
+    `host` (and, under a float64 class, on float64 copies); ops_agree's
+    verdict. A product is held to float64 (ops_product_agree); a
+    factorization or a draw by its own check on the card's result alone."""
     from numpower_tpu_torch import ops
 
     cpu = torch.device("cpu")
     got = fn(ops, X, next(iter(X.values())).device)
     torch.cuda.synchronize()
+    if "check" in tol:
+        return tol["check"](got, X)
+    want = fn(ops, host, cpu)
+    if "product" in tol:
+        return ops_product_agree(fn, tol["product"], got, want, X)
     want64 = None
-    if isinstance(tol, dict) and tol.get("float64"):
-        want64 = fn(ops, {k: v.double() if v.is_floating_point() else v
-                          for k, v in host.items()}, cpu)
-    return ops_agree(got, fn(ops, host, cpu), tol, "cuda", want64)
+    if tol.get("float64"):
+        want64 = fn(ops, _Converted(host, lambda t: t.double() if t.is_floating_point() else t),
+                    cpu)
+    return ops_agree(got, want, tol, "cuda", want64)
+
+
+def exported_ops() -> set:
+    """Every op the port's ops namespace exports (its random draws as
+    `random.<name>`), as phase 20 must cover them."""
+    from numpower_tpu_torch import ops
+
+    exported = {n for n in dir(ops) if not n.startswith("_") and callable(getattr(ops, n))
+                and getattr(getattr(ops, n), "__module__", "").startswith("numpower_tpu_torch")}
+    return exported | {f"random.{n}" for n in dir(ops.random) if not n.startswith("_")
+                       and getattr(getattr(ops.random, n), "__module__", "") == ops.random.__name__}
 
 
 def ops_family(dev, smi: str) -> None:
@@ -2152,16 +2509,24 @@ def ops_family(dev, smi: str) -> None:
 
     host = ops_inputs()
     X = {k: v.to(dev) for k, v in host.items()}
-    failed = []
+    failed, slow = [], []
     cases = op_cases()
+    t_cases = time.perf_counter()
     for name, fn, tol in cases:
-        if msg := ops_check(fn, tol, X, host):
+        t_case = time.perf_counter()
+        try:
+            msg = ops_check(fn, tol, X, host)
+        except Exception as e:  # noqa: BLE001 - report every case, then fail
+            msg = f"raised {type(e).__name__}: {e}"
+        if msg:
             failed.append(f"{name}: {msg}")
-    exported = {n for n in dir(ops) if not n.startswith("_") and callable(getattr(ops, n))
-                and getattr(getattr(ops, n), "__module__", "").startswith("numpower_tpu_torch")}
-    missing = sorted(exported - {name for name, _, _ in cases})
-    log(f"ops: {len(cases)} ops at {N_OPS}x{N_OPS} float32 on the card against the CPU: "
-        f"{len(cases) - len(failed)} agree; not run: {missing or 'none'}")
+        if (took := time.perf_counter() - t_case) > 2.0:
+            slow.append(f"{name} {took:.1f} s")
+    missing = sorted(exported_ops() - {name for name, _, _ in cases})
+    log(f"ops: {len(cases)} ops (elementwise-style at {N_OPS}x{N_OPS} float32, decompositions "
+        f"at {N_LINALG} and on {N_STACK} 12 x 12 stacks) on the card against the CPU: "
+        f"{len(cases) - len(failed)} agree; not run: {missing or 'none'} "
+        f"({time.perf_counter() - t_cases:.1f} s; over 2 s: {', '.join(slow) or 'none'})")
     for line in failed:
         log(f"ops mismatch {line}")
     require(not failed and not missing, "every op of the ported surface agrees with the CPU")
@@ -2192,6 +2557,128 @@ def ops_family(dev, smi: str) -> None:
     for name, fn in times.items():
         log(f"time ops.{name} {N_OPS}x{N_OPS} float32: "
             f"{cuda_ms(fn, reps=5, inner=5, warmup=2):.4f} ms [{smi}]")
+    second_half_times(X, smi)
+
+
+def second_half_times(X: dict, smi: str) -> None:
+    """CUDA-event times of matmul at 4096 x 4096 (its share of the card's
+    67 TFLOP/s fp32 peak, TF32 off), conv2d_forward at CONV_X x CONV_W, svd
+    and eig at N_LINALG; host times of save and load of a 64 MB array (the
+    native writer and reader)."""
+    from numpower_tpu_torch import ops
+
+    n, m = N_OPS, N_LINALG
+    t = cuda_ms(lambda: ops.matmul(X["a"], X["b"]), reps=5, inner=5, warmup=2)
+    log(f"time ops.matmul {n}x{n} float32: {t:.4f} ms, {2 * n ** 3 / t / 1e9:.2f} TFLOP/s, "
+        f"{2 * n ** 3 / t / 1e9 / (FP32_FLOP_PER_S / 1e12):.1%} of the fp32 peak [{smi}]")
+    flops = 2 * math.prod(CONV_X) * CONV_W[0] * 9
+    t = cuda_ms(lambda: ops.conv2d_forward(X["cx"], X["cw"]), reps=5, inner=3, warmup=2)
+    log(f"time ops.conv2d_forward {CONV_X} x {CONV_W} SAME float32: {t:.4f} ms, "
+        f"{flops / t / 1e9:.2f} TFLOP/s [{smi}]")
+    for name, fn in (("svd", lambda: ops.svd(X["wc"], full_matrices=False)),
+                     ("svd by torch's default driver (gesvdj, not the port's)",
+                      lambda: torch.linalg.svd(X["wc"], full_matrices=False)),
+                     ("eig", lambda: ops.eig(X["wc"]))):
+        log(f"time ops.{name} {m}x{m} float32: "
+            f"{cuda_ms(fn, reps=3, inner=1, warmup=1):.4f} ms [{smi}]")
+    path = _tmp_npy()
+    try:
+        for name, fn in (("save", lambda: ops.save(path, X["a"])),
+                         ("load", lambda: ops.load(path, device=X["a"].device))):
+            walls = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            log(f"time ops.{name} {n}x{n} float32 (64 MB, card <-> file, host clock): "
+                f"{statistics.median(walls):.2f} ms median of 5 ({min(walls):.2f}-"
+                f"{max(walls):.2f}) [{smi}]")
+    finally:
+        os.unlink(path)
+
+
+def ndarray_family(dev, smi: str) -> None:
+    """Phase 21: the NDArray object API on the card."""
+    import gc
+    import pickle
+
+    from numpower_tpu_torch import NDArray, runtime
+
+    require(runtime.native_available(), "the native runtime builds (g++) and loads")
+    host = np.random.default_rng(5).uniform(-2, 2, (N_OPS, N_OPS)).astype(np.float32)
+    a = NDArray(host.tolist()[:4])  # a list lands on the card
+    b = NDArray(host)  # a numpy array too
+    c = NDArray(torch.from_numpy(host))  # a CPU tensor keeps its device
+    require(a.isGPU() and b.isGPU() and not c.isGPU() and b.value.device.type == "cuda",
+            "NDArrays from lists and numpy arrays land on the card, from CPU tensors stay")
+    g, back = c.gpu(), b.cpu()
+    require(g.isGPU() and not back.isGPU() and g == c.value.to(dev) and back == b,
+            "gpu() and cpu() move the array and keep its values")
+    ref = torch.from_numpy(host)
+    checks = {
+        "+": ((b + b).value, ref + ref), "-": ((2 - b).value, 2 - ref),
+        "*": ((b * 3).value, ref * 3), "/": ((b / 4).value, ref / 4),
+        "@": ((b @ b).value, None), "sqrt": (abs(b).sqrt().value, ref.abs().sqrt()),
+        "T": (b.T.value, ref.T), "sum axis 0": (b.sum(0).value, None),
+    }
+    for name, (got, want) in checks.items():
+        require(isinstance(got, torch.Tensor) and got.device.type == "cuda", f"NDArray {name}")
+        if want is not None:  # exact; sqrt in the transcendentals' class (torch's CUDA sqrt)
+            tol = OPS_TRANSCENDENTAL if name == "sqrt" else OPS_EXACT
+            require(torch.allclose(got.cpu(), want, **tol), f"NDArray {name} equals the CPU's")
+    total = b.sum()
+    require(isinstance(total, float) and math.isfinite(total), "a 0-d result is a float")
+    row, elem = b[5], b[1, 2]
+    require(isinstance(row, NDArray) and row.isGPU() and elem == float(host[1, 2]),
+            "indexing gives rows on the card and floats")
+    for bad in (N_OPS, (0, -N_OPS - 1)):
+        try:
+            b[bad]
+            require(False, f"index {bad} raises IndexError")
+        except IndexError:
+            pass
+    b[3] = 7.0
+    b[0, 1] = -1.0
+    require(b[3].value.eq(7.0).all().item() and b[0, 1] == -1.0 and b.isGPU(),
+            "__setitem__ rebinds on the card")
+    try:
+        NDArray([[1.0, 5.0], [5.0, 1.0]]).cholesky()
+        require(False, "cholesky of a non-PD matrix raises")
+    except ValueError:
+        pass
+
+    gc.collect()
+    before = runtime.stats()
+    arrays = [NDArray.zeros((256, 256)) for _ in range(10)]
+    mid = runtime.stats()
+    del arrays
+    gc.collect()
+    after = runtime.stats()
+    require(mid["live_count"] == before["live_count"] + 10
+            and mid["live_bytes"] == before["live_bytes"] + 10 * 256 * 256 * 4
+            and after["live_count"] == before["live_count"],
+            "the registry counts rise and fall with the NDArrays")
+
+    reads = []
+    real = runtime.npy_read_fast
+    runtime.npy_read_fast = lambda path: reads.append(path) or real(path)
+    path = _tmp_npy()
+    try:
+        b.save(path)
+        loaded = NDArray.load(path)
+    finally:
+        runtime.npy_read_fast = real
+        os.unlink(path)
+    require(loaded.isGPU() and loaded == b and reads == [path],
+            "save / load of 64 MB through the native reader, back on the card")
+    clone = pickle.loads(pickle.dumps(b))
+    require(clone.isGPU() and clone == b, "pickling keeps the values and the device")
+    log(f"ndarray: lists and numpy arrays on the card, CPU tensors kept, gpu()/cpu()/isGPU(), "
+        f"{len(checks)} operators and methods, indexing and bounds, __setitem__, the registry "
+        f"({before['live_count']} -> {mid['live_count']} -> {after['live_count']} live), "
+        f"save/load of {N_OPS}x{N_OPS} through npy_read_fast, pickling: all pass [{smi}]")
 
 
 def main() -> int:
@@ -2404,6 +2891,7 @@ def main() -> int:
     kernels += sampling_family(dev, smi)
     kernels += boxqp_variants_and_mesh(dev, smi, qp, x0s, rho)
     ops_family(dev, smi)
+    ndarray_family(dev, smi)
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

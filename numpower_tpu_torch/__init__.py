@@ -13,15 +13,27 @@ torch and numpy, never jax. Its entry points run on the card
                                    simulation
 - ``numpower_tpu_torch.ops``     — the NumPower op surface as functions on
                                    tensors: creation, dtypes, elementwise,
-                                   logic, reductions, statistics and
-                                   manipulation
+                                   logic, reductions, statistics,
+                                   manipulation, linalg, signal, dnn, io,
+                                   image and the ``random`` module
+- ``numpower_tpu_torch.NDArray``  — the object API of NumPower's PHP class
+                                   (``ndarray.py``: ~140 methods, operators,
+                                   indexing, iteration, pickling, the device
+                                   shims), with ``nd`` and
+                                   ``ArithmeticOperand``
+- ``numpower_tpu_torch.runtime`` — the native host runtime (a copy of the
+                                   JAX package's ndruntime.cpp, built with
+                                   g++ at first use): the NDArray registry
+                                   and its counters, the fast .npy paths
 - ``numpower_tpu_torch.kernels`` — hand-written CUDA kernels for Hopper
                                    (``csrc/*.cu``, built at first use)
 - ``numpower_tpu_torch.parallel`` — the mesh, the data-parallel solvers and
                                    the runtime setup on torch.distributed
 - ``numpower_tpu_torch.utils``   — unrolled small-matrix linear algebra, the
-                                   associative scan, the default device and
-                                   the ops' configuration
+                                   associative scan, the default device, the
+                                   ops' configuration and the debug helpers
+                                   (``utils.debug``: dump, dump_devices,
+                                   array_repr)
 """
 
 __version__ = "0.1.0"
@@ -33,4 +45,5 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
-from numpower_tpu_torch import kernels, models, ops, parallel, utils  # noqa: E402, F401
+from numpower_tpu_torch import kernels, models, ops, parallel, runtime, utils  # noqa: E402, F401
+from numpower_tpu_torch.ndarray import ArithmeticOperand, NDArray, nd  # noqa: E402, F401

@@ -1,10 +1,12 @@
 """The port's functional op surface, the counterpart of numpower_tpu.ops:
 the same names and signatures as plain functions on tensors (creation,
-dtypes, elementwise, logic, reductions, statistics and manipulation; the
-rest of the JAX namespace is still to be ported). Tensor operands keep their
-device; numpy arrays, lists and Python scalars follow the first tensor
-operand, and creation functions take ``device=None``, the card
-(``utils.default_device``).
+dtypes, elementwise, logic, reductions, statistics, manipulation, linalg,
+signal, dnn, io, image, and the ``random`` module). Tensor operands keep
+their device; numpy arrays, lists and Python scalars follow the first tensor
+operand, and the functions that build an array from nothing (creation,
+``load``, ``deserialize``, ``from_image``, the random draws) take
+``device=None``, the card (``utils.default_device``). The object wrapper is
+``numpower_tpu_torch.ndarray.NDArray``.
 """
 
 from numpower_tpu_torch.ops.creation import (  # noqa: F401
@@ -35,4 +37,15 @@ from numpower_tpu_torch.ops.manipulation import (  # noqa: F401
     column_stack, stack, atleast_1d, atleast_2d, atleast_3d, split, tile,
     repeat, roll, broadcast_to, is_broadcastable, slice,
 )
+from numpower_tpu_torch.ops.linalg import (  # noqa: F401
+    matmul, dot, inner, outer, trace, cholesky, solve, solve_triangular,
+    cho_solve, inv, det, lu, qr, svd, svdvals, eig, eig_complex, eigh,
+    eigvals, norm,
+    cond, matrix_rank, lstsq, pinv, matrix_power, kron, einsum,
+)
+from numpower_tpu_torch.ops.signal import convolve2d, correlate2d, convolve1d  # noqa: F401
+from numpower_tpu_torch.ops.dnn import conv1d_forward, conv2d_forward, conv2d_backward  # noqa: F401
+from numpower_tpu_torch.ops.io import save, load, serialize, deserialize, to_list  # noqa: F401
+from numpower_tpu_torch.ops.image import from_image, to_image  # noqa: F401
 from numpower_tpu_torch.ops.dtypes import resolve_dtype, get_type_size, is_type  # noqa: F401
+from numpower_tpu_torch.ops import random  # noqa: F401

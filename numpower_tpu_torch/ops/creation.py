@@ -15,7 +15,8 @@ float32 and int32 (``dtypes.canonical``; a torch tensor keeps its dtype), and
 Python natives become float32, the default type (``utils.config``). ``empty``
 gives zeros, as the JAX function does (XLA has no uninitialised allocation).
 This module also holds the operand steps every op module shares
-(``as_operands``, ``promoted``, ``dims``).
+(``as_operands``, ``promoted``, ``binary``, ``accumulation_dtype``,
+``dims``).
 """
 
 from __future__ import annotations
@@ -80,6 +81,35 @@ def promoted(*xs) -> tuple:
     ts = as_operands(*xs)
     dt = functools.reduce(torch.promote_types, (t.dtype for t in ts))
     return tuple(t.to(dt) for t in ts)
+
+
+def binary(fn, name: str, a, b) -> torch.Tensor:
+    """fn on :func:`promoted` operands; where their shapes do not broadcast,
+    the error the JAX op raises in place of torch's RuntimeError: TypeError
+    ("add got incompatible shapes for broadcasting: ...") for operands of
+    one rank, ValueError ("Incompatible shapes for broadcasting: ...") for
+    operands of two."""
+    a, b = promoted(a, b)
+    try:
+        return fn(a, b)
+    except RuntimeError:
+        try:
+            torch.broadcast_shapes(a.shape, b.shape)
+        except RuntimeError:
+            shapes = (tuple(a.shape), tuple(b.shape))
+            if a.ndim != b.ndim:
+                raise ValueError(f"Incompatible shapes for broadcasting: shapes={list(shapes)}"
+                                 ) from None
+            raise TypeError(f"{name} got incompatible shapes for broadcasting: "
+                            f"{shapes[0]}, {shapes[1]}.") from None
+        raise
+
+
+def accumulation_dtype(dt: torch.dtype) -> torch.dtype:
+    """What a product or convolution of `dt` operands accumulates in:
+    float32, the JAX ops' preferred element type (float64 and complex
+    tensors keep their own)."""
+    return dt if dt in (torch.float64, torch.complex64, torch.complex128) else torch.float32
 
 
 def dims(axis):

@@ -7,14 +7,16 @@ Where torch's function differs from the JAX one, the JAX semantics win:
 (lax.integer_pow's order of products), ``mod`` is C's fmodf (torch.fmod, not
 remainder), ``rsqrt`` is 1 / sqrt, ``round`` rounds half away from zero,
 ``sign`` of NaN is NaN, and binary operands are promoted as concrete arrays
-(``creation.promoted``).
+(``creation.promoted``); operands whose shapes do not broadcast raise the
+JAX op's TypeError (``creation.binary``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from numpower_tpu_torch.ops.creation import asarray, promoted
+from numpower_tpu_torch.ops.creation import asarray, binary, promoted
+from numpower_tpu_torch.utils.config import default_dtype
 
 # ----------------------------------------------------------------------------
 # Binary arithmetic
@@ -22,20 +24,20 @@ from numpower_tpu_torch.ops.creation import asarray, promoted
 
 
 def add(a, b):
-    return torch.add(*promoted(a, b))
+    return binary(torch.add, "add", a, b)
 
 
 def subtract(a, b):
-    return torch.subtract(*promoted(a, b))
+    return binary(torch.subtract, "sub", a, b)
 
 
 def multiply(a, b):
-    return torch.multiply(*promoted(a, b))
+    return binary(torch.multiply, "mul", a, b)
 
 
 def divide(a, b):
     """True division (an integer quotient is float32)."""
-    return torch.true_divide(*promoted(a, b))
+    return binary(torch.true_divide, "div", a, b)
 
 
 def _integer_pow(x: torch.Tensor, y: int) -> torch.Tensor:
@@ -66,28 +68,37 @@ def pow(a, b):  # noqa: A001 - mirrors the NumPower name
         bf = float(b)
         if bf.is_integer() and -64 <= bf <= 64:
             return _integer_pow(asarray(a), int(bf))
-    return torch.pow(*promoted(a, b))
+    return binary(torch.pow, "pow", a, b)
 
 
 power = pow
 
 
 def mod(a, b):
-    """C fmodf: truncated, with the dividend's sign (not Python's modulo)."""
-    return torch.fmod(*promoted(a, b))
+    """C fmodf: truncated, with the dividend's sign (not Python's modulo).
+    An integer divided by zero gives 0, as XLA's remainder does (torch
+    raises on the CPU, and the card's integer division is undefined)."""
+    return binary(_fmod, "rem", a, b)
+
+
+def _fmod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.dtype.is_floating_point or a.dtype.is_complex:
+        return torch.fmod(a, b)
+    zero = b == 0
+    return torch.where(zero, torch.zeros_like(a), torch.fmod(a, torch.where(zero, 1, b)))
 
 
 def maximum(a, b):
     """Pairwise maximum, NaN propagating."""
-    return torch.maximum(*promoted(a, b))
+    return binary(torch.maximum, "max", a, b)
 
 
 def minimum(a, b):
-    return torch.minimum(*promoted(a, b))
+    return binary(torch.minimum, "min", a, b)
 
 
 def arctan2(a, b):
-    return torch.atan2(*promoted(a, b))
+    return binary(torch.atan2, "atan2", a, b)
 
 
 # ----------------------------------------------------------------------------
@@ -202,8 +213,10 @@ def radians(a):
 
 
 def rint(a):
-    """C rintf: round half to even."""
-    return torch.round(asarray(a))
+    """C rintf: round half to even. An integer or bool operand gives float32,
+    as jnp.rint does."""
+    a = asarray(a)
+    return torch.round(a if a.dtype.is_floating_point else a.to(default_dtype()))
 
 
 def fix(a):

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from numpower_tpu_torch.ops.creation import as_operands, asarray, dims, promoted
+from numpower_tpu_torch.ops.creation import as_operands, asarray, binary, dims, promoted
 from numpower_tpu_torch.utils.config import default_dtype
 
 
@@ -19,27 +19,27 @@ def _mask(x: torch.Tensor) -> torch.Tensor:
 
 
 def equal(a, b):
-    return _mask(torch.eq(*promoted(a, b)))
+    return _mask(binary(torch.eq, "eq", a, b))
 
 
 def not_equal(a, b):
-    return _mask(torch.ne(*promoted(a, b)))
+    return _mask(binary(torch.ne, "ne", a, b))
 
 
 def greater(a, b):
-    return _mask(torch.gt(*promoted(a, b)))
+    return _mask(binary(torch.gt, "gt", a, b))
 
 
 def greater_equal(a, b):
-    return _mask(torch.ge(*promoted(a, b)))
+    return _mask(binary(torch.ge, "ge", a, b))
 
 
 def less(a, b):
-    return _mask(torch.lt(*promoted(a, b)))
+    return _mask(binary(torch.lt, "lt", a, b))
 
 
 def less_equal(a, b):
-    return _mask(torch.le(*promoted(a, b)))
+    return _mask(binary(torch.le, "le", a, b))
 
 
 def all(a, axis=None):  # noqa: A001

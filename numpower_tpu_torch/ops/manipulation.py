@@ -16,13 +16,18 @@ from numpower_tpu_torch.ops.creation import as_operands, asarray, promoted
 
 def transpose(a, axes: Optional[Sequence[int]] = None) -> torch.Tensor:
     a = asarray(a)
-    return a.permute(*(reversed(range(a.ndim)) if axes is None else axes))
+    return a.permute(tuple(reversed(range(a.ndim))) if axes is None else tuple(axes))
 
 
 def reshape(a, shape) -> torch.Tensor:
     if isinstance(shape, int):
         shape = (shape,)
-    return torch.reshape(asarray(a), tuple(shape))
+    a, shape = asarray(a), tuple(shape)
+    try:
+        return torch.reshape(a, shape)
+    except RuntimeError:  # the JAX op's TypeError
+        raise TypeError(f"cannot reshape array of shape {tuple(a.shape)} (size {a.numel()}) "
+                        f"into shape {shape}") from None
 
 
 def flatten(a) -> torch.Tensor:

@@ -152,14 +152,23 @@ def cumprod(a, axis=None):
     return torch.cumprod(a, dim=axis, dtype=a.dtype)
 
 
+def _sort_axis(a, axis):
+    """_along's array and axis, the axis checked as jnp.sort checks it: a
+    0-d array has none (torch would sort it along dim -1 or 0)."""
+    a, ax = _along(a, axis)
+    if not -a.ndim <= ax < a.ndim:
+        raise ValueError(f"axis {axis} is out of bounds for array of dimension {a.ndim}")
+    return a, ax
+
+
 def sort(a, axis=-1):
     """Ascending, NaN last; stable."""
-    a, axis = _along(a, axis)
+    a, axis = _sort_axis(a, axis)
     return torch.sort(a, dim=axis, stable=True).values
 
 
 def argsort(a, axis=-1):
-    a, axis = _along(a, axis)
+    a, axis = _sort_axis(a, axis)
     return torch.argsort(a, dim=axis, stable=True).to(torch.int32)
 
 

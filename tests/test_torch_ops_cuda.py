@@ -1,13 +1,19 @@
-"""The port's op surface (numpower_tpu_torch.ops: creation, dtypes,
-elementwise, logic, reductions, statistics, manipulation) on the card: every
-exported op on CUDA tensors at 4096 x 4096 float32 (a NumPower user's
-working array, 64 MB an operand) against the same op on CPU copies of its
-inputs, its dtype equal and its result on the card; median and quantile past
-torch.quantile's 2^24 elements; numpy operands and creation with no device
-on the card. The cases and tolerances are chip_smoke.py phase 20's
-(op_cases: exact; transcendentals and sqrt rtol 1e-6, atol 1e-7; reductions
-rtol 1e-6, atol 1e-6 on positive data; cumsum, cumprod and prod along 4096
-terms each within (K - 1) 2^-24 of the float64 result).
+"""The port's op surface (numpower_tpu_torch.ops, all of it) and its NDArray
+on the card: every exported op on CUDA tensors at 4096 x 4096 float32 (a
+NumPower user's working array, 64 MB an operand; the decompositions at
+1024 and on 4096 12 x 12 stacks) against the same op on CPU copies of its
+inputs, its dtype equal and its result on the card, and the second half
+(linalg, signal, dnn, io, image, random) again at 256 x 256; median and
+quantile past torch.quantile's 2^24 elements; numpy operands and creation
+with no device on the card; the NDArray phase (chip_smoke.py phase 21). The
+cases and tolerances are chip_smoke.py phase 20's (op_cases: exact;
+transcendentals and sqrt rtol 1e-6, atol 1e-7; reductions rtol 1e-6, atol
+1e-6 on positive data; cumsum, cumprod and prod along 4096 terms, and every
+product of K terms, each within (K - 1) 2^-24 of the float64 result; solves
+and spectra rtol 1e-4, atol 1e-4 of float64; factorizations by their
+reconstruction within 4 n eps max(1, max |A|) and their invariants; random
+draws by their moments over 2^24 samples and the same draws after the same
+seed).
 
 Every test here needs a CUDA device and skips without one. The file imports
 neither jax nor numpower_tpu, so it runs on the GPU machine without the
@@ -48,9 +54,36 @@ def test_op_on_the_card_matches_the_cpu(device, operands, name):
 
 
 def test_every_exported_op_has_a_case():
-    exported = {n for n in dir(ops) if not n.startswith("_") and callable(getattr(ops, n))
-                and getattr(ops, n).__module__.startswith("numpower_tpu_torch")}
-    assert exported == set(CASES)
+    assert chip_smoke.exported_ops() == set(CASES)
+
+
+SMALL = 256
+SMALL_CASES = {name: (fn, tol) for name, fn, tol in chip_smoke.second_half_cases(SMALL)}
+
+
+@pytest.fixture(scope="module")
+def small_operands(device):
+    host = chip_smoke.ops_inputs(SMALL, seed=3)
+    return host, {k: v.to(device) for k, v in host.items()}
+
+
+@pytest.mark.parametrize("name", sorted(SMALL_CASES))
+def test_second_half_at_a_small_size(device, small_operands, name):
+    fn, tol = SMALL_CASES[name]
+    host, on_card = small_operands
+    assert chip_smoke.ops_check(fn, tol, on_card, host) == ""
+
+
+def test_eig_complex_stays_on_the_card(device):
+    """A deliberate difference: the JAX package puts eig_complex's results
+    on its CPU device; the port's stay on the operand's device."""
+    a = torch.from_numpy(np.random.default_rng(4).standard_normal((8, 8)).astype(np.float32))
+    w, v = ops.eig_complex(a.to(device))
+    assert w.device.type == "cuda" and v.device.type == "cuda" and w.dtype == torch.complex64
+
+
+def test_ndarray_on_the_card(device):
+    chip_smoke.ndarray_family(device, "test")
 
 
 @pytest.mark.parametrize("name", ["median", "quantile"])

@@ -114,6 +114,37 @@ def test_unary_of_integers(name):
           else np.arange(12, dtype=np.int32), tol=TRANSCENDENTAL)
 
 
+@pytest.mark.parametrize("dtype", ["int32", "uint8", "bool", "float16"])
+def test_rint_of_integers_is_float(dtype):
+    """A repaired fault: jnp.rint casts an integer or bool operand to
+    float32 (the port once returned int32). EXACT, dtype included."""
+    got = check("rint", np.array([1, 2, 0, 3], dtype))
+    assert got.dtype == (torch.float16 if dtype == "float16" else torch.float32)
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int8", "uint8"])
+def test_integer_mod_by_zero_is_zero(dtype):
+    """A repaired fault: an integer divided by zero gives 0, as XLA's
+    remainder does (the port raised ZeroDivisionError on the CPU). EXACT."""
+    a = np.array([7, 100, 0, 5], dtype) if dtype == "uint8" else np.array([7, -7, 0, 5], dtype)
+    b = np.array([0, 0, 0, 3], dtype)
+    got = check("mod", a, b)
+    np.testing.assert_array_equal(got.numpy()[:3], 0)
+    check("mod", a.reshape(2, 2), np.zeros(2, dtype))
+
+
+@pytest.mark.parametrize("shapes,error", [(((2, 2), (3, 3)), TypeError),
+                                          (((2, 3), (4,)), ValueError)])
+@pytest.mark.parametrize("name", BINARY_EXACT + ["pow", "arctan2"])
+def test_shapes_that_do_not_broadcast_raise_jax_errors(name, shapes, error):
+    """A repaired fault: both packages raise TypeError for operands of one
+    rank (JAX's "add got incompatible shapes for broadcasting") and
+    ValueError for operands of two; the port raised torch's RuntimeError."""
+    for pkg, mk in ((jops, lambda s: np.ones(s, np.float32)), (tops, torch.ones)):
+        with pytest.raises(error, match="ncompatible shapes for broadcasting"):
+            getattr(pkg, name)(mk(shapes[0]), mk(shapes[1]))
+
+
 def test_arctan2():
     check("arctan2", _data(12), _data(13), tol=TRANSCENDENTAL)
     check("arctan2", _data(14), 1.0, tol=TRANSCENDENTAL)

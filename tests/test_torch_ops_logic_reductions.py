@@ -147,6 +147,32 @@ def test_sort_argsort(name, axis):
         assert got.dtype == torch.int32
 
 
+@pytest.mark.parametrize("axis", [-1, 0])
+@pytest.mark.parametrize("name", ["sort", "argsort"])
+def test_sort_argsort_of_0d_raise(name, axis):
+    """A repaired fault: a 0-d operand has no axis to sort along, and both
+    packages raise ValueError (the port once returned a value); with
+    axis=None both sort its one element."""
+    x = np.float32(1.5)
+    with pytest.raises(ValueError, match="out of bounds"):
+        getattr(jops, name)(x, axis=axis)
+    with pytest.raises(ValueError, match="out of bounds"):
+        getattr(tops, name)(torch.tensor(1.5), axis=axis)
+    check(name, x, axis=None)
+
+
+@pytest.mark.parametrize("name", ["equal", "not_equal", "greater", "greater_equal", "less",
+                                  "less_equal"])
+@pytest.mark.parametrize("shapes,error", [(((2, 3), (2, 4)), TypeError),
+                                          (((2, 3), (4,)), ValueError)])
+def test_comparison_of_shapes_that_do_not_broadcast_raises_jax_errors(name, shapes, error):
+    """A repaired fault: TypeError for operands of one rank, ValueError for
+    operands of two, in both packages (the port raised RuntimeError)."""
+    for pkg, mk in ((jops, lambda s: np.ones(s, np.float32)), (tops, torch.ones)):
+        with pytest.raises(error, match="ncompatible shapes for broadcasting"):
+            getattr(pkg, name)(mk(shapes[0]), mk(shapes[1]))
+
+
 def test_take():
     x = _data(16, (4, 5))
     check("take", x, [2, 0, 7])

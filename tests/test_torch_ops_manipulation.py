@@ -23,6 +23,23 @@ def test_transpose(axes):
     check("transpose", M)
 
 
+@pytest.mark.parametrize("x", [np.float32(2.5), np.array(7, np.int32)])
+def test_transpose_of_0d(x):
+    """A repaired fault: a 0-d operand is its own transpose (the port raised
+    TypeError from permute). EXACT."""
+    check("transpose", x)
+    check("transpose", x, ())
+
+
+@pytest.mark.parametrize("shape", [(3, 3), (5,), (2, 3, 5)])
+def test_reshape_to_another_size_raises_type_error(shape):
+    """A repaired fault: TypeError in both packages (the port raised
+    RuntimeError)."""
+    for pkg, a in ((jops, A), (tops, torch.from_numpy(A))):
+        with pytest.raises(TypeError, match="cannot reshape"):
+            pkg.reshape(a, shape)
+
+
 @pytest.mark.parametrize("shape", [(6, 4), -1, (4, -1), [2, 12], (24,)])
 def test_reshape(shape):
     check("reshape", A, shape)

@@ -10,7 +10,21 @@ Tolerance classes (each twin file names the class of every case):
   XLA's CPU approximations);
 - REDUCTION: rtol 1e-6 (another summation order), with atol 1e-6 for the
   sums of data of order one that cancel to near zero, where a relative
-  bound measures the cancellation.
+  bound measures the cancellation; products (matmul, dot, einsum, ...) of
+  order-one data take it too;
+- CONVOLUTION: rtol 1e-5, atol 1e-5: a convolution's outputs, each a sum
+  of 9 to a few hundred products of order-one data, in another order (K
+  terms in float32 part by up to about K eps times the sum of their
+  magnitudes, ~1e-6 at K = 27: past the reductions' atol);
+- SOLVE: rtol 1e-5, atol 1e-5: what a solve, an inverse, a determinant, a
+  least-squares or pseudo-inverse returns, on matrices of condition number
+  at most ~100 (two LAPACK orders part by about cond(A) eps);
+- FACTORIZATION: atol 1e-5 times max(1, max |A|), held by reconstruction
+  (:func:`assert_reconstructs`: the port's factors multiplied back in
+  float64) and invariants (orthonormal columns, triangles, the spectrum
+  against the JAX one sorted), never factor by factor: eigenvector signs,
+  eigenvalue order and the SVD's vectors differ between two correct
+  implementations.
 """
 
 import numpy as np
@@ -22,6 +36,9 @@ from numpower_tpu_torch import ops as tops
 EXACT = {"rtol": 0.0, "atol": 0.0}
 TRANSCENDENTAL = {"rtol": 1e-6, "atol": 1e-7}
 REDUCTION = {"rtol": 1e-6, "atol": 1e-6}
+CONVOLUTION = {"rtol": 1e-5, "atol": 1e-5}
+SOLVE = {"rtol": 1e-5, "atol": 1e-5}
+FACTORIZATION = {"rtol": 0.0, "atol": 1e-5}
 
 
 def to_port(x):
@@ -74,3 +91,42 @@ def check(name, *args, tol=EXACT, port_kwargs=None, **kwargs):
                               **{k: to_port(v) for k, v in kwargs.items()}, **(port_kwargs or {}))
     assert_same(want, got, tol, f"{name}{args!r:.200}{kwargs!r:.100}")
     return got
+
+
+def assert_reconstructs(A, product, tol=FACTORIZATION, what=""):
+    """`product` (the port's factors multiplied back, any array type) equals
+    A within the FACTORIZATION class: |product - A| <= atol max(1, max |A|),
+    in float64."""
+    A = np.asarray(A, np.float64)
+    got = product.double().cpu().numpy() if isinstance(product, torch.Tensor) else \
+        np.asarray(product, np.float64)
+    bound = tol["atol"] * max(1.0, float(np.abs(A).max(initial=0.0)))
+    err = float(np.abs(got - A).max(initial=0.0))
+    assert err <= bound, (what, err, bound)
+
+
+def assert_orthonormal_columns(Q, tol=FACTORIZATION, what=""):
+    """Q' Q = I within the FACTORIZATION class (float64)."""
+    q = Q.double().cpu().numpy()
+    eye = np.broadcast_to(np.eye(q.shape[-1]), q.shape[:-2] + (q.shape[-1],) * 2)
+    assert_reconstructs(eye, np.swapaxes(q, -1, -2).conj() @ q, tol, what)
+
+
+def port_default_device_cpu(monkeypatch):
+    """Point the port's default device (``utils.device.default_device``, the
+    card) at the CPU for one test, in every loaded module of the port that
+    imported it, so that its NDArray and ops build on the CPU here without a
+    device argument. Test-only: the port has no such switch."""
+    import sys
+
+    from numpower_tpu_torch.utils import device
+
+    original = device.default_device
+
+    def cpu():
+        return torch.device("cpu")
+
+    for name, module in list(sys.modules.items()):
+        if name.split(".")[0] == "numpower_tpu_torch" and \
+                getattr(module, "default_device", None) is original:
+            monkeypatch.setattr(module, "default_device", cpu)
