@@ -181,6 +181,47 @@ own):
    registry's counts rising and falling with NDArrays, a save/load round
    trip of 64 MB through the native reader, and pickling.
 
+The host-fed stream, the rest of parallel/ and the utilities:
+
+22. the host-fed tube sweep of BASELINE config #5 at its 65,536 scenarios
+   (bench.py:779-830's variant, which the bench cuts to 16,384): the native
+   ScenarioStream (batch 65,536, shape (20, 12), seed 0, normal, scale
+   0.002) on the card feeding tube_mpc_solve on quadrotor12(0.02) (Q = I,
+   R = 0.1 I, QF = 5 I, horizon 20, box +-1, x0 = 0.2 N(0, 1) of numpy seed
+   2), 8 batches of 63 MB: the stream native, every card batch equal bit for
+   bit to a host stream's of the same seed and to a second card stream's,
+   the moments within 6 standard errors, finite tube radii; times of the
+   production alone (host clock), the pinned host-to-device copy alone and
+   the solve alone (CUDA events), and the wall time a batch of the host-fed
+   loop, beside the parts' sum and maximum;
+23. the rest of parallel/ on a one-rank NCCL group (a FileStore in a
+   temporary directory) and a (1, 1) mesh, each path's launch counters
+   zeroed just before it and read just after: al_ilqr_solve_dp fused at
+   phase 9's AL-iLQR shape (24 launches each of K7 and K8, equal to
+   al_ilqr_solve_batched within 1e-6); mhe_solve_dp on phase 16's 4096
+   windows, unconstrained and velocity-bounded (equal to mhe_solve within
+   1e-6, the replicated residual the blocks' maximum); mppi_solve_dp at the
+   MPPI bench's shape against the plain batched route on the same generator
+   (two rounds max |dus| <= 1e-4, eight rounds median relative final cost
+   <= 5e-2); particle_filter_dp on the PF bench's model and noise with
+   65,536 particles, T = 50 (one K14 launch a step; means within 1e-5 and
+   ll rtol 1e-5 of particle_filter on the same generator);
+   riccati_associative_sharded at T = 4096 on phase 6's system against
+   riccati_scan in float64 (Ks rtol 1e-4, atol 1e-5);
+   kalman_filter_associative_sharded at T = 4096 on phase 12's filter
+   against the sequential filter in float64 (rtol 1e-4, atol 2e-4);
+   rollout_lti_pipelined (quadrotor12, N = 4096, T = 30) against
+   batched_rollout_lti (rtol 1e-5, atol 1e-6);
+24. times from CUDA events (median): each DP, SP and PP entry against its
+   single-device counterpart on the one rank, in turns (the collectives'
+   cost at D = 1); before phase 23, utils.profiler.trace around one
+   annotated K2 solve and four more (the trace names fista_kernel and the
+   annotated region; up to three attempts, each logged: the profiler drops a
+   short session's GPU records now and then late in this process);
+   time_compiled against cuda_ms on K2; save_checkpoint/load_checkpoint of a 4096-scenario
+   MPCState on the card (back on the card, equal) through .npz and a
+   directory, and the host times of 64 MB.
+
 Every kernel's own duration (torch.profiler's CUDA activity, log_own) is
 logged in the times phases (4, 7, 10, 13, 16, 19) beside its wrapper's
 CUDA-event time and host enqueue: K1, K2 (4); K5, K6a, K6b (7); K3a, K3b,
@@ -190,8 +231,8 @@ and, by a direct call, at N = 4096, K14 (16); K1', K2' (19).
 
 The launch counters of each path are zeroed just before it is driven
 (phases 2-3, 6, the path of 8, the path of 9, phase 12, the paths of 14
-and 15, and phase 18) and read just
-after. The last lines are the total wall time, one JSON object listing every
+and 15, phase 18 and the AL-iLQR and particle-filter paths of 23) and read
+just after. The last lines are the total wall time, one JSON object listing every
 kernel with its bound (bound_ms, bound_by, from this run's shapes) and, where
 one PyTorch call computes the same function, that call's time (library_ms),
 the card's name and power limit from nvidia-smi, and {"ok": true, "device": ...}.
@@ -213,6 +254,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from numpower_tpu_torch.utils.flops import H100_SXM, boxqp_passes, riccati_fused_cost
+
 T, N, N_E2E, N_TICKS = 30, 4096, 256, 20
 LO, HI = -1.0, 1.0
 N_RAGGED = 1003  # not a multiple of K5's 8-scenario or K6's 32-matrix blocks
@@ -224,6 +267,8 @@ N_KF, T_KF, N_NL, N_LOOP, T_LOOP = 4096, 50, 1024, 4096, 100
 # (bench.py:644-693) and the MHE windows
 N_MPPI, K_MPPI, T_MPPI, IT_MPPI, N_MPPI_SMALL, N_MPPI_BIG = 256, 256, 40, 8, 64, 4096
 B_PF, N_PF, T_PF, N_MHE_WINDOWS, M_MHE = 256, 1024, 50, 4096, 20
+# the host-fed sweep's batches (bench.py:802) and the sharded particle filter's cloud
+N_STREAM_BATCHES, N_PF_DP = 8, 65536
 # floating-point operations of one step of each registered plant (csrc/plants.cuh;
 # sinf and cosf count one each), for the operation bounds of K8, K11 and K12
 PLANT_OPS = {"cartpole_step": 28, "pendulum_step": 8, "unicycle_step": 10,
@@ -328,10 +373,11 @@ def close(a: torch.Tensor, b: torch.Tensor, rtol: float, atol: float) -> bool:
     return torch.allclose(a.double(), b.double(), rtol=rtol, atol=atol)
 
 
-# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, fp32 FLOP/s outside
-# the tensor cores, and the tensor cores' dense bf16 FLOP/s (the box-QP
-# kernels' products)
-HBM_BYTES_PER_S, FP32_FLOP_PER_S, BF16_TENSOR_FLOP_PER_S = 3.35e12, 67e12, 989e12
+# H100 SXM peaks (NVIDIA's data sheet, utils/flops.py): HBM bytes/s, fp32
+# FLOP/s outside the tensor cores, and the tensor cores' dense bf16 FLOP/s
+# (the box-QP kernels' products)
+HBM_BYTES_PER_S, FP32_FLOP_PER_S, BF16_TENSOR_FLOP_PER_S = (
+    H100_SXM.hbm_gbps * 1e9, H100_SXM.fp32_tflops * 1e12, H100_SXM.bf16_tflops * 1e12)
 # the box-QP templates' device times when their products ran on the fp32 FMA
 # pipes (PERF.md section 6; H100 80GB HBM3, 700 W; warm start, default
 # schedule), logged beside this run's
@@ -358,14 +404,6 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int, err: floa
             "replaces": "numpower_tpu/kernels/" + replaces, "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": times[bound_by],
             "bound_by": bound_by, "library_ms": library_ms}
-
-
-def boxqp_passes(coarse: int, tail: int, tail_class: str = "highest") -> int:
-    """bf16 tensor-core passes of `coarse` coarse products and `tail` products
-    in the class `tail_class` (numpower_tpu_torch/kernels/precision.py)."""
-    from numpower_tpu_torch.kernels.precision import TENSOR_PASSES
-
-    return coarse * TENSOR_PASSES["coarse"] + tail * TENSOR_PASSES[tail_class]
 
 
 def sass_by_kernel(library) -> dict:
@@ -589,7 +627,7 @@ def riccati_family(dev, smi: str) -> list:
         "lqr_infinite_gain (200 iterations)":
             cuda_ms(lambda: lqr_infinite_gain(*quad[:4]), reps=5, inner=2, warmup=1),
     }
-    flop = N * T * (4 * n**3 + 4 * m * n * n + 4 * m * m * n + m**3)  # utils/flops.py:262-268
+    flop = riccati_fused_cost(N, T, n, m).flops
     log(f"time K5 riccati N={N} T={T}: kernel {ms['riccati']:.4f} ms "
         f"({flop / ms['riccati'] / 1e9:.3f} TFLOP/s of 67 fp32), plain {plain_ms['riccati']:.4f} ms "
         f"[{smi}]")
@@ -2681,6 +2719,373 @@ def ndarray_family(dev, smi: str) -> None:
         f"save/load of {N_OPS}x{N_OPS} through npy_read_fast, pickling: all pass [{smi}]")
 
 
+def in_turns(fns: dict, rounds: int = 2, **kw) -> dict:
+    """{name: median CUDA-event ms} of each function, timed in turns: every
+    round times them in order and then in reverse, so that a drift of the
+    card's clock falls on all of them alike."""
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for order in (list(fns), list(fns)[::-1]):
+            for name in order:
+                times[name].append(cuda_ms(fns[name], **kw))
+    return {name: statistics.median(ts) for name, ts in times.items()}
+
+
+def stream_family(dev, smi: str) -> None:
+    """Phase 22: the host-fed tube sweep of BASELINE config #5 at its
+    published 65,536 scenarios: the native ScenarioStream on the card feeding
+    tube_mpc_solve, its batches against a host stream of the same seed, its
+    moments, and the times of its parts and of the loop."""
+    from numpower_tpu_torch.models import condense, quadrotor12, tube_mpc_solve
+    from numpower_tpu_torch.runtime.stream import ScenarioStream
+
+    A, B = quadrotor12(0.02)
+    n, m, T_s = 12, 4, 20
+    Q, R, QF = (np.eye(n, dtype=np.float32), np.eye(m, dtype=np.float32) * 0.1,
+                np.eye(n, dtype=np.float32) * 5.0)
+    qp = condense(A, B, Q, R, QF, T_s, device=dev)
+    x0 = torch.as_tensor(0.2 * np.random.default_rng(2).standard_normal(n), dtype=torch.float32,
+                         device=dev)
+    kw = dict(batch=N_TUBE, shape=(T_s, n), seed=0, dist="normal", scale=0.002)
+    mb = N_TUBE * T_s * n * 4 / 1e6
+
+    def solve(w):
+        return tube_mpc_solve(qp, A, B, Q, R, x0, w, LO, HI)
+
+    radii, total, total_sq, count = [], 0.0, 0.0, 0
+    with ScenarioStream(**kw) as card, ScenarioStream(device="cpu", **kw) as host, \
+            ScenarioStream(**kw) as again:
+        require(card.native and host.native, "the native stream serves the sweep")
+        for b in range(N_STREAM_BATCHES):
+            w, w_host, w_again = next(card), next(host), next(again)
+            require(w.device == dev and w.shape == (N_TUBE, T_s, n) and w.dtype == torch.float32,
+                    "a stream batch is a float32 tensor on the card")
+            require(torch.equal(w.cpu(), w_host), f"batch {b} on the card equals the host copy")
+            require(torch.equal(w, w_again), f"batch {b}: two streams of seed 0 agree")
+            w64 = w.double()
+            total += w64.sum().item()
+            total_sq += (w64 * w64).sum().item()
+            count += w.numel()
+            radii.append(solve(w).tube_radius)
+    mean, var = total / count, total_sq / count - (total / count) ** 2
+    sigma = kw["scale"]
+    se_mean, se_var = sigma / math.sqrt(count), sigma ** 2 * math.sqrt(2.0 / count)
+    radii = torch.stack(radii)
+    log(f"stream {N_STREAM_BATCHES} batches of ({N_TUBE}, {T_s}, {n}) ({mb:.1f} MB each): "
+        f"mean {mean:.3e} ({abs(mean) / se_mean:.2f} standard errors), std "
+        f"{math.sqrt(var):.6e} (variance {abs(var - sigma ** 2) / se_var:.2f} standard errors "
+        f"from {sigma ** 2:.1e}); every card batch equal to the host stream's, bit for bit; "
+        f"tube radius[1] {radii[0, 1].item():.3e}, max {radii.max().item():.3e}")
+    require(abs(mean) <= 6 * se_mean and abs(var - sigma ** 2) <= 6 * se_var,
+            "the stream's moments within 6 standard errors")
+    require(bool(torch.isfinite(radii).all()), "finite tube radii")
+
+    # times: production alone (host stream), the pinned copy alone, the solve
+    # alone, then the host-fed loop
+    with ScenarioStream(device="cpu", **kw) as host:
+        next(host)
+        t0 = time.perf_counter()
+        for _ in range(N_STREAM_BATCHES):
+            next(host)
+        produce_ms = (time.perf_counter() - t0) / N_STREAM_BATCHES * 1e3
+    pinned = torch.empty(N_TUBE * T_s * n, dtype=torch.float32, pin_memory=True)
+    on_card = torch.empty(N_TUBE * T_s * n, dtype=torch.float32, device=dev)
+    copy_ms = cuda_ms(lambda: on_card.copy_(pinned, non_blocking=True), reps=5, inner=4)
+    w_card = on_card.view(N_TUBE, T_s, n).normal_(0.0, 0.002)
+    solve_ms = cuda_ms(lambda: solve(w_card), reps=5, inner=2, warmup=1)
+    with ScenarioStream(**kw) as card:
+        solve(next(card)).tube_radius[0].item()  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [solve(w).tube_radius[0] for _, w in zip(range(N_STREAM_BATCHES), card)]
+        torch.stack(outs).cpu()
+        loop_ms = (time.perf_counter() - t0) / N_STREAM_BATCHES * 1e3
+    parts = (produce_ms, copy_ms, solve_ms)
+    log(f"time host-fed sweep N={N_TUBE} T={T_s} ({mb:.1f} MB a batch): production alone "
+        f"{produce_ms:.3f} ms ({mb / produce_ms:.3f} GB/s, 2 threads, host clock), pinned H2D "
+        f"copy {copy_ms:.3f} ms ({mb / copy_ms:.3f} GB/s), solve {solve_ms:.3f} ms; host-fed "
+        f"loop {loop_ms:.3f} ms a batch (wall) against the parts' sum {sum(parts):.3f} ms and "
+        f"maximum {max(parts):.3f} ms -> {N_TUBE / loop_ms * 1e3:,.0f} scenario-rollouts/s "
+        f"[{smi}]")
+
+
+def parallel_rest_family(dev, smi: str) -> None:
+    """Phases 23-24: the rest of parallel/ on a one-rank NCCL group and a
+    (1, 1) mesh, each against its single-device counterpart, with its launch
+    counts; then the times of each sharded entry against its counterpart,
+    in turns."""
+    import functools
+    import tempfile
+
+    import torch.distributed as dist
+
+    from numpower_tpu_torch.kernels import ilqr_backward, ilqr_forward, pf_resample
+    from numpower_tpu_torch.models import (
+        al_ilqr_solve_batched, batched_rollout_lti, double_integrator, first_components,
+        kalman_filter, kalman_filter_associative, mhe_solve, mppi_solve_batched, particle_filter,
+        pendulum_step, quadratic_mppi_cost, quadrotor12, riccati_associative, riccati_scan,
+    )
+    from numpower_tpu_torch.parallel import (
+        al_ilqr_solve_dp, kalman_filter_associative_sharded, make_mesh, mhe_solve_dp,
+        mppi_solve_dp, particle_filter_dp, riccati_associative_sharded, rollout_lti_pipelined,
+    )
+
+    def t32(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    # the problems: phase 9's AL-iLQR, phase 16's MHE windows, the MPPI and PF
+    # benches, phase 6's Riccati, phase 12's filter, config #4's plant
+    Qp, Rp, QFp = t32(np.diag([1.0, 0.1])), t32(np.eye(1) * 0.01), t32(np.diag([100.0, 10.0]))
+    goal = torch.zeros(2, device=dev)
+    x0p = t32(np.random.default_rng(8).uniform(-np.pi, np.pi, (N_ILQR, 2)))
+    al_kw = dict(al_iters=4, ilqr_iters=6)
+    A_di = t32(double_integrator(0.1).A)
+    C_di, Q_di, R_di, P0_di = (t32([[1.0, 0.0]]), t32(np.eye(2) * 1e-3), t32(np.eye(1) * 1e-2),
+                               t32(np.eye(2) * 0.1))
+    ys_mhe = t32(np.random.default_rng(13).standard_normal((N_MHE_WINDOWS, M_MHE, 1)) * 0.1
+                 + np.linspace(1.0, 1.1, M_MHE)[None, :, None])
+    x_prior = t32(np.tile([1.0, 0.0], (N_MHE_WINDOWS, 1))
+                  + 0.1 * np.random.default_rng(14).standard_normal((N_MHE_WINDOWS, 2)))
+    mhe_args = (A_di, C_di, Q_di, R_di, P0_di)
+    bounds = dict(x_lo=t32([-10.0, -0.2]), x_hi=t32([10.0, 0.2]))
+    cost_p = quadratic_mppi_cost(np.diag([1.0, 0.1]), np.eye(1) * 0.01, np.diag([100.0, 10.0]),
+                                 np.zeros(2))
+    x0m = t32(np.random.default_rng(8).uniform(-np.pi, np.pi, (N_MPPI, 2)))
+    mppi_kw = dict(samples=K_MPPI, m=1)
+    r = np.random.default_rng(12)
+    pf_args = (pendulum_step, functools.partial(first_components, k=1), t32(np.eye(2) * 1e-4),
+               t32(np.eye(1) * 2.5e-3), t32(0.3 * r.standard_normal(2)), t32(np.eye(2)),
+               t32(r.standard_normal((T_PF, 1))), torch.zeros((T_PF, 1), device=dev))
+    Aq, Bq = quadrotor12(0.02)
+    quad = [t32(M) for M in (Aq, Bq, np.eye(12), np.eye(4) * 0.1, np.eye(12) * 5.0)]
+    quad64 = [M.double() for M in quad]
+    kf = (A_di, C_di, Q_di, R_di)
+    ys_long = t32(np.random.default_rng(11).standard_normal((T_LONG, 1)))
+    x0_kf = t32([1.0, 0.0])
+    x0_pp = t32(0.3 * np.random.default_rng(15).standard_normal((N, 12)))
+    us_pp = t32(0.1 * np.random.default_rng(16).standard_normal((N, T, 4)))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1, 1))
+            log(f"phase 23: mesh {mesh.shape} on {mesh.device}, backend {dist.get_backend()}")
+
+            # -- AL-iLQR DP, fused: K7 and K8 counted ------------------------------
+            ilqr_backward.ilqr_backward_fused.launches = 0
+            ilqr_forward.ilqr_forward_fused.launches = 0
+            al, worst = al_ilqr_solve_dp(pendulum_step, x0p, Qp, Rp, QFp, goal, T_AL, -2.0, 2.0,
+                                         mesh, backend="fused", **al_kw)
+            launches = (ilqr_backward.ilqr_backward_fused.launches,
+                        ilqr_forward.ilqr_forward_fused.launches)
+            ref = al_ilqr_solve_batched(pendulum_step, x0p, Qp, Rp, QFp, goal, T_AL, -2.0, 2.0,
+                                        backend="fused", **al_kw)
+            d_al = max_err(al.us, ref.us)
+            log(f"al_ilqr_solve_dp fused (pendulum, {N_ILQR} scenarios, h={T_AL}, 4x6): K7/K8 "
+                f"launches {launches}; vs al_ilqr_solve_batched max|dus| {d_al:.3e} (tol 1e-6); "
+                f"worst violation {worst.item():.3e} (the batch's max "
+                f"{ref.max_violation.max().item():.3e})")
+            require(launches == (24, 24), "AL-iLQR DP went through K7 and K8 24 times each")
+            require(d_al <= 1e-6 and abs(worst.item() - ref.max_violation.max().item()) <= 1e-6,
+                    "AL-iLQR DP equals the batched solver")
+
+            # -- MHE DP: unconstrained and bounded windows -------------------------
+            for name, kw_b in (("unconstrained", {}), ("velocity bounded", bounds)):
+                res, worst = mhe_solve_dp(*mhe_args, x_prior, ys_mhe, mesh, **kw_b)
+                ref = mhe_solve(*mhe_args, x_prior, ys_mhe, **kw_b)
+                d_mhe = max_err(res.xs, ref.xs)
+                log(f"mhe_solve_dp {N_MHE_WINDOWS} windows M={M_MHE} {name}: max|dxs| vs "
+                    f"mhe_solve {d_mhe:.3e} (tol 1e-6); worst residual {worst.item():.3e}, the "
+                    f"block's max {res.primal_residual.max().item():.3e}")
+                require(d_mhe <= 1e-6 and worst.item() == res.primal_residual.max().item(),
+                        f"MHE DP ({name}) equals mhe_solve, its residual the blocks' maximum")
+
+            # -- MPPI DP against the plain batched route on the same generator -----
+            for iters in (2, IT_MPPI):
+                dp = mppi_solve_dp(pendulum_step, x0m, cost_p, T_MPPI, gen(iters), mesh,
+                                   iters=iters, **mppi_kw)
+                ref = mppi_solve_batched(pendulum_step, x0m, cost_p, T_MPPI, gen(iters),
+                                         method="xla", iters=iters, **mppi_kw)
+                if iters == 2:
+                    du = max_err(dp.us, ref.us)
+                    log(f"mppi_solve_dp N={N_MPPI} K={K_MPPI} T={T_MPPI} iters=2 vs the plain "
+                        f"batched route: max|dus| {du:.3e} (bound 1e-4)")
+                    require(du <= 1e-4, "MPPI DP at two rounds equals the plain route")
+                else:
+                    rel = relative_cost(dp.cost, ref.cost)
+                    log(f"mppi_solve_dp iters={iters}: relative final cost median "
+                        f"{rel.median().item():.3e} (bound 5e-2), max {rel.max().item():.3e}")
+                    require(rel.median().item() <= 5e-2, "MPPI DP at eight rounds")
+
+            # -- particle-filter DP: K14 once a step --------------------------------
+            pf_resample.resample_systematic.launches = 0
+            pf = particle_filter_dp(*pf_args, gen(0), mesh, n_particles=N_PF_DP)
+            launches_pf = pf_resample.resample_systematic.launches
+            ref = particle_filter(*pf_args, gen(0), n_particles=N_PF_DP)
+            d_mean = max_err(pf.means, ref.means)
+            d_ll = abs(pf.log_likelihood.item() - ref.log_likelihood.item())
+            log(f"particle_filter_dp pendulum N={N_PF_DP} T={T_PF}: {launches_pf} K14 launches; "
+                f"vs particle_filter max|dmean| {d_mean:.3e} (tol 1e-5), ll "
+                f"{pf.log_likelihood.item():.4f} vs {ref.log_likelihood.item():.4f} (rtol 1e-5), "
+                f"min ESS {pf.ess.min().item():.1f}")
+            require(launches_pf == T_PF, "the PF DP launched K14 once a step")
+            require(d_mean <= 1e-5 and d_ll <= 1e-5 * abs(ref.log_likelihood.item()),
+                    "the PF DP equals the single-device filter")
+
+            # -- horizon-sharded Riccati and Kalman filter, the pipeline ------------
+            Ks, Ps = riccati_associative_sharded(*quad, T_LONG, mesh)
+            Ks64, Ps64 = riccati_scan(*quad64, T_LONG)
+            log(f"riccati_associative_sharded T={T_LONG} vs riccati_scan in float64: max|dKs| "
+                f"{max_err(Ks, Ks64):.3e} max|dPs| {max_err(Ps, Ps64):.3e}")
+            require(Ks.shape == Ks64.shape and Ps.shape == Ps64.shape
+                    and close(Ks, Ks64, 1e-4, 1e-5), "the sharded Riccati against float64")
+            sp = kalman_filter_associative_sharded(*kf, x0_kf, P0_di, ys_long, mesh)
+            seq = kalman_filter(*(M.double() for M in kf), x0_kf.double(), P0_di.double(),
+                                ys_long.double())
+            d_kf = {f: max_err(getattr(sp, f), getattr(seq, f))
+                    for f in ("means", "covs", "pred_means", "pred_covs")}
+            log(f"kalman_filter_associative_sharded T={T_LONG} vs the sequential filter in "
+                f"float64: {', '.join(f'{k} {v:.3e}' for k, v in d_kf.items())}; ll "
+                f"{sp.log_likelihood.item():.3f} vs {seq.log_likelihood.item():.3f}")
+            require(all(close(getattr(sp, f), getattr(seq, f), 1e-4, 2e-4) for f in d_kf)
+                    and abs(sp.log_likelihood.item() - seq.log_likelihood.item())
+                    <= 1e-4 * max(1.0, abs(seq.log_likelihood.item())),
+                    "the sharded Kalman filter against float64")
+            xs_pp = rollout_lti_pipelined(quad[0], quad[1], x0_pp, us_pp, mesh)
+            ref_pp = batched_rollout_lti(quad[0], quad[1], x0_pp, us_pp)
+            log(f"rollout_lti_pipelined quadrotor12 N={N} T={T} vs batched_rollout_lti: "
+                f"max|dxs| {max_err(xs_pp, ref_pp):.3e}")
+            require(xs_pp.shape == ref_pp.shape and close(xs_pp, ref_pp, 1e-5, 1e-6),
+                    "the pipelined rollout")
+
+            # -- phase 24: each sharded entry against its counterpart, in turns ----
+            slow = dict(reps=3, inner=1, warmup=1)
+            pairs = {
+                "al_ilqr (fused, 256 scenarios)": (
+                    lambda: al_ilqr_solve_dp(pendulum_step, x0p, Qp, Rp, QFp, goal, T_AL, -2.0,
+                                             2.0, mesh, backend="fused", **al_kw),
+                    lambda: al_ilqr_solve_batched(pendulum_step, x0p, Qp, Rp, QFp, goal, T_AL,
+                                                  -2.0, 2.0, backend="fused", **al_kw)),
+                f"mhe ({N_MHE_WINDOWS} windows, bounded)": (
+                    lambda: mhe_solve_dp(*mhe_args, x_prior, ys_mhe, mesh, **bounds),
+                    lambda: mhe_solve(*mhe_args, x_prior, ys_mhe, **bounds)),
+                f"mppi ({N_MPPI} x {K_MPPI}, 8 rounds, plain)": (
+                    lambda: mppi_solve_dp(pendulum_step, x0m, cost_p, T_MPPI, gen(0), mesh,
+                                          iters=IT_MPPI, **mppi_kw),
+                    lambda: mppi_solve_batched(pendulum_step, x0m, cost_p, T_MPPI, gen(0),
+                                               method="xla", iters=IT_MPPI, **mppi_kw)),
+                f"particle filter ({N_PF_DP} particles, T={T_PF})": (
+                    lambda: particle_filter_dp(*pf_args, gen(0), mesh, n_particles=N_PF_DP),
+                    lambda: particle_filter(*pf_args, gen(0), n_particles=N_PF_DP)),
+                f"riccati associative (T={T_LONG})": (
+                    lambda: riccati_associative_sharded(*quad, T_LONG, mesh),
+                    lambda: riccati_associative(*quad, T_LONG)),
+                f"kalman associative (T={T_LONG})": (
+                    lambda: kalman_filter_associative_sharded(*kf, x0_kf, P0_di, ys_long, mesh),
+                    lambda: kalman_filter_associative(*kf, x0_kf, P0_di, ys_long)),
+                f"pipelined rollout (N={N}, T={T})": (
+                    lambda: rollout_lti_pipelined(quad[0], quad[1], x0_pp, us_pp, mesh),
+                    lambda: batched_rollout_lti(quad[0], quad[1], x0_pp, us_pp)),
+            }
+            for what, (sharded, single) in pairs.items():
+                ms = in_turns({"sharded": sharded, "single": single}, **slow)
+                log(f"time {what}: sharded on a (1, 1) mesh {ms['sharded']:.4f} ms, "
+                    f"single device {ms['single']:.4f} ms, overhead "
+                    f"{ms['sharded'] - ms['single']:+.4f} ms [{smi}]")
+        finally:
+            dist.destroy_process_group()
+
+
+def utils_family(dev, smi: str) -> None:
+    """Phase 24's utilities on the card (run before phase 23's NCCL group):
+    utils.profiler.trace around one K2 solve, time_compiled against cuda_ms,
+    and save/load_checkpoint of a 4096-scenario MPCState and of 64 MB."""
+    import json as json_
+    import tempfile
+
+    from numpower_tpu_torch.kernels import boxqp_fista
+    from numpower_tpu_torch.models import MPCController, MPCState, condense, quadrotor12
+    from numpower_tpu_torch.models.condensed import default_coarse_iters
+    from numpower_tpu_torch.utils import checkpoint, profiler
+
+    def t32(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
+
+    A, B = quadrotor12(0.02)
+    n, m = 12, 4
+    Q, R, QF = np.eye(n, dtype=np.float32), np.eye(m, dtype=np.float32) * 0.1, \
+        np.eye(n, dtype=np.float32) * 5.0
+    qp = condense(A, B, Q, R, QF, T, device=dev)
+    x0s = t32(0.3 * np.random.default_rng(0).standard_normal((N, n)))
+    ci = default_coarse_iters(qp, 40)
+    fold = (qp.H, qp.Sx.T, qp.SuTQ.T)
+
+    def k2():
+        return boxqp_fista.fista_mpc_res(*fold, x0s, LO, HI, qp.lipschitz, 40, ci)
+
+    # torch.profiler, late in this process, now and then returns a short
+    # session without any of its GPU records (5 of 6 sessions of one solve
+    # came back without a kernel, the one of five solves with all of them; a
+    # fresh process lost none), so the trace holds four more solves after
+    # the annotated one and is taken up to three times, each attempt logged
+    k2()
+    for attempt in range(1, 4):
+        with tempfile.TemporaryDirectory() as tmp:
+            with profiler.trace(tmp):
+                with profiler.annotate("chip_smoke_k2_solve"):
+                    k2()
+                for _ in range(4):
+                    k2()
+            files = [f for f in os.listdir(tmp) if f.endswith(".json")]
+            require(len(files) == 1, "utils.profiler.trace wrote one trace")
+            with open(os.path.join(tmp, files[0])) as f:
+                events = json_.load(f)["traceEvents"]
+        names = {e.get("name", "") for e in events}
+        kernels = sum(e.get("cat") == "kernel" and "fista_kernel" in e.get("name", "")
+                      for e in events)
+        log(f"utils.profiler.trace around one annotated K2 solve and four more, attempt "
+            f"{attempt}: {len(events)} events, {kernels} fista_kernel records, annotate region "
+            f"{'chip_smoke_k2_solve' in names}")
+        if kernels:
+            break
+    require(kernels >= 1 and "chip_smoke_k2_solve" in names,
+            "the trace names the K2 kernel and the annotated region")
+    tc_s, tc_iqr = profiler.time_compiled(k2, reps=5, inner=(5, 55), return_stats=True)
+    log(f"time K2 ({N} scenarios, 40 iters): utils.profiler.time_compiled {tc_s * 1e3:.4f} ms "
+        f"(IQR {tc_iqr * 1e3:.4f} ms, host clock, slope method), cuda_ms {cuda_ms(k2):.4f} ms "
+        f"(CUDA events) [{smi}]")
+
+    ctrl = MPCController(A, B, Q, R, QF, T, LO, HI, iters=30, device=dev)
+    state = ctrl.init(N)
+    for _ in range(3):
+        _, state = ctrl.step(state, x0s)
+    with tempfile.TemporaryDirectory() as tmp:
+        for path in (os.path.join(tmp, "state.npz"), os.path.join(tmp, "state_dir")):
+            checkpoint.save_checkpoint(path, state, {"tick": state.tick})
+            back = checkpoint.load_checkpoint(path, like=ctrl.init(N))
+            require(isinstance(back, MPCState) and back.U_prev.device == dev
+                    and torch.equal(back.U_prev, state.U_prev) and back.tick == state.tick,
+                    f"the MPCState comes back on the card, equal ({os.path.basename(path)})")
+        log(f"checkpoint of a {N}-scenario MPCState (U_prev {tuple(state.U_prev.shape)}, tick "
+            f"{state.tick}) through .npz and a directory: back on {back.U_prev.device}, equal")
+        big = {"U": torch.randn((4096, 4096), device=dev), "tick": torch.tensor(3)}
+        like = {"U": torch.empty((4096, 4096), device=dev), "tick": torch.tensor(0)}
+        for path in (os.path.join(tmp, "big.npz"), os.path.join(tmp, "big_dir")):
+            t0 = time.perf_counter()
+            checkpoint.save_checkpoint(path, big)
+            t1 = time.perf_counter()
+            back = checkpoint.load_checkpoint(path, like=like)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            require(torch.equal(back["U"], big["U"]), "the 64 MB checkpoint round trip")
+            log(f"time checkpoint of 64 MB on the card ({os.path.basename(path)}): save "
+                f"{(t1 - t0) * 1e3:.1f} ms, load {(t2 - t1) * 1e3:.1f} ms (host clock) [{smi}]")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2892,6 +3297,9 @@ def main() -> int:
     kernels += boxqp_variants_and_mesh(dev, smi, qp, x0s, rho)
     ops_family(dev, smi)
     ndarray_family(dev, smi)
+    stream_family(dev, smi)
+    utils_family(dev, smi)
+    parallel_rest_family(dev, smi)
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -14,7 +14,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from numpower_tpu_torch.models.admm import solve_mpc_boxqp_admm
 from numpower_tpu_torch.models.boxqp import solve_mpc_boxqp
@@ -27,10 +29,32 @@ from numpower_tpu_torch.utils.device import default_device
 
 @dataclass
 class MPCState:
-    """Warm-start state carried between ticks."""
+    """Warm-start state carried between ticks, a checkpointable tree
+    (utils/checkpoint.py): a node of torch.utils._pytree whose leaves are
+    U_prev and tick, the JAX package's two leaves in its order. The tick
+    leaf is a 0-d int32 CPU tensor, as the JAX state's int32 scalar (a
+    Python int would be stored as int64); it reads back as an int."""
 
     U_prev: torch.Tensor  # (N, T*m) previous optimal plans (this rank's block with a mesh)
     tick: int
+
+
+def _state_flatten(state: MPCState):
+    tick = state.tick
+    if isinstance(tick, int):
+        tick = torch.tensor(tick, dtype=torch.int32)
+    return [state.U_prev, tick], None
+
+
+def _state_unflatten(leaves, context) -> MPCState:
+    U_prev, tick = leaves
+    if isinstance(tick, (torch.Tensor, np.ndarray, np.generic)) and tick.ndim == 0:
+        tick = int(tick)
+    return MPCState(U_prev=U_prev, tick=tick)
+
+
+pytree.register_pytree_node(MPCState, _state_flatten, _state_unflatten,
+                            serialized_type_name="numpower_tpu_torch.models.mpc.MPCState")
 
 
 class MPCController:

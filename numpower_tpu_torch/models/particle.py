@@ -44,13 +44,26 @@ class ParticleFilterResult(NamedTuple):
     log_weights: torch.Tensor     # (..., N) final normalized log-weights
 
 
+def _cumsum_rows(w: torch.Tensor) -> torch.Tensor:
+    """torch.cumsum(w, dim=-1), the same sums on every call. On the card
+    torch scans a tensor that is one row (numel equal to the last axis) with
+    CUB's single-pass scan, whose float sums depend on the timing of its
+    look-back between tiles, so the same weights give slot boundaries that
+    differ from run to run once N exceeds a tile; such a row is scanned as
+    the first of two, which takes torch's row-per-block scan."""
+    if w.device.type == "cuda" and w.numel() == w.shape[-1]:
+        row = w.reshape(1, -1)
+        return torch.cumsum(torch.cat([row, row]), dim=-1)[0].reshape(w.shape)
+    return torch.cumsum(w, dim=-1)
+
+
 def _resample_slots(u0, logw, N: int):
     """Integer slot boundaries of systematic resampling, u0 (...) uniform
     offsets, logw (..., N): particle j owns output slots [m_{j-1}, m_j) with
     m_j = clip(floor(N cum_j - u0) + 1, 0, N), the searchsorted(cum,
     (i + u0)/N) assignment. Returns m (..., N) int32."""
     w = torch.exp(logw - torch.logsumexp(logw, dim=-1, keepdim=True))
-    cum = torch.cumsum(w, dim=-1)
+    cum = _cumsum_rows(w)
     cum = cum / cum[..., -1:]  # exact 1.0 endpoint
     return torch.clamp(torch.floor(N * cum - u0[..., None]).to(torch.int32) + 1, 0, N)
 

@@ -27,7 +27,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-DATA_AXIS, MODEL_AXIS = "data", "model"
+from numpower_tpu_torch.utils.config import config
 
 
 @dataclass(frozen=True)
@@ -74,8 +74,9 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None,
     """Build a (data, model) mesh over the ranks of the default process
     group (parallel/distributed.initialize, or ``init_process_group``).
 
-    shape=None puts every rank on the data axis (scenario parallelism is
-    the dominant axis for MPC sweeps). Raises ValueError when the shape
+    shape=None takes ``utils.config.mesh_shape``, and where that is None
+    puts every rank on the data axis (scenario parallelism is the dominant
+    axis for MPC sweeps); the axis names default to the config's. Raises ValueError when the shape
     needs more ranks than the group has. Every rank must call it (the axis
     groups are made collectively); a rank beyond the shape's ranks gets
     None. device: this rank's device, by default ``cuda:(rank % cards)``
@@ -84,8 +85,8 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None,
         raise RuntimeError("make_mesh needs torch.distributed: call "
                            "parallel.distributed.initialize (or init_process_group) first")
     world, rank = dist.get_world_size(), dist.get_rank()
-    axis_names = tuple(axis_names or (DATA_AXIS, MODEL_AXIS))
-    shape = tuple(shape or (world, 1))
+    axis_names = tuple(axis_names or (config.data_axis, config.model_axis))
+    shape = tuple(shape or config.mesh_shape or (world, 1))
     D, M = shape
     if D * M > world:
         raise ValueError(f"mesh shape {shape} needs {D * M} devices, have {world}")

@@ -5,11 +5,14 @@ NumPower tracks every NDArray in a C registry with allocation counters
 (buffer.c) and exposes leak checks; ``register``/``unregister``/``stats``/
 ``leak_check`` bind the same registry from ``runtime/src/ndruntime.cpp``, a
 copy of the JAX package's source. ``npy_save_fast`` and ``npy_read_fast`` are
-its writev writer and mmap reader of .npy files. This is host bookkeeping:
+its writev writer and mmap reader of .npy files. The same library holds the
+scenario stream's ring-buffer generator (``runtime/src/scenario_stream.cpp``,
+also a copy), which ``runtime/stream.py`` drives. This is host bookkeeping:
 nothing here touches a device.
 
-The library is built with ``g++`` at first use into ``build/numpower_tpu_torch/``
-at the repository root (the name carries a hash of the source, and a build
+The library is built from both sources with ``g++`` at first use into
+``build/numpower_tpu_torch/`` at the repository root (the name carries a hash
+of the sources, and a build
 lands under a temporary name before it is renamed into place, so concurrent
 processes never load a half-written file); it never writes into the JAX
 package's directory. Where no library can be built or loaded, the registry
@@ -30,7 +33,8 @@ from pathlib import Path
 
 import numpy as np
 
-_SRC = Path(__file__).resolve().parent / "src" / "ndruntime.cpp"
+_SRCS = tuple(Path(__file__).resolve().parent / "src" / name
+              for name in ("ndruntime.cpp", "scenario_stream.cpp"))
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "numpower_tpu_torch"
 _GXX = ("g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
@@ -40,9 +44,10 @@ _lock = threading.Lock()
 
 
 def library_path() -> Path:
-    """Where the library of this source lives (its name holds the source's
+    """Where the library of these sources lives (its name holds the sources'
     hash)."""
-    digest = hashlib.sha256(_SRC.read_bytes() + " ".join(_GXX).encode()).hexdigest()[:12]
+    digest = hashlib.sha256(b"".join(src.read_bytes() for src in _SRCS)
+                            + " ".join(_GXX).encode()).hexdigest()[:12]
     return BUILD_DIR / f"libndruntime-{digest}.so"
 
 
@@ -51,7 +56,7 @@ def _build(path: Path) -> bool:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
     os.close(fd)
     try:
-        subprocess.run([*_GXX, "-o", tmp, str(_SRC)], check=True, capture_output=True,
+        subprocess.run([*_GXX, "-o", tmp, *map(str, _SRCS)], check=True, capture_output=True,
                        timeout=180)
         os.replace(tmp, path)
         return True
@@ -87,11 +92,28 @@ def _load():
                 lib.nptpu_npy_read.argtypes = [ctypes.c_char_p, ctypes.c_uint64,
                                                ctypes.c_void_p, ctypes.c_uint64]
                 lib.nptpu_npy_read.restype = ctypes.c_int
+                _bind_stream(lib)
                 _lib = lib
         except OSError:
             _lib = None
         _tried = True
         return _lib
+
+
+def _bind_stream(lib) -> None:
+    """Declare the five nptpu_stream_* functions (scenario_stream.cpp)."""
+    lib.nptpu_stream_create.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_uint64,
+                                        ctypes.c_int32, ctypes.c_float, ctypes.c_int32,
+                                        ctypes.c_int32]
+    lib.nptpu_stream_create.restype = ctypes.c_void_p
+    lib.nptpu_stream_acquire.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64)]
+    lib.nptpu_stream_acquire.restype = ctypes.c_int32
+    lib.nptpu_stream_data.argtypes = [ctypes.c_void_p, ctypes.c_int32]
+    lib.nptpu_stream_data.restype = ctypes.POINTER(ctypes.c_float)
+    lib.nptpu_stream_release.argtypes = [ctypes.c_void_p, ctypes.c_int32]
+    lib.nptpu_stream_release.restype = None
+    lib.nptpu_stream_destroy.argtypes = [ctypes.c_void_p]
+    lib.nptpu_stream_destroy.restype = None
 
 
 class _PyRegistry:

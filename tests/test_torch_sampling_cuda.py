@@ -392,3 +392,19 @@ NUMPY_CALLS = {
 @pytest.mark.parametrize("call", list(NUMPY_CALLS.values()), ids=list(NUMPY_CALLS))
 def test_numpy_inputs_land_on_the_card(device, call):
     assert _card(call())
+
+
+def test_particle_filter_is_reproducible_past_one_scan_tile(device):
+    """One trajectory of 65,536 particles twice from one seed: the same
+    filter, bit for bit (a single row's torch.cumsum on the card took CUB's
+    single-pass scan, whose sums vary with its timing, and moved resampling
+    slots from run to run; models/particle._cumsum_rows)."""
+    rng = np.random.default_rng(12)
+    args = (pendulum_step, first_components, np.eye(2) * 1e-4, np.eye(1) * 2.5e-3,
+            torch.as_tensor(0.3 * rng.standard_normal(2), dtype=torch.float32, device=device),
+            np.eye(2), rng.standard_normal((20, 1)), np.zeros((20, 1)))
+    runs = [particle_filter(*args, torch.Generator(device=device).manual_seed(0),
+                            n_particles=65536) for _ in range(3)]
+    for other in runs[1:]:
+        for field in ("means", "log_likelihood", "ess", "particles"):
+            assert torch.equal(getattr(other, field), getattr(runs[0], field)), field
