@@ -1,10 +1,13 @@
 """Hand-written CUDA kernels for the hot paths, each with its wrapper and its
 plain PyTorch version (sources in numpower_tpu_torch/csrc, built at first
-use by kernels/_build.py)."""
+use by kernels/_build.py). Each kernel module also holds the JAX package's
+name of its kernels (``fista_mpc_pallas_res``, ``ekf_pallas``, ...), and
+kalman_batched.py and rts_batched.py hold the names of K9 and K10 under the
+JAX package's module names."""
 
 from numpower_tpu_torch.kernels.boxqp_fista import (  # noqa: F401
-    fista_boxqp, fista_boxqp_reference, fista_mpc, fista_mpc_reference, fista_mpc_res,
-    fista_mpc_res_reference, solve_mpc_boxqp_pallas,
+    fista_boxqp, fista_boxqp_pallas, fista_boxqp_reference, fista_mpc, fista_mpc_reference,
+    fista_mpc_res, fista_mpc_res_reference, solve_mpc_boxqp_pallas,
 )
 from numpower_tpu_torch.kernels.boxqp_admm import (  # noqa: F401
     admm_boxqp, admm_boxqp_reference, admm_mpc, admm_mpc_reference, admm_mpc_res,

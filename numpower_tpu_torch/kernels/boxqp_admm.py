@@ -53,6 +53,17 @@ def _fold(H, SxT, SuTQT, rho, Minv):
     return rminvT, Wc
 
 
+def _admm_folds(H, SxT, SuTQT, rho, Minv: Optional[torch.Tensor] = None) -> tuple:
+    """The host-side operands of the fused ADMM kernel, which depend on the
+    QP and rho alone: ((rho Minv)', Wc) of :func:`_fold` on a float32 rho,
+    each contiguous, as :func:`admm_mpc_res` forms them. A caller that
+    solves one QP many times (models/mpc.MPCController) forms them once and
+    hands them to :func:`_admm_mpc_res`."""
+    rho_t = torch.as_tensor(rho, dtype=torch.float32, device=H.device).reshape(())
+    rminvT, Wc = _fold(H, SxT, SuTQT, rho_t, Minv)
+    return rminvT.contiguous(), Wc.contiguous()
+
+
 def _form_code(form: str) -> int:
     if form not in FORMS:
         raise ValueError(f"unknown form {form!r} ({'|'.join(FORMS)})")
@@ -114,8 +125,15 @@ def admm_mpc_res_reference(H, SxT, SuTQT, x0s, lo: float, hi: float, rho,
     ``coarse_iters`` products round both operands to bf16. Residuals come
     from one more fp32 x-update at the final (z, y = s - z), as maxima over
     the N x d entries. Works in the dtype of its inputs."""
+    return _admm_mpc_res_plain(*_fold(H, SxT, SuTQT, rho, Minv), x0s, lo, hi, rho, iters,
+                               coarse_iters, over_relax, U0, form, c_precision)
+
+
+def _admm_mpc_res_plain(rminvT, Wc, x0s, lo: float, hi: float, rho, iters: int,
+                        coarse_iters: int, over_relax: float, U0, form: str, c_precision: str):
+    """:func:`admm_mpc_res_reference` on the kernel's host-side operands
+    ((rho Minv)', Wc) (:func:`_fold`)."""
     precision_code(c_precision, C_PRECISIONS, "c_precision")
-    rminvT, Wc = _fold(H, SxT, SuTQT, rho, Minv)
     alpha = over_relax
     c = make_tail_dot(Wc, c_precision)(x0s)
     s = _admm_loop(c, rminvT, lo, hi, alpha, iters, coarse_iters, U0,
@@ -144,16 +162,30 @@ def admm_mpc_res(H, SxT, SuTQT, x0s, lo: float, hi: float, rho,
     the class of c (kernels/precision.py); the port's default is "highest",
     where the JAX package's is "bf16x4". On a CPU tensor this is
     :func:`admm_mpc_res_reference`. Each kernel launch adds one to
-    ``admm_mpc_res.launches``."""
+    ``admm_mpc_res.launches``; one recorded into a CUDA graph does not (its
+    replays run it, models/mpc.py)."""
+    return _admm_mpc_res(H, SxT, SuTQT, x0s, lo, hi, rho, iters, coarse_iters, over_relax, Minv,
+                         U0, form, c_precision, None)
+
+
+def _admm_mpc_res(H, SxT, SuTQT, x0s, lo: float, hi: float, rho, iters: int,
+                  coarse_iters: int, over_relax: float, Minv, U0, form: str, c_precision: str,
+                  folds: Optional[tuple]):
+    """:func:`admm_mpc_res` with its QP-only operands given: ``folds`` =
+    ((rho Minv)', Wc) of :func:`_admm_folds` for this rho and Minv, formed
+    here when None. On a CPU tensor the plain version runs on the same
+    folds."""
     form_code = _form_code(form)
     c_code = precision_code(c_precision, C_PRECISIONS, "c_precision")
     if x0s.device.type == "cpu":
-        return admm_mpc_res_reference(H, SxT, SuTQT, x0s, lo, hi, rho, iters,
-                                      coarse_iters, over_relax, Minv, U0, form, c_precision)
+        if folds is None:
+            return admm_mpc_res_reference(H, SxT, SuTQT, x0s, lo, hi, rho, iters,
+                                          coarse_iters, over_relax, Minv, U0, form, c_precision)
+        return _admm_mpc_res_plain(*folds, x0s, lo, hi, rho, iters, coarse_iters, over_relax,
+                                   U0, form, c_precision)
     device, N, n, d, coarse_iters = _launch_shape(H, x0s, iters, coarse_iters)
     rho_t = torch.as_tensor(rho, dtype=torch.float32, device=device).reshape(())
-    rminvT, Wc = _fold(H, SxT, SuTQT, rho_t, Minv)
-    rminvT, Wc = rminvT.contiguous(), Wc.contiguous()
+    rminvT, Wc = _admm_folds(H, SxT, SuTQT, rho_t, Minv) if folds is None else folds
     for name, t, shape in (("(rho Minv)'", rminvT, (d, d)), ("Wc", Wc, (n, d)),
                            ("x0s", x0s, (N, n)), ("rho", rho_t, ())):
         _check_operand(name, t, device, shape)
@@ -164,6 +196,7 @@ def admm_mpc_res(H, SxT, SuTQT, x0s, lo: float, hi: float, rho,
     rd = torch.zeros((), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
+        capturing = torch.cuda.is_current_stream_capturing()
         code = _build.library().npt_admm_mpc_res(
             rminvT.data_ptr(), Wc.data_ptr(), x0s.data_ptr(),
             None if U0 is None else U0.data_ptr(), rho_t.data_ptr(),
@@ -171,7 +204,8 @@ def admm_mpc_res(H, SxT, SuTQT, x0s, lo: float, hi: float, rho,
             coarse_iters, ctypes.c_float(float(lo)), ctypes.c_float(float(hi)),
             ctypes.c_float(float(over_relax)), form_code, c_code, stream)
     _build.check(code, "admm_mpc_res kernel launch")
-    admm_mpc_res.launches += 1
+    if not capturing:  # a launch recorded into a CUDA graph runs on its replays
+        admm_mpc_res.launches += 1
     return z, rp, rd
 
 
@@ -294,3 +328,37 @@ def admm_mpc(H, SxT, SuTQT, x0s, lo: float, hi: float, rho, iters: int = 40,
 
 
 admm_mpc.launches = 0
+
+
+# -- the JAX package's names (numpower_tpu/kernels/boxqp_admm.py) -------------
+# Each takes the JAX function's operands in its order and returns its results
+# in its layout. tile_n and interpret have no effect: the operands' device
+# chooses the route, the kernel on a CUDA tensor and its plain version on a
+# CPU one. c_precision keeps the port's default, "highest".
+
+
+def admm_mpc_pallas_res(H, SxT, SuTQT, x0s, lo, hi, rho, iters: int = 40,
+                        coarse_iters: int = 0, over_relax: float = 1.6, tile_n: int = 1024,
+                        interpret: bool = False, Minv: Optional[torch.Tensor] = None,
+                        U0: Optional[torch.Tensor] = None, form: str = "s",
+                        c_precision: str = "highest"):
+    """K1 by the JAX package's name: :func:`admm_mpc_res`, (z, r_primal, r_dual)."""
+    del tile_n, interpret
+    return admm_mpc_res(H, SxT, SuTQT, x0s, lo, hi, rho, iters, coarse_iters, over_relax, Minv,
+                        U0, form, c_precision)
+
+
+def admm_boxqp_pallas(H, g, lo, hi, rho, iters: int = 30, coarse_iters: int = 0,
+                      over_relax: float = 1.6, tile_n: int = 1024, interpret: bool = False,
+                      U0: Optional[torch.Tensor] = None, Minv: Optional[torch.Tensor] = None):
+    """K3a by the JAX package's name: :func:`admm_boxqp`, (z, y)."""
+    del tile_n, interpret
+    return admm_boxqp(H, g, lo, hi, rho, iters, coarse_iters, over_relax, U0, Minv)
+
+
+def admm_mpc_pallas(H, SxT, SuTQT, x0s, lo, hi, rho, iters: int = 40, coarse_iters: int = 0,
+                    over_relax: float = 1.6, tile_n: int = 1024, interpret: bool = False,
+                    Minv: Optional[torch.Tensor] = None):
+    """K1' by the JAX package's name: :func:`admm_mpc`, (z, y, g)."""
+    del tile_n, interpret
+    return admm_mpc(H, SxT, SuTQT, x0s, lo, hi, rho, iters, coarse_iters, over_relax, Minv)

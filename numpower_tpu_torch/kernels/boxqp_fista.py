@@ -58,10 +58,18 @@ def fista_mpc_res_reference(H, SxT, SuTQT, x0s, lo: float, hi: float, lipschitz,
     tail. resid is the projected-gradient residual max over the N x d
     entries, its product in the tail's class. Works in the dtype of its
     inputs (float64 for a reference run at coarse_iters=0 in "highest")."""
+    return _fista_mpc_res_plain(H, H.T, SxT @ SuTQT, x0s, lo, hi, lipschitz, iters,
+                                coarse_iters, U0, tail_precision, g_precision)
+
+
+def _fista_mpc_res_plain(H, Ht, W, x0s, lo: float, hi: float, lipschitz, iters: int,
+                         coarse_iters: int, U0, tail_precision: str, g_precision: str):
+    """:func:`fista_mpc_res_reference` on the kernel's host-side operands
+    H' and W = SxT @ SuTQT (:func:`_fista_folds`)."""
     precision_code(tail_precision, TAIL_PRECISIONS, "tail_precision")
     precision_code(g_precision, G_PRECISIONS, "g_precision")
-    g = make_tail_dot(SxT @ SuTQT, g_precision)(x0s)
-    tail_dot = make_tail_dot(H.T, tail_precision)
+    g = make_tail_dot(W, g_precision)(x0s)
+    tail_dot = make_tail_dot(Ht, tail_precision)
     U = _fista_loop(H, g, lo, hi, lipschitz, iters, coarse_iters, U0, tail_dot)
     step = 1.0 / lipschitz
     grad = tail_dot(U) + g
@@ -142,13 +150,22 @@ def _launch_shape(H, x0s, iters: int, coarse_iters: int, n_max: int = MAX_N):
     return x0s.device, N, n, d, min(coarse_iters, iters)
 
 
-def _mpc_operands(H, SxT, SuTQT, x0s, lipschitz, iters: int, coarse_iters: int, U0=None):
+def _fista_folds(H, SxT, SuTQT) -> tuple:
+    """The host-side operands of the FISTA kernels, which depend on the QP
+    alone: (H', W) with the fold W = SxT @ SuTQT, each contiguous. A caller
+    that solves one QP many times (models/mpc.MPCController) forms them
+    once and hands them to :func:`_fista_mpc_res` and :func:`_fista_boxqp`."""
+    return H.T.contiguous(), (SxT @ SuTQT).contiguous()
+
+
+def _mpc_operands(H, SxT, SuTQT, x0s, lipschitz, iters: int, coarse_iters: int, U0=None,
+                  folds=None):
     """The checked operands of a launch that forms g in the kernel: the
-    launch shape, H', the fold W = SxT @ SuTQT (one host-side matmul) and
-    the Lipschitz constant, on x0s's device."""
+    launch shape, H', the fold W = SxT @ SuTQT (one host-side matmul, or
+    ``folds`` from :func:`_fista_folds`) and the Lipschitz constant, on x0s's
+    device."""
     shape = device, N, n, d, _ = _launch_shape(H, x0s, iters, coarse_iters)
-    Ht = H.T.contiguous()
-    W = (SxT @ SuTQT).contiguous()
+    Ht, W = _fista_folds(H, SxT, SuTQT) if folds is None else folds
     lip = torch.as_tensor(lipschitz, dtype=torch.float32, device=device).reshape(())
     for name, t, want in (("H'", Ht, (d, d)), ("W", W, (n, d)), ("x0s", x0s, (N, n)),
                           ("lipschitz", lip, ())):
@@ -172,25 +189,41 @@ def fista_mpc_res(H, SxT, SuTQT, x0s, lo: float, hi: float, lipschitz,
     ("highest" | "bf16x4" | "bf16x3") that of g (kernels/precision.py); the
     port's defaults are "highest", where the JAX package's tail default is
     "bf16x3". On a CPU tensor this is :func:`fista_mpc_res_reference`. Each
-    kernel launch adds one to ``fista_mpc_res.launches``."""
+    kernel launch adds one to ``fista_mpc_res.launches``; one
+    recorded into a CUDA graph does not (its replays run it, models/mpc.py)."""
+    return _fista_mpc_res(H, SxT, SuTQT, x0s, lo, hi, lipschitz, iters, coarse_iters, U0,
+                          tail_precision, g_precision, None)
+
+
+def _fista_mpc_res(H, SxT, SuTQT, x0s, lo: float, hi: float, lipschitz, iters: int,
+                   coarse_iters: int, U0, tail_precision: str, g_precision: str,
+                   folds: Optional[tuple]):
+    """:func:`fista_mpc_res` with its QP-only operands given: ``folds`` =
+    (H', W) of :func:`_fista_folds`, formed here when None. On a CPU tensor
+    the plain version runs on the same folds."""
     tail_code = precision_code(tail_precision, TAIL_PRECISIONS, "tail_precision")
     g_code = precision_code(g_precision, G_PRECISIONS, "g_precision")
     if x0s.device.type == "cpu":
-        return fista_mpc_res_reference(H, SxT, SuTQT, x0s, lo, hi, lipschitz,
-                                       iters, coarse_iters, U0, tail_precision, g_precision)
+        if folds is None:
+            return fista_mpc_res_reference(H, SxT, SuTQT, x0s, lo, hi, lipschitz,
+                                           iters, coarse_iters, U0, tail_precision, g_precision)
+        return _fista_mpc_res_plain(H, *folds, x0s, lo, hi, lipschitz, iters, coarse_iters, U0,
+                                    tail_precision, g_precision)
     (device, N, n, d, coarse_iters), Ht, W, lip = _mpc_operands(
-        H, SxT, SuTQT, x0s, lipschitz, iters, coarse_iters, U0)
+        H, SxT, SuTQT, x0s, lipschitz, iters, coarse_iters, U0, folds)
     U = torch.empty((N, d), dtype=torch.float32, device=device)
     resid = torch.zeros((), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
+        capturing = torch.cuda.is_current_stream_capturing()
         code = _build.library().npt_fista_mpc_res(
             Ht.data_ptr(), W.data_ptr(), x0s.data_ptr(),
             None if U0 is None else U0.data_ptr(), lip.data_ptr(),
             U.data_ptr(), resid.data_ptr(), N, n, d, iters, coarse_iters,
             ctypes.c_float(float(lo)), ctypes.c_float(float(hi)), tail_code, g_code, stream)
     _build.check(code, "fista_mpc_res kernel launch")
-    fista_mpc_res.launches += 1
+    if not capturing:  # a launch recorded into a CUDA graph runs on its replays
+        fista_mpc_res.launches += 1
     return U, resid
 
 
@@ -227,18 +260,34 @@ fista_mpc.launches = 0
 
 
 def fista_boxqp(H, g, lo: float, hi: float, lipschitz, iters: int = 40,
-                coarse_iters: int = 0, U0: Optional[torch.Tensor] = None):
+                coarse_iters: int = 0, U0: Optional[torch.Tensor] = None, *,
+                tile_n: int = 1024, interpret: bool = False):
     """Two-step FISTA box-QP solve: argmin_U 1/2 U'HU + g_i'U, lo <= U <= hi,
     for each row g_i of g (N, d); returns U (N, d).
 
     H (d, d); lipschitz a scalar tensor (or float); U0 (N, d) warm start (not
     clipped). The whole iteration loop runs in the kernel; the caller forms
     the residual. On a CPU tensor this is :func:`fista_boxqp_reference`. Each
-    kernel launch adds one to ``fista_boxqp.launches``."""
+    kernel launch adds one to ``fista_boxqp.launches``; one recorded into a
+    CUDA graph does not (its replays run it, models/mpc.py). tile_n and
+    interpret are the JAX package's arguments and have no effect: g's device
+    chooses the route."""
+    del tile_n, interpret
+    return _fista_boxqp(H, g, lo, hi, lipschitz, iters, coarse_iters, U0, None)
+
+
+def _fista_boxqp(H, g, lo: float, hi: float, lipschitz, iters: int, coarse_iters: int, U0,
+                 Ht: Optional[torch.Tensor]):
+    """:func:`fista_boxqp` with H' given (the first of :func:`_fista_folds`),
+    formed here when None. On a CPU tensor the plain version runs on the
+    same H'."""
     if g.device.type == "cpu":
-        return fista_boxqp_reference(H, g, lo, hi, lipschitz, iters, coarse_iters, U0)
+        if Ht is None:
+            return fista_boxqp_reference(H, g, lo, hi, lipschitz, iters, coarse_iters, U0)
+        return _fista_loop(H, g, lo, hi, lipschitz, iters, coarse_iters, U0,
+                           make_tail_dot(Ht, "highest"))
     device, N, _, d, coarse_iters = _launch_shape(H, g, iters, coarse_iters, n_max=MAX_D)
-    Ht = H.T.contiguous()
+    Ht = H.T.contiguous() if Ht is None else Ht
     lip = torch.as_tensor(lipschitz, dtype=torch.float32, device=device).reshape(())
     for name, t, shape in (("H'", Ht, (d, d)), ("g", g, (N, d)), ("lipschitz", lip, ())):
         _check_operand(name, t, device, shape)
@@ -247,12 +296,14 @@ def fista_boxqp(H, g, lo: float, hi: float, lipschitz, iters: int = 40,
     U = torch.empty((N, d), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
+        capturing = torch.cuda.is_current_stream_capturing()
         code = _build.library().npt_fista_boxqp(
             Ht.data_ptr(), g.data_ptr(), None if U0 is None else U0.data_ptr(),
             lip.data_ptr(), U.data_ptr(), N, d, iters, coarse_iters,
             ctypes.c_float(float(lo)), ctypes.c_float(float(hi)), stream)
     _build.check(code, "fista_boxqp kernel launch")
-    fista_boxqp.launches += 1
+    if not capturing:  # a launch recorded into a CUDA graph runs on its replays
+        fista_boxqp.launches += 1
     return U
 
 
@@ -275,3 +326,35 @@ def solve_mpc_boxqp_pallas(qp, x0s, u_lo: float, u_hi: float, iters: int = 40,
     grad = U @ qp.H.T + g
     resid = torch.abs(U - torch.clamp(U - step * grad, u_lo, u_hi)).max()
     return BoxQPResult(U=U, iterations=iters, residual=resid)
+
+
+# -- the JAX package's names (numpower_tpu/kernels/boxqp_fista.py) ------------
+# Each takes the JAX function's operands in its order and returns its results
+# in its layout. tile_n and interpret have no effect: the operands' device
+# chooses the route, the kernel on a CUDA tensor and its plain version on a
+# CPU one. The precision classes keep the port's default, "highest".
+
+
+def fista_mpc_pallas_res(H, SxT, SuTQT, x0s, lo, hi, lipschitz, iters: int = 40,
+                         coarse_iters: int = 0, tile_n: int = 1024, interpret: bool = False,
+                         U0: Optional[torch.Tensor] = None, tail_precision: str = "highest",
+                         g_precision: str = "highest"):
+    """K2 by the JAX package's name: :func:`fista_mpc_res`, (U (N, d), resid)."""
+    del tile_n, interpret
+    return fista_mpc_res(H, SxT, SuTQT, x0s, lo, hi, lipschitz, iters, coarse_iters, U0,
+                         tail_precision, g_precision)
+
+
+def fista_mpc_pallas(H, SxT, SuTQT, x0s, lo, hi, lipschitz, iters: int = 40,
+                     coarse_iters: int = 0, tile_n: int = 1024, interpret: bool = False):
+    """K2' by the JAX package's name: :func:`fista_mpc`, (U, g)."""
+    del tile_n, interpret
+    return fista_mpc(H, SxT, SuTQT, x0s, lo, hi, lipschitz, iters, coarse_iters)
+
+
+def fista_boxqp_pallas(H, g, lo, hi, lipschitz, iters: int = 40, coarse_iters: int = 0,
+                       tile_n: int = 1024, interpret: bool = False,
+                       U0: Optional[torch.Tensor] = None):
+    """K3b by the JAX package's name: :func:`fista_boxqp`, U (N, d)."""
+    return fista_boxqp(H, g, lo, hi, lipschitz, iters, coarse_iters, U0, tile_n=tile_n,
+                       interpret=interpret)

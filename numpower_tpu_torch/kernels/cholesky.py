@@ -40,13 +40,16 @@ def _batch_shape(a: torch.Tensor) -> tuple[int, int]:
     return N, n
 
 
-def cholesky_batched(a: torch.Tensor) -> torch.Tensor:
+def cholesky_batched(a: torch.Tensor, tile_b: int = 1024, interpret: bool = False) -> torch.Tensor:
     """Lower Cholesky of a batch of small SPD matrices: (N, n, n) -> (N, n, n).
 
     Reads the lower triangle only; the strictly upper triangle of the result
     is exactly 0. No check: a non-PD matrix gives NaN from its failing column
     on. On a CPU tensor this is :func:`cholesky_batched_reference`. Each
-    kernel launch adds one to ``cholesky_batched.launches``."""
+    kernel launch adds one to ``cholesky_batched.launches``. tile_b and
+    interpret are the JAX package's arguments and have no effect: the
+    operand's device chooses the route."""
+    del tile_b, interpret
     if a.device.type == "cpu":
         return cholesky_batched_reference(a)
     N, n = _batch_shape(a)
@@ -59,7 +62,8 @@ def cholesky_batched(a: torch.Tensor) -> torch.Tensor:
     return L
 
 
-def psd_solve_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def psd_solve_batched(a: torch.Tensor, b: torch.Tensor, tile_b: int = 1024,
+                      interpret: bool = False) -> torch.Tensor:
     """Batched SPD solve A X = B: a (N, n, n), b (N, n, r) -> X (N, n, r).
 
     One fused kernel: factor (lower triangle of a only, diagonal held
@@ -67,7 +71,9 @@ def psd_solve_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     thread. No check: a non-PD matrix gives NaN. The Riccati inner solve
     K = (R + B'PB)^{-1} (B'PA) is this with n = controls, r = states. On a
     CPU tensor this is :func:`psd_solve_batched_reference`. Each kernel
-    launch adds one to ``psd_solve_batched.launches``."""
+    launch adds one to ``psd_solve_batched.launches``. tile_b and interpret
+    as in :func:`cholesky_batched`."""
+    del tile_b, interpret
     if a.device.type == "cpu":
         return psd_solve_batched_reference(a, b)
     N, n = _batch_shape(a)

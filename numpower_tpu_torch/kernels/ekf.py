@@ -159,3 +159,11 @@ def ekf_batched(f, h, Q, R, x0s, P0, yss, uss):
 
 
 ekf_batched.launches = 0
+
+
+def ekf_pallas(f, h, Q, R, x0s, P0, yss, uss, tile_b: int = 1024, interpret: bool = False):
+    """K11 by the JAX package's name (numpower_tpu/kernels/ekf.py):
+    :func:`ekf_batched`, with its operands and results. tile_b and interpret
+    have no effect: x0s's device chooses the route."""
+    del tile_b, interpret
+    return ekf_batched(f, h, Q, R, x0s, P0, yss, uss)

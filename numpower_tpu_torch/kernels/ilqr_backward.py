@@ -73,7 +73,7 @@ def ilqr_backward_reference(As, Bs, lxs, lus, lxx, luu, lxT, lxxT, reg: float = 
 
 
 def ilqr_backward_fused(As, Bs, lxs, lus, lxx, luu, lxT, lxxT, reg: float = 1e-3,
-                        luu_diags=None):
+                        tile_b: int = 512, interpret: bool = False, luu_diags=None):
     """Batched iLQR backward pass.
 
     As (N,T,n,n), Bs (N,T,n,m): per-scenario/timestep linearizations;
@@ -87,7 +87,10 @@ def ilqr_backward_fused(As, Bs, lxs, lus, lxx, luu, lxT, lxxT, reg: float = 1e-3
     Returns (ks (N,T,m), Ks (N,T,m,n)). Envelope: n <= MAX_N, m <= MAX_M
     (ValueError beyond). On a CPU tensor this is
     :func:`ilqr_backward_reference`. Each kernel launch adds one to
-    ``ilqr_backward_fused.launches``."""
+    ``ilqr_backward_fused.launches``. tile_b and interpret are the JAX
+    package's arguments (in its order) and have no effect: As's device
+    chooses the route."""
+    del tile_b, interpret
     if As.device.type == "cpu":
         return ilqr_backward_reference(As, Bs, lxs, lus, lxx, luu, lxT, lxxT, reg, luu_diags)
     device = As.device

@@ -97,3 +97,27 @@ def ilqr_forward_fused(f, Q, R, QF, x_goal, alphas, x0s, xs_nom, us_nom, ks, Ks)
 
 
 ilqr_forward_fused.launches = 0
+
+
+def ilqr_forward_pallas(f, Q, R, QF, x_goal, alphas, x0s, xsn_t, usn_t, ks_t, Ks_t,
+                        n_alphas: int, tile_b: int = 1024, interpret: bool = False):
+    """K8 by the JAX package's name (numpower_tpu/kernels/ilqr_forward.py),
+    in its lane-major layout: alphas (n_alphas,); x0s (N, n); xsn_t
+    (T, n, N), usn_t (T, m, N), ks_t (T, m, N) and Ks_t (T, m*n, N) the
+    nominal trajectory and gains, Ks_t[t, a*n + j, i] = K_i[t][a, j].
+    Returns us (A, T, m, N), xs (A, T+1, n, N), costs (A, N).
+
+    The operands are transposed to :func:`ilqr_forward_fused`'s natural
+    layout (a copy of each) and its results back. tile_b and interpret have
+    no effect: x0s's device chooses the route."""
+    del tile_b, interpret
+    T, n, N = xsn_t.shape
+    m = usn_t.shape[1]
+    alphas = torch.as_tensor(alphas).reshape(-1)
+    if alphas.shape[0] != n_alphas:
+        raise ValueError(f"{alphas.shape[0]} alphas, n_alphas = {n_alphas}")
+    natural = lambda a: a.permute(2, 0, 1).contiguous()  # noqa: E731  (T, r, N) -> (N, T, r)
+    Ks = Ks_t.reshape(T, m, n, N).permute(3, 0, 1, 2).contiguous()
+    us, xs, costs = ilqr_forward_fused(f, Q, R, QF, x_goal, alphas, x0s, natural(xsn_t),
+                                       natural(usn_t), natural(ks_t), Ks)
+    return us.permute(0, 2, 3, 1), xs.permute(0, 2, 3, 1), costs

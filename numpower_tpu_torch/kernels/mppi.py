@@ -103,21 +103,47 @@ def draw_eps(generator: torch.Generator, N: int, iters: int, K: int, T: int, m: 
                        device=generator.device) * sig
 
 
-def eps_kernel_layout(generator: torch.Generator, N: int, iters: int, T: int, m: int, K: int,
-                      sigma, dtype=torch.float32) -> torch.Tensor:
+def _layout_args(generator, key, sigma, sigma_arr, sizes: dict) -> tuple:
+    """(generator, sigma) of a layout function called with the port's
+    names or the JAX package's (key=, sigma_arr=); TypeError for a missing
+    operand or for both names of one."""
+    from numpower_tpu_torch.utils.device import given_generator
+
+    generator = given_generator(generator, key)
+    if sigma is not None and sigma_arr is not None:
+        raise TypeError("pass sigma or sigma_arr, not both")
+    sigma = sigma if sigma_arr is None else sigma_arr
+    missing = [k for k, v in dict(generator=generator, sigma=sigma, **sizes).items() if v is None]
+    if missing:
+        raise TypeError(f"missing arguments: {', '.join(missing)}")
+    return generator, sigma
+
+
+def eps_kernel_layout(generator: torch.Generator = None, N: int = None, iters: int = None,
+                      T: int = None, m: int = None, K: int = None, sigma=None,
+                      dtype=torch.float32, *, key: torch.Generator = None,
+                      sigma_arr=None) -> torch.Tensor:
     """The plain batched route's perturbations (:func:`draw_eps`, the same
     draw from the same generator state) laid out (iters*T*m, N, K) for the
     kernel, so that kernel and plain route agree to fp tolerance from one
-    seed (the JAX package's "exact" stream)."""
+    seed (the JAX package's "exact" stream). key and sigma_arr are the JAX
+    package's names of generator and sigma; every operand is required."""
+    generator, sigma = _layout_args(generator, key, sigma, sigma_arr,
+                                    dict(N=N, iters=iters, T=T, m=m, K=K))
     eps = draw_eps(generator, N, iters, K, T, m, sigma, dtype)
     return eps.permute(1, 3, 4, 0, 2).reshape(iters * T * m, N, K).contiguous()
 
 
-def eps_direct_layout(generator: torch.Generator, N: int, iters: int, T: int, m: int, K: int,
-                      sigma, dtype=torch.float32) -> torch.Tensor:
+def eps_direct_layout(generator: torch.Generator = None, N: int = None, iters: int = None,
+                      T: int = None, m: int = None, K: int = None, sigma=None,
+                      dtype=torch.float32, *, key: torch.Generator = None,
+                      sigma_arr=None) -> torch.Tensor:
     """One normal draw directly in kernel layout (iters*T*m, N, K), scaled by
     sigma per row: no transpose, a different stream from the plain route's
-    (statistically equivalent, not element-equal)."""
+    (statistically equivalent, not element-equal). Arguments as
+    :func:`eps_kernel_layout`."""
+    generator, sigma = _layout_args(generator, key, sigma, sigma_arr,
+                                    dict(N=N, iters=iters, T=T, m=m, K=K))
     R = iters * T * m
     scale = torch.tensor(sigma_tuple(sigma, m) * (iters * T), dtype=dtype,
                          device=generator.device)
@@ -284,3 +310,20 @@ def mppi_fused(f, cost_fn, x0s, eps_all, us0, *, T: int, iters: int, m: int, lam
 
 
 mppi_fused.launches = 0
+
+
+def mppi_pallas(f, cost_rows, x0s, eps_all, us0, *, T: int, iters: int, m: int, lam: float,
+                sigma, u_lo, u_hi, sc: int = 8, interpret: bool = False):
+    """K13 by the JAX package's name (numpower_tpu/kernels/mppi.py):
+    :func:`mppi_fused` with the cost in the JAX call's form, the
+    component-rows callable (``cost.rows`` of models/mppi.quadratic_mppi_cost,
+    which carries the cost's kernel form as ``.kernel`` for the card).
+    Returns us (N, T, m), ess (N, iters). sc and interpret have no effect:
+    x0s's device chooses the route. A rows callable without a kernel form
+    runs the plain version on a CPU tensor; on the card :func:`mppi_fused`
+    raises ValueError for it."""
+    del sc, interpret
+    kw = dict(T=T, iters=iters, m=m, lam=lam, sigma=sigma, u_lo=u_lo, u_hi=u_hi)
+    if x0s.device.type == "cpu" and not hasattr(cost_rows, "rows"):
+        return mppi_fused_reference(f, cost_rows, x0s, eps_all, us0, **kw)
+    return mppi_fused(f, cost_rows, x0s, eps_all, us0, **kw)

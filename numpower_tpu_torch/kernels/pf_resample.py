@@ -64,3 +64,11 @@ def resample_systematic(parts, m):
 
 
 resample_systematic.launches = 0
+
+
+def resample_onehot_pallas(parts, m, blk: int = 512, interpret: bool = False):
+    """K14 by the JAX package's name (numpower_tpu/kernels/pf_resample.py):
+    :func:`resample_systematic`, with its operands and result. blk and
+    interpret have no effect: parts's device chooses the route."""
+    del blk, interpret
+    return resample_systematic(parts, m)

@@ -54,14 +54,18 @@ def riccati_batched_reference(As, Bs, Q, R, QF, horizon: int, spd_solve=psd_solv
     return Ks, P.contiguous()
 
 
-def riccati_batched_fused(As, Bs, Q, R, QF, horizon: int):
+def riccati_batched_fused(As, Bs, Q, R, QF, horizon: int, tile_b: int = 4096,
+                          interpret: bool = False):
     """Fused per-scenario Riccati: As (N, n, n), Bs (N, n, m), shared Q, R,
     QF -> (Ks (N, T, m, n), P0 (N, n, n)), the kernel writing both in this
     layout. Bs may be a broadcast view (it is made contiguous); Q, R, QF may
     be numpy arrays or tensors anywhere (they are copied to As's device as
     fp32). Envelope: n <= MAX_N, m <= MAX_M (ValueError beyond).
     On a CPU tensor this is :func:`riccati_batched_reference`. Each kernel
-    launch adds one to ``riccati_batched_fused.launches``."""
+    launch adds one to ``riccati_batched_fused.launches``. tile_b and
+    interpret are the JAX package's arguments and have no effect: As's
+    device chooses the route."""
+    del tile_b, interpret
     if As.device.type == "cpu":
         return riccati_batched_reference(As, Bs, Q, R, QF, horizon)
     device = As.device

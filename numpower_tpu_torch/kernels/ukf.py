@@ -110,3 +110,12 @@ def ukf_batched(f, h, Q, R, x0s, P0, yss, uss, alpha: float = 1.0, beta: float =
 
 
 ukf_batched.launches = 0
+
+
+def ukf_pallas(f, h, Q, R, x0s, P0, yss, uss, alpha: float = 1.0, beta: float = 2.0,
+               kappa: float = 0.0, tile_b: int = 1024, interpret: bool = False):
+    """K12 by the JAX package's name (numpower_tpu/kernels/ukf.py):
+    :func:`ukf_batched`, with its operands and results. tile_b and interpret
+    have no effect: x0s's device chooses the route."""
+    del tile_b, interpret
+    return ukf_batched(f, h, Q, R, x0s, P0, yss, uss, alpha, beta, kappa)

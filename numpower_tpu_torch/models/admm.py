@@ -137,21 +137,46 @@ def solve_mpc_boxqp_admm(
     their operands to bf16 and the tail washes the perturbation out. The
     plain route runs all-fp32, as the JAX scan path does. x0s, x_ref and U0
     may be numpy arrays: they are taken in the QP's dtype on its device."""
+    return _solve_mpc_boxqp_admm(qp, x0s, u_lo, u_hi, x_ref, rho, iters, U0, method,
+                                 coarse_iters)
+
+
+def _default_rho(qp: CondensedQP) -> torch.Tensor:
+    """sqrt(lipschitz * max(mu, 1e-12)), the geometric mean of the QP's
+    eigenvalue bounds: the ADMM solvers' rho where none is given."""
+    return torch.sqrt(qp.lipschitz * torch.clamp(qp.mu, min=1e-12))
+
+
+def _kernel_folds(qp: CondensedQP, rho) -> tuple:
+    """(Minv, folds) of the ADMM kernel route for one QP and rho, as
+    solve_mpc_boxqp_admm forms them on every call: Minv = (H + rho I)^{-1}
+    and the fused kernel's ((rho Minv)', Wc) (kernels/boxqp_admm._admm_folds).
+    The serving tick (models/mpc.MPCController) forms them once."""
+    Minv = boxqp_admm.minv_factor(qp.H, rho)
+    return Minv, boxqp_admm._admm_folds(qp.H, qp.Sx.T, qp.SuTQ.T, rho, Minv)
+
+
+def _solve_mpc_boxqp_admm(qp: CondensedQP, x0s, u_lo: float, u_hi: float, x_ref, rho,
+                          iters: int, U0, method: str, coarse_iters: Optional[int],
+                          prepared: Optional[tuple] = None) -> ADMMResult:
+    """solve_mpc_boxqp_admm with the kernel route's QP-only operands given:
+    ``prepared`` = (Minv, folds) of :func:`_kernel_folds` for this rho (formed
+    per call when None)."""
     x0s = state_tensor(x0s, qp.H)
     x_ref, U0 = follow(qp.H, x_ref, U0)
     if rho is None:
-        rho = torch.sqrt(qp.lipschitz * torch.clamp(qp.mu, min=1e-12))
+        rho = _default_rho(qp)
     method = route_mpc_boxqp_admm(x0s.device.type, qp.H.shape[0], x_ref is not None,
                                   x0s.ndim, method)
     if method == "kernel":
         if coarse_iters is None:
             coarse_iters = admm_coarse_iters(qp, iters)
         # one factorization, shared by the kernel and the residuals
-        Minv = boxqp_admm.minv_factor(qp.H, rho)
+        Minv, folds = (boxqp_admm.minv_factor(qp.H, rho), None) if prepared is None else prepared
         if x_ref is None and x0s.ndim == 2:
-            z, r_prim, r_dual = boxqp_admm.admm_mpc_res(
-                qp.H, qp.Sx.T, qp.SuTQ.T, x0s, u_lo, u_hi, rho, iters=iters,
-                coarse_iters=coarse_iters, over_relax=OVER_RELAX, Minv=Minv, U0=U0)
+            z, r_prim, r_dual = boxqp_admm._admm_mpc_res(
+                qp.H, qp.Sx.T, qp.SuTQ.T, x0s, u_lo, u_hi, rho, iters, coarse_iters, OVER_RELAX,
+                Minv, U0, "s", "highest", folds)
             return ADMMResult(U=z, iterations=iters, primal_residual=r_prim,
                               dual_residual=r_dual)
         g = gradient_offset(qp, x0s, x_ref)

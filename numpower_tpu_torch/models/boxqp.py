@@ -152,6 +152,15 @@ def solve_mpc_boxqp(
     x0s, x_ref and U0 may be numpy arrays: they are taken in the QP's dtype
     on its device.
     """
+    return _solve_mpc_boxqp(qp, x0s, u_lo, u_hi, x_ref, iters, method, U0, coarse_iters)
+
+
+def _solve_mpc_boxqp(qp: CondensedQP, x0s, u_lo: float, u_hi: float, x_ref, iters: int,
+                     method: str, U0, coarse_iters: Optional[int],
+                     folds: Optional[tuple] = None) -> BoxQPResult:
+    """solve_mpc_boxqp with the kernels' QP-only operands given: ``folds``
+    from kernels/boxqp_fista._fista_folds (formed per call when None). The
+    serving tick (models/mpc.MPCController) forms them once."""
     x0s = state_tensor(x0s, qp.H)
     x_ref, U0 = follow(qp.H, x_ref, U0)
     if coarse_iters is None:
@@ -159,16 +168,17 @@ def solve_mpc_boxqp(
     method = route_mpc_boxqp(x0s.device.type, qp.H.shape[0], x_ref is not None,
                              x0s.ndim, method)
     if method == "kernel" and x_ref is None and x0s.ndim == 2:
-        U, resid = boxqp_fista.fista_mpc_res(
-            qp.H, qp.Sx.T, qp.SuTQ.T, x0s, u_lo, u_hi, qp.lipschitz,
-            iters=iters, coarse_iters=coarse_iters, U0=U0)
+        U, resid = boxqp_fista._fista_mpc_res(
+            qp.H, qp.Sx.T, qp.SuTQ.T, x0s, u_lo, u_hi, qp.lipschitz, iters, coarse_iters, U0,
+            "highest", "highest", folds)
         return BoxQPResult(U=U, iterations=iters, residual=resid)
     g = gradient_offset(qp, x0s, x_ref)
     if method == "kernel":
         squeeze = g.ndim == 1
-        U = boxqp_fista.fista_boxqp(
-            qp.H, g[None] if squeeze else g, u_lo, u_hi, qp.lipschitz, iters=iters,
-            coarse_iters=coarse_iters, U0=None if U0 is None else (U0[None] if squeeze else U0))
+        U = boxqp_fista._fista_boxqp(
+            qp.H, g[None] if squeeze else g, u_lo, u_hi, qp.lipschitz, iters, coarse_iters,
+            None if U0 is None else (U0[None] if squeeze else U0),
+            None if folds is None else folds[0])
         if squeeze:
             U = U[0]
         step = 1.0 / qp.lipschitz

@@ -17,6 +17,7 @@ op is one (N, T*m) x (T*m, T*m) product; for the quadrotor at T=30 that is
 from __future__ import annotations
 
 import math
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -26,11 +27,13 @@ import torch
 from numpower_tpu_torch.utils.device import default_device, follow, state_tensor
 
 
-@dataclass
+@dataclass(frozen=True)
 class CondensedQP:
     """Dense condensed QP data. H (Tm, Tm); Sx (Tn, n); Su (Tn, Tm);
     SuTQ (Tm, Tn) caches Su' Qbar for fast g(x0) formation; lipschitz and mu
-    are 0-d tensors on the same device.
+    are 0-d tensors on the same device. Frozen, as the JAX package's
+    flax.struct.dataclass: a changed QP is a new one, made by
+    :meth:`replace`.
 
     kappa = lipschitz / mu is read back to a Python float once, at condense()
     time, so the mixed-precision schedules below are plain integers and the
@@ -46,6 +49,10 @@ class CondensedQP:
     n: int
     m: int
     kappa: Optional[float] = None
+
+    def replace(self, **changes) -> "CondensedQP":
+        """A copy with the named fields changed (dataclasses.replace)."""
+        return dataclasses.replace(self, **changes)
 
 
 def prediction_matrices(A: torch.Tensor, B: torch.Tensor, horizon: int):

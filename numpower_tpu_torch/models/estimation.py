@@ -36,6 +36,7 @@ import torch
 from numpower_tpu_torch.kernels import ekf as ekf_kernel
 from numpower_tpu_torch.kernels import kalman_mean, rts_mean
 from numpower_tpu_torch.kernels import ukf as ukf_kernel
+from numpower_tpu_torch.models.rollout import linearize  # noqa: F401  (the JAX module's name)
 from numpower_tpu_torch.utils.associative_scan import associative_scan
 from numpower_tpu_torch.utils.device import default_device
 from numpower_tpu_torch.utils.smallmat import (

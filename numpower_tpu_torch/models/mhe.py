@@ -30,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from numpower_tpu_torch.models.admm import OVER_RELAX, _osqp
+from numpower_tpu_torch.models.admm import solve_qp_osqp  # noqa: F401  (the JAX module's name)
 from numpower_tpu_torch.models.condensed import _power_iteration_lmax, prediction_matrices
 from numpower_tpu_torch.utils.device import state_tensor
 

@@ -35,7 +35,7 @@ import torch
 from numpower_tpu_torch.kernels import mppi as mppi_kernel
 from numpower_tpu_torch.kernels.mppi import _clip
 from numpower_tpu_torch.models.rollout import rollout_nonlinear
-from numpower_tpu_torch.utils.device import seeded_generator, state_tensor
+from numpower_tpu_torch.utils.device import given_generator, seeded_generator, state_tensor
 
 
 class MPPIResult(NamedTuple):
@@ -66,7 +66,8 @@ def quadratic_mppi_cost(Q, R, QF, x_goal):
     two solver families are directly comparable. The matrices (numpy arrays,
     lists or tensors) are read once, here.
 
-    The returned callable carries two more forms of the same cost:
+    The returned callable carries two more forms of the same cost (and the
+    rows form carries both as well):
     ``.kernel``, the tuple (Q, R, QF, x_goal) of float32 numpy arrays that
     K13 reads (kernels/mppi.py), and ``.rows``, the component-rows form of
     the JAX package's ``.rows`` that K13's plain version evaluates: x and u
@@ -108,6 +109,9 @@ def quadratic_mppi_cost(Q, R, QF, x_goal):
 
     cost_fn.rows = rows
     cost_fn.kernel = tuple(M.astype(np.float32) for M in (Qn, Rn, QFn, gn))
+    # the rows form is a cost of its own for K13 (kernels/mppi.mppi_pallas takes
+    # it, as the JAX kernel does): it carries both forms too
+    rows.rows, rows.kernel = rows, cost_fn.kernel
     return cost_fn
 
 
@@ -170,6 +174,8 @@ def mppi_solve(
     m: Optional[int] = None,
     us_init=None,
     baseline_mix: float = 0.0,
+    *,
+    key: Optional[torch.Generator] = None,
 ) -> MPPIResult:
     """Full MPPI solve: `iters` importance-sampled updates of u_nom.
 
@@ -177,7 +183,7 @@ def mppi_solve(
     cost_fn(x, u, t) -> cost stage cost over the leading dims; u is None at
                              the terminal stage (see quadratic_mppi_cost)
     generator                torch.Generator of the draws (default: seeded 0
-                             on x0's device)
+                             on x0's device); key= is its JAX name
     lam                      softmax temperature (lower = greedier)
     sigma                    exploration std-dev (scalar or (m,) per input)
     u_lo/u_hi                optional box: samples AND the updated nominal
@@ -189,7 +195,7 @@ def mppi_solve(
     per round (mppi_solve_batched draws one per scenario)."""
     x0 = state_tensor(x0)
     m = _input_dim(m, us_init)
-    generator = seeded_generator(generator, x0.device)
+    generator = seeded_generator(generator, x0.device, key)
     eps = mppi_kernel.draw_eps(generator, 1, iters, samples, horizon, m, sigma, x0.dtype)[0]
     return _mppi_core(f, x0, cost_fn, eps, lam=lam, sigma=sigma, u_lo=u_lo, u_hi=u_hi,
                       us_init=us_init, baseline_mix=baseline_mix)
@@ -225,7 +231,8 @@ def route_mppi(device_type: str, dtype: torch.dtype, cost_fn, samples: int, hori
 
 
 def mppi_solve_batched(f, x0s, cost_fn, horizon: int, generator: Optional[torch.Generator] = None,
-                       method: str = "auto", eps_stream: str = "exact", **kwargs) -> MPPIResult:
+                       method: str = "auto", eps_stream: str = "exact", *,
+                       key: Optional[torch.Generator] = None, **kwargs) -> MPPIResult:
     """Independent solves of the scenarios x0s (N, n), each with its own
     sample stream.
 
@@ -238,14 +245,14 @@ def mppi_solve_batched(f, x0s, cost_fn, horizon: int, generator: Optional[torch.
     fp tolerance; "direct" draws them in the kernel's layout in one call (a
     different, statistically equivalent stream). The perturbations take
     iters*T*m*N*K floats of device memory (84 MB at N = K = 256, T = 40,
-    8 rounds)."""
+    8 rounds). key is the JAX package's name of generator."""
     x0s = state_tensor(x0s)
     if eps_stream not in ("exact", "direct"):
         raise ValueError(f"unknown eps_stream {eps_stream!r} (exact|direct)")
     m = _input_dim(kwargs.get("m"), kwargs.get("us_init"))
     route = route_mppi(x0s.device.type, x0s.dtype, cost_fn, kwargs.get("samples", 1024), horizon,
                        m, kwargs.get("baseline_mix", 0.0), method)
-    generator = seeded_generator(generator, x0s.device)
+    generator = seeded_generator(generator, x0s.device, key)
     if route == "pallas":
         return _mppi_solve_batched_pallas(f, x0s, cost_fn, horizon, generator,
                                           eps_stream=eps_stream, **kwargs)
@@ -284,13 +291,15 @@ def _mppi_solve_batched_pallas(f, x0s, cost_fn, horizon, generator, samples=1024
                              u_lo=u_lo, u_hi=u_hi, us_init=us_init)
 
 
-def mppi_step(f, state, x_now, cost_fn, generator: Optional[torch.Generator] = None,
-              **kwargs) -> tuple:
+def mppi_step(f, state, x_now, cost_fn, generator: Optional[torch.Generator] = None, *,
+              key: Optional[torch.Generator] = None, **kwargs) -> tuple:
     """Receding-horizon tick: re-solve from x_now warm-started with the
     previous plan shifted by one step (the standard MPC warm start). state
-    is the previous plan (T, m). Returns (u_apply, result)."""
+    is the previous plan (T, m). Returns (u_apply, result). key is the JAX
+    package's name of generator."""
     x_now = state_tensor(x_now)
     us_prev = torch.as_tensor(state, dtype=x_now.dtype, device=x_now.device)
     us_shift = torch.cat([us_prev[1:], us_prev[-1:]], dim=0)
-    res = mppi_solve(f, x_now, cost_fn, us_prev.shape[0], generator, us_init=us_shift, **kwargs)
+    res = mppi_solve(f, x_now, cost_fn, us_prev.shape[0], given_generator(generator, key),
+                     us_init=us_shift, **kwargs)
     return res.us[0], res

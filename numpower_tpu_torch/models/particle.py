@@ -32,7 +32,7 @@ import torch
 
 from numpower_tpu_torch.kernels import pf_resample
 from numpower_tpu_torch.models.estimation import _psd_sqrt
-from numpower_tpu_torch.utils.device import seeded_generator, state_tensor
+from numpower_tpu_torch.utils.device import given_generator, seeded_generator, state_tensor
 
 
 class ParticleFilterResult(NamedTuple):
@@ -193,14 +193,17 @@ def particle_filter(
     n_particles: int = 1024,
     resample_threshold: float = 0.5,
     resample_method: str = "auto",
+    *,
+    key: Optional[torch.Generator] = None,
 ) -> ParticleFilterResult:
     """Bootstrap particle filter. Resamples (systematic) when
     ESS < resample_threshold * n_particles; threshold 1.0 forces every step,
     0.0 never resamples. resample_method (see route_resample): "auto" (K14
     for float32 on the card, "gather" elsewhere), "pallas", "onehot" or
-    "gather"; the filter is the same with each."""
+    "gather"; the filter is the same with each. key is the JAX package's
+    name of generator (utils.device.given_generator)."""
     x0, Q, R, P0, ys, us = _operands(x0, Q, R, P0, ys, us)
-    noise0, prop, u0s = _draws(generator, (), int(n_particles), x0.shape[-1], ys.shape[-2], x0)
+    noise0, prop, u0s = _draws(given_generator(generator, key), (), int(n_particles), x0.shape[-1], ys.shape[-2], x0)
     return _particle_filter_core(f, h, Q, R, x0, P0, ys, us, noise0, prop, u0s,
                                  resample_threshold, resample_method)
 
@@ -215,12 +218,15 @@ def particle_filter_batched(
     n_particles: int = 1024,
     resample_threshold: float = 0.5,
     resample_method: str = "auto",
+    *,
+    key: Optional[torch.Generator] = None,
 ) -> ParticleFilterResult:
     """Independent filters of B trajectories with independent draws, the
     cloud (B, N, n) as one batch: on the card each step resamples all
-    trajectories with one K14 launch (T launches per call)."""
+    trajectories with one K14 launch (T launches per call). key is the JAX
+    package's name of generator."""
     x0s, Q, R, P0, yss, uss = _operands(x0s, Q, R, P0, yss, uss)
-    noise0, prop, u0s = _draws(generator, x0s.shape[:1], int(n_particles), x0s.shape[-1],
+    noise0, prop, u0s = _draws(given_generator(generator, key), x0s.shape[:1], int(n_particles), x0s.shape[-1],
                                yss.shape[-2], x0s)
     return _particle_filter_core(f, h, Q, R, x0s, P0, yss, uss, noise0, prop, u0s,
                                  resample_threshold, resample_method)

@@ -45,6 +45,8 @@ def simulate_closed_loop(
     # (est_state, y (N, p), u_prev (N, m)) -> (xhat (N, n), est_state)
     est_state0=None,
     xhat0: Optional[torch.Tensor] = None,  # initial estimates (default: x0s)
+    *,
+    key: Optional[torch.Generator] = None,  # the JAX package's name of generator
 ) -> SimResult:
     """Run N closed loops for `steps` ticks.
 
@@ -62,7 +64,7 @@ def simulate_closed_loop(
                          "(the estimator consumes y = h(x) + noise)")
     N, n = x0s.shape
     kw = dict(dtype=x0s.dtype, device=x0s.device)
-    generator = seeded_generator(generator, x0s.device)
+    generator = seeded_generator(generator, x0s.device, key)
     w_std = torch.as_tensor(w_std, **kw).expand(n)
     v_std = torch.as_tensor(v_std, **kw)
     x, xh = x0s, (x0s if xhat0 is None else xhat0)

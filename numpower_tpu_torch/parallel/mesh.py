@@ -70,7 +70,8 @@ def _prod(xs) -> int:
 
 def make_mesh(shape: Optional[Tuple[int, int]] = None,
               axis_names: Optional[Tuple[str, str]] = None,
-              device: Optional[torch.device] = None) -> Optional[Mesh]:
+              device: Optional[torch.device] = None,
+              devices: Optional[Sequence] = None) -> Optional[Mesh]:
     """Build a (data, model) mesh over the ranks of the default process
     group (parallel/distributed.initialize, or ``init_process_group``).
 
@@ -80,11 +81,22 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None,
     needs more ranks than the group has. Every rank must call it (the axis
     groups are made collectively); a rank beyond the shape's ranks gets
     None. device: this rank's device, by default ``cuda:(rank % cards)``
-    on an NCCL group and the CPU otherwise."""
+    on an NCCL group and the CPU otherwise. devices (the JAX package's
+    argument): one device for each rank of the group, rank r taking
+    ``devices[r]``; ValueError where its length is not the group's size,
+    TypeError where device is given too."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs torch.distributed: call "
                            "parallel.distributed.initialize (or init_process_group) first")
     world, rank = dist.get_world_size(), dist.get_rank()
+    if devices is not None:
+        if device is not None:
+            raise TypeError("pass this rank's device= or every rank's devices=, not both")
+        devices = list(devices)
+        if len(devices) != world:
+            raise ValueError(f"{len(devices)} devices for a group of {world} ranks: "
+                             "devices= takes one device for each rank")
+        device = devices[rank]
     axis_names = tuple(axis_names or (config.data_axis, config.model_axis))
     shape = tuple(shape or config.mesh_shape or (world, 1))
     D, M = shape

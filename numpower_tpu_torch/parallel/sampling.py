@@ -50,7 +50,13 @@ from numpower_tpu_torch.models.particle import (
 from numpower_tpu_torch.models.rollout import rollout_nonlinear
 from numpower_tpu_torch.parallel.mesh import Mesh
 from numpower_tpu_torch.parallel.sharding import _all_reduce
-from numpower_tpu_torch.utils.device import seeded_generator, state_tensor
+from numpower_tpu_torch.utils.device import given_generator, seeded_generator, state_tensor
+
+
+def _required_mesh(mesh):
+    if mesh is None:
+        raise TypeError("the data-parallel solvers need a mesh (parallel.mesh.make_mesh)")
+    return mesh
 
 
 def mppi_solve_dp(
@@ -58,8 +64,8 @@ def mppi_solve_dp(
     x0s,                      # (N_local, n): this rank's block of the scenarios
     cost_fn: Callable,
     horizon: int,
-    generator: Optional[torch.Generator],
-    mesh: Mesh,
+    generator: Optional[torch.Generator] = None,
+    mesh: Optional[Mesh] = None,
     samples: int = 1024,
     iters: int = 8,
     lam: float = 1.0,
@@ -68,6 +74,8 @@ def mppi_solve_dp(
     u_hi: Optional[float] = None,
     m: int = 1,
     shard_samples: bool = True,
+    *,
+    key: Optional[torch.Generator] = None,
 ) -> MPPIResult:
     """Data-parallel MPPI: scenarios over the data axis, the K samples over
     the model axis (shard_samples=False keeps all samples on every rank: pure
@@ -78,7 +86,9 @@ def mppi_solve_dp(
     ``generator`` (default: seeded 0 on the block's device) on every rank and
     sliced to its scenarios and samples. Cold nominal only (no us_init or
     baseline_mix), as in the JAX package. Returns this rank's block of the
-    MPPIResult."""
+    MPPIResult. key is the JAX package's name of generator; mesh is
+    required (it has a default only so that key= can be passed by name)."""
+    mesh = _required_mesh(mesh)
     x0s = state_tensor(x0s)
     samp_ax = mesh.axis_names[1] if shard_samples else None
     n_samp = mesh.size(samp_ax) if samp_ax else 1
@@ -88,7 +98,7 @@ def mppi_solve_dp(
     data_ax = mesh.axis_names[0]
     row0 = mesh.index(data_ax) * N_loc
     col0 = mesh.index(samp_ax) * K_loc if samp_ax else 0
-    generator = seeded_generator(generator, x0s.device)
+    generator = seeded_generator(generator, x0s.device, key)
     eps = mppi_kernel.draw_eps(generator, N_loc * mesh.size(data_ax), iters, samples, horizon,
                                m, sigma, x0s.dtype)
     eps = eps[row0:row0 + N_loc, :, col0:col0 + K_loc]
@@ -148,12 +158,14 @@ def particle_filter_dp(
     P0,
     ys,                      # (T, p)
     us,                      # (T, m)
-    generator: Optional[torch.Generator],
-    mesh: Mesh,
+    generator: Optional[torch.Generator] = None,
+    mesh: Optional[Mesh] = None,
     n_particles: int = 1024,
     resample_threshold: float = 0.5,
     axis: Optional[str] = None,
     resample_method: str = "auto",
+    *,
+    key: Optional[torch.Generator] = None,
 ) -> ParticleFilterResult:
     """Bootstrap particle filter with the cloud sharded over ``axis``
     (default: the data axis): rank k of the axis holds particles
@@ -168,7 +180,9 @@ def particle_filter_dp(
     float32 on the card), applied to the gathered global cloud.
 
     Returns the replicated means, covs, ess and log_likelihood, and this
-    rank's block of the final particles and log-weights."""
+    rank's block of the final particles and log-weights. key and mesh as in
+    :func:`mppi_solve_dp`."""
+    mesh = _required_mesh(mesh)
     x0, Q, R, P0, ys, us = _operands(x0, Q, R, P0, ys, us)
     ax = axis or mesh.axis_names[0]
     D, N = mesh.size(ax), int(n_particles)
@@ -176,7 +190,8 @@ def particle_filter_dp(
         raise ValueError(f"n_particles={N} not divisible by axis {ax}={D}")
     N_loc = N // D
     rows = slice(mesh.index(ax) * N_loc, (mesh.index(ax) + 1) * N_loc)
-    noise0, prop, u0s = _draws(generator, (), N, x0.shape[-1], ys.shape[-2], x0)
+    noise0, prop, u0s = _draws(given_generator(generator, key), (), N, x0.shape[-1],
+                               ys.shape[-2], x0)
     return _particle_filter_dp_core(f, h, Q, R, x0, P0, ys, us, noise0[rows], prop[:, rows],
                                     u0s, N, mesh, ax, resample_threshold, resample_method)
 

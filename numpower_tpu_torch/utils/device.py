@@ -35,10 +35,21 @@ def follow(like: torch.Tensor, *xs) -> tuple:
                  for x in xs)
 
 
-def seeded_generator(generator, device) -> torch.Generator:
+def given_generator(generator, key):
+    """The generator an entry point was handed, by ``generator=`` or by the
+    JAX package's name ``key=`` (a ``torch.Generator`` either way, as
+    ops.random takes it); None where neither is given. TypeError for both."""
+    if key is not None and generator is not None:
+        raise TypeError("pass the generator as generator= or as key=, not both")
+    return generator if key is None else key
+
+
+def seeded_generator(generator, device, key=None) -> torch.Generator:
     """The random stream of an entry point that takes a generator where the
-    JAX package takes a key: ``generator`` itself, or, where it is None, a
-    new one seeded 0 on ``device``."""
+    JAX package takes a key: ``generator`` (or ``key``, its JAX name,
+    :func:`given_generator`) itself, or, where neither is given, a new one
+    seeded 0 on ``device``."""
+    generator = given_generator(generator, key)
     if generator is None:
         return torch.Generator(device=device).manual_seed(0)
     return generator
