@@ -249,18 +249,37 @@ The captured serving tick and the mirror of jit_eig (run right after phase 4):
    torch.compile(ops.eig) and ops.eig each with sorted real eigenvalues
    within 1e-3 of numpy's.
 
+The box-QP kernels past d = 128 (the wide tile: a cluster of ceil(d / 128)
+blocks, run right after phase 26):
+
+27. config #4's model and weights at T = 100 (d = 400, kappa 783) and the
+   range's edges T = 33 (d = 132) and T = 256 (d = 1024), N = 4096: each of
+   the six kernels against its plain version and float64, cold and warm,
+   after two iterations (the narrow bounds) and after a solve (the narrow
+   bounds, or the fp32 floor the condition number sets: wide_boxqp_family's
+   compare), the precision classes and loop forms, a ragged N = 1003, a
+   kernel call at d = 1025 raising ValueError; then the path, its counters
+   zeroed just before it: solve_mpc_boxqp and solve_mpc_boxqp_admm with and
+   without x_ref against float64, MPCController(horizon=100) with FISTA,
+   ADMM and FISTA + x_ref, 20 ticks each (19 replays, each bit for bit the
+   eager tick, one graph), the DP solvers beside K2' and K1' on a one-rank
+   NCCL group; cudaOccupancyMaxActiveClusters for 2-8 blocks a cluster;
+   own, wrapper and plain times at d = 132, 400 and 1024 and the captured
+   T = 100 tick's.
+
 Every kernel's own duration (torch.profiler's CUDA activity, log_own) is
 logged in the times phases (4, 7, 10, 13, 16, 19) beside its wrapper's
-CUDA-event time and host enqueue: K1, K2 (4); K5, K6a, K6b (7); K3a, K3b,
+CUDA-event time and host enqueue (the wide tile's in 27): K1, K2 (4); K5, K6a, K6b (7); K3a, K3b,
 K7 and K8 at N = 256 and 4096 (10); K9-K12, K9 also with inputs and K11
 also on the unicycle and the planar quadrotor (13); K13 at the bench's shape
 and, by a direct call, at N = 4096, K14 (16); K1', K2' (19).
 
 The launch counters of each path are zeroed just before it is driven
 (phases 2-3, 6, the path of 8, the path of 9, phase 12, the paths of 14
-and 15, phase 18 and the AL-iLQR and particle-filter paths of 23) and read
-just after. A wrapper counts the launches it makes; a replayed CUDA graph
-(the captured serving ticks of phases 3 and 8) calls none, so the kernel's
+and 15, phase 18, the AL-iLQR and particle-filter paths of 23 and the path
+of 27) and read just after. A wrapper counts the launches it makes; a
+replayed CUDA graph (the captured serving ticks of phases 3, 8 and 27)
+calls none, so the kernel's
 runs in those ticks are counted from torch.profiler's CUDA activity and
 added to the wrapper's count in the kernels line. The last lines are the
 total wall time, one JSON object listing every kernel with its bound
@@ -383,8 +402,10 @@ def kernel_runs(fn, kernel: str, attempts: int = 5):
     `kernel` during it), from torch.profiler's CUDA activity: how the launches
     of a replayed CUDA graph are counted, which no wrapper sees. The
     profiler drops a session's GPU records now and then late in a process
-    (utils_family): a trace with no GPU record at all is logged and fn
-    called again, up to `attempts` times."""
+    (utils_family), all of them or only some (a trace late in the card
+    tests' process kept a tick's copies and not its kernel): a trace with
+    no record of `kernel` is logged and fn called again, up to `attempts`
+    times; a kernel that never runs fails every attempt, which raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -394,10 +415,12 @@ def kernel_runs(fn, kernel: str, attempts: int = 5):
             out = fn()
             torch.cuda.synchronize()
         gpu = [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
-        if gpu:
-            return out, sum(kernel in name for name in gpu)
-        log(f"torch.profiler kept no GPU record of {kernel}'s run (attempt {attempt})")
-    raise RuntimeError(f"torch.profiler kept no GPU record in {attempts} attempts")
+        runs = sum(kernel in name for name in gpu)
+        if runs:
+            return out, runs
+        log(f"torch.profiler kept no GPU record of {kernel}'s run among {len(gpu)} records "
+            f"(attempt {attempt})")
+    raise RuntimeError(f"torch.profiler kept no GPU record of {kernel} in {attempts} attempts")
 
 
 def tick_runs(ctrl, state, x0s, kernel: str, with_residual: bool = False):
@@ -3363,6 +3386,384 @@ def jit_eig_family(dev) -> None:
         require(dev_ < 1e-3, f"{what} eigenvalues")
 
 
+# Phase 27: the box-QP kernels past d = 128 on the wide tile (a cluster of
+# ceil(d / 128) blocks, csrc/boxqp_tile.cuh): config #4's model and weights at
+# horizon 100 (d = 400, the JAX package's long-horizon test), and the edges of
+# the range at horizons 33 (d = 132, two blocks, ragged) and 256 (d = 1024,
+# eight, the edge)
+T_WIDE, T_WIDE_EDGES, N_WIDE_RAGGED = 100, (33, 256), 1003
+
+
+def wide_boxqp_family(dev, smi: str) -> list:
+    """Phase 27: the six box-QP kernels on the wide tile. Each against its
+    plain version at N = 4096 and d = 400 (cold and warm, all-fp32 and a
+    20-iteration coarse phase; the precision classes and loop forms) and K1,
+    K2 against float64; the edges d = 132 and 1024, a ragged N = 1003, a
+    kernel call at d = 1025 raising ValueError; then the path, its counters
+    zeroed just before it: solve_mpc_boxqp and solve_mpc_boxqp_admm with and
+    without x_ref against float64, MPCController(horizon=100) with FISTA,
+    ADMM and FISTA + x_ref for 20 ticks each (the first eager, the others
+    replays, each bit for bit the eager tick from the same state, the
+    replays' kernel runs counted by torch.profiler), and the DP solvers
+    beside K2' and K1' on a one-rank NCCL group; then the times at d = 132,
+    400 and 1024 (own, wrapper, plain) and the captured tick's, and
+    cudaOccupancyMaxActiveClusters for each cluster size. Returns the wide
+    kernels' entries of the JSON line."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from numpower_tpu_torch.kernels import _build, boxqp_admm, boxqp_fista
+    from numpower_tpu_torch.models import (
+        MPCController, MPCState, condense, gradient_offset, quadrotor12, solve_mpc_boxqp,
+        solve_mpc_boxqp_admm,
+    )
+    from numpower_tpu_torch.models.condensed import admm_coarse_iters, default_coarse_iters
+    from numpower_tpu_torch.parallel import (
+        make_mesh, shard_batch, solve_mpc_boxqp_admm_dp, solve_mpc_boxqp_dp,
+    )
+    from numpower_tpu_torch.utils.flops import admm_mpc_cost, fista_mpc_cost
+
+    n, m, iters = 12, 4, 40
+    A, B = quadrotor12(0.02)
+    Q = np.eye(n, dtype=np.float32)
+    R = np.eye(m, dtype=np.float32) * 0.1
+    QF = np.eye(n, dtype=np.float32) * 5.0
+    x0s = torch.as_tensor(0.3 * np.random.default_rng(0).standard_normal((N, n)),
+                          dtype=torch.float32, device=dev)
+    x_ref = torch.as_tensor(0.2 * np.random.default_rng(5).standard_normal(n),
+                            dtype=torch.float32, device=dev)
+
+    class Case:
+        """One horizon's QP and the operands of its six kernels."""
+
+        def __init__(self, T):
+            self.T, self.d = T, T * m
+            self.qp = qp = condense(A, B, Q, R, QF, T, device=dev)
+            self.fold, self.lip = (qp.H, qp.Sx.T, qp.SuTQ.T), qp.lipschitz
+            self.rho = torch.sqrt(qp.lipschitz * torch.clamp(qp.mu, min=1e-12))
+            self.Minv = boxqp_admm.minv_factor(qp.H, self.rho)
+            self.ci = (default_coarse_iters(qp, iters), admm_coarse_iters(qp, iters))
+            self.g = gradient_offset(qp, x0s, x_ref).contiguous()
+            # a warm start in the box: g shifted one stage, clipped
+            self.U0 = torch.cat([self.g[:, m:], self.g[:, -m:]], 1).clamp(LO, HI).contiguous()
+            self.f64 = {k: getattr(self, k).double() for k in ("lip", "rho", "Minv", "g", "U0")}
+            self.f64["fold"] = [t.double() for t in self.fold]
+
+        def run(self, name, xs, coarse, warm, kernel=True, f64=False, its=iters, **kw):
+            """Kernel `name` (or its plain version, in float64 with f64) on
+            xs's rows, `its` iterations: its outputs."""
+            N_ = xs.shape[0]
+            op = self.f64 if f64 else vars(self)
+            fold, lip, rho, Minv = op["fold"], op["lip"], op["rho"], op["Minv"]
+            U0 = op["U0"][:N_] if warm else None
+            g = op["g"][:N_]
+            xs = xs.double() if f64 else xs
+            mod = boxqp_fista if name.startswith("fista") else boxqp_admm
+            fn = getattr(mod, name if kernel else f"{name}_reference")
+            if name == "fista_mpc_res":
+                return fn(*fold, xs, LO, HI, lip, its, coarse, U0, **kw)
+            if name == "admm_mpc_res":
+                return fn(*fold, xs, LO, HI, rho, its, coarse, Minv=Minv, U0=U0, **kw)
+            if name == "fista_boxqp":
+                return (fn(fold[0], g, LO, HI, lip, its, coarse, U0),)
+            if name == "admm_boxqp":
+                return fn(fold[0], g, LO, HI, rho, its, coarse, U0=U0, Minv=Minv)
+            if name == "fista_mpc":
+                return fn(*fold, xs, LO, HI, lip, its, coarse)
+            return fn(*fold, xs, LO, HI, rho, its, coarse, Minv=Minv)
+
+    cases = {T: Case(T) for T in (T_WIDE, *T_WIDE_EDGES)}
+    main = cases[T_WIDE]
+    names = ("fista_mpc_res", "admm_mpc_res", "fista_boxqp", "admm_boxqp", "fista_mpc",
+             "admm_mpc")
+    takes_warm = {"fista_mpc_res", "admm_mpc_res", "fista_boxqp", "admm_boxqp"}
+    short = {"fista_mpc_res": "K2", "admm_mpc_res": "K1", "fista_boxqp": "K3b",
+             "admm_boxqp": "K3a", "fista_mpc": "K2'", "admm_mpc": "K1'"}
+    log("phase 27: d = " + ", ".join(f"{c.d} (T = {c.T}, kappa {c.qp.kappa:.1f}, schedules "
+                                       f"FISTA {c.ci[0]}+{iters - c.ci[0]}, ADMM {c.ci[1]}+"
+                                       f"{iters - c.ci[1]}, {-(-c.d // 128)} blocks a cluster)"
+                                       for c in cases.values()))
+
+    def compare(case, name, xs, coarse, warm, tol, its=iters, **kw):
+        """The kernel against its plain version and against the same
+        iteration in float64 (the plain version of the "highest" class on
+        float64 operands), `its` iterations.
+
+        The fp32 floor of a case is the plain fp32 version's own distance
+        from float64. It is small where the problem is well conditioned
+        (~2e-6 at config #4, kappa 3.6) and large at long horizons, where
+        the condition number amplifies rounding and |g| grows: after 40
+        iterations ~5e-5 for FISTA and ~3e-4 for ADMM at T = 100 (kappa
+        783, |g| up to ~400), ~8e-3 for ADMM at T = 256 (kappa 4e5); after
+        two, up to ~6e-5 already where the dual y carries |c| ~ |g|. The
+        kernel is held within `reach` floors of float64 and one more of its
+        plain version (the triangle inequality), or the narrow instances'
+        bounds where those are larger (`tol`; 1e-4 from float64 for a
+        solve; residuals 1e-5, or 1e-4 of their size for a solve; g 1e-5 of
+        its size): 2 after two iterations, which test the wide tile's
+        products with little amplification, and 4 after a solve, where
+        the kernel's own distance from float64 reaches ~3.6x the plain
+        version's, as its tensor-core sums over d terms truncate where the
+        fp32 product rounds and its split classes drop other terms than
+        the plain version's (PERF.md, section 6). Returns the log line, whether
+        every bound held, max |d| and the floor."""
+        got = case.run(name, xs, coarse, warm, its=its, **kw)
+        want = case.run(name, xs, coarse, warm, kernel=False, its=its, **kw)
+        exact = case.run(name, xs, coarse, warm, kernel=False, f64=True, its=its)
+        dg = 0.0
+        if name in ("fista_mpc", "admm_mpc"):  # g last
+            dg = max_err(got[-1], want[-1]) / want[-1].abs().max().item()
+            got, want, exact = got[:-1], want[:-1], exact[:-1]
+        tens = [(max_err(a, b), max_err(b, c), max_err(a, c))
+                for a, b, c in zip(got, want, exact) if a.ndim]
+        de, floor, de64 = (max(t[i] for t in tens) for i in range(3))
+        scal = [(abs(a.item() - b.item()), abs(b.item() - c.item()), abs(c.item()))
+                for a, b, c in zip(got, want, exact) if not a.ndim]
+        solve = its == iters
+        reach = 4 if solve else 2
+        ok = (de <= max(tol, (reach + 1) * floor) and dg <= 1e-5
+              and de64 <= max(1e-4 if solve else tol, reach * floor)
+              and all(dr <= max(1e-5, (reach + 1) * fr, 1e-4 * size if solve else 0.0)
+                      for dr, fr, size in scal))
+        line = (f"{its} iterations: max|d| {de:.3e} (plain fp32 from float64 {floor:.3e}, "
+                f"tol {max(tol, (reach + 1) * floor):.3e}), from float64 {de64:.3e}; residuals "
+                + (", ".join(f"{dr:.3e} (floor {fr:.3e}, size {size:.3e})"
+                             for dr, fr, size in scal) or "none")
+                + f"; g relative {dg:.3e}: {'held' if ok else 'FAILED'}")
+        return line, ok, de, floor
+
+    # -- phase 27: each wide kernel against its plain version ---------------------
+    err = dict.fromkeys(names, 0.0)
+    f0 = {k: getattr(boxqp_fista if k.startswith("fista") else boxqp_admm, k).launches
+          for k in names}
+    held, floors = True, {}
+    for case in cases.values():
+        xs_all = {"N = 4096": x0s}
+        if case is main:
+            xs_all[f"N = {N_WIDE_RAGGED}"] = x0s[:N_WIDE_RAGGED]
+        for label, xs in xs_all.items():
+            for name in names:
+                coarse = case.ci[0] if name.startswith("fista") else case.ci[1]
+                for warm in ((False, True) if name in takes_warm else (False,)):
+                    line, ok, de, floor = compare(case, name, xs, coarse, warm,
+                                                  1e-5 if coarse == 0 else 1e-4)
+                    log(f"wide d = {case.d} {label} {short[name]} {name} {coarse}+"
+                        f"{iters - coarse} {'warm' if warm else 'cold'}: {line}")
+                    held = held and ok
+                    if case is main and xs is x0s:
+                        err[name] = max(err[name], de)
+                        floors[name] = max(floors.get(name, 0.0), floor)
+                    if xs is x0s and warm == (name in takes_warm):
+                        line, ok, _, _ = compare(case, name, xs, 0, warm, 1e-5, its=2)
+                        log(f"wide d = {case.d} {label} {short[name]} {name} "
+                            f"{'warm' if warm else 'cold'}: {line}")
+                        held = held and ok
+    variants = [("admm_mpc_res", {"form": f}) for f in ("zy", "sp")]
+    variants += [("admm_mpc_res", {"c_precision": c}) for c in ("bf16x4", "bf16x3")]
+    variants += [("fista_mpc_res", {"tail_precision": tp, "g_precision": gp})
+                 for tp in ("bf16x3", "highest") for gp in ("highest", "bf16x4", "bf16x3")
+                 if (tp, gp) != ("highest", "highest")]
+    for name, kw in variants:
+        # the bf16x3 tail's all-fp32 bound, phase 17's
+        tol = 3e-5 if kw.get("tail_precision") == "bf16x3" else 1e-5
+        for its in (2, iters):
+            line, ok, _, _ = compare(main, name, x0s, 0, True, tol, its=its, **kw)
+            log(f"wide d = {main.d} {short[name]} {kw} warm: {line}")
+            held = held and ok
+    calls = {k: getattr(boxqp_fista if k.startswith("fista") else boxqp_admm, k).launches - f0[k]
+             for k in names}
+    # d = 1025: past the JAX package's bound, an explicit kernel call raises
+    over = 1025
+    H_over, SxT_over = torch.eye(over, device=dev), torch.eye(n, device=dev)
+    SuTQT_over, g_over = torch.zeros((n, over), device=dev), torch.zeros((N, over), device=dev)
+    raised = []
+    for fn in (lambda: boxqp_fista.fista_mpc_res(H_over, SxT_over, SuTQT_over, x0s, LO, HI, 1.0,
+                                                 4, 0),
+               lambda: boxqp_admm.admm_mpc_res(H_over, SxT_over, SuTQT_over, x0s, LO, HI, 1.0,
+                                               4, 0),
+               lambda: boxqp_fista.fista_boxqp(H_over, g_over, LO, HI, 1.0, 4, 0)):
+        try:
+            fn()
+            raised.append(False)
+        except ValueError:
+            raised.append(True)
+    log(f"wide d = {over}: K2, K1, K3b raise ValueError: {raised}")
+    require(all(raised), "a kernel call at d = 1025 raises ValueError")
+    require(held, "every wide kernel agrees with its plain version and float64")
+    require(all(c >= 1 for c in calls.values()), f"each wide kernel launched ({calls})")
+
+    # -- phase 27: the path at d = 400, counted -----------------------------------
+    counters = {k: getattr(boxqp_fista if k.startswith("fista") else boxqp_admm, k)
+                for k in names}
+    for c in counters.values():
+        c.launches = 0
+    qp = main.qp
+    res = {"fista": solve_mpc_boxqp(qp, x0s, LO, HI, iters=iters),
+           "fista x_ref": solve_mpc_boxqp(qp, x0s, LO, HI, x_ref=x_ref, iters=iters),
+           "admm": solve_mpc_boxqp_admm(qp, x0s, LO, HI, iters=iters),
+           "admm x_ref": solve_mpc_boxqp_admm(qp, x0s, LO, HI, x_ref=x_ref, iters=iters)}
+    A_t, B_t = torch.as_tensor(A, device=dev), torch.as_tensor(B, device=dev)
+    serving, replayed = {}, {}
+    for case, kw, kernel in (("fista", {"solver": "fista"}, "fista_kernel"),
+                             ("admm", {"solver": "admm"}, "admm_kernel"),
+                             ("fista x_ref", {"x_ref": x_ref}, "fista_kernel")):
+        ctrl = MPCController(A, B, Q, R, QF, T_WIDE, LO, HI, iters=30, device=dev, **kw)
+        state = ctrl.init(N)
+        u0, state = ctrl.step(state, x0s)  # eager, captured
+        x1 = x0s @ A_t.T + u0 @ B_t.T
+        start = state.U_prev.clone()
+        twins = []
+
+        def ticks(ctrl=ctrl, state=state, x1=x1, start=start, twins=twins):
+            # restartable: kernel_runs may call it again
+            state.U_prev.copy_(start)
+            twins.clear()
+            s, x = state, x1
+            for _ in range(N_TICKS - 1):
+                twins.append((MPCState(U_prev=s.U_prev.clone(), tick=s.tick), x))
+                u, s = ctrl.step(s, x)
+                twins[-1] += (u.clone(), s.U_prev.clone())
+                x = x @ A_t.T + u @ B_t.T
+            return s, x
+
+        (state, x), replayed[case] = kernel_runs(ticks, kernel)
+        serving[case] = (ctrl, twins, state, x)
+    mesh_res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1, 1))
+            xb = shard_batch(x0s, mesh)
+            mesh_res["K2'"], _ = boxqp_fista.fista_mpc(*main.fold, xb, LO, HI, main.lip, iters,
+                                                       main.ci[0])
+            mesh_res["DP"] = solve_mpc_boxqp_dp(qp, xb, LO, HI, mesh, iters)
+            mesh_res["K1'"], _, _ = boxqp_admm.admm_mpc(*main.fold, xb, LO, HI, main.rho, iters,
+                                                        main.ci[1], Minv=main.Minv)
+            mesh_res["ADMM-DP"] = solve_mpc_boxqp_admm_dp(qp, xb, LO, HI, mesh, iters=iters)
+        finally:
+            dist.destroy_process_group()
+    counted = {short[k]: c.launches for k, c in counters.items()}
+    runs = {"K2": replayed["fista"], "K1": replayed["admm"], "K3b": replayed["fista x_ref"]}
+    launches = {k: v + runs.get(k, 0) for k, v in counted.items()}
+    log(f"wide path launches: {launches} (wrappers {counted}, replayed ticks {runs}, "
+        "torch.profiler)")
+    require(counted == {"K2": 3, "K1": 3, "K3b": 2, "K3a": 1, "K2'": 1, "K1'": 1}
+            and all(v == N_TICKS - 1 for v in runs.values()),
+            "every solve and tick of the wide path went through the wide kernels")
+
+    # the path's results (after the counters were read), against the same
+    # iteration in float64 within compare's bound: 1e-4, or four times the
+    # fp32 floor (the plain fp32 version's distance from float64)
+    e_path = {}
+    for key, name in (("fista", "fista_mpc_res"), ("fista x_ref", "fista_boxqp"),
+                      ("admm", "admm_mpc_res"), ("admm x_ref", "admm_boxqp")):
+        coarse = main.ci[0] if name.startswith("fista") else main.ci[1]
+        exact = main.run(name, x0s, coarse, False, kernel=False, f64=True)[0]
+        floor = max_err(main.run(name, x0s, coarse, False, kernel=False)[0], exact)
+        e_path[key] = (max_err(res[key].U, exact), floor)
+    log(f"wide path vs float64 (d = {main.d}, {N} scenarios, schedules FISTA {main.ci[0]}, "
+        f"ADMM {main.ci[1]} coarse): " + ", ".join(f"{k} {e:.3e} (fp32 floor {f:.3e})"
+                                                   for k, (e, f) in e_path.items())
+        + " (tol max(1e-4, 4 floor))")
+    require(all(e <= max(1e-4, 4 * f) for e, f in e_path.values()),
+            "the wide path's solves against float64")
+    for case, (ctrl, twins, state, x) in serving.items():
+        bitwise = True
+        for twin, x_t, u_t, plan_t in twins:
+            u_e, eager, _ = ctrl._step_impl(ctrl.qp, twin, x_t)
+            bitwise = bitwise and torch.equal(u_t, u_e) and torch.equal(plan_t, eager.U_prev)
+        log(f"wide serving {case} (T = {T_WIDE}, {N} scenarios, iters 30, "
+            f"{ctrl.coarse_iters} bf16): {N_TICKS} ticks, {len(twins)} replays each bit for bit "
+            f"the eager tick from the same state: {bitwise}; compile_cache_size "
+            f"{ctrl.compile_cache_size()}; |x| {x.abs().max().item():.3e}")
+        require(bitwise and ctrl.compile_cache_size() == 1 and state.tick == N_TICKS
+                and bool(torch.isfinite(x).all()),
+                f"wide {case}: replays bit for bit the eager ticks, one graph")
+    e_dp = {"DP vs K2": max_err(mesh_res["DP"].U, res["fista"].U),
+            "DP vs K2'": max_err(mesh_res["DP"].U, mesh_res["K2'"]),
+            "ADMM-DP vs K1'": max_err(mesh_res["ADMM-DP"].U, mesh_res["K1'"]),
+            "ADMM-DP vs K1": max_err(mesh_res["ADMM-DP"].U, res["admm"].U)}
+    # K1' forms c from g by a product where K1 folds it from x0: they part
+    # by rounding, within compare's bound on K1' (1e-4 or four floors)
+    tol_k1p = max(1e-4, 4 * floors["admm_mpc"])
+    log("wide DP path (one rank): " + ", ".join(f"{k} {v:.3e}" for k, v in e_dp.items())
+        + f" (tol 1e-5, 1e-5, {tol_k1p:.3e}, 1e-5)")
+    require(e_dp["DP vs K2"] <= 1e-5 and e_dp["DP vs K2'"] <= 1e-5
+            and e_dp["ADMM-DP vs K1'"] <= tol_k1p and e_dp["ADMM-DP vs K1"] <= 1e-5,
+            "the wide DP solves equal the direct kernels")
+
+    # -- phase 27: times ----------------------------------------------------------
+    lib = _build.library()
+    clusters = {b: lib.npt_boxqp_wide_clusters(n, 128 * b) for b in range(2, 9)}
+    log("wide cudaOccupancyMaxActiveClusters (K2, n = 12) by blocks a cluster: "
+        + ", ".join(f"{b}: {c}" for b, c in clusters.items()) + f" [{smi}]")
+    require(all(c >= 1 for c in clusters.values()), "every cluster size can be scheduled")
+    ms, plain_ms = {}, {}
+    for case in cases.values():
+        for name in names:
+            coarse = case.ci[0] if name.startswith("fista") else case.ci[1]
+            warm = name in takes_warm
+
+            def kern(case=case, name=name, coarse=coarse, warm=warm):
+                case.run(name, x0s, coarse, warm)
+
+            def plain(case=case, name=name, coarse=coarse, warm=warm):
+                case.run(name, x0s, coarse, warm, kernel=False)
+
+            key = (case.d, name)
+            ms[key] = cuda_ms(kern, reps=3, inner=5, warmup=1)
+            plain_ms[key] = cuda_ms(plain, reps=3, inner=2, warmup=1)
+            cost = (fista_mpc_cost if name.startswith("fista") else admm_mpc_cost)(
+                N, n, case.d, iters, coarse)
+            log_own(f"wide {short[name]} {name} d = {case.d} ({iters} iters, {coarse} coarse, "
+                    f"{N} scenarios, {'warm' if warm else 'cold'}); plain {plain_ms[key]:.4f} "
+                    f"ms, flops.py padded bound {cost.sol_seconds(989.0) * 1e3:.4f} ms",
+                    kern, "fista_kernel" if name.startswith("fista") else "admm_kernel",
+                    ms[key], smi, calls=10)
+    for case_name, (ctrl, _, state, _) in serving.items():
+        holder = [state]
+
+        def tick(ctrl=ctrl, holder=holder):
+            _, holder[0] = ctrl.step(holder[0], x0s)
+
+        log(f"time wide serving tick {case_name} (T = {T_WIDE}, d = {main.d}, 30 iters, {N} "
+            f"scenarios, captured): {cuda_ms(tick, reps=3, inner=5):.4f} ms, host enqueue "
+            f"{enqueue_ms(tick, 10):.4f} ms [{smi}]")
+
+    # entries at d = 400, the path's width: bytes each input read once and each
+    # output written once; bf16 tensor-core passes at the real d (the fold of
+    # g or c at "highest", each product of the schedule, the residual product)
+    d, T = main.d, main.T
+    ci_f, ci_a = main.ci
+    fold_passes = 2 * N * n * d * boxqp_passes(0, 1)
+    fold_bytes = 4 * (d * d + n * T * n + T * n * d + N * n + 1)
+    host_ops = 2 * n * (T * n) * d
+    spec = {
+        "fista_mpc_res": ("boxqp_fista.cu", "boxqp_fista.py:299",
+                          fold_bytes + 4 * 2 * N * d, host_ops,
+                          fold_passes + 2 * N * d * d * boxqp_passes(ci_f, iters - ci_f + 1)),
+        "admm_mpc_res": ("boxqp_admm.cu", "boxqp_admm.py:353",
+                         fold_bytes + 4 * (d * d + 2 * N * d + 2), host_ops + 2 * n * d * d,
+                         fold_passes + 2 * N * d * d * boxqp_passes(ci_a, iters - ci_a + 1)),
+        "fista_boxqp": ("boxqp_fista.cu", "boxqp_fista.py:119", 4 * (d * d + 3 * N * d + 1), 0,
+                        2 * N * d * d * boxqp_passes(ci_f, iters - ci_f)),
+        "admm_boxqp": ("boxqp_admm.cu", "boxqp_admm.py:186", 4 * (2 * d * d + 4 * N * d + 1), 0,
+                       2 * N * d * d * boxqp_passes(ci_a, iters - ci_a + 1)),
+        "fista_mpc": ("boxqp_fista.cu", "boxqp_fista.py:183",
+                      4 * (d * d + n * d + N * n + 2 * N * d), 0,
+                      fold_passes + 2 * N * d * d * boxqp_passes(ci_f, iters - ci_f)),
+        "admm_mpc": ("boxqp_admm.cu", "boxqp_admm.py:447",
+                     4 * (d * d + n * d + N * n + 3 * N * d), 0,
+                     fold_passes + 2 * N * d * d * boxqp_passes(ci_a, iters - ci_a + 1)),
+    }
+    return [kernel_entry(f"{name} (wide, d = {d})", src, rep, launches[short[name]], err[name],
+                         ms[(d, name)], plain_ms[(d, name)], n_bytes, n_ops,
+                         tensor_ops=tensor_ops)
+            for name, (src, rep, n_bytes, n_ops, tensor_ops) in spec.items()]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3396,14 +3797,18 @@ def main() -> int:
                         f"{entry} compiles without spills")
     sass = sass_opcode_counts(_build.library_path(), ("HGMMA", "LDS", "STS", "FFMA"))
     # the box-QP templates' products on the tensor cores: every instance (K2 in
-    # 2 x 3 classes, K3b, K2'; K1 in 3 forms x 3 classes, K3a, K1') holds wgmma
+    # 2 x 3 classes, K3b, K2'; K1 in 3 forms x 3 classes, K3a, K1'), on the
+    # narrow tile and on the wide one (phase 27), holds wgmma
     hgmma = {k: row["HGMMA"] for k, row in sass.items()
              if "boxqp::fista_kernel" in k or "boxqp::admm_kernel" in k}
     for name, count in sorted(hgmma.items()):
         log(f"HGMMA {count:4d} {name}")
-    require(sum("fista_kernel" in k for k in hgmma) == 8
-            and sum("admm_kernel" in k for k in hgmma) == 11
-            and all(hgmma.values()), "every box-QP kernel instance runs its products as wgmma")
+    for tile in ("NarrowTile", "WideTile"):
+        require(sum("fista_kernel" in k and tile in k for k in hgmma) == 8
+                and sum("admm_kernel" in k and tile in k for k in hgmma) == 11,
+                f"8 FISTA and 11 ADMM instances on the {tile}")
+    require(len(hgmma) == 38 and all(hgmma.values()),
+            "every box-QP kernel instance runs its products as wgmma")
     # K5's shared-memory accesses and FMAs per (NB, MB) bucket: static counts
     # of each instance, whose step is unrolled (at (12, 4) its step loop
     # holds 96 of the 120 LDS and 16 of the 31 STS)
@@ -3566,6 +3971,7 @@ def main() -> int:
     boxqp_iteration_times(qp, x0s, rho, Minv, iters, smi)
     serving_tick_family(dev, smi)
     jit_eig_family(dev)
+    wide = wide_boxqp_family(dev, smi)
 
     # fp32 on the host: the fold W = Sx'(Su'Q)' (K1 also its product with
     # Minv'). bf16 tensor-core passes in the kernel: the fold of g (or c) from
@@ -3596,6 +4002,7 @@ def main() -> int:
     stream_family(dev, smi)
     utils_family(dev, smi)
     parallel_rest_family(dev, smi)
+    kernels += wide
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

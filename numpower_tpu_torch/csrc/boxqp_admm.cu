@@ -51,7 +51,8 @@
 // iteration is a latency chain (store, fence, barrier, passes, wait) at 32
 // scenarios a block. K3a's and K1''s c cost one more 6-pass product per
 // tile, as the TPU kernels' do; K1' writes three (N, d) outputs where K1
-// writes one.
+// writes one. Past d = 128 each instance runs on the wide tile, as the FISTA
+// kernels (boxqp_fista.cu, boxqp_tile.cuh).
 
 #include "boxqp_tile.cuh"
 
@@ -62,7 +63,7 @@ enum AdmmForm : int { kFormS = 0, kFormZY = 1, kFormSP = 2 };
 
 constexpr int kTail = passes(kHighest);
 
-template <int kMode, int kForm, int kCPrec>
+template <int kMode, int kForm, int kCPrec, class Tile>
 __global__ void __launch_bounds__(kThreads)
     admm_kernel(const float* __restrict__ rMt, const float* __restrict__ fold,
                 const float* __restrict__ x0, const float* __restrict__ g_in,
@@ -74,35 +75,35 @@ __global__ void __launch_bounds__(kThreads)
                 "the loop forms and c's precision classes are K1's");
   extern __shared__ __align__(128) unsigned char smem_base[];
   __shared__ int scratch[kThreads / 32];
-  const Smem sm = carve(smem_base, n);
+  const Tile tile(smem_base, n, d, rMt);
   const Frag f = frag();
-  const int row0 = blockIdx.x * kTileS;
+  const int row0 = tile.row0(), j_off = tile.j_off();
 
-  stage_inputs(sm, rMt, fold, x0, row0, N, n, d);  // n = 0 on the two-step route
+  tile.stage(rMt, fold, x0, N, n);  // n = 0 on the two-step route
 
   float c[16], s[16], p[16], t[16], acc[16];
   int buf = 0;
   if constexpr (kMode == kAdmmMpcRes) {
-    fold_product<kCPrec>(sm, n, f, c);  // c = x0 @ Wc
+    fold_product<kCPrec>(tile.sm, n, f, c);  // c = x0 @ Wc
   } else {
     if constexpr (kMode == kAdmmMpc) {
-      fold_product<kHighest>(sm, n, f, t);  // g = x0 @ W
-      store_frag(g_out, t, row0, N, d, f);
+      fold_product<kHighest>(tile.sm, n, f, t);  // g = x0 @ W
+      store_frag(g_out, t, row0, N, d, f, j_off);
     } else {
-      load_frag(g_in, row0, N, d, f, t);
+      load_frag(g_in, row0, N, d, f, t, j_off);
     }
     // c = (g @ (rho Minv)') * (1 / rho), a "highest" product.
-    store_iterate<kTail>(sm, buf, t, f, d, false);
-    product<kTail>(sm, buf, d, f, acc);
+    tile.template store_iterate<kTail>(buf, t, f, false);
+    tile.template product<kTail>(buf, f, acc);
     const float inv_rho = 1.0f / *rho;
 #pragma unroll
     for (int r = 0; r < 16; ++r) c[r] = acc[r] * inv_rho;
-    buf = 1;  // the other warpgroup may still read buffer 0
+    buf = 1;  // the other warpgroup (or CTA) may still read buffer 0
   }
   // The zy form's carries live in the s-form's registers: z in s, y in p.
   float(&z)[16] = s;
   float(&y)[16] = p;
-  load_frag(U0, row0, N, d, f, s);
+  load_frag(U0, row0, N, d, f, s, j_off);
 #pragma unroll
   for (int r = 0; r < 16; ++r) {
     s[r] = clip(s[r], lo, hi);
@@ -114,7 +115,7 @@ __global__ void __launch_bounds__(kThreads)
       t[r] = 2.0f * p[r] - s[r];
     }
   }
-  store_iterate<kTail>(sm, buf, t, f, d, coarse > 0);
+  tile.template store_iterate<kTail>(buf, t, f, coarse > 0);
 
   for (int k = 0; k < iters; ++k) {
     if constexpr (kForm == kFormSP) {
@@ -122,9 +123,9 @@ __global__ void __launch_bounds__(kThreads)
       for (int r = 0; r < 16; ++r) s[r] = s[r] - alpha * c[r] - alpha * p[r];
     }
     if (k < coarse) {
-      product<kCoarse>(sm, buf, d, f, acc);
+      tile.template product<kCoarse>(buf, f, acc);
     } else {
-      product<kTail>(sm, buf, d, f, acc);
+      tile.template product<kTail>(buf, f, acc);
     }
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
@@ -144,8 +145,8 @@ __global__ void __launch_bounds__(kThreads)
         t[r] = 2.0f * p[r] - s[r];
       }
     }
-    buf ^= 1;  // the other warpgroup may still read `buf`
-    store_iterate<kTail>(sm, buf, t, f, d, k + 1 < coarse);
+    buf ^= 1;  // the other warpgroup (or CTA) may still read `buf`
+    tile.template store_iterate<kTail>(buf, t, f, k + 1 < coarse);
   }
   if constexpr (kForm == kFormZY) {
     // s = z + y, then the s-form's state: p = clip(s) and, for the residual
@@ -157,19 +158,20 @@ __global__ void __launch_bounds__(kThreads)
       p[r] = clip(s[r], lo, hi);
       t[r] = 2.0f * p[r] - s[r];
     }
-    if constexpr (kMode == kAdmmMpcRes) store_iterate<kTail>(sm, buf, t, f, d, false);
+    if constexpr (kMode == kAdmmMpcRes) tile.template store_iterate<kTail>(buf, t, f, false);
   }
-  store_frag(z_out, p, row0, N, d, f);  // z = p = clip(s)
+  store_frag(z_out, p, row0, N, d, f, j_off);  // z = p = clip(s)
 
   if constexpr (kMode == kAdmmMpcRes) {
     // `buf` now holds 2z - s in the tail's parts: one more x-update for the
     // residuals, over the real entries only.
-    product<kTail>(sm, buf, d, f, acc);
+    tile.template product<kTail>(buf, f, acc);
     float rp_max = 0.0f, rd_max = 0.0f;
+    const int d_loc = tile.d_loc();
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
       const int row = row0 + frag_s(f, r), j = frag_j(f, r);
-      if (row < N && j < d) {
+      if (row < N && j < d_loc) {
         const float zq = p[r];
         const float x = acc[r] - c[r];
         const float z_next = clip(s[r] + alpha * (x - zq), lo, hi);
@@ -182,26 +184,36 @@ __global__ void __launch_bounds__(kThreads)
   } else {
 #pragma unroll
     for (int r = 0; r < 16; ++r) t[r] = s[r] - p[r];  // y = s - z
-    store_frag(y_out, t, row0, N, d, f);
+    store_frag(y_out, t, row0, N, d, f, j_off);
   }
+  tile.finish();
 }
 
+// Launch one instance on the narrow tile (d <= kMaxD; `rMt` the fp32
+// (rho Minv)') or the wide one (kMaxD < d <= kMaxWideD; `rMt` the wrapper's
+// split operand, WideTile).
 template <int kMode, int kForm = kFormS, int kCPrec = kHighest>
 int launch_admm(const float* rMt, const float* fold, const float* x0, const float* g,
                 const float* U0, const float* rho, float* z, float* y, float* g_out, float* rp,
                 float* rd, int N, int n, int d, int iters, int coarse, float lo, float hi,
-                float alpha, void* stream) {
+                float alpha, bool wide, void* stream) {
   const bool needs_x0 = kMode != kAdmmBoxqp;
-  if (N < 1 || n < 0 || n > kMaxN || (needs_x0 && n < 1) || d < 1 || d > kMaxD || iters < 0 ||
-      coarse < 0 || coarse > iters)
+  if (N < 1 || n < 0 || n > kMaxN || (needs_x0 && n < 1) || d < 1 ||
+      d > (wide ? kMaxWideD : kMaxD) || (wide && d <= kMaxD) || iters < 0 || coarse < 0 ||
+      coarse > iters)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (wide) {
+    return launch_wide(admm_kernel<kMode, kForm, kCPrec, WideTile>, N, n, d, stream, rMt, fold,
+                       x0, g, U0, rho, z, y, g_out, rp, rd, N, n, d, iters, coarse, lo, hi,
+                       alpha);
+  }
   const size_t smem = smem_bytes(n);
-  cudaError_t err = cudaFuncSetAttribute(admm_kernel<kMode, kForm, kCPrec>,
+  cudaError_t err = cudaFuncSetAttribute(admm_kernel<kMode, kForm, kCPrec, NarrowTile>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (N + kTileS - 1) / kTileS;
-  admm_kernel<kMode, kForm, kCPrec>
+  admm_kernel<kMode, kForm, kCPrec, NarrowTile>
       <<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
           rMt, fold, x0, g, U0, rho, z, y, g_out, rp, rd, N, n, d, iters, coarse, lo, hi,
           alpha);
@@ -213,20 +225,40 @@ template <int kForm>
 int launch_admm_res(int c_prec, const float* rMt, const float* Wc, const float* x0,
                     const float* U0, const float* rho, float* z, float* rp, float* rd, int N,
                     int n, int d, int iters, int coarse, float lo, float hi, float alpha,
-                    void* stream) {
+                    bool wide, void* stream) {
   switch (c_prec) {
     case kHighest:
       return launch_admm<kAdmmMpcRes, kForm, kHighest>(rMt, Wc, x0, nullptr, U0, rho, z,
                                                        nullptr, nullptr, rp, rd, N, n, d, iters,
-                                                       coarse, lo, hi, alpha, stream);
+                                                       coarse, lo, hi, alpha, wide, stream);
     case kBf16x3:
       return launch_admm<kAdmmMpcRes, kForm, kBf16x3>(rMt, Wc, x0, nullptr, U0, rho, z,
                                                       nullptr, nullptr, rp, rd, N, n, d, iters,
-                                                      coarse, lo, hi, alpha, stream);
+                                                      coarse, lo, hi, alpha, wide, stream);
     case kBf16x4:
       return launch_admm<kAdmmMpcRes, kForm, kBf16x4>(rMt, Wc, x0, nullptr, U0, rho, z,
                                                       nullptr, nullptr, rp, rd, N, n, d, iters,
-                                                      coarse, lo, hi, alpha, stream);
+                                                      coarse, lo, hi, alpha, wide, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K1, the loop form and c's class chosen at run time.
+int admm_res(const float* rMt, const float* Wc, const float* x0, const float* U0,
+             const float* rho, float* z, float* rp, float* rd, int N, int n, int d, int iters,
+             int coarse, float lo, float hi, float alpha, int form, int c_prec, bool wide,
+             void* stream) {
+  switch (form) {
+    case kFormS:
+      return launch_admm_res<kFormS>(c_prec, rMt, Wc, x0, U0, rho, z, rp, rd, N, n, d, iters,
+                                     coarse, lo, hi, alpha, wide, stream);
+    case kFormZY:
+      return launch_admm_res<kFormZY>(c_prec, rMt, Wc, x0, U0, rho, z, rp, rd, N, n, d, iters,
+                                      coarse, lo, hi, alpha, wide, stream);
+    case kFormSP:
+      return launch_admm_res<kFormSP>(c_prec, rMt, Wc, x0, U0, rho, z, rp, rd, N, n, d, iters,
+                                      coarse, lo, hi, alpha, wide, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -234,46 +266,66 @@ int launch_admm_res(int c_prec, const float* rMt, const float* Wc, const float* 
 
 }  // namespace boxqp
 
+// The C entries. Each returns the CUDA error code of its launch (0 on
+// success). An entry named *_wide takes kMaxD < d <= kMaxWideD (128 < d <=
+// 1024) and, in place of the fp32 (rho Minv)', the wrapper's split operand
+// of the wide tile (boxqp_tile.cuh, WideTile); the others take d <= 128 and
+// (rho Minv)'.
+
 // K1: launches the fused kernel on `stream` with loop form `form` (0 "s",
 // 1 "zy", 2 "sp") and c formed in class `c_prec` (0 "highest", 3 "bf16x3",
 // 4 "bf16x4"). U0 may be null (cold start at clip(0)). *rp and *rd must be
-// zeroed. Returns the CUDA error code of the launch.
+// zeroed.
 extern "C" int npt_admm_mpc_res(const float* rMt, const float* Wc, const float* x0,
                                 const float* U0, const float* rho, float* z, float* rp,
                                 float* rd, int N, int n, int d, int iters, int coarse, float lo,
                                 float hi, float alpha, int form, int c_prec, void* stream) {
-  switch (form) {
-    case boxqp::kFormS:
-      return boxqp::launch_admm_res<boxqp::kFormS>(c_prec, rMt, Wc, x0, U0, rho, z, rp, rd, N, n,
-                                                   d, iters, coarse, lo, hi, alpha, stream);
-    case boxqp::kFormZY:
-      return boxqp::launch_admm_res<boxqp::kFormZY>(c_prec, rMt, Wc, x0, U0, rho, z, rp, rd, N,
-                                                    n, d, iters, coarse, lo, hi, alpha, stream);
-    case boxqp::kFormSP:
-      return boxqp::launch_admm_res<boxqp::kFormSP>(c_prec, rMt, Wc, x0, U0, rho, z, rp, rd, N,
-                                                    n, d, iters, coarse, lo, hi, alpha, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return boxqp::admm_res(rMt, Wc, x0, U0, rho, z, rp, rd, N, n, d, iters, coarse, lo, hi, alpha,
+                         form, c_prec, false, stream);
+}
+
+extern "C" int npt_admm_mpc_res_wide(const float* A, const float* Wc, const float* x0,
+                                     const float* U0, const float* rho, float* z, float* rp,
+                                     float* rd, int N, int n, int d, int iters, int coarse,
+                                     float lo, float hi, float alpha, int form, int c_prec,
+                                     void* stream) {
+  return boxqp::admm_res(A, Wc, x0, U0, rho, z, rp, rd, N, n, d, iters, coarse, lo, hi, alpha,
+                         form, c_prec, true, stream);
 }
 
 // K3a: launches the two-step kernel on `stream`: (z, y) (N, d) each from g
-// (N, d). U0 may be null (cold start at clip(0)). Returns the CUDA error code.
+// (N, d). U0 may be null (cold start at clip(0)).
 extern "C" int npt_admm_boxqp(const float* rMt, const float* g, const float* U0,
                               const float* rho, float* z, float* y, int N, int d, int iters,
                               int coarse, float lo, float hi, float alpha, void* stream) {
   return boxqp::launch_admm<boxqp::kAdmmBoxqp>(rMt, nullptr, nullptr, g, U0, rho, z, y, nullptr,
                                                nullptr, nullptr, N, 0, d, iters, coarse, lo, hi,
-                                               alpha, stream);
+                                               alpha, false, stream);
+}
+
+extern "C" int npt_admm_boxqp_wide(const float* A, const float* g, const float* U0,
+                                   const float* rho, float* z, float* y, int N, int d, int iters,
+                                   int coarse, float lo, float hi, float alpha, void* stream) {
+  return boxqp::launch_admm<boxqp::kAdmmBoxqp>(A, nullptr, nullptr, g, U0, rho, z, y, nullptr,
+                                               nullptr, nullptr, N, 0, d, iters, coarse, lo, hi,
+                                               alpha, true, stream);
 }
 
 // K1': launches the kernel that forms g = x0 @ W on `stream` and writes
-// (z, y, g), (N, d) each, from a cold start at clip(0). Returns the CUDA
-// error code.
+// (z, y, g), (N, d) each, from a cold start at clip(0).
 extern "C" int npt_admm_mpc(const float* rMt, const float* W, const float* x0, const float* rho,
                             float* z, float* y, float* g, int N, int n, int d, int iters,
                             int coarse, float lo, float hi, float alpha, void* stream) {
   return boxqp::launch_admm<boxqp::kAdmmMpc>(rMt, W, x0, nullptr, nullptr, rho, z, y, g, nullptr,
                                              nullptr, N, n, d, iters, coarse, lo, hi, alpha,
-                                             stream);
+                                             false, stream);
+}
+
+extern "C" int npt_admm_mpc_wide(const float* A, const float* W, const float* x0,
+                                 const float* rho, float* z, float* y, float* g, int N, int n,
+                                 int d, int iters, int coarse, float lo, float hi, float alpha,
+                                 void* stream) {
+  return boxqp::launch_admm<boxqp::kAdmmMpc>(A, W, x0, nullptr, nullptr, rho, z, y, g, nullptr,
+                                             nullptr, N, n, d, iters, coarse, lo, hi, alpha,
+                                             true, stream);
 }

@@ -39,10 +39,38 @@
 // the tensor cores' fp32 sum is not round-to-nearest, and the corrections
 // (2^-8 to 2^-16 relative) would be cut against the large term.
 //
-// Envelope. d <= kMaxD = 128 (M and K of the padded product). Shared memory
-// holds A (96 KB), the two B buffers (48 KB), the (n, d) fold of the
-// prediction chain and the tile's x0: 164 KiB at n = 32 of the 227 KiB a
-// block may have, so the kernels need the dynamic shared-memory opt-in.
+// Envelope. The narrow tile takes d <= kMaxD = 128 (M and K of the padded
+// product): shared memory holds A (96 KB), the two B buffers (48 KB), the
+// (n, d) fold of the prediction chain and the tile's x0: 164 KiB at n = 32 of
+// the 227 KiB a block may have, so the kernels need the dynamic
+// shared-memory opt-in. Past d = 128 that layout does not fit (at d = 400
+// A's splits alone take 1.5 MB), and the wide tile below takes
+// 128 < d <= kMaxWideD = 1024, the JAX package's VMEM bound.
+//
+// Wide tile. A cluster of b = ceil(d / 128) CTAs (b <= 8, the portable
+// cluster size) solves one 32-scenario tile. CTA r owns rows 128r..128r+127
+// of every product and of every carry: the fragment, the carries in
+// registers, the elementwise update, store_operand and block_max_into stay
+// per CTA as above, on local rows (global row = 128r + local). Each
+// iteration:
+//   - each CTA publishes its slice of the next operand (its 128 k-rows of B,
+//     the narrow B layout) in one of two buffers, then the cluster barrier
+//     (release/acquire): the buffer of iteration k + 1 is written while peers
+//     may still read that of iteration k, so one barrier an iteration
+//     suffices, the narrow tile's two-buffer argument lifted to the cluster;
+//   - the product walks K in 64-wide slabs through a two-stage ring: the
+//     CTA's 128 x 64 panel of A for the slab, in the parts the class reads,
+//     comes by 16-byte cp.async from device memory (L2-resident: 6 MB of
+//     splits at d = 1024), where the wrapper put it once, split and laid
+//     out as the slab's core matrices (kernels/boxqp_fista._wide_operand);
+//     the slab's 64 k-rows of B come from the owning CTA's published buffer
+//     through distributed shared memory (ld.shared::cluster). Slab s + 1 is
+//     loaded while the tensor cores run slab s; one block barrier a slab.
+// Shared memory: the A ring 2 x 3 x 16 KB, the B ring 2 x 3 x 4 KB, the
+// published slice 2 x 3 x 8 KB, the fold's 128 columns and x0: 188 KiB at
+// n = 32. The launch (launch_wide) asks cudaOccupancyMaxActiveClusters first
+// and refuses a cluster that cannot be scheduled; a CTA leaves only after a
+// last cluster barrier, so no peer reads its shared memory after it exits.
 
 #pragma once
 
@@ -50,6 +78,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <utility>
 
 namespace boxqp {
 
@@ -60,6 +89,15 @@ constexpr int kThreads = 256;  // two warpgroups of 64 product rows each
 constexpr int kSplits = 3;     // hi, mid, lo
 constexpr int kAElems = kMaxD * kMaxD;  // bf16 elements of one split of A
 constexpr int kBElems = kMaxD * kTileS;  // bf16 elements of one split of B
+// The wide tile: rows a CTA owns, CTAs a cluster may have, the bound on d,
+// and the ring's slab of K with its elements per split of A and of B.
+constexpr int kTileD = 128;
+constexpr int kMaxCtas = 8;
+constexpr int kMaxWideD = kTileD * kMaxCtas;
+constexpr int kSlabK = 64;
+constexpr int kASlabElems = kTileD * kSlabK;
+constexpr int kBSlabElems = kSlabK * kTileS;
+static_assert(kTileD == kMaxD, "the wide tile reuses the narrow fragment and B layout");
 
 enum Precision : int { kHighest = 0, kBf16x3 = 3, kBf16x4 = 4 };
 
@@ -183,23 +221,26 @@ __device__ inline void stage_inputs(const Smem& sm, const float* __restrict__ m,
   __syncthreads();
 }
 
-// The thread's entries of the row-major (N, d) `src`: entries outside (N, d),
-// and every entry when `src` is null, read as zero.
+// The thread's entries of the row-major (N, d) `src`, its rows j_off + j
+// (j_off: the first row a wide CTA owns): entries outside (N, d), and every
+// entry when `src` is null, read as zero.
 __device__ __forceinline__ void load_frag(const float* __restrict__ src, int row0, int N, int d,
-                                          const Frag& f, float (&v)[16]) {
+                                          const Frag& f, float (&v)[16], int j_off = 0) {
 #pragma unroll
   for (int r = 0; r < 16; ++r) {
-    const int row = row0 + frag_s(f, r), j = frag_j(f, r);
+    const int row = row0 + frag_s(f, r), j = j_off + frag_j(f, r);
     v[r] = (src != nullptr && row < N && j < d) ? src[static_cast<size_t>(row) * d + j] : 0.0f;
   }
 }
 
-// Write the thread's entries into the row-major (N, d) `dst`, real entries only.
+// Write the thread's entries into the row-major (N, d) `dst`, real entries
+// only, at rows j_off + j.
 __device__ __forceinline__ void store_frag(float* __restrict__ dst, const float (&v)[16],
-                                           int row0, int N, int d, const Frag& f) {
+                                           int row0, int N, int d, const Frag& f,
+                                           int j_off = 0) {
 #pragma unroll
   for (int r = 0; r < 16; ++r) {
-    const int row = row0 + frag_s(f, r), j = frag_j(f, r);
+    const int row = row0 + frag_s(f, r), j = j_off + frag_j(f, r);
     if (row < N && j < d) dst[static_cast<size_t>(row) * d + j] = v[r];
   }
 }
@@ -383,6 +424,278 @@ __device__ inline void block_max_into(float v, float* out, int* scratch) {
 // clear, so its int bits exceed every finite value's).
 __device__ __forceinline__ float max_keep_nan(float a, float b) {
   return __int_as_float(max(__float_as_int(a), __float_as_int(b)));
+}
+
+// -- The tiles -----------------------------------------------------------
+// The kernels' bodies (boxqp_fista.cu, boxqp_admm.cu) are written once over a
+// tile: NarrowTile is the layout above (one block a 32-scenario tile, d <=
+// 128), each member the call the narrow kernels always made; WideTile is
+// the cluster (Wide tile above). Both keep the carries in the fragment on
+// the CTA's local rows: j_off is the CTA's first row, d_loc the real rows
+// from there, row0 the tile's first scenario.
+
+struct NarrowTile {
+  Smem sm;
+  int d;
+  __device__ NarrowTile(unsigned char* base, int n, int d_, const float*) : sm(carve(base, n)), d(d_) {}
+  __device__ int row0() const { return blockIdx.x * kTileS; }
+  __device__ int j_off() const { return 0; }
+  __device__ int d_loc() const { return d; }
+  // A = m' in its three splits, the fold and the tile's x0 (stage_inputs).
+  __device__ void stage(const float* __restrict__ m, const float* __restrict__ fold,
+                        const float* __restrict__ x0, int N, int n) const {
+    stage_inputs(sm, m, fold, x0, row0(), N, n, d);
+  }
+  template <int kPasses>
+  __device__ void product(int buf, const Frag& f, float (&out)[16]) const {
+    boxqp::product<kPasses>(sm, buf, d, f, out);
+  }
+  template <int kTailPasses>
+  __device__ void store_iterate(int buf, const float (&v)[16], const Frag& f, bool coarse) const {
+    boxqp::store_iterate<kTailPasses>(sm, buf, v, f, d, coarse);
+  }
+  __device__ void finish() const {}
+};
+
+// This CTA's rank in its cluster.
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// Every thread of the cluster arrives and waits; the writes to shared memory
+// before it are visible to the cluster's reads after it (release/acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// 16 bytes of CTA `rank`'s shared memory at the address `p` has in ours.
+__device__ __forceinline__ uint4 load_peer(const void* p, int rank) {
+  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p)), peer;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(peer) : "r"(addr), "r"(rank));
+  uint4 v;
+  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(peer)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t to = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(to), "l"(src) : "memory");
+}
+
+// CTAs of the wide tile's cluster for d.
+__host__ __device__ constexpr int wide_ctas(int d) { return (d + kTileD - 1) / kTileD; }
+
+// Bytes of dynamic shared memory of the wide tile for a fold of n rows.
+__host__ __device__ inline size_t wide_smem_bytes(int n) {
+  return sizeof(__nv_bfloat16) *
+             (2 * kSplits * static_cast<size_t>(kASlabElems) + 2 * kSplits * kBSlabElems +
+              2 * kSplits * kBElems) +
+         sizeof(float) * (static_cast<size_t>(n) * kTileD + static_cast<size_t>(n) * kTileS);
+}
+
+struct WideTile {
+  Smem sm;                         // b: the published slice's two buffers; w, x0T as narrow
+  __nv_bfloat16* ring_a;           // 2 stages x kSplits x a 128 x 64 slab of A
+  __nv_bfloat16* ring_b;           // 2 stages x kSplits x a 64 x 32 slab of B
+  const __nv_bfloat16* panel;      // this CTA's rows of A, split and laid out by slab
+  int d, ctas, rank, slabs_pad;    // slabs_pad: the panel's slabs per part, 2 ctas
+
+  // `m` is the wrapper's operand: for each CTA r, part p (hi, mid, lo) and
+  // slab s of K, the 128 x 64 block A[128r.., 64s..] as core matrices, K-major
+  // ((j, k) at (j / 8) 512 + (k / 8) 64 + (j % 8) 8 + k % 8), zero past d.
+  __device__ WideTile(unsigned char* base, int n, int d_, const float* m)
+      : d(d_), ctas(wide_ctas(d_)), rank(cluster_rank()), slabs_pad(2 * wide_ctas(d_)) {
+    ring_a = reinterpret_cast<__nv_bfloat16*>(base);
+    ring_b = ring_a + 2 * kSplits * kASlabElems;
+    sm.a = nullptr;
+    sm.b = ring_b + 2 * kSplits * kBSlabElems;
+    sm.w = reinterpret_cast<float*>(sm.b + 2 * kSplits * kBElems);
+    sm.x0T = sm.w + n * kTileD;
+    panel = reinterpret_cast<const __nv_bfloat16*>(m) +
+            static_cast<size_t>(rank) * kSplits * slabs_pad * kASlabElems;
+  }
+  __device__ int row0() const { return (blockIdx.x / ctas) * kTileS; }
+  __device__ int j_off() const { return kTileD * rank; }
+  __device__ int d_loc() const { return d - kTileD * rank; }
+
+  // The fold's columns this CTA owns and the tile's x0; A streams per product.
+  __device__ void stage(const float*, const float* __restrict__ fold,
+                        const float* __restrict__ x0, int N, int n) const {
+    const int j0 = j_off(), r0 = row0();
+    for (int i = threadIdx.x; i < n * kTileD; i += kThreads) {
+      const int k = i / kTileD, j = j0 + i % kTileD;
+      sm.w[i] = j < d ? fold[k * d + j] : 0.0f;
+    }
+    for (int i = threadIdx.x; i < n * kTileS; i += kThreads) {
+      const int k = i / kTileS, row = r0 + i % kTileS;
+      sm.x0T[i] = row < N ? x0[static_cast<size_t>(row) * n + k] : 0.0f;
+    }
+    __syncthreads();
+  }
+
+  // Start slab `slab` of a product into ring stage `stage`: kParts parts of
+  // A's panel by cp.async, and of B from the published buffer `buf` of the
+  // CTA that owns the slab's k-rows (two slabs a CTA).
+  template <int kParts>
+  __device__ void load_slab(int slab, int stage, int buf) const {
+    const int t = threadIdx.x;
+#pragma unroll
+    for (int p = 0; p < kParts; ++p) {
+      const __nv_bfloat16* src = panel + static_cast<size_t>(p * slabs_pad + slab) * kASlabElems;
+      __nv_bfloat16* dst = ring_a + (stage * kSplits + p) * kASlabElems;
+#pragma unroll
+      for (int q = 0; q < kASlabElems / 8 / kThreads; ++q) {
+        const int at = 8 * (t + q * kThreads);
+        cp_async16(dst + at, src + at);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const int owner = slab / 2, half = slab % 2;
+    static_assert(kBSlabElems / 8 == kThreads, "one 16-byte piece of B a thread and part");
+#pragma unroll
+    for (int p = 0; p < kParts; ++p) {
+      const __nv_bfloat16* src = sm.b + (buf * kSplits + p) * kBElems + half * kBSlabElems;
+      const uint4 v = load_peer(src + 8 * t, owner);
+      *reinterpret_cast<uint4*>(ring_b + (stage * kSplits + p) * kBSlabElems + 8 * t) = v;
+    }
+  }
+
+  // out' = A op' over this CTA's rows, op in the published buffers `buf` of
+  // the cluster, in kPasses bf16 passes as the narrow product: the hi*hi pass
+  // in one accumulator, the corrections in another. The k-steps stop at d.
+  // Every thread of the CTA calls it, after the cluster barrier that
+  // published op.
+  template <int kPasses>
+  __device__ void product(int buf, const Frag& f, float (&out)[16]) const {
+    static_assert(kPasses == 1 || kPasses == 3 || kPasses == 4 || kPasses == 6,
+                  "a class is 1, 3, 4 or 6 passes");
+    constexpr int kParts = parts(kPasses);
+    float hh[16], corr[16];
+#pragma unroll
+    for (int r = 0; r < 16; ++r) hh[r] = corr[r] = 0.0f;
+    const int ksteps = (d + 15) / 16, slabs = (ksteps + 3) / 4;
+    const bool rows = 64 * f.wg < d_loc();
+    load_slab<kParts>(0, 0, buf);
+    for (int s = 0; s < slabs; ++s) {
+      const int stage = s & 1;
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();  // slab s staged; slab s - 1's passes done (waited below)
+      if (s + 1 < slabs) load_slab<kParts>(s + 1, stage ^ 1, buf);
+      if (rows) {
+        const __nv_bfloat16* a = ring_a + stage * kSplits * kASlabElems + f.wg * 8 * 512;
+        const __nv_bfloat16* b = ring_b + stage * kSplits * kBSlabElems;
+        const uint64_t ah = smem_desc(a, 128, 1024), bh = smem_desc(b, 512, 128);
+        const uint64_t am = smem_desc(a + kASlabElems, 128, 1024);
+        const uint64_t bm = smem_desc(b + kBSlabElems, 512, 128);
+        const uint64_t al = smem_desc(a + 2 * kASlabElems, 128, 1024);
+        const uint64_t bl = smem_desc(b + 2 * kBSlabElems, 512, 128);
+        fence_operand(hh);
+        fence_operand(corr);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        const int steps = min(4, ksteps - 4 * s);
+        for (int ks = 0; ks < steps; ++ks) {
+          const uint64_t da = 16 * ks, db = 64 * ks;
+          wgmma_m64n32k16(hh, ah + da, bh + db);
+          if constexpr (kPasses >= 3) {
+            wgmma_m64n32k16(corr, ah + da, bm + db);
+            wgmma_m64n32k16(corr, am + da, bh + db);
+          }
+          if constexpr (kPasses == 6) {
+            wgmma_m64n32k16(corr, ah + da, bl + db);
+            wgmma_m64n32k16(corr, al + da, bh + db);
+          }
+          if constexpr (kPasses >= 4) wgmma_m64n32k16(corr, am + da, bm + db);
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        fence_operand(hh);
+        fence_operand(corr);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 16; ++r) out[r] = kPasses == 1 ? hh[r] : hh[r] + corr[r];
+  }
+
+  // Publish v, this CTA's rows of the next operand (a coarse one or one of
+  // kTailPasses passes), in buffer `buf`, then the cluster barrier.
+  template <int kTailPasses>
+  __device__ void store_iterate(int buf, const float (&v)[16], const Frag& f, bool coarse) const {
+    if (coarse) {
+      store_operand<parts(kCoarse)>(sm, buf, v, f, d_loc());
+    } else {
+      store_operand<parts(kTailPasses)>(sm, buf, v, f, d_loc());
+    }
+    cluster_sync();
+  }
+
+  // No CTA leaves while a peer may still read its published buffers.
+  __device__ void finish() const { cluster_sync(); }
+};
+
+// The wide tile's launch of `kernel` for N scenarios, a fold of n rows and d
+// on `stream`: a cluster of wide_ctas(d) CTAs for each 32-scenario tile (the
+// cluster dimension in `attr`), its shared memory opted in. Returns the CUDA
+// error code of the opt-in.
+template <typename... Params>
+int wide_config(void (*kernel)(Params...), int N, int n, int d, void* stream,
+                cudaLaunchAttribute (&attr)[1], cudaLaunchConfig_t& cfg) {
+  const int ctas = wide_ctas(d);
+  cfg = {};
+  cfg.gridDim = dim3(ctas * ((N + kTileS - 1) / kTileS), 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = wide_smem_bytes(n);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(cfg.dynamicSmemBytes)));
+}
+
+// The clusters of `kernel` in the launch `cfg` that the card can hold at
+// once (cudaOccupancyMaxActiveClusters) into `clusters`; the CUDA error code.
+template <typename... Params>
+int active_clusters(void (*kernel)(Params...), const cudaLaunchConfig_t& cfg, int& clusters) {
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(&clusters, reinterpret_cast<const void*>(kernel), &cfg));
+}
+
+// The clusters of `kernel` on the wide tile for d and a fold of n rows that
+// the card can hold at once, or minus the CUDA error code.
+template <typename... Params>
+int wide_active_clusters(void (*kernel)(Params...), int n, int d) {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  int clusters = 0;
+  int err = wide_config(kernel, kTileS, n, d, nullptr, attr, cfg);
+  if (err == 0) err = active_clusters(kernel, cfg, clusters);
+  return err == 0 ? clusters : -err;
+}
+
+// Launch `kernel` on the wide tile (wide_config) with `args`. A cluster that
+// cannot be scheduled (cudaOccupancyMaxActiveClusters 0) is refused with
+// cudaErrorInvalidConfiguration. Returns the CUDA error code (0 on success).
+template <typename... Params, typename... Args>
+int launch_wide(void (*kernel)(Params...), int N, int n, int d, void* stream, Args&&... args) {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  int clusters = 0;
+  int err = wide_config(kernel, N, n, d, stream, attr, cfg);
+  if (err == 0) err = active_clusters(kernel, cfg, clusters);
+  if (err == 0 && clusters == 0) err = static_cast<int>(cudaErrorInvalidConfiguration);
+  if (err == 0) err = static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...));
+  return err == 0 ? static_cast<int>(cudaGetLastError()) : err;
 }
 
 }  // namespace boxqp

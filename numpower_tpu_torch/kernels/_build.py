@@ -33,11 +33,17 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "numpower_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Limits of the tile layout in csrc/boxqp_tile.cuh (kMaxD, kMaxN): the
-# tensor-core product pads d to M = K = 128, and the matrix's three bf16
-# splits, two buffers of the operand's, the fold and x0 then fill at most
-# 164 KiB of the 227 KiB of shared memory a block may have.
-MAX_D = 128
+# Limits of the box-QP kernels (csrc/boxqp_tile.cuh). TILE_D (kMaxD, kTileD)
+# is the rows of the product one block owns: d <= TILE_D takes the narrow
+# tile, whose block holds the matrix's three bf16 splits, two buffers of the
+# operand's, the fold and x0 in at most 164 KiB of the 227 KiB of shared
+# memory a block may have. TILE_D < d <= MAX_D (kMaxWideD, the JAX package's
+# VMEM bound of d = 1024) takes the wide tile: a cluster of ceil(d / TILE_D)
+# blocks (at most 8, the portable cluster size), the matrix streamed from
+# device memory. MAX_N (kMaxN) bounds the state dimension of the in-kernel
+# g / c formation.
+TILE_D = 128
+MAX_D = 1024
 MAX_N = 32
 
 _P = ctypes.c_void_p
@@ -84,7 +90,14 @@ _SIGNATURES = {
                 + (_P,),
     # parts, m, out, B, N, n, stream
     "npt_resample_systematic": (_P, _P, _P, _I, _I, _I, _P),
+    # n, d
+    "npt_boxqp_wide_clusters": (_I, _I),
 }
+# The box-QP kernels' wide entries take the arguments of their narrow ones,
+# the matrix as the wide tile's split operand (kernels/boxqp_fista._wide_operand).
+for _name in ("npt_fista_mpc_res", "npt_fista_boxqp", "npt_fista_mpc", "npt_admm_mpc_res",
+              "npt_admm_boxqp", "npt_admm_mpc"):
+    _SIGNATURES[f"{_name}_wide"] = _SIGNATURES[_name]
 
 
 def _nvcc() -> str:

@@ -3,7 +3,9 @@ numpower_tpu/kernels/boxqp_admm.py ``admm_mpc_pallas_res``, K1,
 ``admm_boxqp_pallas``, K3a, and ``admm_mpc_pallas``, K1').
 
 The three kernels are one CUDA C++ template in ``csrc/boxqp_admm.cu`` (its
-note says what bounds it on the H100 and how the design answers that): K1
+note says what bounds it on the H100 and how the design answers that), each
+on the narrow tile (d <= 128) and the wide one (128 < d <= 1024), as the
+FISTA kernels (kernels/boxqp_fista.py): K1
 forms c from x0 and both residuals in the kernel, in one of three loop forms
 ("s", "zy", "sp") and with c in one of three precision classes; K3a forms c
 from a given g and returns (z, y); K1' forms g from x0 and returns (z, y, g).
@@ -25,7 +27,9 @@ import torch
 
 from numpower_tpu_torch.kernels import _build
 from numpower_tpu_torch.kernels._build import MAX_D
-from numpower_tpu_torch.kernels.boxqp_fista import _check_operand, _launch_shape
+from numpower_tpu_torch.kernels.boxqp_fista import (
+    _check_operand, _entry, _launch_shape, _matrix_operand, _wide_operand,
+)
 from numpower_tpu_torch.kernels.precision import bf16_round, make_tail_dot, precision_code
 
 # K1's loop forms (their codes in csrc/boxqp_admm.cu) and the precision
@@ -55,13 +59,17 @@ def _fold(H, SxT, SuTQT, rho, Minv):
 
 def _admm_folds(H, SxT, SuTQT, rho, Minv: Optional[torch.Tensor] = None) -> tuple:
     """The host-side operands of the fused ADMM kernel, which depend on the
-    QP and rho alone: ((rho Minv)', Wc) of :func:`_fold` on a float32 rho,
-    each contiguous, as :func:`admm_mpc_res` forms them. A caller that
-    solves one QP many times (models/mpc.MPCController) forms them once and
-    hands them to :func:`_admm_mpc_res`."""
+    QP and rho alone: ((rho Minv)', Wc, (rho Minv)' split) with ((rho
+    Minv)', Wc) of :func:`_fold` on a float32 rho, each contiguous, as
+    :func:`admm_mpc_res` forms them, and the wide tile's operand of (rho
+    Minv)' on the card past d = 128 (boxqp_fista._wide_operand; None
+    otherwise). A caller that solves one QP many times
+    (models/mpc.MPCController) forms them once and hands them to
+    :func:`_admm_mpc_res`."""
     rho_t = torch.as_tensor(rho, dtype=torch.float32, device=H.device).reshape(())
     rminvT, Wc = _fold(H, SxT, SuTQT, rho_t, Minv)
-    return rminvT.contiguous(), Wc.contiguous()
+    rminvT = rminvT.contiguous()
+    return rminvT, Wc.contiguous(), _wide_operand(rminvT) if rminvT.is_cuda else None
 
 
 def _form_code(form: str) -> int:
@@ -172,22 +180,22 @@ def _admm_mpc_res(H, SxT, SuTQT, x0s, lo: float, hi: float, rho, iters: int,
                   coarse_iters: int, over_relax: float, Minv, U0, form: str, c_precision: str,
                   folds: Optional[tuple]):
     """:func:`admm_mpc_res` with its QP-only operands given: ``folds`` =
-    ((rho Minv)', Wc) of :func:`_admm_folds` for this rho and Minv, formed
-    here when None. On a CPU tensor the plain version runs on the same
-    folds."""
+    ((rho Minv)', Wc, (rho Minv)' split) of :func:`_admm_folds` for this rho
+    and Minv, formed here when None. On a CPU tensor the plain version runs
+    on the same ((rho Minv)', Wc)."""
     form_code = _form_code(form)
     c_code = precision_code(c_precision, C_PRECISIONS, "c_precision")
     if x0s.device.type == "cpu":
         if folds is None:
             return admm_mpc_res_reference(H, SxT, SuTQT, x0s, lo, hi, rho, iters,
                                           coarse_iters, over_relax, Minv, U0, form, c_precision)
-        return _admm_mpc_res_plain(*folds, x0s, lo, hi, rho, iters, coarse_iters, over_relax,
-                                   U0, form, c_precision)
+        return _admm_mpc_res_plain(*folds[:2], x0s, lo, hi, rho, iters, coarse_iters,
+                                   over_relax, U0, form, c_precision)
     device, N, n, d, coarse_iters = _launch_shape(H, x0s, iters, coarse_iters)
     rho_t = torch.as_tensor(rho, dtype=torch.float32, device=device).reshape(())
-    rminvT, Wc = _admm_folds(H, SxT, SuTQT, rho_t, Minv) if folds is None else folds
-    for name, t, shape in (("(rho Minv)'", rminvT, (d, d)), ("Wc", Wc, (n, d)),
-                           ("x0s", x0s, (N, n)), ("rho", rho_t, ())):
+    rminvT, Wc, wide = _admm_folds(H, SxT, SuTQT, rho_t, Minv) if folds is None else folds
+    mat = _matrix_operand("(rho Minv)'", rminvT, wide, device, d)
+    for name, t, shape in (("Wc", Wc, (n, d)), ("x0s", x0s, (N, n)), ("rho", rho_t, ())):
         _check_operand(name, t, device, shape)
     if U0 is not None:
         _check_operand("U0", U0, device, (N, d))
@@ -197,8 +205,8 @@ def _admm_mpc_res(H, SxT, SuTQT, x0s, lo: float, hi: float, rho, iters: int,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         capturing = torch.cuda.is_current_stream_capturing()
-        code = _build.library().npt_admm_mpc_res(
-            rminvT.data_ptr(), Wc.data_ptr(), x0s.data_ptr(),
+        code = _entry("npt_admm_mpc_res", d)(
+            mat.data_ptr(), Wc.data_ptr(), x0s.data_ptr(),
             None if U0 is None else U0.data_ptr(), rho_t.data_ptr(),
             z.data_ptr(), rp.data_ptr(), rd.data_ptr(), N, n, d, iters,
             coarse_iters, ctypes.c_float(float(lo)), ctypes.c_float(float(hi)),
@@ -253,9 +261,8 @@ def admm_boxqp(H, g, lo: float, hi: float, rho, iters: int = 30, coarse_iters: i
     rho_t = torch.as_tensor(rho, dtype=torch.float32, device=device).reshape(())
     if Minv is None:
         Minv = minv_factor(H, rho_t)
-    rminvT = (rho_t * Minv.T).contiguous()
-    for name, t, shape in (("(rho Minv)'", rminvT, (d, d)), ("g", g, (N, d)),
-                           ("rho", rho_t, ())):
+    mat = _matrix_operand("(rho Minv)'", (rho_t * Minv.T).contiguous(), None, device, d)
+    for name, t, shape in (("g", g, (N, d)), ("rho", rho_t, ())):
         _check_operand(name, t, device, shape)
     if U0 is not None:
         _check_operand("U0", U0, device, (N, d))
@@ -263,8 +270,8 @@ def admm_boxqp(H, g, lo: float, hi: float, rho, iters: int = 30, coarse_iters: i
     y = torch.empty((N, d), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        code = _build.library().npt_admm_boxqp(
-            rminvT.data_ptr(), g.data_ptr(), None if U0 is None else U0.data_ptr(),
+        code = _entry("npt_admm_boxqp", d)(
+            mat.data_ptr(), g.data_ptr(), None if U0 is None else U0.data_ptr(),
             rho_t.data_ptr(), z.data_ptr(), y.data_ptr(), N, d, iters, coarse_iters,
             ctypes.c_float(float(lo)), ctypes.c_float(float(hi)),
             ctypes.c_float(float(over_relax)), stream)
@@ -309,16 +316,15 @@ def admm_mpc(H, SxT, SuTQT, x0s, lo: float, hi: float, rho, iters: int = 40,
     rho_t = torch.as_tensor(rho, dtype=torch.float32, device=device).reshape(())
     if Minv is None:
         Minv = minv_factor(H, rho_t)
-    rminvT = (rho_t * Minv.T).contiguous()
+    mat = _matrix_operand("(rho Minv)'", (rho_t * Minv.T).contiguous(), None, device, d)
     W = (SxT @ SuTQT).contiguous()
-    for name, t, shape in (("(rho Minv)'", rminvT, (d, d)), ("W", W, (n, d)),
-                           ("x0s", x0s, (N, n)), ("rho", rho_t, ())):
+    for name, t, shape in (("W", W, (n, d)), ("x0s", x0s, (N, n)), ("rho", rho_t, ())):
         _check_operand(name, t, device, shape)
     z, y, g = (torch.empty((N, d), dtype=torch.float32, device=device) for _ in range(3))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        code = _build.library().npt_admm_mpc(
-            rminvT.data_ptr(), W.data_ptr(), x0s.data_ptr(), rho_t.data_ptr(), z.data_ptr(),
+        code = _entry("npt_admm_mpc", d)(
+            mat.data_ptr(), W.data_ptr(), x0s.data_ptr(), rho_t.data_ptr(), z.data_ptr(),
             y.data_ptr(), g.data_ptr(), N, n, d, iters, coarse_iters,
             ctypes.c_float(float(lo)), ctypes.c_float(float(hi)),
             ctypes.c_float(float(over_relax)), stream)

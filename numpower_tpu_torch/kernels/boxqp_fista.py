@@ -4,7 +4,10 @@ numpower_tpu/kernels/boxqp_fista.py ``fista_mpc_pallas_res``, K2,
 ``solve_mpc_boxqp_pallas``).
 
 The three kernels are one CUDA C++ template in ``csrc/boxqp_fista.cu`` (its
-note says what bounds it on the H100 and how the design answers that): K2
+note says what bounds it on the H100 and how the design answers that), each
+on two tiles (``csrc/boxqp_tile.cuh``): one block a 32-scenario tile for
+d <= 128, a cluster of ceil(d / 128) blocks for 128 < d <= 1024, whose
+matrix operand the wrapper splits and lays out once (:func:`_wide_operand`). K2
 forms g = x0 @ W and the residual in the kernel, K3b takes g as given, K2'
 forms g and returns it beside U. This module holds their wrappers,
 :func:`fista_mpc_res`, :func:`fista_boxqp` and :func:`fista_mpc`, and their
@@ -25,8 +28,10 @@ from typing import Optional
 import torch
 
 from numpower_tpu_torch.kernels import _build
-from numpower_tpu_torch.kernels._build import MAX_D, MAX_N
-from numpower_tpu_torch.kernels.precision import bf16_round, make_tail_dot, precision_code
+from numpower_tpu_torch.kernels._build import MAX_D, MAX_N, TILE_D
+from numpower_tpu_torch.kernels.precision import (
+    bf16_round, bf16_split3, make_tail_dot, precision_code,
+)
 
 # K2's precision classes, the JAX package's value sets (boxqp_fista.py:312-313)
 TAIL_PRECISIONS = ("bf16x3", "highest")
@@ -65,7 +70,7 @@ def fista_mpc_res_reference(H, SxT, SuTQT, x0s, lo: float, hi: float, lipschitz,
 def _fista_mpc_res_plain(H, Ht, W, x0s, lo: float, hi: float, lipschitz, iters: int,
                          coarse_iters: int, U0, tail_precision: str, g_precision: str):
     """:func:`fista_mpc_res_reference` on the kernel's host-side operands
-    H' and W = SxT @ SuTQT (:func:`_fista_folds`)."""
+    H' and W = SxT @ SuTQT (the first two of :func:`_fista_folds`)."""
     precision_code(tail_precision, TAIL_PRECISIONS, "tail_precision")
     precision_code(g_precision, G_PRECISIONS, "g_precision")
     g = make_tail_dot(W, g_precision)(x0s)
@@ -121,11 +126,12 @@ def fista_mpc_reference(H, SxT, SuTQT, x0s, lo: float, hi: float, lipschitz,
     return fista_boxqp_reference(H, g, lo, hi, lipschitz, iters, coarse_iters), g
 
 
-def _check_operand(name: str, t: torch.Tensor, device: torch.device, shape) -> None:
+def _check_operand(name: str, t: torch.Tensor, device: torch.device, shape,
+                   dtype: torch.dtype = torch.float32) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
@@ -134,8 +140,10 @@ def _check_operand(name: str, t: torch.Tensor, device: torch.device, shape) -> N
 
 def _launch_shape(H, x0s, iters: int, coarse_iters: int, n_max: int = MAX_N):
     """(device, N, n, d, coarse_iters) of a launch on x0s's CUDA device, or a
-    ValueError for what the kernels do not take. The two-step kernels pass
-    their (N, d) g as x0s, with no bound on its width but d's."""
+    ValueError for what the kernels do not take: d <= MAX_D = 1024, the JAX
+    package's bound (the narrow tile to TILE_D = 128, the wide one past it).
+    The two-step kernels pass their (N, d) g as x0s, with no bound on its
+    width but d's."""
     if x0s.device.type != "cuda":
         raise ValueError(f"x0s is on {x0s.device}: the kernel needs a CUDA tensor")
     if x0s.ndim != 2:
@@ -150,29 +158,73 @@ def _launch_shape(H, x0s, iters: int, coarse_iters: int, n_max: int = MAX_N):
     return x0s.device, N, n, d, min(coarse_iters, iters)
 
 
+def _wide_operand(m: torch.Tensor) -> Optional[torch.Tensor]:
+    """The wide tile's matrix operand (csrc/boxqp_tile.cuh, WideTile) from the
+    kernels' fp32 (d, d) operand m (H' or (rho Minv)'), or None where
+    d <= TILE_D (the narrow tile stages m itself). A = m' zero-padded to
+    D = 128 b, b = ceil(d / 128) the cluster's blocks, split exactly into
+    bf16 parts hi + mid + lo (precision.bf16_split3, the split the narrow
+    kernels make in shared memory), laid out (b, 3, 2 b, 8192): for block r,
+    part p and 64-column slab s, the 128 x 64 block A[128 r.., 64 s..] as
+    8 x 8 core matrices, K-major, each slab one contiguous 16 KB copy."""
+    d = m.shape[0]
+    if d <= TILE_D:
+        return None
+    b = -(-d // TILE_D)
+    A = torch.zeros((TILE_D * b, TILE_D * b), dtype=torch.float32, device=m.device)
+    A[:d, :d] = m.T
+    parts = torch.stack([part.to(torch.bfloat16) for part in bf16_split3(A)])
+    # (p, r, j // 8, j % 8, s, k // 8, k % 8) -> (r, p, s, j // 8, k // 8, j % 8, k % 8)
+    return parts.view(3, b, 16, 8, 2 * b, 8, 8).permute(1, 0, 4, 2, 5, 3, 6).reshape(
+        b, 3, 2 * b, 8 * TILE_D * 8).contiguous()
+
+
+def _matrix_operand(name: str, m: torch.Tensor, wide: Optional[torch.Tensor],
+                    device: torch.device, d: int) -> torch.Tensor:
+    """The matrix a launch passes: m (d, d) for the narrow tile; past TILE_D
+    the wide tile's split operand, ``wide`` when given (formed once by a
+    caller that solves one QP many times), else formed from m here."""
+    _check_operand(name, m, device, (d, d))
+    if d <= TILE_D:
+        return m
+    wide = _wide_operand(m) if wide is None else wide
+    b = -(-d // TILE_D)
+    _check_operand(f"{name} (split)", wide, device, (b, 3, 2 * b, 8 * TILE_D * 8),
+                   torch.bfloat16)
+    return wide
+
+
+def _entry(name: str, d: int):
+    """The library's launch function `name` for d: its wide entry past TILE_D."""
+    return getattr(_build.library(), f"{name}_wide" if d > TILE_D else name)
+
+
 def _fista_folds(H, SxT, SuTQT) -> tuple:
     """The host-side operands of the FISTA kernels, which depend on the QP
-    alone: (H', W) with the fold W = SxT @ SuTQT, each contiguous. A caller
-    that solves one QP many times (models/mpc.MPCController) forms them
-    once and hands them to :func:`_fista_mpc_res` and :func:`_fista_boxqp`."""
-    return H.T.contiguous(), (SxT @ SuTQT).contiguous()
+    alone: (H', W, H' split) with the fold W = SxT @ SuTQT, each contiguous,
+    and the wide tile's operand of H' on the card past d = 128
+    (:func:`_wide_operand`; None otherwise). A caller that solves one QP
+    many times (models/mpc.MPCController) forms them once and hands them to
+    :func:`_fista_mpc_res` and :func:`_fista_boxqp`."""
+    Ht = H.T.contiguous()
+    return Ht, (SxT @ SuTQT).contiguous(), _wide_operand(Ht) if Ht.is_cuda else None
 
 
 def _mpc_operands(H, SxT, SuTQT, x0s, lipschitz, iters: int, coarse_iters: int, U0=None,
                   folds=None):
     """The checked operands of a launch that forms g in the kernel: the
-    launch shape, H', the fold W = SxT @ SuTQT (one host-side matmul, or
-    ``folds`` from :func:`_fista_folds`) and the Lipschitz constant, on x0s's
-    device."""
+    launch shape, the matrix (H', or its wide operand past d = 128), the
+    fold W = SxT @ SuTQT (one host-side matmul, or ``folds`` from
+    :func:`_fista_folds`) and the Lipschitz constant, on x0s's device."""
     shape = device, N, n, d, _ = _launch_shape(H, x0s, iters, coarse_iters)
-    Ht, W = _fista_folds(H, SxT, SuTQT) if folds is None else folds
+    Ht, W, wide = _fista_folds(H, SxT, SuTQT) if folds is None else folds
     lip = torch.as_tensor(lipschitz, dtype=torch.float32, device=device).reshape(())
-    for name, t, want in (("H'", Ht, (d, d)), ("W", W, (n, d)), ("x0s", x0s, (N, n)),
-                          ("lipschitz", lip, ())):
+    mat = _matrix_operand("H'", Ht, wide, device, d)
+    for name, t, want in (("W", W, (n, d)), ("x0s", x0s, (N, n)), ("lipschitz", lip, ())):
         _check_operand(name, t, device, want)
     if U0 is not None:
         _check_operand("U0", U0, device, (N, d))
-    return shape, Ht, W, lip
+    return shape, mat, W, lip
 
 
 def fista_mpc_res(H, SxT, SuTQT, x0s, lo: float, hi: float, lipschitz,
@@ -199,25 +251,25 @@ def _fista_mpc_res(H, SxT, SuTQT, x0s, lo: float, hi: float, lipschitz, iters: i
                    coarse_iters: int, U0, tail_precision: str, g_precision: str,
                    folds: Optional[tuple]):
     """:func:`fista_mpc_res` with its QP-only operands given: ``folds`` =
-    (H', W) of :func:`_fista_folds`, formed here when None. On a CPU tensor
-    the plain version runs on the same folds."""
+    (H', W, H' split) of :func:`_fista_folds`, formed here when None. On a
+    CPU tensor the plain version runs on the same H' and W."""
     tail_code = precision_code(tail_precision, TAIL_PRECISIONS, "tail_precision")
     g_code = precision_code(g_precision, G_PRECISIONS, "g_precision")
     if x0s.device.type == "cpu":
         if folds is None:
             return fista_mpc_res_reference(H, SxT, SuTQT, x0s, lo, hi, lipschitz,
                                            iters, coarse_iters, U0, tail_precision, g_precision)
-        return _fista_mpc_res_plain(H, *folds, x0s, lo, hi, lipschitz, iters, coarse_iters, U0,
-                                    tail_precision, g_precision)
-    (device, N, n, d, coarse_iters), Ht, W, lip = _mpc_operands(
+        return _fista_mpc_res_plain(H, *folds[:2], x0s, lo, hi, lipschitz, iters, coarse_iters,
+                                    U0, tail_precision, g_precision)
+    (device, N, n, d, coarse_iters), mat, W, lip = _mpc_operands(
         H, SxT, SuTQT, x0s, lipschitz, iters, coarse_iters, U0, folds)
     U = torch.empty((N, d), dtype=torch.float32, device=device)
     resid = torch.zeros((), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         capturing = torch.cuda.is_current_stream_capturing()
-        code = _build.library().npt_fista_mpc_res(
-            Ht.data_ptr(), W.data_ptr(), x0s.data_ptr(),
+        code = _entry("npt_fista_mpc_res", d)(
+            mat.data_ptr(), W.data_ptr(), x0s.data_ptr(),
             None if U0 is None else U0.data_ptr(), lip.data_ptr(),
             U.data_ptr(), resid.data_ptr(), N, n, d, iters, coarse_iters,
             ctypes.c_float(float(lo)), ctypes.c_float(float(hi)), tail_code, g_code, stream)
@@ -241,14 +293,14 @@ def fista_mpc(H, SxT, SuTQT, x0s, lo: float, hi: float, lipschitz, iters: int = 
     kernel launch adds one to ``fista_mpc.launches``."""
     if x0s.device.type == "cpu":
         return fista_mpc_reference(H, SxT, SuTQT, x0s, lo, hi, lipschitz, iters, coarse_iters)
-    (device, N, n, d, coarse_iters), Ht, W, lip = _mpc_operands(
+    (device, N, n, d, coarse_iters), mat, W, lip = _mpc_operands(
         H, SxT, SuTQT, x0s, lipschitz, iters, coarse_iters)
     U = torch.empty((N, d), dtype=torch.float32, device=device)
     g = torch.empty((N, d), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        code = _build.library().npt_fista_mpc(
-            Ht.data_ptr(), W.data_ptr(), x0s.data_ptr(), lip.data_ptr(), U.data_ptr(),
+        code = _entry("npt_fista_mpc", d)(
+            mat.data_ptr(), W.data_ptr(), x0s.data_ptr(), lip.data_ptr(), U.data_ptr(),
             g.data_ptr(), N, n, d, iters, coarse_iters, ctypes.c_float(float(lo)),
             ctypes.c_float(float(hi)), stream)
     _build.check(code, "fista_mpc kernel launch")
@@ -277,19 +329,20 @@ def fista_boxqp(H, g, lo: float, hi: float, lipschitz, iters: int = 40,
 
 
 def _fista_boxqp(H, g, lo: float, hi: float, lipschitz, iters: int, coarse_iters: int, U0,
-                 Ht: Optional[torch.Tensor]):
-    """:func:`fista_boxqp` with H' given (the first of :func:`_fista_folds`),
-    formed here when None. On a CPU tensor the plain version runs on the
-    same H'."""
+                 folds: Optional[tuple]):
+    """:func:`fista_boxqp` with the operands of :func:`_fista_folds` given
+    (H' and, past d = 128, its wide operand; W is not read), formed here
+    when None. On a CPU tensor the plain version runs on the same H'."""
     if g.device.type == "cpu":
-        if Ht is None:
+        if folds is None:
             return fista_boxqp_reference(H, g, lo, hi, lipschitz, iters, coarse_iters, U0)
         return _fista_loop(H, g, lo, hi, lipschitz, iters, coarse_iters, U0,
-                           make_tail_dot(Ht, "highest"))
+                           make_tail_dot(folds[0], "highest"))
     device, N, _, d, coarse_iters = _launch_shape(H, g, iters, coarse_iters, n_max=MAX_D)
-    Ht = H.T.contiguous() if Ht is None else Ht
+    Ht, _, wide = (H.T.contiguous(), None, None) if folds is None else folds
+    mat = _matrix_operand("H'", Ht, wide, device, d)
     lip = torch.as_tensor(lipschitz, dtype=torch.float32, device=device).reshape(())
-    for name, t, shape in (("H'", Ht, (d, d)), ("g", g, (N, d)), ("lipschitz", lip, ())):
+    for name, t, shape in (("g", g, (N, d)), ("lipschitz", lip, ())):
         _check_operand(name, t, device, shape)
     if U0 is not None:
         _check_operand("U0", U0, device, (N, d))
@@ -297,8 +350,8 @@ def _fista_boxqp(H, g, lo: float, hi: float, lipschitz, iters: int, coarse_iters
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         capturing = torch.cuda.is_current_stream_capturing()
-        code = _build.library().npt_fista_boxqp(
-            Ht.data_ptr(), g.data_ptr(), None if U0 is None else U0.data_ptr(),
+        code = _entry("npt_fista_boxqp", d)(
+            mat.data_ptr(), g.data_ptr(), None if U0 is None else U0.data_ptr(),
             lip.data_ptr(), U.data_ptr(), N, d, iters, coarse_iters,
             ctypes.c_float(float(lo)), ctypes.c_float(float(hi)), stream)
     _build.check(code, "fista_boxqp kernel launch")

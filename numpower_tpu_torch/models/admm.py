@@ -91,10 +91,10 @@ def route_mpc_boxqp_admm(device_type: str, d: int, has_x_ref: bool, x0_ndim: int
     """The solver solve_mpc_boxqp_admm runs: "kernel" or "plain".
 
     "auto" takes the fused ADMM kernel for a batch of x0 on a CUDA device
-    whose d fits the kernel's shared-memory envelope
-    (d <= boxqp_admm.MAX_D = 128), and plain ADMM otherwise, as the JAX
-    package's auto rule does off the TPU or above its VMEM bound
-    (admm.py:134-136); with or without an x_ref. On the kernel route,
+    with d <= boxqp_admm.MAX_D = 1024, the JAX package's rule on the TPU
+    ("pallas" if on_tpu and d <= 1024 and x0s.ndim == 2, admm.py:134-136),
+    and plain ADMM otherwise, as that rule does off the TPU or above d =
+    1024; with or without an x_ref. On the kernel route,
     solve_mpc_boxqp_admm takes the fused kernel for a batch of regulation
     problems and the two-step one (g given) for an x_ref, or for a single x0
     asked for by method="kernel", as the JAX package does (admm.py:149-179).

@@ -99,11 +99,13 @@ def route_mpc_boxqp(device_type: str, d: int, has_x_ref: bool, x0_ndim: int,
                     method: str = "auto") -> str:
     """The solver solve_mpc_boxqp runs: "kernel", "fista" or "pg".
 
-    "auto" takes the fused FISTA kernel for a tensor on a CUDA device whose d
-    fits the kernel's shared-memory envelope (d <= boxqp_fista.MAX_D = 128),
+    "auto" takes the fused FISTA kernel for a tensor on a CUDA device with
+    d <= boxqp_fista.MAX_D = 1024, the JAX package's rule on the TPU
+    ("pallas" if on_tpu and d <= 1024, boxqp.py:156-161; up to d = 128 one
+    block a scenario tile, past it a cluster of blocks, csrc/boxqp_tile.cuh),
     and plain FISTA otherwise: on the CPU, as the JAX package does off the
-    TPU, and above the envelope, as it does above its VMEM bound of d = 1024
-    (boxqp.py:156-161). On the kernel route, solve_mpc_boxqp takes the fused
+    TPU, and above d = 1024, as it does above its VMEM bound. On the kernel
+    route, solve_mpc_boxqp takes the fused
     kernel for a batch of regulation problems and the two-step one (g given)
     for an x_ref or a single x0, as the JAX package does (boxqp.py:162-197);
     has_x_ref and x0_ndim choose between the two there, not here.
@@ -177,8 +179,7 @@ def _solve_mpc_boxqp(qp: CondensedQP, x0s, u_lo: float, u_hi: float, x_ref, iter
         squeeze = g.ndim == 1
         U = boxqp_fista._fista_boxqp(
             qp.H, g[None] if squeeze else g, u_lo, u_hi, qp.lipschitz, iters, coarse_iters,
-            None if U0 is None else (U0[None] if squeeze else U0),
-            None if folds is None else folds[0])
+            None if U0 is None else (U0[None] if squeeze else U0), folds)
         if squeeze:
             U = U[0]
         step = 1.0 / qp.lipschitz

@@ -143,7 +143,10 @@ class MPCController:
         """Form what the tick's kernels need of self.qp alone, once for each
         QP the controller serves: FISTA's H' and fold W = Sx'(Su'Q)'; ADMM's
         rho, (H + rho I)^{-1} and folds ((rho Minv)', Wc), the same
-        operations as each solve makes. A graph reads the QP it was captured
+        operations as each solve makes; on the card past d = 128 (horizons
+        above 32 on the quadrotor) also the wide tile's split operand of H'
+        or (rho Minv)' (kernels/boxqp_fista._wide_operand), so that a tick
+        forms nothing of the QP. A graph reads the QP it was captured
         on, so the graphs and their plan buffers of an earlier QP go."""
         qp = self.qp
         if self.solver == "admm":

@@ -18,8 +18,8 @@ all_reduce MAX/SUM here):
 method follows the port's names (models/boxqp.route_mpc_boxqp): "kernel" is
 the JAX package's "pallas", the fused box-QP kernel per rank (K2 FISTA, K1
 ADMM), and "plain" its "xla" scan; either name is taken. "auto" takes the kernel for a mesh of
-CUDA devices with d <= MAX_D (the kernels' shared-memory envelope) and the
-plain scan otherwise; on a CUDA tensor the kernel route launches its kernel
+CUDA devices with d <= MAX_D = 1024, the JAX package's rule on a TPU mesh
+(sharding.py:41-50), and the plain scan otherwise; on a CUDA tensor the kernel route launches its kernel
 or raises. On a CPU mesh the kernel route runs the kernel's plain version,
 as the JAX package runs its kernel in interpret mode there.
 """

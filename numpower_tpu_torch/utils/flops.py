@@ -6,10 +6,14 @@ LOGICAL operations and bytes are the JAX package's: they count the same
 algorithmic work. What differs is the machine under them.
 
 Box-QP kernels (K1-K3, K1', K2'). Every iteration product runs on the tensor
-cores as bf16 ``wgmma`` passes (csrc/boxqp_tile.cuh): one block solves a tile
-of 32 scenarios, and the (32, d) x (d, d) product is padded to M = K = 128
-(kernels/_build.MAX_D), so the padded count rounds the scenarios up to 32
-and d up to 128. A product costs :data:`PASSES` passes of its class: "bf16"
+cores as bf16 ``wgmma`` passes (csrc/boxqp_tile.cuh): one block (d <= 128)
+or a cluster of ceil(d / 128) blocks (128 < d <= 1024) solves a tile of 32
+scenarios, each block 128 rows of the (32, d) x (d, d) product, so M is
+padded to 128 ceil(d / 128) (kernels/_build.TILE_D; a warpgroup whose 64
+rows lie past d runs no pass, and the k-steps stop at 16 ceil(d / 16)).
+The padded count rounds the scenarios up to 32 and d up to a multiple of
+128 in both M and K: the upper end of what the tiles run. A product costs
+:data:`PASSES` passes of its class: "bf16"
 1 (the coarse phase), "bf16x3" 3, "bf16x4" 4, "highest" 6 (README
 "Precision"). The weighted counts follow the port's default schedule: the
 coarse phase 1 pass, the tail, the residual product and the g/c folds

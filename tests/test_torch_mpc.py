@@ -172,7 +172,7 @@ def test_controller_and_condense_default_to_the_card():
     (("cuda", 120, False, 2), "kernel"),          # the flagship shape
     (("cuda", boxqp_fista.MAX_D, False, 2), "kernel"),
     (("cuda", boxqp_fista.MAX_D + 1, False, 2), "fista"),  # above the envelope
-    (("cuda", 200, True, 2), "fista"),
+    (("cuda", 1100, True, 2), "fista"),  # x_ref above the envelope
     (("cpu", 120, False, 2), "fista"),
     (("cpu", 120, True, 1), "fista"),
     (("cuda", 120, False, 2, "pg"), "pg"),
