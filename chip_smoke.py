@@ -267,17 +267,34 @@ blocks, run right after phase 26):
    own, wrapper and plain times at d = 132, 400 and 1024 and the captured
    T = 100 tick's.
 
+The Riccati family past n = 16 (csrc/riccati_wide.cu, cholesky_wide.cu),
+run right after phase 27:
+
+28. a formation of four quadrotor12 plants as one system (n = 48, m = 16,
+   Q = I + kron(L_ring, E_pos), R = 0.1 I, QF = 5 I; per-scenario As,
+   N = 4096, T = 30; `formation`): K5 against its plain version there, at a
+   ragged N = 1003 and at the edges (17, 1), (32, 8), (48, 48) (T = 8), K6b
+   at the psd route's (4096, 16, 16) x (4096, 16, 48) and at (4096, 48, 48)
+   x (4096, 48, 48), K6a at (4096, 48, 48) also against
+   torch.linalg.cholesky, n, m or r = 49 raising ValueError; then the
+   path, its counters zeroed just before it: riccati_scan_per_scenario by
+   "auto" (one K5 launch) and "psd" (30 K6b launches), cholesky_batched of
+   the cost-to-go matrices (one K6a launch), against the plain route in
+   float64 (the narrow bounds, or four times the plain fp32 route's own
+   distance); own, wrapper, plain and library times, and the routes'.
+
 Every kernel's own duration (torch.profiler's CUDA activity, log_own) is
 logged in the times phases (4, 7, 10, 13, 16, 19) beside its wrapper's
-CUDA-event time and host enqueue (the wide tile's in 27): K1, K2 (4); K5, K6a, K6b (7); K3a, K3b,
+CUDA-event time and host enqueue (the wide tile's in 27, the wide K5, K6a
+and K6b's in 28): K1, K2 (4); K5, K6a, K6b (7); K3a, K3b,
 K7 and K8 at N = 256 and 4096 (10); K9-K12, K9 also with inputs and K11
 also on the unicycle and the planar quadrotor (13); K13 at the bench's shape
 and, by a direct call, at N = 4096, K14 (16); K1', K2' (19).
 
 The launch counters of each path are zeroed just before it is driven
 (phases 2-3, 6, the path of 8, the path of 9, phase 12, the paths of 14
-and 15, phase 18, the AL-iLQR and particle-filter paths of 23 and the path
-of 27) and read just after. A wrapper counts the launches it makes; a
+and 15, phase 18, the AL-iLQR and particle-filter paths of 23 and the paths
+of 27 and 28) and read just after. A wrapper counts the launches it makes; a
 replayed CUDA graph (the captured serving ticks of phases 3, 8 and 27)
 calls none, so the kernel's
 runs in those ticks are counted from torch.profiler's CUDA activity and
@@ -3764,6 +3781,262 @@ def wide_boxqp_family(dev, smi: str) -> list:
             for name, (src, rep, n_bytes, n_ops, tensor_ops) in spec.items()]
 
 
+# Phase 28: the Riccati family past n = 16 (csrc/riccati_wide.cu,
+# cholesky_wide.cu). The configuration: a formation of four quadrotor12(0.02)
+# plants stacked as one system (n = 48, m = 16) with per-scenario models, as
+# the per-scenario Riccati row of bench.py:341-372: As = tile(A) + 0.01 N(0, 1)
+# (seed 4), Bs broadcast, Q = I + kron(L_ring, E_pos) (the ring's Laplacian
+# over the quadrotors' positions), R = 0.1 I, QF = 5 I, N = 4096, T = 30; the
+# envelope's edges (17, 1), (32, 8) and (48, 48) on random stable systems at
+# T_EDGE (the plain version's unrolled 48 x 48 solve is ~40k launches a step
+# on the card), and a ragged N = 1003.
+N_FORMATION, T_EDGE = 4, 8
+RICCATI_WIDE_EDGES = ((17, 1), (32, 8), (48, 48))
+
+
+def formation(k: int, N: int, seed: int = 4):
+    """k quadrotor12(dt=0.02) plants stacked as one system (n = 12 k,
+    m = 4 k): (As (N, n, n), B (n, m), Q, R, QF), numpy float32; As =
+    tile(A) + 0.01 N(0, 1) from `seed`."""
+    from numpower_tpu_torch.models import quadrotor12
+
+    Aq, Bq = quadrotor12(0.02)
+    A, B = np.kron(np.eye(k), Aq), np.kron(np.eye(k), Bq)
+    ring = 2 * np.eye(k) - np.roll(np.eye(k), 1, 1) - np.roll(np.eye(k), -1, 1)
+    E_pos = np.diag([1.0, 1.0, 1.0] + [0.0] * 9)
+    n, m = A.shape[0], B.shape[1]
+    rng = np.random.default_rng(seed)
+    As = (np.tile(A, (N, 1, 1)) + 0.01 * rng.standard_normal((N, n, n))).astype(np.float32)
+    return (As, B.astype(np.float32), (np.eye(n) + np.kron(ring, E_pos)).astype(np.float32),
+            (0.1 * np.eye(m)).astype(np.float32), (5.0 * np.eye(n)).astype(np.float32))
+
+
+def stable_plant(n: int, m: int, N: int, seed: int):
+    """A random plant with A's eigenvalues well inside the unit circle (0.8 I
+    plus a 3% perturbation): (As (N, n, n), B (n, m), Q = I, R = 0.1 I,
+    QF = 5 I), numpy float32, As = tile(A) + 0.01 N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    A = 0.8 * np.eye(n) + 0.03 * rng.standard_normal((n, n))
+    B = (0.1 * rng.standard_normal((n, m))).astype(np.float32)
+    As = (np.tile(A, (N, 1, 1)) + 0.01 * rng.standard_normal((N, n, n))).astype(np.float32)
+    return (As, B, np.eye(n, dtype=np.float32), (0.1 * np.eye(m)).astype(np.float32),
+            (5.0 * np.eye(n)).astype(np.float32))
+
+
+def scaled_err(a: torch.Tensor, b: torch.Tensor, rtol: float, atol: float) -> float:
+    """max |a - b| / (atol + rtol |b|): at most 1 where close(a, b, rtol,
+    atol) holds."""
+    a, b = a.double(), b.double()
+    return ((a - b).abs() / (atol + rtol * b.abs())).max().item()
+
+
+def wide_riccati_family(dev, smi: str) -> list:
+    """Phase 28: K5, K6a and K6b past n = 16. Each wide kernel against its
+    plain version on the card: K5 on the formation (N = 4096 and 1003,
+    T = 30) and at the edges (17, 1), (32, 8), (48, 48) (T = T_EDGE), rtol
+    1e-3 / atol 1e-4 on Ks and 1e-3 on P0 (phase 5's); K6b at the psd
+    route's shape (4096, 16, 16) x (4096, 16, 48) and at (4096, 48, 48) x
+    (4096, 48, 48), and ragged, rtol 2e-3 / atol 2e-4 with a residual
+    |AX - B| <= 2e-3; K6a at (4096, 48, 48) and ragged, 1e-4 of its plain
+    version and of torch.linalg.cholesky, exact zeros above the diagonal;
+    wrapper calls at n = 49, m = 49 and r = 49 raising ValueError. Then the
+    path, its counters zeroed just before it: riccati_scan_per_scenario at
+    the formation by "auto" (one K5 launch) and by "psd" (T K6b launches),
+    cholesky_batched of the 4096 cost-to-go matrices (one K6a launch), each
+    against the plain route in float64 on the card: within the narrow bounds
+    (rtol 1e-3 / atol 1e-4 on Ks, 1e-3 on P0 and L), or within four times
+    the plain fp32 version's own distance where that version cannot hold
+    them, both logged. Then the times: own (torch.profiler), wrapper and
+    plain of each kernel, its library call where there is one, and the
+    plain route's. Returns the wide kernels' entries of the JSON line."""
+    from numpower_tpu_torch.kernels import cholesky, riccati
+    from numpower_tpu_torch.models import riccati_scan_per_scenario
+    from numpower_tpu_torch.utils.smallmat import cholesky_unrolled, psd_solve_unrolled
+
+    As_np, B_np, Q, R, QF = formation(N_FORMATION, N)
+    n, m = B_np.shape
+    As = torch.as_tensor(As_np, device=dev)
+    Bs = torch.as_tensor(B_np, device=dev).expand(N, n, m)  # broadcast, as the bench passes it
+    costs = [torch.as_tensor(x, device=dev) for x in (Q, R, QF)]
+    log(f"phase 28: the formation of {N_FORMATION} quadrotors, n = {n}, m = {m}, N = {N}, "
+        f"T = {T}; edges {RICCATI_WIDE_EDGES} at T = {T_EDGE}")
+
+    # -- phase 28: each wide kernel against its plain version --------------------
+    err = {"riccati": 0.0, "psd": 0.0, "chol": 0.0}
+    f0 = {"riccati": riccati.riccati_batched_fused.launches,
+          "psd": cholesky.psd_solve_batched.launches, "chol": cholesky.cholesky_batched.launches}
+    cases = [(f"formation N={N_k} T={T}", As[:N_k], Bs[:N_k], costs, T) for N_k in (N, N_RAGGED)]
+    for n_e, m_e in RICCATI_WIDE_EDGES:
+        A_e, B_e, *c_e = stable_plant(n_e, m_e, N, seed=n_e + m_e)
+        cases.append((f"(n, m) = ({n_e}, {m_e}) N={N} T={T_EDGE}", torch.as_tensor(A_e, device=dev),
+                      torch.as_tensor(B_e, device=dev).expand(N, n_e, m_e),
+                      [torch.as_tensor(x, device=dev) for x in c_e], T_EDGE))
+    for what, A_k, B_k, c_k, T_k in cases:
+        Ks, P0 = riccati.riccati_batched_fused(A_k, B_k, *c_k, T_k)
+        Ks_p, P0_p = riccati.riccati_batched_reference(A_k, B_k, *c_k, T_k)
+        dk, dp = max_err(Ks, Ks_p), max_err(P0, P0_p)
+        log(f"K5 wide {what}: max|dKs| {dk:.3e} max|dP0| {dp:.3e} (|Ks| "
+            f"{Ks_p.abs().max().item():.3e}, |P0| {P0_p.abs().max().item():.3e})")
+        require(close(Ks, Ks_p, 1e-3, 1e-4) and close(P0, P0_p, 1e-3, 1e-3),
+                f"K5 wide {what} vs plain")
+        err["riccati"] = max(err["riccati"], dk)
+    for N_k, dim, r, seed in ((N, m, n, 21), (N, n, n, 22), (N_RAGGED, n, n, 23),
+                              (N_RAGGED, 17, 1, 24)):
+        a = spd_batch(N_k, dim, seed, dev)
+        b = torch.as_tensor(np.random.default_rng(seed + 10).standard_normal((N_k, dim, r)),
+                            dtype=torch.float32, device=dev)
+        X = cholesky.psd_solve_batched(a, b)
+        X_p = psd_solve_unrolled(a, b)
+        dx, res = max_err(X, X_p), max_err(a @ X, b)
+        log(f"K6b wide ({N_k},{dim},{dim})x({N_k},{dim},{r}): max|dX| {dx:.3e} residual {res:.3e}")
+        require(close(X, X_p, 2e-3, 2e-4) and res <= 2e-3, f"K6b wide at n={dim} r={r} vs plain")
+        err["psd"] = max(err["psd"], dx)
+    for N_k, dim, seed in ((N, n, 25), (N_RAGGED, 33, 26), (N_RAGGED, 17, 27)):
+        a = spd_batch(N_k, dim, seed, dev)
+        L = cholesky.cholesky_batched(a)
+        L_p, L_lib = cholesky_unrolled(a), torch.linalg.cholesky(a)
+        d_plain, d_lib = max_err(L, L_p), max_err(L, L_lib)
+        upper = torch.count_nonzero(torch.triu(L, 1)).item()
+        log(f"K6a wide ({N_k},{dim},{dim}): max|dL| {d_plain:.3e} vs plain, {d_lib:.3e} vs "
+            f"torch.linalg.cholesky; nonzeros above the diagonal {upper}")
+        require(close(L, L_p, 1e-4, 1e-4) and close(L, L_lib, 1e-4, 1e-4) and upper == 0,
+                f"K6a wide at n={dim} vs plain and torch.linalg.cholesky")
+        err["chol"] = max(err["chol"], d_plain)
+    calls = {"riccati": riccati.riccati_batched_fused.launches - f0["riccati"],
+             "psd": cholesky.psd_solve_batched.launches - f0["psd"],
+             "chol": cholesky.cholesky_batched.launches - f0["chol"]}
+    require(calls == {"riccati": 5, "psd": 4, "chol": 3}, f"each wide kernel launched ({calls})")
+    # past the envelope: n = 49, m = 49, r = 49 raise
+    over = {
+        "K5 n=49": lambda: riccati.riccati_batched_fused(
+            torch.zeros((8, 49, 49), device=dev), torch.zeros((8, 49, 4), device=dev),
+            np.eye(49), np.eye(4), np.eye(49), 2),
+        "K5 m=49": lambda: riccati.riccati_batched_fused(
+            torch.zeros((8, 12, 12), device=dev), torch.zeros((8, 12, 49), device=dev),
+            np.eye(12), np.eye(49), np.eye(12), 2),
+        "K6a n=49": lambda: cholesky.cholesky_batched(spd_batch(8, 49, 1, dev)),
+        "K6b n=49": lambda: cholesky.psd_solve_batched(spd_batch(8, 49, 1, dev),
+                                                       torch.zeros((8, 49, 4), device=dev)),
+        "K6b r=49": lambda: cholesky.psd_solve_batched(spd_batch(8, 12, 1, dev),
+                                                       torch.zeros((8, 12, 49), device=dev)),
+    }
+    raised = {}
+    for what, fn in over.items():
+        try:
+            fn()
+            raised[what] = False
+        except ValueError:
+            raised[what] = True
+    log(f"wide Riccati family past the envelope, ValueError: {raised}")
+    require(all(raised.values()), "a wrapper call at n, m or r = 49 raises ValueError")
+
+    # -- phase 28: the path at the formation, counted -----------------------------
+    counters = {"riccati": riccati.riccati_batched_fused, "psd": cholesky.psd_solve_batched,
+                "chol": cholesky.cholesky_batched}
+    for counter in counters.values():
+        counter.launches = 0
+    Ks_f, P0_f = riccati_scan_per_scenario(As, Bs, Q, R, QF, T)
+    Ks_s, P0_s = riccati_scan_per_scenario(As, Bs, Q, R, QF, T, method="psd")
+    L_f = cholesky.cholesky_batched(P0_f)
+    launches = {name: counter.launches for name, counter in counters.items()}
+    log(f"wide Riccati path launches: {launches}")
+    require(launches == {"riccati": 1, "psd": T, "chol": 1},
+            "the formation's path went through K5 once, K6b once per stage, K6a once")
+
+    # against the plain route in float64: the narrow bounds, or four times the
+    # plain fp32 route's own distance where it cannot hold them
+    Ks_64, P0_64 = riccati_scan_per_scenario(As.double(), Bs.double(), Q, R, QF, T,
+                                             method="plain")
+    Ks_32, P0_32 = riccati_scan_per_scenario(As, Bs, Q, R, QF, T, method="plain")
+    L_64 = torch.linalg.cholesky(P0_f.double())
+    L_32 = cholesky_unrolled(P0_f)
+    held = True
+    for what, got, plain, exact, rtol, atol in (
+            ("auto (K5) Ks", Ks_f, Ks_32, Ks_64, 1e-3, 1e-4),
+            ("auto (K5) P0", P0_f, P0_32, P0_64, 1e-3, 1e-3),
+            ("psd (K6b) Ks", Ks_s, Ks_32, Ks_64, 1e-3, 1e-4),
+            ("psd (K6b) P0", P0_s, P0_32, P0_64, 1e-3, 1e-3),
+            ("cholesky_batched (K6a) of P0", L_f, L_32, L_64, 1e-4, 1e-4)):
+        e_k, e_p = scaled_err(got, exact, rtol, atol), scaled_err(plain, exact, rtol, atol)
+        ok = e_k <= max(1.0, 4 * e_p)
+        held = held and ok
+        log(f"wide path {what} vs float64 (rtol {rtol:g}, atol {atol:g}): max|d| "
+            f"{max_err(got, exact):.3e}, scaled {e_k:.3e}; the plain fp32 route's {e_p:.3e} "
+            f"(max|d| {max_err(plain, exact):.3e}): {'held' if ok else 'FAILED'}")
+    d_rec = max_err(L_f @ L_f.transpose(1, 2), P0_f) / P0_f.abs().max().item()
+    upper = torch.count_nonzero(torch.triu(L_f, 1)).item()
+    log(f"cholesky_batched of the {N} cost-to-go matrices (48 x 48): |LL' - P0| / |P0| "
+        f"{d_rec:.3e}; nonzeros above the diagonal {upper}")
+    require(held and d_rec <= 1e-5 and upper == 0, "the formation's path against float64")
+    finite = all(bool(torch.isfinite(x).all()) for x in (Ks_f, P0_f, Ks_s, P0_s, L_f))
+    require(finite and Ks_f.shape == (N, T, m, n) and P0_f.shape == (N, n, n),
+            "the formation's gains and cost-to-go finite, of their shapes")
+
+    # -- phase 28: times ----------------------------------------------------------
+    slow = {"reps": 3, "inner": 1, "warmup": 1}
+    a16 = spd_batch(N, m, 21, dev)
+    b16 = torch.as_tensor(np.random.default_rng(31).standard_normal((N, m, n)),
+                          dtype=torch.float32, device=dev)
+    a48 = spd_batch(N, n, 22, dev)
+    b48 = torch.as_tensor(np.random.default_rng(32).standard_normal((N, n, n)),
+                          dtype=torch.float32, device=dev)
+
+    def lib_solve(a, b):
+        return torch.cholesky_solve(b, torch.linalg.cholesky(a))
+
+    kernel_fns = {"riccati": lambda: riccati.riccati_batched_fused(As, Bs, *costs, T),
+                  "psd": lambda: cholesky.psd_solve_batched(a16, b16),
+                  "psd48": lambda: cholesky.psd_solve_batched(a48, b48),
+                  "chol": lambda: cholesky.cholesky_batched(a48)}
+    ms = {k: cuda_ms(fn, reps=5, inner=5, warmup=2) for k, fn in kernel_fns.items()}
+    plain_ms = {"riccati": cuda_ms(lambda: riccati.riccati_batched_reference(As, Bs, *costs, T),
+                                   **slow),
+                "psd": cuda_ms(lambda: psd_solve_unrolled(a16, b16), **slow),
+                "psd48": cuda_ms(lambda: psd_solve_unrolled(a48, b48), **slow),
+                "chol": cuda_ms(lambda: cholesky_unrolled(a48), **slow)}
+    lib_ms = {"psd": cuda_ms(lambda: lib_solve(a16, b16)),
+              "psd48": cuda_ms(lambda: lib_solve(a48, b48)),
+              "chol": cuda_ms(lambda: torch.linalg.cholesky(a48))}
+    route_ms = {route: cuda_ms(lambda route=route: riccati_scan_per_scenario(
+                    As, Bs, *costs, T, method=route), **slow) for route in ("auto", "psd", "plain")}
+    cost = riccati_fused_cost(N, T, n, m)
+    for key, what, kernel in (
+            ("riccati", f"K5 wide riccati formation N={N} T={T} (n={n}, m={m})",
+             "riccati_wide_kernel"),
+            ("psd", f"K6b wide psd_solve ({N},{m},{m})x({N},{m},{n})", "psd_solve_wide_kernel"),
+            ("psd48", f"K6b wide psd_solve ({N},{n},{n})x({N},{n},{n})", "psd_solve_wide_kernel"),
+            ("chol", f"K6a wide cholesky ({N},{n},{n})", "cholesky_wide_kernel")):
+        log_own(what, kernel_fns[key], kernel, ms[key], smi, calls=20)
+    log(f"time K5 wide riccati formation N={N} T={T}: kernel {ms['riccati']:.4f} ms "
+        f"({cost.flops / ms['riccati'] / 1e9:.3f} TFLOP/s of 67 fp32; bound "
+        f"{cost.sol_seconds(H100_SXM.hbm_gbps, H100_SXM.fp32_tflops) * 1e3:.4f} ms), plain "
+        f"{plain_ms['riccati']:.4f} ms; library: none [{smi}]")
+    for key, what in (("psd", f"({N},{m},{m})x({N},{m},{n})"),
+                      ("psd48", f"({N},{n},{n})x({N},{n},{n})")):
+        log(f"time K6b wide psd_solve {what}: kernel {ms[key]:.4f} ms, plain "
+            f"{plain_ms[key]:.4f} ms, torch.linalg.cholesky + torch.cholesky_solve "
+            f"{lib_ms[key]:.4f} ms [{smi}]")
+    log(f"time K6a wide cholesky ({N},{n},{n}): kernel {ms['chol']:.4f} ms, plain "
+        f"{plain_ms['chol']:.4f} ms, torch.linalg.cholesky {lib_ms['chol']:.4f} ms [{smi}]")
+    for route, t_ms in route_ms.items():
+        log(f"time riccati_scan_per_scenario formation N={N} T={T} method={route}: "
+            f"{t_ms:.4f} ms [{smi}]")
+    return [
+        kernel_entry(f"riccati_batched_fused (wide, n = {n}, m = {m})", "riccati_wide.cu",
+                     "riccati.py:172", launches["riccati"], err["riccati"], ms["riccati"],
+                     plain_ms["riccati"],
+                     4 * (N * n * n + N * n * m + 2 * n * n + m * m + N * T * m * n + N * n * n),
+                     cost.flops),
+        kernel_entry(f"cholesky_batched (wide, n = {n})", "cholesky_wide.cu", "cholesky.py:107",
+                     launches["chol"], err["chol"], ms["chol"], plain_ms["chol"],
+                     4 * 2 * N * n * n, N * n ** 3 / 3, library_ms=lib_ms["chol"]),
+        kernel_entry(f"psd_solve_batched (wide, n = {m}, r = {n})", "cholesky_wide.cu",
+                     "cholesky.py:135", launches["psd"], err["psd"], ms["psd"], plain_ms["psd"],
+                     4 * (N * m * m + 2 * N * m * n), N * (m ** 3 / 3 + 2 * m * m * n),
+                     library_ms=lib_ms["psd"]),
+    ]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3809,11 +4082,11 @@ def main() -> int:
                 f"8 FISTA and 11 ADMM instances on the {tile}")
     require(len(hgmma) == 38 and all(hgmma.values()),
             "every box-QP kernel instance runs its products as wgmma")
-    # K5's shared-memory accesses and FMAs per (NB, MB) bucket: static counts
-    # of each instance, whose step is unrolled (at (12, 4) its step loop
-    # holds 96 of the 120 LDS and 16 of the 31 STS)
+    # K5's shared-memory accesses and FMAs per (NB, MB) bucket, narrow and
+    # wide: static counts of each instance, whose step is unrolled (at (12, 4)
+    # its step loop holds 96 of the 120 LDS and 16 of the 31 STS)
     for name, row in sorted(sass.items()):
-        if "riccati::riccati_kernel" in name:
+        if "riccati::riccati_kernel" in name or "riccati::riccati_wide_kernel" in name:
             log(f"SASS {name}: LDS {row['LDS']} STS {row['STS']} FFMA {row['FFMA']}")
 
     A, B = quadrotor12(0.02)
@@ -3972,6 +4245,7 @@ def main() -> int:
     serving_tick_family(dev, smi)
     jit_eig_family(dev)
     wide = wide_boxqp_family(dev, smi)
+    wide += wide_riccati_family(dev, smi)
 
     # fp32 on the host: the fold W = Sx'(Su'Q)' (K1 also its product with
     # Minv'). bf16 tensor-core passes in the kernel: the fold of g (or c) from

@@ -66,6 +66,8 @@
 // without an attribute, so nothing is set on the host per launch. Device
 // memory is read and written once (4 N n (n + 2r) bytes).
 //
+// Envelope: n <= 16, r <= 16; past it, to n = r = 48, cholesky_wide.cu.
+//
 // The probe builds this file with the NPT_STAMP macros filled in (the parts
 // of K6a: 0 staging, 1 factor, 2 write-back; of K6b: 0 staging, 1 factor,
 // 2 solve, 3 write-back); here they are empty.

@@ -52,7 +52,7 @@
 // cycles per warp-step, 0.41 ms at N = 4096, T = 30). The padding is exact:
 // A, B, Q, QF are 0 and R is the identity outside (n, m), which keeps the
 // padded rows of P and K at 0 and the padded pivots of S at 1.
-// Envelope: n <= 16, m <= 8.
+// Envelope: n <= 16, m <= 8; past it, to n = m = 48, riccati_wide.cu.
 
 #include <cuda_runtime.h>
 

@@ -93,10 +93,13 @@ _SIGNATURES = {
     # n, d
     "npt_boxqp_wide_clusters": (_I, _I),
 }
-# The box-QP kernels' wide entries take the arguments of their narrow ones,
-# the matrix as the wide tile's split operand (kernels/boxqp_fista._wide_operand).
+# The wide entries take the arguments of their narrow ones: the box-QP
+# kernels' with the matrix as the wide tile's split operand
+# (kernels/boxqp_fista._wide_operand); K5's, K6a's and K6b's past n = 16
+# (csrc/riccati_wide.cu, cholesky_wide.cu).
 for _name in ("npt_fista_mpc_res", "npt_fista_boxqp", "npt_fista_mpc", "npt_admm_mpc_res",
-              "npt_admm_boxqp", "npt_admm_mpc"):
+              "npt_admm_boxqp", "npt_admm_mpc", "npt_riccati_fused", "npt_cholesky_batched",
+              "npt_psd_solve_batched"):
     _SIGNATURES[f"{_name}_wide"] = _SIGNATURES[_name]
 
 

@@ -212,13 +212,15 @@ def route_riccati_per_scenario(device_type: str, n: int, m: int, method: str = "
 
     "auto" takes the fused Riccati kernel (the JAX package's "fused") for a
     tensor on a CUDA device whose (n, m) lies inside its envelope
-    (n <= riccati.MAX_N = 16, m <= riccati.MAX_M = 8), and "plain" otherwise,
-    as the JAX package takes "xla" off the TPU (lqr.py:261-265). "psd" (the
-    JAX package's "pallas") keeps the batched products plain and sends each
-    step's SPD solve to the batched-solve kernel. An explicit "fused" or "psd"
-    outside its kernel's envelope raises ValueError, as does any other name.
-    The JAX package's names are taken too: "pallas" is "psd", "xla" "plain"
-    (lqr.py:261-276)."""
+    (n <= riccati.MAX_N = 48, m <= riccati.MAX_M = 48: the narrow form to
+    n = 16, m = 8, the wide form past it), and "plain" otherwise, as the JAX
+    package takes "fused" on the TPU for n <= 48 and "xla" elsewhere
+    (lqr.py:261-265). "psd" (the JAX package's "pallas") keeps the batched
+    products plain and sends each step's (m, m) SPD solve against n columns
+    to the batched-solve kernel (m <= cholesky.MAX_DIM = 48, n <=
+    cholesky.MAX_RHS = 48). An explicit "fused" or "psd" outside its kernel's
+    envelope raises ValueError, as does any other name. The JAX package's
+    names are taken too: "pallas" is "psd", "xla" "plain" (lqr.py:261-276)."""
     fused_ok = n <= riccati.MAX_N and m <= riccati.MAX_M
     method = {"pallas": "psd", "xla": "plain"}.get(method, method)
     if method == "auto":

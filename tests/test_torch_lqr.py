@@ -201,14 +201,20 @@ def test_riccati_scan_per_scenario_plain_matches_jax_xla(bs):
 @pytest.mark.parametrize("args,want", [
     (("cuda", 12, 4), "fused"),         # the quadrotor
     (("cuda", 2, 1), "fused"),          # the double integrator
-    (("cuda", 16, 8), "fused"),         # the envelope's corner
-    (("cuda", 17, 4), "plain"),         # past it
-    (("cuda", 12, 9), "plain"),
+    (("cuda", 48, 48), "fused"),        # the envelope's corner
+    (("cuda", 17, 4), "fused"),         # past the narrow kernel: the wide one
+    (("cuda", 12, 9), "fused"),
     (("cpu", 12, 4), "plain"),
     (("cpu", 12, 4, "fused"), "fused"),  # runs the kernel's plain version on the CPU
     (("cuda", 12, 4, "psd"), "psd"),
     (("cuda", 12, 4, "plain"), "plain"),
     (("cuda", 17, 4, "plain"), "plain"),
+    (("cuda", 16, 8), "fused"),         # the narrow kernel's corner
+    (("cuda", 48, 16), "fused"),        # the four-quadrotor formation
+    (("cuda", 49, 4), "plain"),         # past the envelope
+    (("cuda", 12, 49), "plain"),
+    (("cuda", 48, 48, "psd"), "psd"),
+    (("cuda", 49, 4, "plain"), "plain"),
 ])
 def test_route_riccati_per_scenario(args, want):
     assert route_riccati_per_scenario(*args) == want
@@ -216,13 +222,14 @@ def test_route_riccati_per_scenario(args, want):
 
 @pytest.mark.parametrize("args", [
     ("cuda", 12, 4, "cuda"),    # a name neither package knows
-    ("cuda", 12, 17, "pallas"),  # JAX's name for "psd", outside the solve kernel's envelope
+    ("cuda", 12, 49, "pallas"),  # JAX's name for "psd", outside the solve kernel's envelope
     ("cpu", 12, 4, "cholesky"),
-    ("cuda", 17, 4, "fused"),   # explicit kernel routes outside the envelopes
-    ("cuda", 12, 9, "fused"),
-    ("cpu", 17, 4, "fused"),
-    ("cuda", 17, 4, "psd"),
-    ("cuda", 12, 17, "psd"),
+    ("cuda", 49, 4, "fused"),   # explicit kernel routes outside the envelopes
+    ("cuda", 12, 49, "fused"),
+    ("cpu", 49, 4, "fused"),
+    ("cuda", 49, 4, "psd"),
+    ("cuda", 12, 49, "psd"),
+    ("cuda", 49, 4, "pallas"),
 ])
 def test_route_riccati_per_scenario_rejects(args):
     with pytest.raises(ValueError):

@@ -170,23 +170,25 @@ def test_riccati_routes_and_launch_counts(device):
 
 
 def test_riccati_envelope_raises(device):
-    As, Bs = _plant_batch(8, 17, 4, device)
+    """Past n = 48 or m = 48 (the wide form's edge; the narrow form's, n = 16
+    and m = 8, now hands over to it: tests/test_torch_riccati_wide_cuda.py)."""
+    As, Bs = _plant_batch(8, 49, 4, device)
     with pytest.raises(ValueError, match="envelope"):
-        riccati.riccati_batched_fused(As, Bs, *_costs(17, 4), 5)
+        riccati.riccati_batched_fused(As, Bs, *_costs(49, 4), 5)
     with pytest.raises(ValueError, match="envelope"):
-        riccati_scan_per_scenario(As, Bs, *_costs(17, 4), 5, method="fused")
-    As, Bs = _plant_batch(8, 12, 9, device)
+        riccati_scan_per_scenario(As, Bs, *_costs(49, 4), 5, method="fused")
+    As, Bs = _plant_batch(8, 12, 49, device)
     with pytest.raises(ValueError, match="envelope"):
-        riccati_scan_per_scenario(As, Bs, *_costs(12, 9), 5, method="fused")
-    As, Bs = _plant_batch(8, 17, 4, device)
+        riccati_scan_per_scenario(As, Bs, *_costs(12, 49), 5, method="fused")
+    As, Bs = _plant_batch(8, 49, 4, device)
     with pytest.raises(ValueError, match="envelope"):
-        riccati_scan_per_scenario(As, Bs, *_costs(17, 4), 5, method="psd")
+        riccati_scan_per_scenario(As, Bs, *_costs(49, 4), 5, method="psd")
     with pytest.raises(ValueError, match="float32"):
         riccati.riccati_batched_fused(As[:, :12, :12].double(), Bs[:, :12].double(),
                                       *_costs(12, 4), 5)
     launches = riccati.riccati_batched_fused.launches
-    Ks, _ = riccati_scan_per_scenario(As, Bs, *_costs(17, 4), 5)  # auto past the envelope
-    assert riccati.riccati_batched_fused.launches == launches and Ks.shape == (8, 5, 4, 17)
+    Ks, _ = riccati_scan_per_scenario(As, Bs, *_costs(49, 4), 5)  # auto past the envelope
+    assert riccati.riccati_batched_fused.launches == launches and Ks.shape == (8, 5, 4, 49)
 
 
 # every r at n = 4 (the Riccati inner solve's n); n = 1, 5, 12, 16; N = 1, 31,
@@ -315,9 +317,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(device):
     with pytest.raises(ValueError, match="float32"):
         cholesky.cholesky_batched(a.double())
     with pytest.raises(ValueError, match="envelope"):
-        cholesky.cholesky_batched(_spd(8, 17, device, seed=1))
+        cholesky.cholesky_batched(_spd(8, 49, device, seed=1))
     with pytest.raises(ValueError, match="envelope"):
-        cholesky.psd_solve_batched(a, torch.zeros((64, 12, 17), device=device))
+        cholesky.psd_solve_batched(a, torch.zeros((64, 12, 49), device=device))
     with pytest.raises(ValueError, match="shape"):
         cholesky.psd_solve_batched(a, torch.zeros((63, 12, 4), device=device))
     with pytest.raises(ValueError, match="cpu"):
