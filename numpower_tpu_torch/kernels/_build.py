@@ -70,8 +70,8 @@ _SIGNATURES = {
     "npt_fista_boxqp": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
     # rMt, g, U0, rho, z, y, N, d, iters, coarse, lo, hi, alpha, stream
     "npt_admm_boxqp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
-    # As, Bs, lxs, lus, luud, lxx, luu_reg, lxT, lxxT, ks, Ks, N, n, m, T, stream
-    "npt_ilqr_backward": (_P,) * 11 + (_I, _I, _I, _I, _P),
+    # As, Bs, lxs, lus, luud, lxx, luu_reg, lxT, lxxT, ks, Ks, N, n, m, T, work, stream
+    "npt_ilqr_backward": (_P,) * 11 + (_I, _I, _I, _I, _P, _P),
     # plant, 8 plant parameters, Q, R, QF, goal, alphas, x0s, xs_nom, us_nom, ks, Ks,
     # us, xs, costs, N, T, A, xs_rows, stream
     "npt_ilqr_forward": (_I,) + (_F,) * 8 + (_P,) * 13 + (_I, _I, _I, _I, _P),
@@ -174,6 +174,12 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.npt_error_string.argtypes = (ctypes.c_int,)
     lib.npt_error_string.restype = ctypes.c_char_p
+    # N, n, m -> floats of K7's workspace (csrc/ilqr_backward_wide.cu)
+    lib.npt_ilqr_backward_workspace.argtypes = (_I, _I, _I)
+    lib.npt_ilqr_backward_workspace.restype = ctypes.c_longlong
+    # n, m -> the wide K7's form: 2 or 1 stage buffers in shared memory, 0 a workspace
+    lib.npt_ilqr_backward_wide_depth.argtypes = (_I, _I)
+    lib.npt_ilqr_backward_wide_depth.restype = ctypes.c_int
     return lib
 
 

@@ -5,15 +5,21 @@ The kernel is CUDA C++ in ``csrc/ilqr_backward.cu`` (its note says what bounds
 it on the H100 and how the design answers that): one thread per scenario for
 n <= 4, its whole step in registers, the horizon staged ahead in chunks by
 bulk asynchronous copies; above, 8 or 16 lanes per scenario, lane i owning
-row i of Vxx; the whole T loop in one launch. This module holds its
-wrapper, :func:`ilqr_backward_fused`, and its plain PyTorch version,
-:func:`ilqr_backward_reference`, which runs the kernel's recursion (not the
-full form of models/ilqr._backward_pass: the two agree only up to rounding).
+row i of Vxx, to the narrow envelope (MAX_N, MAX_M); past it, for any (n, m),
+the wide form of ``csrc/ilqr_backward_wide.cu``, one block per scenario with
+its working set in shared memory, or in a device workspace this wrapper
+allocates where that does not fit; the whole T loop in one launch. This
+module holds its wrapper, :func:`ilqr_backward_fused`, and its plain PyTorch
+version, :func:`ilqr_backward_reference`, which runs the kernel's recursion
+(not the full form of models/ilqr._backward_pass: the two agree only up to
+rounding).
 The wrapper takes the plain version for a tensor on the CPU only; for a CUDA
 tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -21,7 +27,8 @@ from numpower_tpu_torch.kernels import _build
 from numpower_tpu_torch.kernels.boxqp_fista import _check_operand
 from numpower_tpu_torch.utils.smallmat import psd_solve_unrolled
 
-# The kernel's envelope (csrc/ilqr_backward.cu kMaxN, kMaxM), K5's.
+# The narrow forms' envelope (csrc/ilqr_backward.cu kMaxN, kMaxM), K5's: past
+# it the wide form (csrc/ilqr_backward_wide.cu) takes any (n, m).
 MAX_N = 16
 MAX_M = 8
 
@@ -72,6 +79,26 @@ def ilqr_backward_reference(As, Bs, lxs, lus, lxx, luu, lxT, lxxT, reg: float = 
     return ks, Ks
 
 
+@functools.cache
+def _workspace_floats_per_scenario(device_index: int, n: int, m: int) -> int:
+    """Floats of the wide form's device workspace a scenario at (n, m) on
+    the current device, cuda:device_index: 0 where shared memory holds its
+    working set, or the narrow forms take (n, m)."""
+    floats = _build.library().npt_ilqr_backward_workspace(1, n, m)
+    if floats < 0:
+        raise RuntimeError(f"ilqr_backward_fused: the shared-memory limit of cuda:{device_index} "
+                           "is unreadable")
+    return floats
+
+
+def _wide_depth(device_index: int, n: int, m: int) -> int:
+    """The wide form the kernel takes at (n, m) on cuda:device_index (the
+    current device): 2 or 1 stage buffers in shared memory, 0 a workspace;
+    -1 where the narrow forms take (n, m)."""
+    with torch.cuda.device(device_index):
+        return _build.library().npt_ilqr_backward_wide_depth(n, m)
+
+
 def ilqr_backward_fused(As, Bs, lxs, lus, lxx, luu, lxT, lxxT, reg: float = 1e-3,
                         tile_b: int = 512, interpret: bool = False, luu_diags=None):
     """Batched iLQR backward pass.
@@ -84,21 +111,23 @@ def ilqr_backward_fused(As, Bs, lxs, lus, lxx, luu, lxT, lxxT, reg: float = 1e-3
     luu (the AL-iLQR active-set penalty Hessian). lxx, luu, lxxT may be numpy
     arrays or tensors anywhere (they are copied to As's device as fp32).
 
-    Returns (ks (N,T,m), Ks (N,T,m,n)). Envelope: n <= MAX_N, m <= MAX_M
-    (ValueError beyond). On a CPU tensor this is
-    :func:`ilqr_backward_reference`. Each kernel launch adds one to
-    ``ilqr_backward_fused.launches``. tile_b and interpret are the JAX
-    package's arguments (in its order) and have no effect: As's device
-    chooses the route."""
+    Returns (ks (N,T,m), Ks (N,T,m,n)). Any N, n, m >= 1 and T >= 0, as the
+    JAX kernel: n <= MAX_N and m <= MAX_M run the narrow forms, any other
+    (n, m) the wide form, with a device workspace allocated here where its
+    working set does not fit a block's shared memory. On a CPU tensor this
+    is :func:`ilqr_backward_reference`. Each kernel launch, of either form,
+    adds one to ``ilqr_backward_fused.launches``. tile_b and interpret are
+    the JAX package's arguments (in its order) and have no effect: As's
+    device chooses the route."""
     del tile_b, interpret
     if As.device.type == "cpu":
         return ilqr_backward_reference(As, Bs, lxs, lus, lxx, luu, lxT, lxxT, reg, luu_diags)
     device = As.device
     N, T, n = As.shape[0], As.shape[1], As.shape[-1]
     m = Bs.shape[-1]
-    if not (N >= 1 and 1 <= n <= MAX_N and 1 <= m <= MAX_M and T >= 0):
-        raise ValueError(f"(N, T, n, m) = ({N}, {T}, {n}, {m}) is outside the kernel's "
-                         f"envelope: N >= 1, n <= {MAX_N}, m <= {MAX_M}")
+    if not (N >= 1 and n >= 1 and m >= 1 and T >= 0):
+        raise ValueError(f"(N, T, n, m) = ({N}, {T}, {n}, {m}): the kernel takes N, n, m >= 1 "
+                         "and T >= 0")
     lxx, luu, lxxT = (torch.as_tensor(x, dtype=torch.float32, device=device) for x in
                       (lxx, luu, lxxT))
     luu_reg = (luu + reg * torch.eye(m, dtype=torch.float32, device=device)).contiguous()
@@ -116,12 +145,14 @@ def ilqr_backward_fused(As, Bs, lxs, lus, lxx, luu, lxT, lxxT, reg: float = 1e-3
     ks = torch.empty((N, T, m), dtype=torch.float32, device=device)
     Ks = torch.empty((N, T, m, n), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
+        floats = N * _workspace_floats_per_scenario(device.index, n, m)
+        work = torch.empty(floats, dtype=torch.float32, device=device) if floats else None
         stream = torch.cuda.current_stream(device).cuda_stream
         code = _build.library().npt_ilqr_backward(
             As.data_ptr(), Bs.data_ptr(), lxs.data_ptr(), lus.data_ptr(),
             None if luu_diags is None else luu_diags.data_ptr(), lxx.data_ptr(),
             luu_reg.data_ptr(), lxT.data_ptr(), lxxT.data_ptr(), ks.data_ptr(), Ks.data_ptr(),
-            N, n, m, T, stream)
+            N, n, m, T, None if work is None else work.data_ptr(), stream)
     _build.check(code, "ilqr_backward_fused kernel launch")
     ilqr_backward_fused.launches += 1
     return ks, Ks

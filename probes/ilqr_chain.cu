@@ -6,4 +6,5 @@
 #include "stamps.cuh"
 
 #include "../numpower_tpu_torch/csrc/ilqr_backward.cu"
+#include "../numpower_tpu_torch/csrc/ilqr_backward_wide.cu"
 #include "../numpower_tpu_torch/csrc/ilqr_forward.cu"

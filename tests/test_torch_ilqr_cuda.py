@@ -15,7 +15,9 @@ diverge, in both versions alike): xs 1e-4, costs rtol 1e-5 (the JAX
 package's, tests/test_kernels.py:577-582), us 5e-4 (gains up to |K| ~ 100
 turn a 5e-6 state difference into 5e-4). N = 1, 31, 33, 257 and 1003 are
 ragged for K7's 32-scenario (n <= 4) and 16- or 8-scenario blocks and K8's
-32-scenario blocks.
+32-scenario blocks. Past n = 16 or m = 8 K7 runs its wide form
+(csrc/ilqr_backward_wide.cu), its working set in shared memory or, at
+(128, 64), in a device workspace.
 """
 
 import functools
@@ -73,7 +75,21 @@ BACKWARD_CASES = {
     "n5-m8-T13-N257": (5, 8, 13, 257), "n8-m2-T37-N1": (8, 2, 37, 1),
     "n8-m8-T5-N33": (8, 8, 5, 33), "n12-m1-T19-N257": (12, 1, 19, 257),
     "n16-m2-T1-N31": (16, 2, 1, 31), "n16-m1-T26-N33": (16, 1, 26, 33),
+    # past the narrow envelope, the wide form (csrc/ilqr_backward_wide.cu):
+    # chip_smoke.py phase 29's edges, the eight-quadrotor formation's shape
+    # at a ragged N, (96, 48) and (100, 32) in one shared-memory stage buffer
+    # (the block's factor and the warp's inverse), and (128, 64) past the
+    # shared-memory form (a workspace)
+    "wide-n17-m1": (17, 1, 8, 1003), "wide-n16-m9": (16, 9, 8, 1003),
+    "wide-n4-m12": (4, 12, 8, 1003), "wide-n48-m48": (48, 48, 8, 257),
+    "wide-n64-m32": (64, 32, 8, 257), "wide-formation-n48-m16": (48, 16, 10, 1003),
+    "wide-n1-m9-T1-N1": (1, 9, 1, 1), "wide-depth1-n96-m48": (96, 48, 5, 257),
+    "wide-depth1-n100-m32": (100, 32, 5, 257), "wide-workspace-n128-m64": (128, 64, 4, 64),
 }
+# the wide form each wide case takes (ilqr_backward._wide_depth): 2 or 1
+# stage buffers in shared memory, 0 a workspace
+WIDE_DEPTHS = {(17, 1): 2, (16, 9): 2, (4, 12): 2, (48, 48): 2, (64, 32): 2, (48, 16): 2,
+               (1, 9): 2, (96, 48): 1, (100, 32): 1, (128, 64): 0}
 
 
 @pytest.mark.parametrize("n,m,T,N", list(BACKWARD_CASES.values()), ids=list(BACKWARD_CASES))
@@ -91,6 +107,14 @@ def test_backward_kernel_matches_plain(device, n, m, T, N, diag):
     ks_p, Ks_p = ilqr_backward.ilqr_backward_reference(*args, reg=1e-3, luu_diags=luu_diags)
     assert torch.allclose(ks, ks_p, rtol=1e-3, atol=1e-4)
     assert torch.allclose(Ks, Ks_p, rtol=1e-3, atol=1e-4)
+
+
+def test_wide_cases_cover_every_wide_form(device):
+    """BACKWARD_CASES reach both stage depths of the shared-memory form and
+    the workspace form."""
+    got = {nm: ilqr_backward._wide_depth(device.index, *nm) for nm in WIDE_DEPTHS}
+    assert got == WIDE_DEPTHS
+    assert ilqr_backward._wide_depth(device.index, 16, 8) == -1
 
 
 def _shifted(t, shift):
@@ -118,10 +142,32 @@ def test_backward_kernel_reads_runs_at_any_alignment(device, shift):
     assert torch.allclose(Ks, Ks_p, rtol=1e-3, atol=1e-4)
 
 
+@pytest.mark.parametrize("shift", [1, 2, 3])
+def test_wide_backward_kernel_reads_operands_at_any_alignment(device, shift):
+    """The wide form's element copies at operands 4, 8 or 12 bytes past a
+    16-byte boundary."""
+    N, T, n, m = 33, 6, 20, 9
+    args = list(_ltv(N, T, n, m, device, seed=9))
+    diag = torch.as_tensor(np.random.default_rng(6).uniform(0.0, 2.0, (N, T, m)),
+                           dtype=torch.float32, device=device)
+    moved = [_shifted(args[i], shift) for i in (0, 1, 2, 3, 6)]
+    ks, Ks = ilqr_backward.ilqr_backward_fused(*moved[:4], *args[4:6], moved[4], args[7],
+                                               luu_diags=_shifted(diag, shift))
+    ks_p, Ks_p = ilqr_backward.ilqr_backward_reference(*args, luu_diags=diag)
+    assert torch.allclose(ks, ks_p, rtol=1e-3, atol=1e-4)
+    assert torch.allclose(Ks, Ks_p, rtol=1e-3, atol=1e-4)
+
+
 def test_backward_kernel_rejects_what_it_does_not_take(device):
+    # n = 17 is past the narrow envelope: the wide form launches, as the JAX
+    # kernel takes any size
     args = _ltv(4, 3, 17, 1, device, seed=1)
-    with pytest.raises(ValueError, match="envelope"):
-        ilqr_backward.ilqr_backward_fused(*args)
+    before = ilqr_backward.ilqr_backward_fused.launches
+    ks, Ks = ilqr_backward.ilqr_backward_fused(*args)
+    assert ilqr_backward.ilqr_backward_fused.launches == before + 1
+    ks_p, Ks_p = ilqr_backward.ilqr_backward_reference(*args)
+    assert torch.allclose(ks, ks_p, rtol=1e-3, atol=1e-4)
+    assert torch.allclose(Ks, Ks_p, rtol=1e-3, atol=1e-4)
     args = _ltv(4, 3, 4, 1, device, seed=1)
     with pytest.raises(ValueError, match="float32"):
         ilqr_backward.ilqr_backward_fused(args[0].double(), *args[1:])
