@@ -13,7 +13,7 @@ scenarios, controls boxed to +-1, so d = 120 controls per scenario):
    templates (K1, K2, K3a, K3b, K1', K2') must hold HGMMA instructions
    (cuobjdump -sass of the library, counted per instance), and they and
    every instance of K7, K8, K6a/K6b, K14, K13, K5, K11, K12, K9 and K10
-   compile with no spills (ptxas); the LDS, STS and FFMA counts of each K5 instance are logged;
+   (the wide K9 and K10 too) compile with no spills (ptxas); the LDS, STS and FFMA counts of each K5 instance are logged;
 1. each kernel against its plain PyTorch version on the card at N = 4096:
    cold and warm starts, all-fp32 (max |dU| <= 1e-5) and the default
    bf16 + fp32 schedules (<= 1e-4), residuals within 1e-5;
@@ -286,8 +286,8 @@ run right after phase 27:
 
 K7 past (16, 8) (csrc/ilqr_backward_wide.cu), run just before phase 23,
 after every phase that counts kernel runs by torch.profiler (run right
-after phase 28, it leaves phase 8's count of replayed ticks one short:
-probes/phase29_order.py):
+after phase 28, it left phase 8's count of replayed ticks one short until
+those counts took a warm call first: probes/phase29_order.py):
 
 29. a formation of eight planar quadrotors flown as one system (n = 48,
    m = 16, Q = I + kron(L_ring, diag(1, 1, 0, 0, 0, 0)), R = 0.1 I,
@@ -308,10 +308,36 @@ probes/phase29_order.py):
    al_ilqr_solve_dp runs in phase 23's group (12 K7 launches, within 1e-6
    of the batch).
 
+K9 and K10 past their narrow forms (csrc/kalman_wide.cu), and K11/K12 at
+every measurement width of the planar quadrotor, run after phase 29 and
+before phase 23:
+
+30. four quadrotor12 plants as one system (n = 48, m = 16; C measures each
+   vehicle's position and attitude, p = 24; Q = 1e-4 I, R = 1e-2 I,
+   P0 = 0.1 I; x0s = 0.3 N(0, 1), trajectories simulated through A with
+   process and measurement noise under inputs 0.1 N(0, 1); N = 4096,
+   T = 50, the estimation bench's shape; `quad_estimation`): the wide K9
+   (with and without inputs) and K10 against their plain versions and
+   float64 (means 2e-5, ll rtol 2e-4 / atol 2e-3; K10 2e-5; or four times
+   the plain fp32 version's own distance from float64: `held_against`) at
+   the formation (N = 4096 and 1003), at the edges (17, 1), (16, 9),
+   (33, 17), (64, 8), (130, 67) (T = 13), at (300, 40) (N = 256, T = 8)
+   and at (4000, 3) with its tile in a device workspace (N = 9, T = 3), each
+   shape's form logged; K10 at n = 17, 48, 130 and 300, T = 2 and 50, and
+   at n = 4000; then the path, its counters zeroed just before it:
+   kalman_filter_batched without and with inputs,
+   kalman_filter_sqrt_batched and kalman_smoother_batched by "auto" (one
+   launch each) against the "xla" route in float64, and ekf_filter_batched
+   and ukf_filter_batched with method="pallas" on the planar quadrotor
+   measured by its first 6 components (N = 1024, T = 50; one K11, one K12
+   launch) against the kernels' plain versions (phase 11's bounds); own,
+   wrapper and plain times of the wide K9, K10 and of K11 and K12 at
+   p = 6, and the entries' times beside the kernels'.
+
 Every kernel's own duration (torch.profiler's CUDA activity, log_own) is
 logged in the times phases (4, 7, 10, 13, 16, 19) beside its wrapper's
 CUDA-event time and host enqueue (the wide tile's in 27, the wide K5, K6a
-and K6b's in 28, the wide K7's in 29): K1, K2 (4); K5, K6a, K6b (7); K3a, K3b,
+and K6b's in 28, the wide K7's in 29, the wide K9's and K10's in 30): K1, K2 (4); K5, K6a, K6b (7); K3a, K3b,
 K7 and K8 at N = 256 and 4096 (10); K9-K12, K9 also with inputs and K11
 also on the unicycle and the planar quadrotor (13); K13 at the bench's shape
 and, by a direct call, at N = 4096, K14 (16); K1', K2' (19).
@@ -319,7 +345,7 @@ and, by a direct call, at N = 4096, K14 (16); K1', K2' (19).
 The launch counters of each path are zeroed just before it is driven
 (phases 2-3, 6, the path of 8, the path of 9, phase 12, the paths of 14
 and 15, phase 18, the AL-iLQR and particle-filter paths of 23 and the paths
-of 27, 28 and 29) and read just after. A wrapper counts the launches it makes; a
+of 27, 28, 29 and 30) and read just after. A wrapper counts the launches it makes; a
 replayed CUDA graph (the captured serving ticks of phases 3, 8 and 27)
 calls none, so the kernel's
 runs in those ticks are counted from torch.profiler's CUDA activity and
@@ -371,8 +397,10 @@ PLANT_OPS = {"cartpole_step": 28, "pendulum_step": 8, "unicycle_step": 10,
 
 # the kernels whose every instance must compile without spills (phase 0):
 # the box-QP templates, K7, K8, K6a/K6b, K14, K13, K5, K11, K12, K9 and K10
+# (their narrow and wide forms)
 CHECKED_FOR_SPILLS = ("boxqp::", "ilqr_bwd::", "ilqr_fwd::", "smallmat::", "pf_resample::",
-                      "mppi::", "riccati::", "ekf::", "ukf::", "kalman_mean::", "rts_mean::")
+                      "mppi::", "riccati::", "ekf::", "ukf::", "kalman_mean::", "rts_mean::",
+                      "kalman_wide::")
 
 
 def log(msg: str) -> None:
@@ -453,7 +481,7 @@ def profiled_us(fn, names, calls: int = 50) -> dict:
     return {name: (statistics.fmean(us) if us else None, len(us)) for name, us in spans.items()}
 
 
-def kernel_runs(fn, kernel: str, attempts: int = 5):
+def kernel_runs(fn, kernel: str, attempts: int = 5, warm: bool = False):
     """(fn's result, the runs on the card of the kernels whose name holds
     `kernel` during it), from torch.profiler's CUDA activity: how the launches
     of a replayed CUDA graph are counted, which no wrapper sees. The
@@ -465,17 +493,47 @@ def kernel_runs(fn, kernel: str, attempts: int = 5):
     every attempt, which raises. A trace that holds fewer records of
     `kernel` than the graph launches it recorded on the host is logged: its
     GPU records by name, and which launches, in time order, have no record
-    of `kernel` and how many GPU records each of those has."""
+    of `kernel` and how many GPU records each of those has.
+
+    With `warm`, fn is called twice in one trace and only the second call
+    is counted: the GPU records whose correlation id is that of a launch
+    made on the host within the second call. A trace can lose the kernel
+    records of its first graph launch (ROADMAP, queue 3), so the warm call
+    takes that place; its own records are logged beside the count."""
     from torch.autograd import DeviceType
+    from torch.profiler import record_function
+
+    mark = "chip_smoke.counted_call"  # holds no kernel's name
+
+    def traced():
+        fn()
+        with record_function(mark):
+            return fn()
 
     for attempt in range(1, attempts + 1):
-        out, prof = profiled(fn)
+        out, prof = profiled(traced if warm else fn)
         events = prof.events()
-        gpu = [ev for ev in events if ev.device_type == DeviceType.CUDA]
+        host = [ev for ev in events if ev.device_type == DeviceType.CPU]
+        gpu = [ev for ev in events if ev.device_type == DeviceType.CUDA
+               and not ev.is_user_annotation]
+        launched = [ev for ev in host if ev.name.startswith("cu") and "Launch" in ev.name]
+        if warm:
+            window = next(ev.time_range for ev in host if ev.name == mark)
+            inside = {ev.id for ev in launched
+                      if window.start <= ev.time_range.start <= window.end}
+            before = {ev.id for ev in launched} - inside
+            warm_graphs = sum(ev.name.startswith("cudaGraphLaunch") and ev.id in before
+                              for ev in launched)
+            warm_runs = sum(kernel in ev.name and ev.id in before for ev in gpu)
+            gpu = [ev for ev in gpu if ev.id in inside]
+            launched = [ev for ev in launched if ev.id in inside]
         runs = sum(kernel in ev.name for ev in gpu)
-        graphs = sorted((ev for ev in events if ev.device_type == DeviceType.CPU
-                         and ev.name.startswith("cudaGraphLaunch")),
+        graphs = sorted((ev for ev in launched if ev.name.startswith("cudaGraphLaunch")),
                         key=lambda ev: ev.time_range.start)
+        if warm:
+            log(f"torch.profiler: {runs} GPU records of {kernel} in {len(graphs)} counted graph "
+                f"launches, after a warm call with {warm_runs} in {warm_graphs} (attempt "
+                f"{attempt})")
         if runs < len(graphs):
             # a GPU record carries the correlation id of the call that launched it
             ran = {ev.id for ev in gpu if kernel in ev.name}
@@ -972,7 +1030,8 @@ def boxqp_two_step(dev, smi: str, qp, x0s, rho) -> list:
     before = boxqp_fista.fista_boxqp.launches
     ticks(1)
     require(boxqp_fista.fista_boxqp.launches == before + 1, "x_ref first tick: one K3b launch")
-    _, replayed = kernel_runs(restartable(ticks, loop, N_TICKS - 1), "fista_kernel")
+    _, replayed = kernel_runs(restartable(ticks, loop, N_TICKS - 1), "fista_kernel",
+                              warm=True)
     require(boxqp_fista.fista_boxqp.launches == before + 1 and replayed == N_TICKS - 1,
             f"x_ref: a replayed tick calls no wrapper and runs K3b once ({replayed})")
     require(bool(torch.stack(loop["in_box"]).all()), "x_ref tick u0 within the box")
@@ -3724,7 +3783,7 @@ def wide_boxqp_family(dev, smi: str) -> list:
                 x = x @ A_t.T + u @ B_t.T
             return s, x
 
-        (state, x), replayed[case] = kernel_runs(ticks, kernel)
+        (state, x), replayed[case] = kernel_runs(ticks, kernel, warm=True)
         serving[case] = (ctrl, twins, state, x)
     mesh_res = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -4404,6 +4463,321 @@ def wide_ilqr_family(dev, smi: str) -> list:
     return [entry], dict(dp_case, entry=entry)
 
 
+# Phase 30: K9 and K10 past their narrow forms (csrc/kalman_wide.cu), and
+# K11/K12 at p = 6. The configuration: four quadrotor12(0.02) plants as one
+# system (phase 28's formation, with its A shared by the batch, as the
+# batched filter takes it), each vehicle's position and attitude measured
+# (p = 24); the estimation bench's N = 4096 trajectories of T = 50 steps
+# (bench.py:576-775). The kernels' other shapes: the narrow forms' edges and
+# past them at T_KF_EDGE, one shape far past a block's 32-trajectory tile,
+# and one whose tile lives in a device workspace.
+T_KF_EDGE, SEED_KF_WIDE = 13, 30
+KALMAN_WIDE_EDGES = ((17, 1), (16, 9), (33, 17), (64, 8), (130, 67))
+KALMAN_WIDE_FAR = ((300, 40, 256, 8), (4000, 3, 9, 3))  # (n, p, N, T)
+RTS_WIDE_SHAPES = tuple((n, T) for n in (17, 48, 130, 300) for T in (2, 50)) + ((4000, 3),)
+
+
+def quad_estimation(k: int, N: int, T: int, seed: int = SEED_KF_WIDE) -> dict:
+    """k quadrotor12(0.02) plants as one system (n = 12 k, m = 4 k), each
+    vehicle's position (states 0-2) and attitude (6-8) measured (p = 6 k):
+    A = kron(I_k, Aq), B = kron(I_k, Bq), C; Q = 1e-4 I, R = 1e-2 I,
+    P0 = 0.1 I; x0s = 0.3 N(0, 1) and N trajectories of T steps simulated
+    through A with process noise of covariance Q under inputs
+    uss = 0.1 N(0, 1), yss = C x + noise of covariance R. numpy float32."""
+    from numpower_tpu_torch.models import quadrotor12
+
+    Aq, Bq = quadrotor12(0.02)
+    A, B = np.kron(np.eye(k), Aq), np.kron(np.eye(k), Bq)
+    C = np.kron(np.eye(k), np.eye(12)[[0, 1, 2, 6, 7, 8]])
+    n, m, p = A.shape[0], B.shape[1], C.shape[0]
+    rng = np.random.default_rng(seed)
+    x0s = 0.3 * rng.standard_normal((N, n))
+    uss = 0.1 * rng.standard_normal((N, T, m))
+    x, ys = x0s, np.empty((N, T, p))
+    for t in range(T):
+        x = x @ A.T + uss[:, t] @ B.T + 1e-2 * rng.standard_normal((N, n))
+        ys[:, t] = x @ C.T + 0.1 * rng.standard_normal((N, p))
+    f32 = functools.partial(np.asarray, dtype=np.float32)
+    return dict(A=f32(A), B=f32(B), C=f32(C), Q=f32(1e-4 * np.eye(n)), R=f32(1e-2 * np.eye(p)),
+                P0=f32(0.1 * np.eye(n)), x0s=f32(x0s), yss=f32(ys), uss=f32(uss))
+
+
+def kalman_mean_operands(A, C, Q, R, P0, x0s, yss, Bu=None, uss=None) -> list:
+    """kalman_mean_pass's operands as kalman_filter_batched forms them: the
+    shared gains of (A, C, Q, R, P0) over yss's T steps and the time-major
+    data, with u_t = u B' the inputs where given."""
+    from numpower_tpu_torch.models.estimation import shared_gains
+
+    Ws, _, _, invLs, logdets = shared_gains(A, C, Q, R, P0, yss.shape[1])
+    us_t = None if uss is None else (uss @ Bu.T).transpose(0, 1).contiguous()
+    return [A, C, Ws, invLs, logdets, x0s, yss.transpose(0, 1).contiguous(), us_t]
+
+
+def random_estimation(n: int, p: int, N: int, T: int, seed: int, dev) -> dict:
+    """A stable random system (A's spectral radius about 0.95, C and B
+    N(0, 1) / sqrt(n): innovations of order one at any width; m = 3),
+    Q = 0.01 I, R = 0.1 I, P0 = 0.5 I, and N(0, 1) data, fp32 on dev."""
+    rng = np.random.default_rng(seed)
+    f32 = functools.partial(torch.as_tensor, dtype=torch.float32, device=dev)
+    return dict(A=f32(0.9 * np.eye(n) + 0.05 * rng.standard_normal((n, n)) / np.sqrt(n)),
+                B=f32(rng.standard_normal((n, 3)) / np.sqrt(n)),
+                C=f32(rng.standard_normal((p, n)) / np.sqrt(n)), Q=f32(0.01 * np.eye(n)),
+                R=f32(0.1 * np.eye(p)), P0=f32(0.5 * np.eye(n)),
+                x0s=f32(rng.standard_normal((N, n))), yss=f32(rng.standard_normal((N, T, p))),
+                uss=f32(rng.standard_normal((N, T, 3))))
+
+
+def held_against(got, plain, f64, rtol: float, atol: float) -> tuple:
+    """(held, kernel vs plain, kernel vs float64, plain vs float64): each a
+    scaled_err at (rtol, atol), 1 at the bound. Held where the kernel is
+    within the bound of its plain version and of float64, or, where the
+    plain fp32 version itself sits past the bound from float64, within four
+    times its scaled distance of each."""
+    e_kp, e_k, e_p = (scaled_err(got, plain, rtol, atol), scaled_err(got, f64, rtol, atol),
+                      scaled_err(plain, f64, rtol, atol))
+    floor = max(1.0, 4.0 * e_p)
+    return e_kp <= floor and e_k <= floor, e_kp, e_k, e_p
+
+
+def wide_estimation_family(dev, smi: str) -> list:
+    """Phase 30: the wide K9 and K10, and K11/K12 at p = 6. Each wide kernel
+    against its plain version and against float64 (held_against: phase 11's
+    bounds, K9 means 2e-5, ll rtol 2e-4 / atol 2e-3, K10 2e-5, or four times
+    the plain fp32 version's own distance) at the formation with and without
+    inputs (N = 4096 and 1003), KALMAN_WIDE_EDGES (N = 4096, T = T_KF_EDGE),
+    KALMAN_WIDE_FAR and RTS_WIDE_SHAPES (N = 1003, the workspace shape at
+    N = 9), each launched once, each shape's form logged. Then the path, its
+    counters zeroed just before it: kalman_filter_batched without and with
+    inputs, kalman_filter_sqrt_batched and kalman_smoother_batched at the
+    formation by "auto" (one launch each), each against its "xla" route in
+    float64 on the card (held_against, the fp32 "xla" route as the plain
+    version); ekf_filter_batched and ukf_filter_batched with method="pallas"
+    on the planar quadrotor measured by its first 6 components (N_NL, T_KF;
+    one launch each) against the kernels' plain versions (phase 11's
+    bounds). Then the times: own (torch.profiler), wrapper and plain of the
+    wide K9 (without and with inputs), the wide K10, K11 and K12 at p = 6,
+    and the entries' beside the kernels' own. Returns the wide K9's and
+    K10's entries of the JSON line."""
+    from numpower_tpu_torch.kernels import ekf, kalman_mean, rts_mean, ukf
+    from numpower_tpu_torch.models import (
+        ekf_filter_batched, first_components, kalman_filter_batched, kalman_filter_sqrt_batched,
+        kalman_smoother_batched, planar_quadrotor_step, ukf_filter_batched,
+    )
+    from numpower_tpu_torch.models.estimation import _chol, _chosolve
+
+    q_np = quad_estimation(N_FORMATION, N, T_KF)
+    q = {k: torch.as_tensor(v, device=dev) for k, v in q_np.items()}
+    n, p, m = q["A"].shape[0], q["C"].shape[0], q["B"].shape[1]
+    kf = (q["A"], q["C"], q["Q"], q["R"])
+    log(f"phase 30: the formation of {N_FORMATION} quadrotors, n = {n}, p = {p}, m = {m}, "
+        f"N = {N}, T = {T_KF}; forms (form, tile) at the formation "
+        f"{kalman_mean.wide_plan(dev.index, n, p, False)} / with inputs "
+        f"{kalman_mean.wide_plan(dev.index, n, p, True)}, K10 {rts_mean.wide_plan(dev.index, n)}")
+
+    # -- phase 30: each wide kernel against its plain version and float64 -------
+    def mean_pass_case(what, args):
+        got = kalman_mean.kalman_mean_pass(*args)
+        plain = kalman_mean.kalman_mean_pass_reference(*args)
+        f64 = kalman_mean.kalman_mean_pass_reference(
+            *(None if x is None else x.double() for x in args))
+        held_x = [held_against(got[k], plain[k], f64[k], 0.0, 2e-5) for k in range(2)]
+        held_l = held_against(got[2], plain[2], f64[2], 2e-4, 2e-3)
+        ok = all(h[0] for h in held_x) and held_l[0]
+        inputs = args[7] is not None
+        form = kalman_mean.wide_plan(dev.index, args[5].shape[1], args[6].shape[2], inputs)
+        log(f"K9 wide {what} inputs={inputs} form {form}: max|dx| "
+            f"{max(max_err(got[k], plain[k]) for k in range(2)):.3e} max|dll| "
+            f"{max_err(got[2], plain[2]):.3e} vs plain; scaled x vs plain / float64 / plain vs "
+            f"float64 {max(h[1] for h in held_x):.3e} / {max(h[2] for h in held_x):.3e} / "
+            f"{max(h[3] for h in held_x):.3e}, ll {held_l[1]:.3e} / {held_l[2]:.3e} / "
+            f"{held_l[3]:.3e}: {'held' if ok else 'FAILED'}")
+        require(ok, f"K9 wide {what} inputs={inputs}")
+        return max(max_err(got[k], plain[k]) for k in range(2))
+
+    def rts_case(what, G_Ts, es_t, x_last):
+        got = rts_mean.rts_mean_pass(G_Ts, es_t, x_last)
+        plain = rts_mean.rts_mean_pass_reference(G_Ts, es_t, x_last)
+        f64 = rts_mean.rts_mean_pass_reference(G_Ts.double(), es_t.double(), x_last.double())
+        ok, e_kp, e_k, e_p = held_against(got, plain, f64, 0.0, 2e-5)
+        log(f"K10 wide {what} form {rts_mean.wide_plan(dev.index, x_last.shape[1])}: max|dx| "
+            f"{max_err(got, plain):.3e} vs plain; scaled vs plain / float64 / plain vs float64 "
+            f"{e_kp:.3e} / {e_k:.3e} / {e_p:.3e}: {'held' if ok else 'FAILED'}")
+        require(ok, f"K10 wide {what}")
+        return max_err(got, plain)
+
+    def smoother_operands(A, filt):
+        """K10's operands as kalman_smoother_batched forms them."""
+        P_fs, P_ps = filt.covs[0], filt.pred_covs[0]
+        G_Ts = _chosolve(_chol(P_ps[1:]), A @ P_fs[:-1]).contiguous()
+        xf_t, xp_t = filt.means.transpose(0, 1), filt.pred_means.transpose(0, 1)
+        es_t = (xf_t[:-1] - torch.einsum("tnj,tjk->tnk", xp_t[1:], G_Ts)).contiguous()
+        return G_Ts, es_t, xf_t[-1].contiguous()
+
+    err = {"kf": 0.0, "rts": 0.0}
+    k9_0, k10_0 = kalman_mean.kalman_mean_pass.launches, rts_mean.rts_mean_pass.launches
+    k9_calls = k10_calls = 0
+    form_ops = kalman_mean_operands(*kf, q["P0"], q["x0s"], q["yss"], q["B"], q["uss"])
+    for N_k in (N, N_RAGGED):
+        cut = form_ops[:5] + [form_ops[5][:N_k], form_ops[6][:, :N_k].contiguous(),
+                              form_ops[7][:, :N_k].contiguous()]
+        for args in (cut[:7] + [None], cut):
+            err["kf"] = max(err["kf"], mean_pass_case(f"formation N={N_k} T={T_KF}", args))
+            k9_calls += 1
+        filt = kalman_filter_batched(*kf, q["x0s"][:N_k], q["P0"], q["yss"][:N_k], method="xla")
+        err["rts"] = max(err["rts"], rts_case(f"formation N={N_k} T={T_KF}",
+                                              *smoother_operands(q["A"], filt)))
+        k10_calls += 1
+    for (n_e, p_e), N_e, T_e in ([(e, N, T_KF_EDGE) for e in KALMAN_WIDE_EDGES]
+                                 + [((n_e, p_e), N_e, T_e) for n_e, p_e, N_e, T_e in
+                                    KALMAN_WIDE_FAR]):
+        d = random_estimation(n_e, p_e, N_e, T_e, seed=n_e + p_e, dev=dev)
+        ops = kalman_mean_operands(d["A"], d["C"], d["Q"], d["R"], d["P0"], d["x0s"], d["yss"],
+                                   d["B"], d["uss"])
+        for args in (ops[:7] + [None], ops):
+            err["kf"] = max(err["kf"], mean_pass_case(f"(n, p) = ({n_e}, {p_e}) N={N_e} T={T_e}",
+                                                      args))
+            k9_calls += 1
+        del d, ops
+    for n_e, T_e in RTS_WIDE_SHAPES:
+        N_e = 9 if n_e > 1000 else N_RAGGED
+        rng = np.random.default_rng(n_e + T_e)
+        G = torch.as_tensor(0.5 * rng.standard_normal((T_e - 1, n_e, n_e)) / np.sqrt(n_e),
+                            dtype=torch.float32, device=dev)
+        es = torch.as_tensor(rng.standard_normal((T_e - 1, N_e, n_e)), dtype=torch.float32,
+                             device=dev)
+        xl = torch.as_tensor(rng.standard_normal((N_e, n_e)), dtype=torch.float32, device=dev)
+        err["rts"] = max(err["rts"], rts_case(f"n={n_e} N={N_e} T={T_e}", G, es, xl))
+        k10_calls += 1
+    calls = (kalman_mean.kalman_mean_pass.launches - k9_0, rts_mean.rts_mean_pass.launches - k10_0)
+    require(calls == (k9_calls, k10_calls), f"each wide K9 / K10 call launched once ({calls})")
+
+    # -- phase 30: the path at the formation, counted --------------------------------
+    f64 = [M.double() for M in (*kf, q["x0s"], q["P0"], q["yss"])]
+    inputs = {"B": q["B"], "uss": q["uss"]}
+    inputs64 = {"B": q["B"].double(), "uss": q["uss"].double()}
+    p6 = functools.partial(first_components, k=6)
+    r = np.random.default_rng(11)
+    t32 = functools.partial(torch.as_tensor, dtype=torch.float32, device=dev)
+    nl = (t32(np.eye(6) * 1e-3), t32(np.eye(6) * 1e-2), t32(0.3 * r.standard_normal((N_NL, 6))),
+          t32(np.eye(6) * 0.1), t32(r.standard_normal((N_NL, T_KF, 6))),
+          t32(0.1 * r.standard_normal((N_NL, T_KF, 2)) + HOVER_THRUST))
+    counters = {"kf": kalman_mean.kalman_mean_pass, "rts": rts_mean.rts_mean_pass,
+                "ekf": ekf.ekf_batched, "ukf": ukf.ukf_batched}
+    for counter in counters.values():
+        counter.launches = 0
+    filt = kalman_filter_batched(*kf, q["x0s"], q["P0"], q["yss"])
+    filt_u = kalman_filter_batched(*kf, q["x0s"], q["P0"], q["yss"], **inputs)
+    sq = kalman_filter_sqrt_batched(*kf, q["x0s"], q["P0"], q["yss"], **inputs)
+    sm = kalman_smoother_batched(q["A"], filt)
+    got_nl = {"ekf": ekf_filter_batched(planar_quadrotor_step, p6, *nl, method="pallas"),
+              "ukf": ukf_filter_batched(planar_quadrotor_step, p6, *nl, method="pallas")}
+    launches = {k: c.launches for k, c in counters.items()}
+    log(f"wide estimation path launches: {launches}")
+    require(launches == {"kf": 3, "rts": 1, "ekf": 1, "ukf": 1},
+            "the formation's filters went through the wide K9 once each, the smoother through "
+            "the wide K10, the p = 6 EKF and UKF through K11 and K12")
+    plain_filt = kalman_filter_batched(*kf, q["x0s"], q["P0"], q["yss"], method="xla")
+    checks = [
+        ("kalman_filter_batched", filt, plain_filt, kalman_filter_batched(*f64, method="xla")),
+        ("kalman_filter_batched with inputs", filt_u,
+         kalman_filter_batched(*kf, q["x0s"], q["P0"], q["yss"], **inputs, method="xla"),
+         kalman_filter_batched(*f64, **inputs64, method="xla")),
+        ("kalman_filter_sqrt_batched with inputs", sq,
+         kalman_filter_sqrt_batched(*kf, q["x0s"], q["P0"], q["yss"], **inputs, method="xla"),
+         kalman_filter_sqrt_batched(*f64, **inputs64, method="xla")),
+    ]
+    for what, got, plain, ref in checks:
+        held_x = held_against(got.means, plain.means, ref.means, 0.0, 2e-5)
+        held_l = held_against(got.log_likelihood, plain.log_likelihood, ref.log_likelihood, 2e-4,
+                              2e-3)
+        log(f"{what} formation (auto -> K9 wide) vs the xla route in float64: max|dx| "
+            f"{max_err(got.means, ref.means):.3e}, scaled x kernel vs plain / float64 / plain vs "
+            f"float64 {held_x[1]:.3e} / {held_x[2]:.3e} / {held_x[3]:.3e}, ll {held_l[1]:.3e} / "
+            f"{held_l[2]:.3e} / {held_l[3]:.3e}")
+        require(held_x[0] and held_l[0], f"{what} at the formation against float64")
+    sm64 = kalman_smoother_batched(q["A"].double(), checks[0][3], method="xla")
+    held_s = held_against(sm.means, kalman_smoother_batched(q["A"], filt, method="xla").means,
+                          sm64.means, 0.0, 2e-5)
+    log(f"kalman_smoother_batched formation (auto -> K10 wide) vs the xla route in float64: "
+        f"max|dx| {max_err(sm.means, sm64.means):.3e}, scaled kernel vs plain / float64 / plain "
+        f"vs float64 {held_s[1]:.3e} / {held_s[2]:.3e} / {held_s[3]:.3e}")
+    require(held_s[0], "kalman_smoother_batched at the formation against float64")
+    for key, ref in (("ekf", ekf.ekf_reference), ("ukf", ukf.ukf_reference)):
+        got, want = got_nl[key], ref(planar_quadrotor_step, p6, *nl)
+        dx = max(max_err(got.means, want[0]), max_err(got.pred_means, want[2]))
+        dP = max(max_err(got.covs, want[1]), max_err(got.pred_covs, want[3]))
+        log(f"{key}_filter_batched planar quadrotor p=6 N={N_NL} T={T_KF} (pallas -> "
+            f"K{11 if key == 'ekf' else 12}) vs plain: max|dx| {dx:.3e} max|dP| {dP:.3e} "
+            f"max|dll| {max_err(got.log_likelihood, want[4]):.3e}")
+        require(dx <= 1e-4 and dP <= 1e-5 and close(got.log_likelihood, want[4], 1e-3, 5e-3),
+                f"{key} at p = 6 vs plain")
+
+    # -- phase 30: times -----------------------------------------------------------------
+    slow = {"reps": 3, "inner": 1, "warmup": 1}
+    k10_ops = smoother_operands(q["A"], filt)
+    fns = {"kf": lambda: kalman_mean.kalman_mean_pass(*form_ops[:7]),
+           "kf_u": lambda: kalman_mean.kalman_mean_pass(*form_ops),
+           "rts": lambda: rts_mean.rts_mean_pass(*k10_ops),
+           "ekf": lambda: ekf.ekf_batched(planar_quadrotor_step, p6, *nl),
+           "ukf": lambda: ukf.ukf_batched(planar_quadrotor_step, p6, *nl)}
+    plains = {"kf": lambda: kalman_mean.kalman_mean_pass_reference(*form_ops[:7]),
+              "kf_u": lambda: kalman_mean.kalman_mean_pass_reference(*form_ops),
+              "rts": lambda: rts_mean.rts_mean_pass_reference(*k10_ops),
+              "ekf": lambda: ekf.ekf_reference(planar_quadrotor_step, p6, *nl),
+              "ukf": lambda: ukf.ukf_reference(planar_quadrotor_step, p6, *nl)}
+    kernels = {"kf": "kalman_wide_kernel", "kf_u": "kalman_wide_kernel",
+               "rts": "rts_wide_kernel", "ekf": "ekf_kernel", "ukf": "ukf_kernel"}
+    names = {"kf": f"K9 wide kalman_mean formation N={N} T={T_KF} (n={n}, p={p})",
+             "kf_u": f"K9 wide kalman_mean formation N={N} T={T_KF} (n={n}, p={p}) with inputs",
+             "rts": f"K10 wide rts_mean formation N={N} T={T_KF} (n={n})",
+             "ekf": f"K11 ekf planar quadrotor p=6 N={N_NL} T={T_KF}",
+             "ukf": f"K12 ukf planar quadrotor p=6 N={N_NL} T={T_KF}"}
+    ms, plain_ms, own = {}, {}, {}
+    for key, fn in fns.items():
+        ms[key] = cuda_ms(fn)
+        plain_ms[key] = cuda_ms(plains[key], **(slow if key in ("ekf", "ukf") else {}))
+        own[key] = log_own(names[key], fn, kernels[key], ms[key], smi, calls=20)
+        log(f"time {names[key]}: wrapper {ms[key]:.4f} ms, plain {plain_ms[key]:.4f} ms [{smi}]")
+    # operations and bytes of the wide kernels' functions (each input read
+    # once, each output written once): K9 a step x_p (2n^2, + n with
+    # inputs), v (2pn + p), x (2pn + n), alpha (2p^2), |alpha|^2 and ll (2p + 2)
+    kf_ops = N * T_KF * (2 * n * n + 4 * p * n + 2 * p * p + n + 4 * p)
+    kf_bytes = 4 * (n * n + p * n + T_KF * (p * n + p * p + 1) + N * n + T_KF * N * p
+                    + 2 * T_KF * N * n + N)
+    rts_ops = N * (T_KF - 1) * 2 * n * n
+    rts_bytes = 4 * ((T_KF - 1) * n * n + (T_KF - 1) * N * n + N * n + T_KF * N * n)
+    for key, ops, n_bytes in (("kf", kf_ops, kf_bytes),
+                              ("kf_u", kf_ops + N * T_KF * n, kf_bytes + 4 * T_KF * N * n),
+                              ("rts", rts_ops, rts_bytes)):
+        bound = max(ops / FP32_FLOP_PER_S, n_bytes / HBM_BYTES_PER_S) * 1e3
+        share = "not measured" if own[key][0] is None else \
+            f"{100 * bound / (own[key][0] / 1e3):.1f}% of it by its own time"
+        log(f"time {names[key]}: bound {bound:.4f} ms ({ops / 1e9:.3f} GFLOP, "
+            f"{n_bytes / 1e6:.1f} MB), {share} [{smi}]")
+    entry_ms = {
+        "kalman_filter_batched": cuda_ms(
+            lambda: kalman_filter_batched(*kf, q["x0s"], q["P0"], q["yss"]), **slow),
+        "kalman_filter_batched with inputs": cuda_ms(
+            lambda: kalman_filter_batched(*kf, q["x0s"], q["P0"], q["yss"], **inputs), **slow),
+        "kalman_filter_sqrt_batched with inputs": cuda_ms(
+            lambda: kalman_filter_sqrt_batched(*kf, q["x0s"], q["P0"], q["yss"], **inputs),
+            **slow),
+        "kalman_smoother_batched": cuda_ms(lambda: kalman_smoother_batched(q["A"], filt), **slow),
+    }
+    for what, t_ms in entry_ms.items():
+        key = "rts" if "smoother" in what else "kf_u" if "inputs" in what else "kf"
+        kernel_ms = ms[key] if own[key][0] is None else own[key][0] / 1e3
+        log(f"time {what} formation N={N} T={T_KF}: {t_ms:.4f} ms, of it outside the kernel's "
+            f"own time {1.0 - kernel_ms / t_ms:.1%} [{smi}]")
+    return [
+        kernel_entry(f"kalman_mean_pass (wide, n = {n}, p = {p})", "kalman_wide.cu",
+                     "kalman_batched.py:93", launches["kf"], err["kf"], ms["kf"], plain_ms["kf"],
+                     kf_bytes, kf_ops),
+        kernel_entry(f"rts_mean_pass (wide, n = {n})", "kalman_wide.cu", "rts_batched.py:66",
+                     launches["rts"], err["rts"], ms["rts"], plain_ms["rts"], rts_bytes, rts_ops),
+    ]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4553,7 +4927,8 @@ def main() -> int:
         before = counter.launches
         ticks(1)
         require(counter.launches == before + 1, f"{solver} first tick: one launch, eager")
-        _, replayed[solver] = kernel_runs(restartable(ticks, loop, N_TICKS - 1), kernel)
+        _, replayed[solver] = kernel_runs(restartable(ticks, loop, N_TICKS - 1), kernel,
+                                          warm=True)
         require(counter.launches == before + 1, f"{solver}: a replayed tick calls no wrapper")
         require(replayed[solver] == N_TICKS - 1,
                 f"{solver}: {kernel} ran once in each replayed tick ({replayed[solver]})")
@@ -4643,12 +5018,16 @@ def main() -> int:
     stream_family(dev, smi)
     utils_family(dev, smi)
     # phase 29 runs after every phase that counts kernel runs by torch.profiler
-    # (3, 8, 25, 27, the trace of 24): run right after phase 28, it leaves
-    # phase 8's profiler count of replayed ticks at 18 of 19 on the H100, in
-    # each of five attempts (probes/phase29_order.py; ROADMAP, queue 3: the
-    # cause not known); its DP solve runs on phase 23's group
+    # (3, 8, 25, 27, the trace of 24): run right after phase 28, it left
+    # phase 8's profiler count of replayed ticks at 18 of 19 on the H100, the
+    # first graph launch of the trace without its kernel's record; phases 3,
+    # 8 and 27 now count a second call after a warm one (kernel_runs, warm;
+    # probes/phase29_order.py; ROADMAP, queue 3); its DP solve runs on phase
+    # 23's group
     wide_k7, wide_al = wide_ilqr_family(dev, smi)
     wide += wide_k7
+    # phase 30 after phase 29, for the same reason
+    wide += wide_estimation_family(dev, smi)
     parallel_rest_family(dev, smi, wide_al)
     kernels += wide
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")

@@ -352,7 +352,7 @@ int launch(const PlantParams& params, const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The measurement widths of plant P: p = 1 .. min(n, 4).
+// The measurement widths of plant P: p = 1 .. n (n <= 8).
 template <int P, int H>
 int launch_p(int p, const PlantParams& params, const Args& a, cudaStream_t st) {
   constexpr int n = plants::Plant<P>::n;
@@ -368,6 +368,18 @@ int launch_p(int p, const PlantParams& params, const Args& a, cudaStream_t st) {
     case 4:
       if constexpr (n >= 4) return launch<P, H, 4>(params, a, st);
       break;
+    case 5:
+      if constexpr (n >= 5) return launch<P, H, 5>(params, a, st);
+      break;
+    case 6:
+      if constexpr (n >= 6) return launch<P, H, 6>(params, a, st);
+      break;
+    case 7:
+      if constexpr (n >= 7) return launch<P, H, 7>(params, a, st);
+      break;
+    case 8:
+      if constexpr (n >= 8) return launch<P, H, 8>(params, a, st);
+      break;
     default:
       break;
   }
@@ -378,7 +390,7 @@ int launch_p(int p, const PlantParams& params, const Args& a, cudaStream_t st) {
 
 // xs_f, xs_p (B, T, n), Ps_f, Ps_p (B, T, n, n), ll (B,) from the plant index
 // and its parameter floats p0..p7, the measurement index and its width p
-// (1..4, <= n), Q (n, n), R (p, p), P0 (n, n), x0s (B, n), yss (B, T, p),
+// (1..n), Q (n, n), R (p, p), P0 (n, n), x0s (B, n), yss (B, T, p),
 // uss (B, T, m); all fp32, row-major contiguous, on the device; n and m are
 // the plant's. Returns the CUDA error code of the launch.
 extern "C" int npt_ekf(int plant, float p0, float p1, float p2, float p3, float p4, float p5,

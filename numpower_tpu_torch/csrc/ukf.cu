@@ -404,7 +404,7 @@ int launch(const PlantParams& params, const Weights& w, const Args& a, cudaStrea
   return static_cast<int>(cudaGetLastError());
 }
 
-// The measurement widths of plant P: p = 1 .. min(n, 4).
+// The measurement widths of plant P: p = 1 .. n (n <= 8).
 template <int P, int H>
 int launch_p(int p, const PlantParams& params, const Weights& w, const Args& a, cudaStream_t st) {
   constexpr int n = plants::Plant<P>::n;
@@ -419,6 +419,18 @@ int launch_p(int p, const PlantParams& params, const Weights& w, const Args& a, 
       break;
     case 4:
       if constexpr (n >= 4) return launch<P, H, 4>(params, w, a, st);
+      break;
+    case 5:
+      if constexpr (n >= 5) return launch<P, H, 5>(params, w, a, st);
+      break;
+    case 6:
+      if constexpr (n >= 6) return launch<P, H, 6>(params, w, a, st);
+      break;
+    case 7:
+      if constexpr (n >= 7) return launch<P, H, 7>(params, w, a, st);
+      break;
+    case 8:
+      if constexpr (n >= 8) return launch<P, H, 8>(params, w, a, st);
       break;
     default:
       break;

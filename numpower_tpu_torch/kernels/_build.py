@@ -79,6 +79,10 @@ _SIGNATURES = {
     "npt_kalman_mean": (_P,) * 11 + (_I, _I, _I, _I, _P),
     # G, es, x_last, xs, N, T, n, stream
     "npt_rts_mean": (_P,) * 4 + (_I, _I, _I, _P),
+    # the wide forms (csrc/kalman_wide.cu): the narrow ones' arguments with a
+    # device workspace after the outputs
+    "npt_kalman_mean_wide": (_P,) * 12 + (_I, _I, _I, _I, _P),
+    "npt_rts_mean_wide": (_P,) * 5 + (_I, _I, _I, _P),
     # plant, 8 plant parameters, measure, p, Q, R, P0, x0s, yss, uss, xs_f, xs_p,
     # Ps_f, Ps_p, ll, B, T, stream
     "npt_ekf": (_I,) + (_F,) * 8 + (_I, _I) + (_P,) * 11 + (_I, _I, _P),
@@ -180,6 +184,16 @@ def library() -> ctypes.CDLL:
     # n, m -> the wide K7's form: 2 or 1 stage buffers in shared memory, 0 a workspace
     lib.npt_ilqr_backward_wide_depth.argtypes = (_I, _I)
     lib.npt_ilqr_backward_wide_depth.restype = ctypes.c_int
+    # N, n, p, has_u (N, n) -> floats of the wide K9's (K10's) workspace
+    # (csrc/kalman_wide.cu); n, p, has_u (n) -> its plan, 100 form + tile
+    lib.npt_kalman_mean_wide_workspace.argtypes = (_I, _I, _I, _I)
+    lib.npt_kalman_mean_wide_workspace.restype = ctypes.c_longlong
+    lib.npt_rts_mean_wide_workspace.argtypes = (_I, _I)
+    lib.npt_rts_mean_wide_workspace.restype = ctypes.c_longlong
+    lib.npt_kalman_mean_wide_plan.argtypes = (_I, _I, _I)
+    lib.npt_kalman_mean_wide_plan.restype = ctypes.c_int
+    lib.npt_rts_mean_wide_plan.argtypes = (_I,)
+    lib.npt_rts_mean_wide_plan.restype = ctypes.c_int
     return lib
 
 

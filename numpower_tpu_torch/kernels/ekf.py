@@ -32,10 +32,12 @@ from numpower_tpu_torch.utils.smallmat import (
     cholesky_unrolled, psd_solve_unrolled, tri_solve_unrolled,
 )
 
-# The envelope of the whole-filter kernels K11 and K12 (the JAX package's
-# ok_dims, models/estimation.py:955-958); the registered plants have n <= 6.
+# The envelope of the whole-filter kernels K11 and K12: n <= MAX_N, m <= MAX_M
+# and p <= n (so p <= MAX_P = MAX_N), every measurement width of a registered
+# plant (they have n <= 6). The JAX package's "auto" holds to the narrower
+# ok_dims, p <= 4 (models/estimation.py:955-958; estimation.AUTO_ENVELOPES).
 MAX_N = 8
-MAX_P = 4
+MAX_P = 8
 MAX_M = 4
 
 
@@ -111,9 +113,9 @@ def kernel_operands(f, h, Q, R, x0s, P0, yss, uss, what: str):
     if (n, m, p) != (plant.n, plant.m, meas.p):
         raise ValueError(f"the plant is ({plant.n}, {plant.m}) with {meas.p} measured, "
                          f"the operands ({n}, {m}) with {p}")
-    if n > MAX_N or p > MAX_P or m > MAX_M or p > n:
+    if n > MAX_N or p > n or m > MAX_M:
         raise ValueError(f"(n, p, m) = ({n}, {p}, {m}) is outside the {what} kernel's envelope "
-                         f"(n <= {MAX_N}, p <= min(n, {MAX_P}), m <= {MAX_M})")
+                         f"(n <= {MAX_N}, p <= n, m <= {MAX_M})")
     to_dev = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device).contiguous()  # noqa: E731
     Q, R, P0 = (to_dev(a) for a in (Q, R, P0))
     x0s, yss, uss = (a.contiguous() for a in (x0s, yss, uss))

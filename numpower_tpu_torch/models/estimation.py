@@ -178,16 +178,28 @@ def kalman_filter(A, C, Q, R, x0, P0, ys, B=None, us=None) -> KalmanResult:
                         log_likelihood=ll)
 
 
-# The kernel of each batched filter and its envelope, the largest state (n),
-# measurement (p) and input (m) widths it takes: K9 serves kalman_filter_batched
-# and kalman_filter_sqrt_batched, K10 kalman_smoother_batched, K11/K12 the
-# EKF/UKF (the JAX package's ok_dims, estimation.py:955-958, 997-1000).
+# The kernel of each batched filter and its envelopes, the largest state (n),
+# measurement (p) and input (m) widths: ENVELOPES those the kernel takes (an
+# explicit "pallas" past them raises), AUTO_ENVELOPES those "auto" sends to it
+# on the card; a width not named is not bounded. K9 serves kalman_filter_batched
+# and kalman_filter_sqrt_batched and K10 kalman_smoother_batched, for any
+# width in both envelopes, as the JAX package's routes (its kernels hold no
+# size check). K11/K12 serve the EKF/UKF: the kernels take n <= 8, m <= 4 and
+# p <= n (ENVELOPES_P_LE_N); "auto" holds to the JAX package's ok_dims,
+# n <= 8, p <= 4, m <= 4 (estimation.py:955-958, 997-1000).
 ENVELOPES = {
-    "K9": {"n": kalman_mean.MAX_N, "p": kalman_mean.MAX_P},
-    "K10": {"n": rts_mean.MAX_N},
+    "K9": {},
+    "K10": {},
     "K11": {"n": ekf_kernel.MAX_N, "p": ekf_kernel.MAX_P, "m": ekf_kernel.MAX_M},
     "K12": {"n": ekf_kernel.MAX_N, "p": ekf_kernel.MAX_P, "m": ekf_kernel.MAX_M},
 }
+AUTO_ENVELOPES = {
+    "K9": {},
+    "K10": {},
+    "K11": {"n": 8, "p": 4, "m": 4},
+    "K12": {"n": 8, "p": 4, "m": 4},
+}
+ENVELOPES_P_LE_N = ("K11", "K12")
 
 
 def route_batched(kernel: str, device_type: str, dtype: torch.dtype, dims: dict,
@@ -197,21 +209,25 @@ def route_batched(kernel: str, device_type: str, dtype: torch.dtype, dims: dict,
     version, for K11/K12 the single-trajectory filter on the batch).
 
     "auto" takes the kernel for a float32 tensor on a CUDA device whose
-    ``dims`` lie inside the kernel's envelope, and "xla" otherwise: a stated
-    route, as the kernels take float32 only. An explicit "pallas" outside the
-    envelope raises ValueError, as does any other name. On the kernel route
-    the EKF and UKF need a registered plant and measurement (models/plants
-    kernel_plant, kernel_measurement): for a CUDA tensor the kernel's wrapper
-    raises ValueError otherwise, so a caller with its own f or h passes
+    ``dims`` lie inside AUTO_ENVELOPES, and "xla" otherwise: a stated route,
+    as the kernels take float32 only. An explicit "pallas" outside the
+    kernel's envelope (ENVELOPES; for K11/K12 also p <= n) raises ValueError,
+    as does any other name. On the kernel route the EKF and UKF need a
+    registered plant and measurement (models/plants kernel_plant,
+    kernel_measurement): for a CUDA tensor the kernel's wrapper raises
+    ValueError otherwise, so a caller with its own f or h passes
     method="xla"."""
     if method not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown method {method!r} (auto|pallas|xla)")
-    envelope = ENVELOPES[kernel]
-    ok = all(dims[k] <= v for k, v in envelope.items())
     if method == "auto":
+        ok = all(dims[k] <= v for k, v in AUTO_ENVELOPES[kernel].items())
         return "pallas" if device_type == "cuda" and dtype == torch.float32 and ok else "xla"
+    envelope = ENVELOPES[kernel]
+    ok = (all(dims[k] <= v for k, v in envelope.items())
+          and (kernel not in ENVELOPES_P_LE_N or dims["p"] <= dims["n"]))
     if method == "pallas" and not ok:
-        raise ValueError(f"{dims} is outside the {kernel} kernel's envelope {envelope}")
+        bound = dict(envelope, **({"p": "n"} if kernel in ENVELOPES_P_LE_N else {}))
+        raise ValueError(f"{dims} is outside the {kernel} kernel's envelope {bound}")
     return method
 
 

@@ -8,10 +8,14 @@ its 19 replayed ticks.
 chip_smoke.main is run as it is, with two of its functions replaced in the
 module: wide_riccati_family (phase 28) runs phase 29 (wide_ilqr_family)
 after itself and keeps its result, and the later call of wide_ilqr_family
-returns that result. Where phase 8's count comes up short, chip_smoke's
-kernel_runs logs the trace's GPU records by name and the graph launches
-with no record of the kernel, and the run stops at phase 8's check (exit
-1). Output as chip_smoke.py's; the card's name and power limit in its lines.
+returns that result. Phase 8 counts its replayed ticks in the second of
+two calls in one trace (chip_smoke.kernel_runs, warm), and logs how many
+records of its kernel the warm call kept: in this order the warm call
+loses one, the first graph launch of the trace. Where a count comes up
+short, kernel_runs logs the trace's GPU records by name and the graph
+launches with no record of the kernel, and the run stops at phase 8's
+check (exit 1). Output as chip_smoke.py's; the card's name and power limit
+in its lines.
 """
 
 from __future__ import annotations

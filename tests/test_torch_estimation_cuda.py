@@ -19,12 +19,16 @@ random LTI systems, and measurements of each plant's own rollout over a
 horizon short enough that the unstable cartpole and the barely observed
 planar quadrotor keep their covariances under one. N = 1003 and B = 257 are
 ragged for every block (32 trajectories, or 32 / G). K11 and K12 are also
-checked on every plant x measurement width x B in {1, 3, 1003, 1024} x T in
-{1, 2, 50, 67} (their 16-step input chunks) and on misaligned operands, and
-K9 on N in {1, 63, 1003, 4096} x T in {1, 2, 50, 130} x (n, p) in {(2, 1),
-(4, 4), (16, 8)}, with and without inputs, and on misaligned operands; K10
-at every bucket x N in {1, 31, 33, 4096} x T on its chunk edges {2, 17, 18,
-33, 50, 130}, and on misaligned e_t and x_last. Past
+checked on every plant x measurement width (p = 1 .. n) x B in {1, 3, 1003,
+1024} x T in {1, 2, 50, 67} (their 16-step input chunks) and on misaligned
+operands, and K9 on N in {1, 63, 1003, 4096} x T in {1, 2, 50, 130} x
+(n, p) in {(2, 1), (4, 4), (16, 8), (48, 24)}, with and without inputs, and
+on misaligned operands; K10 at every bucket and past it (n = 17, 48, 130,
+300) x N in {1, 31, 33, 4096} x T on its chunk edges {2, 17, 18, 33, 50,
+130}, and on misaligned e_t and x_last. The wide K9 and K10 (past n = 16 or
+p = 8, csrc/kalman_wide.cu) are also held to float64 in each of their three
+forms, up to (n, p) = (4000, 3); past the narrow forms C and B are N(0, 1) /
+sqrt(n), which keeps the innovations of order one at any width. Past
 those horizons the data keep to a regime of order one (X_NOM): from 0.3
 N(0, 1) with only the cart position (or px) measured, the cartpole's and
 the planar quadrotor's unmeasured covariances grow to 13-156 by T = 50-67,
@@ -72,18 +76,33 @@ def _f32(a, device):
     return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=device)
 
 
+# K9's and K10's shapes past their narrow forms (csrc/kalman_wide.cu): the
+# edges of the narrow buckets, chip_smoke.py phase 30's formation and shapes
+# past a block's 32-trajectory tile
+WIDE_KF = [(17, 1), (16, 9), (33, 17), (48, 24), (64, 8), (130, 67), (300, 40)]
+WIDE_RTS = [17, 48, 130, 300]
+
+
+def _wide(n, p=1):
+    return n > kalman_mean.MAX_N or p > kalman_mean.MAX_P
+
+
 def _lti(n, p, device, seed, N=1003, T=37):
-    """A stable random system (spectral radius about 0.95) and random data."""
+    """A stable random system (spectral radius about 0.95) and random data;
+    past the narrow forms C and B are N(0, 1) / sqrt(n), so that the
+    innovations stay of order one at any width."""
     rng = np.random.default_rng(seed)
     A = 0.9 * np.eye(n) + 0.05 * rng.standard_normal((n, n)) / np.sqrt(n)
     C = rng.standard_normal((p, n))
     B = rng.standard_normal((n, 2))
+    if _wide(n, p):
+        C, B = C / np.sqrt(n), B / np.sqrt(n)
     mats = [_f32(M, device) for M in (A, C, 0.01 * np.eye(n), 0.1 * np.eye(p), 0.5 * np.eye(n))]
     data = [_f32(rng.standard_normal(s), device) for s in ((N, n), (N, T, p), (N, T, 2))]
     return mats, _f32(B, device), data
 
 
-@pytest.mark.parametrize("n,p", [(2, 1), (3, 2), (4, 4), (12, 6), (16, 8)])
+@pytest.mark.parametrize("n,p", [(2, 1), (3, 2), (4, 4), (12, 6), (16, 8)] + WIDE_KF)
 @pytest.mark.parametrize("inputs", [False, True], ids=["no_inputs", "inputs"])
 def test_kalman_mean_kernel_matches_plain(device, n, p, inputs):
     (A, C, Q, R, P0), B, (x0s, yss, uss) = _lti(n, p, device, seed=n * 10 + p)
@@ -103,7 +122,7 @@ def test_kalman_mean_kernel_matches_plain(device, n, p, inputs):
 RTS_T = [2, 17, 18, 33, 37, 50, 130]
 
 
-@pytest.mark.parametrize("n", [2, 3, 4, 8, 12, 16])
+@pytest.mark.parametrize("n", [2, 3, 4, 8, 12, 16] + WIDE_RTS)
 @pytest.mark.parametrize("T", RTS_T)
 def test_rts_mean_kernel_matches_plain(device, n, T):
     (A, C, Q, R, P0), _, (x0s, yss, _) = _lti(n, 1, device, seed=n, T=T)
@@ -127,7 +146,7 @@ def _rts_operands(n, N, T, device, seed):
 
 @pytest.mark.parametrize("T", [2, 17, 18, 33, 50, 130])
 @pytest.mark.parametrize("N", [1, 31, 33, 4096])
-@pytest.mark.parametrize("n", [1, 2, 3, 4, 8, 16])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 8, 16] + WIDE_RTS)
 def test_rts_mean_kernel_every_bucket_batch_and_horizon(device, n, N, T):
     """K10 at every bucket, at batches that leave a warp's lanes past N (1,
     31, 33) or fill 128 warps (4096), at the chunk edges: one launch, every
@@ -143,7 +162,7 @@ def test_rts_mean_kernel_every_bucket_batch_and_horizon(device, n, N, T):
 
 
 @pytest.mark.parametrize("which", ["es_t", "x_last", "both"])
-@pytest.mark.parametrize("n", [1, 2, 3, 16])
+@pytest.mark.parametrize("n", [1, 2, 3, 16, 17, 48])
 def test_rts_mean_kernel_takes_misaligned_views(device, n, which):
     """K10 with e_t and x_last as views 4 bytes into a larger buffer (n = 2
     then takes its 4-byte rows, not its 8-byte ones)."""
@@ -184,7 +203,7 @@ def _nonlinear(f, n, m, p, device, B=257, T=None, seed=2):
 def test_whole_filter_kernels_match_plain_on_every_plant_and_width(device, f, n, m, which):
     port, ref = ((ekf.ekf_batched, ekf.ekf_reference) if which == "ekf"
                  else (ukf.ukf_batched, ukf.ukf_reference))
-    for p in range(1, min(n, 4) + 1):
+    for p in range(1, n + 1):
         h = functools.partial(first_components, k=p)
         args = _nonlinear(f, n, m, p, device, seed=p)
         before = port.launches
@@ -222,7 +241,7 @@ def test_ukf_kernel_every_plant_width_batch_and_horizon(device, f, n, m, B, T):
     ragged, and at horizons inside one staged chunk of 16 steps and across
     three and four (the last one partial), every output against the plain
     version."""
-    for p in range(1, min(n, 4) + 1):
+    for p in range(1, n + 1):
         h = functools.partial(first_components, k=p)
         args = _nonlinear(f, n, m, p, device, B=B, T=T, seed=10 + p)
         before = ukf.ukf_batched.launches
@@ -258,7 +277,7 @@ def test_ekf_kernel_every_plant_width_batch_and_horizon(device, f, n, m, B, T):
     ragged, and at horizons inside one staged chunk of 16 steps and across
     three and four (the last one partial), every output against the plain
     version."""
-    for p in range(1, min(n, 4) + 1):
+    for p in range(1, n + 1):
         h = functools.partial(first_components, k=p)
         args = _nonlinear(f, n, m, p, device, B=B, T=T, seed=30 + p)
         before = ekf.ekf_batched.launches
@@ -303,7 +322,7 @@ def _assert_mean_pass_matches_plain(got, want, what):
 
 
 @pytest.mark.parametrize("inputs", [False, True], ids=["no_inputs", "inputs"])
-@pytest.mark.parametrize("n,p", [(2, 1), (4, 4), (16, 8)])
+@pytest.mark.parametrize("n,p", [(2, 1), (4, 4), (16, 8), (48, 24)])
 @pytest.mark.parametrize("T", [1, 2, 50, 130])
 @pytest.mark.parametrize("N", [1, 63, 1003, 4096])
 def test_kalman_mean_kernel_every_batch_horizon_and_bucket(device, N, T, n, p, inputs):
@@ -322,7 +341,7 @@ def test_kalman_mean_kernel_every_batch_horizon_and_bucket(device, N, T, n, p, i
 
 
 @pytest.mark.parametrize("which", ["ys_t", "us_t", "x0s", "all"])
-@pytest.mark.parametrize("n,p", [(2, 1), (3, 2), (16, 8)])
+@pytest.mark.parametrize("n,p", [(2, 1), (3, 2), (16, 8), (33, 17)])
 def test_kalman_mean_kernel_takes_misaligned_views(device, n, p, which):
     """K9 stages each step's rows of a block as the aligned 16-byte span that
     holds them: operands 4 bytes off a 16-byte boundary are read at their
@@ -335,6 +354,49 @@ def test_kalman_mean_kernel_takes_misaligned_views(device, n, p, which):
     got = kalman_mean.kalman_mean_pass(*args)
     torch.cuda.synchronize()
     _assert_mean_pass_matches_plain(got, want, which)
+
+
+def _held(got, plain, f64, atol):
+    """Within atol of the plain version and of float64, or, where the plain
+    fp32 version itself sits past atol from float64, within four times its
+    distance of each (chip_smoke.held_against)."""
+    floor = max(atol, 4 * (plain.double() - f64).abs().max().item())
+    return ((got.double() - plain.double()).abs().max().item() <= floor
+            and (got.double() - f64).abs().max().item() <= floor)
+
+
+@pytest.mark.parametrize("n,p,N,T,form", [(48, 24, 1003, 13, 0), (130, 67, 257, 5, 0),
+                                          (300, 40, 256, 8, 1), (4000, 3, 9, 3, 2)])
+def test_kalman_mean_wide_forms_match_plain_and_float64(device, n, p, N, T, form):
+    """The wide K9 in each of its forms (0: the matrices and the tile in
+    shared memory; 1: the matrices read through L1; 2: the tile in a device
+    workspace), with inputs, one launch, against its plain version and
+    float64 (K9's bounds, or four times the plain fp32 version's own
+    distance from float64)."""
+    args = _mean_pass_operands(n, p, N, T, True, device, seed=n + p)
+    assert kalman_mean.wide_plan(device.index, n, p, True)[0] == form
+    before = kalman_mean.kalman_mean_pass.launches
+    got = kalman_mean.kalman_mean_pass(*args)
+    torch.cuda.synchronize()
+    assert kalman_mean.kalman_mean_pass.launches == before + 1
+    plain = kalman_mean.kalman_mean_pass_reference(*args)
+    f64 = kalman_mean.kalman_mean_pass_reference(*(a.double() for a in args))
+    for k in range(2):
+        assert _held(got[k], plain[k], f64[k], 2e-5), k
+    assert torch.allclose(got[2], plain[2], rtol=2e-4, atol=2e-3)
+
+
+@pytest.mark.parametrize("n,N,T,form", [(130, 1003, 50, 0), (300, 256, 50, 1), (4000, 9, 3, 2)])
+def test_rts_mean_wide_forms_match_plain_and_float64(device, n, N, T, form):
+    G, es, x_last = _rts_operands(n, N, T, device, seed=n)
+    assert rts_mean.wide_plan(device.index, n)[0] == form
+    before = rts_mean.rts_mean_pass.launches
+    got = rts_mean.rts_mean_pass(G, es, x_last)
+    torch.cuda.synchronize()
+    assert rts_mean.rts_mean_pass.launches == before + 1
+    plain = rts_mean.rts_mean_pass_reference(G, es, x_last)
+    assert _held(got, plain, rts_mean.rts_mean_pass_reference(G.double(), es.double(),
+                                                             x_last.double()), 2e-5)
 
 
 @pytest.mark.parametrize("f,n,m", PLANTS, ids=[f.__name__ for f, _, _ in PLANTS])

@@ -169,11 +169,13 @@ F32, F64 = torch.float32, torch.float64
 KF, NL = {"n": 2, "p": 1}, {"n": 2, "p": 1, "m": 1}   # the bench's filter and pendulum
 
 
+# Past the narrow forms' envelope (MAX_N, MAX_P) "auto" takes the wide form:
+# these cases keep the ids they had when it took the plain route there.
 @pytest.mark.parametrize("args,want", [
     (("cuda", F32, KF), "pallas"),                      # the bench's shape
     (("cuda", F32, {"n": kalman_mean.MAX_N, "p": kalman_mean.MAX_P}), "pallas"),
-    (("cuda", F32, {"n": kalman_mean.MAX_N + 1, "p": 1}), "xla"),  # above the envelope
-    (("cuda", F32, {"n": 2, "p": kalman_mean.MAX_P + 1}), "xla"),
+    pytest.param(("cuda", F32, {"n": kalman_mean.MAX_N + 1, "p": 1}), "pallas", id="args2-xla"),
+    pytest.param(("cuda", F32, {"n": 2, "p": kalman_mean.MAX_P + 1}), "pallas", id="args3-xla"),
     (("cuda", F64, KF), "xla"),                         # the kernel takes float32
     (("cpu", F32, KF), "xla"),
     (("cpu", F32, KF, "pallas"), "pallas"),             # the plain version on the CPU
@@ -187,7 +189,8 @@ def test_route_kalman_batched(args, want):
 
 @pytest.mark.parametrize("args,want", [
     (("cuda", F32, {"n": 2}), "pallas"), (("cuda", F32, {"n": rts_mean.MAX_N}), "pallas"),
-    (("cuda", F32, {"n": rts_mean.MAX_N + 1}), "xla"), (("cpu", F32, {"n": 2}), "xla"),
+    pytest.param(("cuda", F32, {"n": rts_mean.MAX_N + 1}), "pallas", id="args2-xla"),
+    (("cpu", F32, {"n": 2}), "xla"),
     (("cpu", F32, {"n": 2}, "pallas"), "pallas"), (("cuda", F32, {"n": 2}, "xla"), "xla"),
     (("cuda", F64, {"n": 2}), "xla"),
 ])
@@ -212,9 +215,9 @@ def test_route_whole_filters(kernel, args, want):
 
 
 @pytest.mark.parametrize("call", [
-    lambda: te.route_batched("K9", "cuda", F32, {"n": kalman_mean.MAX_N + 1, "p": 1}, "pallas"),
+    lambda: te.route_batched("K11", "cuda", F32, {"n": 6, "p": 7, "m": 2}, "pallas"),  # p > n
     lambda: te.route_batched("K9", "cpu", F32, KF, "fused"),
-    lambda: te.route_batched("K10", "cpu", F32, {"n": rts_mean.MAX_N + 1}, "pallas"),
+    lambda: te.route_batched("K12", "cpu", F32, {"n": 6, "p": 2, "m": 5}, "pallas"),
     lambda: te.route_batched("K10", "cpu", F32, {"n": 2}, "plain"),
     lambda: te.route_batched("K11", "cpu", F32, {"n": 9, "p": 1, "m": 1}, "pallas"),
     lambda: te.route_batched("K12", "cuda", F32, {"n": 2, "p": 5, "m": 1}, "pallas"),
@@ -223,6 +226,29 @@ def test_route_whole_filters(kernel, args, want):
 def test_routes_reject_what_they_do_not_take(call):
     with pytest.raises(ValueError):
         call()
+
+
+@pytest.mark.parametrize("kernel,dims", [("K9", {"n": kalman_mean.MAX_N + 1, "p": 1}),
+                                         ("K10", {"n": rts_mean.MAX_N + 1})])
+def test_explicit_pallas_past_the_narrow_forms_takes_the_kernel_route(kernel, dims):
+    """An explicit "pallas" past the narrow forms' envelope takes the kernel
+    route, as the JAX package's routes (no size check): on the card the wide
+    form, on the CPU the plain version, which the entry point runs."""
+    assert te.route_batched(kernel, "cuda", F32, dims, "pallas") == "pallas"
+    assert te.route_batched(kernel, "cpu", F32, dims, "pallas") == "pallas"
+    n, p, N, T = dims["n"], dims.get("p", 1), 3, 4
+    rng = np.random.default_rng(n)
+    A = _t(0.9 * np.eye(n, dtype=np.float32))
+    C = _t(rng.standard_normal((p, n)).astype(np.float32))
+    kf = (A, C, 0.01 * torch.eye(n), 0.1 * torch.eye(p), _t(rng.standard_normal((N, n))).float(),
+          0.5 * torch.eye(n), _t(rng.standard_normal((N, T, p))).float())
+    before = (kalman_mean.kalman_mean_pass.launches, rts_mean.rts_mean_pass.launches)
+    got = te.kalman_filter_batched(*kf, method="pallas")
+    want = te.kalman_filter_batched(*kf, method="xla")
+    if kernel == "K10":
+        got, want = (te.kalman_smoother_batched(A, want, method=m) for m in ("pallas", "xla"))
+    assert torch.equal(got.means, want.means)
+    assert (kalman_mean.kalman_mean_pass.launches, rts_mean.rts_mean_pass.launches) == before
 
 
 @pytest.mark.parametrize("method", ["auto", "pallas", "xla"])
