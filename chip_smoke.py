@@ -334,10 +334,31 @@ before phase 23:
    wrapper and plain times of the wide K9, K10 and of K11 and K12 at
    p = 6, and the entries' times beside the kernels'.
 
+The box-QP kernels that form g (or c) from x0 past n = 32 (csrc/boxqp_tile.cuh
+sums the fold in chunks of 32 rows), run after phase 30 and before phase 23:
+
+31. four quadrotor12 plants as one system regulated by MPC (n = 48, m = 16,
+   Q = I + kron(L_ring, E_pos), R = 0.1 I, QF = 5 I, box +-1; x0 = 0.3
+   N(0, 1), x_ref 0.2 N(0, 1) of seed 31; N = 4096 at T = 20 and 30, d = 320
+   and 480; `formation_mpc`): K2, K1, K2' and K1' against their plain
+   versions (all-fp32 1e-5, the default schedules 1e-4) and the same
+   iteration in float64 (1e-4), cold and warm, a ragged N = 1003, K2's g
+   and tail classes and K1's c classes and loop forms, and random stable
+   plants at (n, T) = (33, 4), (100, 40), (300, 70) (`stable_mpc_plant`,
+   m = 2); then at each T the path, its counters zeroed just before it:
+   solve_mpc_boxqp and solve_mpc_boxqp_admm with and without x_ref against
+   float64 (1e-4), MPCController with FISTA, ADMM and FISTA + x_ref, 20
+   ticks each (19 replays, each bit for bit the eager tick, one graph, the
+   replays' kernel runs counted by torch.profiler after a warm call), the
+   DP solvers beside K2' and K1' on a one-rank NCCL group (DP == K2 ==
+   K2' within 1e-5); own, wrapper, plain and bound times of the four
+   kernels at both T and the captured ticks against the 10 ms budget.
+
 Every kernel's own duration (torch.profiler's CUDA activity, log_own) is
 logged in the times phases (4, 7, 10, 13, 16, 19) beside its wrapper's
 CUDA-event time and host enqueue (the wide tile's in 27, the wide K5, K6a
-and K6b's in 28, the wide K7's in 29, the wide K9's and K10's in 30): K1, K2 (4); K5, K6a, K6b (7); K3a, K3b,
+and K6b's in 28, the wide K7's in 29, the wide K9's and K10's in 30, the
+formation's K1, K2, K1' and K2' in 31): K1, K2 (4); K5, K6a, K6b (7); K3a, K3b,
 K7 and K8 at N = 256 and 4096 (10); K9-K12, K9 also with inputs and K11
 also on the unicycle and the planar quadrotor (13); K13 at the bench's shape
 and, by a direct call, at N = 4096, K14 (16); K1', K2' (19).
@@ -345,8 +366,8 @@ and, by a direct call, at N = 4096, K14 (16); K1', K2' (19).
 The launch counters of each path are zeroed just before it is driven
 (phases 2-3, 6, the path of 8, the path of 9, phase 12, the paths of 14
 and 15, phase 18, the AL-iLQR and particle-filter paths of 23 and the paths
-of 27, 28, 29 and 30) and read just after. A wrapper counts the launches it makes; a
-replayed CUDA graph (the captured serving ticks of phases 3, 8 and 27)
+of 27, 28, 29, 30 and 31) and read just after. A wrapper counts the launches it makes; a
+replayed CUDA graph (the captured serving ticks of phases 3, 8, 27 and 31)
 calls none, so the kernel's
 runs in those ticks are counted from torch.profiler's CUDA activity and
 added to the wrapper's count in the kernels line. The last lines are the
@@ -3888,36 +3909,43 @@ def wide_boxqp_family(dev, smi: str) -> list:
             f"scenarios, captured): {cuda_ms(tick, reps=3, inner=5):.4f} ms, host enqueue "
             f"{enqueue_ms(tick, 10):.4f} ms [{smi}]")
 
-    # entries at d = 400, the path's width: bytes each input read once and each
-    # output written once; bf16 tensor-core passes at the real d (the fold of
-    # g or c at "highest", each product of the schedule, the residual product)
-    d, T = main.d, main.T
-    ci_f, ci_a = main.ci
-    fold_passes = 2 * N * n * d * boxqp_passes(0, 1)
-    fold_bytes = 4 * (d * d + n * T * n + T * n * d + N * n + 1)
-    host_ops = 2 * n * (T * n) * d
-    spec = {
-        "fista_mpc_res": ("boxqp_fista.cu", "boxqp_fista.py:299",
-                          fold_bytes + 4 * 2 * N * d, host_ops,
-                          fold_passes + 2 * N * d * d * boxqp_passes(ci_f, iters - ci_f + 1)),
-        "admm_mpc_res": ("boxqp_admm.cu", "boxqp_admm.py:353",
-                         fold_bytes + 4 * (d * d + 2 * N * d + 2), host_ops + 2 * n * d * d,
-                         fold_passes + 2 * N * d * d * boxqp_passes(ci_a, iters - ci_a + 1)),
-        "fista_boxqp": ("boxqp_fista.cu", "boxqp_fista.py:119", 4 * (d * d + 3 * N * d + 1), 0,
-                        2 * N * d * d * boxqp_passes(ci_f, iters - ci_f)),
-        "admm_boxqp": ("boxqp_admm.cu", "boxqp_admm.py:186", 4 * (2 * d * d + 4 * N * d + 1), 0,
-                       2 * N * d * d * boxqp_passes(ci_a, iters - ci_a + 1)),
-        "fista_mpc": ("boxqp_fista.cu", "boxqp_fista.py:183",
-                      4 * (d * d + n * d + N * n + 2 * N * d), 0,
-                      fold_passes + 2 * N * d * d * boxqp_passes(ci_f, iters - ci_f)),
-        "admm_mpc": ("boxqp_admm.cu", "boxqp_admm.py:447",
-                     4 * (d * d + n * d + N * n + 3 * N * d), 0,
-                     fold_passes + 2 * N * d * d * boxqp_passes(ci_a, iters - ci_a + 1)),
-    }
+    d = main.d
+    spec = boxqp_work(N, n, d, main.T, *main.ci, iters)
     return [kernel_entry(f"{name} (wide, d = {d})", src, rep, launches[short[name]], err[name],
                          ms[(d, name)], plain_ms[(d, name)], n_bytes, n_ops,
                          tensor_ops=tensor_ops)
             for name, (src, rep, n_bytes, n_ops, tensor_ops) in spec.items()]
+
+
+def boxqp_work(N_: int, n: int, d: int, T_: int, ci_f: int, ci_a: int, iters: int) -> dict:
+    """{kernel: (source, the TPU kernel it replaces, bytes, fp32 operations,
+    bf16 tensor-core operations)} of the six box-QP kernels on N_ scenarios
+    of n states, horizon T_ and width d, the FISTA and ADMM schedules ci_f,
+    ci_a coarse products of `iters`: bytes each input read once and each
+    output written once; the fp32 operations of the host-side folds; bf16
+    tensor-core passes at the real d and n (the fold of g or c at
+    "highest", each product of the schedule, the residual product)."""
+    fold_passes = 2 * N_ * n * d * boxqp_passes(0, 1)
+    fold_bytes = 4 * (d * d + n * T_ * n + T_ * n * d + N_ * n + 1)
+    host_ops = 2 * n * (T_ * n) * d
+    return {
+        "fista_mpc_res": ("boxqp_fista.cu", "boxqp_fista.py:299",
+                          fold_bytes + 4 * 2 * N_ * d, host_ops,
+                          fold_passes + 2 * N_ * d * d * boxqp_passes(ci_f, iters - ci_f + 1)),
+        "admm_mpc_res": ("boxqp_admm.cu", "boxqp_admm.py:353",
+                         fold_bytes + 4 * (d * d + 2 * N_ * d + 2), host_ops + 2 * n * d * d,
+                         fold_passes + 2 * N_ * d * d * boxqp_passes(ci_a, iters - ci_a + 1)),
+        "fista_boxqp": ("boxqp_fista.cu", "boxqp_fista.py:119", 4 * (d * d + 3 * N_ * d + 1), 0,
+                        2 * N_ * d * d * boxqp_passes(ci_f, iters - ci_f)),
+        "admm_boxqp": ("boxqp_admm.cu", "boxqp_admm.py:186", 4 * (2 * d * d + 4 * N_ * d + 1), 0,
+                       2 * N_ * d * d * boxqp_passes(ci_a, iters - ci_a + 1)),
+        "fista_mpc": ("boxqp_fista.cu", "boxqp_fista.py:183",
+                      4 * (d * d + n * d + N_ * n + 2 * N_ * d), 0,
+                      fold_passes + 2 * N_ * d * d * boxqp_passes(ci_f, iters - ci_f)),
+        "admm_mpc": ("boxqp_admm.cu", "boxqp_admm.py:447",
+                     4 * (d * d + n * d + N_ * n + 3 * N_ * d), 0,
+                     fold_passes + 2 * N_ * d * d * boxqp_passes(ci_a, iters - ci_a + 1)),
+    }
 
 
 # Phase 28: the Riccati family past n = 16 (csrc/riccati_wide.cu,
@@ -4778,6 +4806,407 @@ def wide_estimation_family(dev, smi: str) -> list:
     ]
 
 
+# Phase 31: the box-QP kernels that form g (or c) from x0, K1, K2, K1' and K2',
+# past n = 32 (csrc/boxqp_tile.cuh sums the fold in chunks of 32 rows). The
+# configuration: four quadrotor12(0.02) plants stacked as one system, as
+# phases 28 and 30 build it (n = 48, m = 16), regulated by MPC: Q = I +
+# kron(L_ring, E_pos), R = 0.1 I, QF = 5 I, box +-1, config #4's N = 4096
+# scenarios with x0 = 0.3 N(0, 1), at T = 20 (d = 320, a 3-block cluster)
+# and T = 30 (d = 480, 4 blocks); the fold's other depths on random stable
+# plants (m = 2, T = 4 and 40: d = 8 and 80 on the narrow tile, and the
+# wide tile past d = 128 at T = 70; stable_mpc_plant).
+T_FORM_MPC = (20, 30)
+SEED_FORM_MPC = 31
+FOLD_EDGES = ((33, 4), (100, 40), (300, 70))  # (n, T) at m = 2
+
+
+def formation_mpc(k: int):
+    """k quadrotor12(dt=0.02) plants as one system for MPC (n = 12 k,
+    m = 4 k): (A, B, Q, R, QF), numpy float32, A = kron(I_k, Aq),
+    B = kron(I_k, Bq), Q = I + kron(L_ring, E_pos) (the ring's Laplacian
+    over the vehicles' positions), R = 0.1 I, QF = 5 I: `formation`'s
+    weights with the batch's one A."""
+    _, B, Q, R, QF = formation(k, 1)
+    from numpower_tpu_torch.models import quadrotor12
+
+    A = np.kron(np.eye(k), quadrotor12(0.02)[0]).astype(np.float32)
+    return A, B, Q, R, QF
+
+
+def stable_mpc_plant(n: int, m: int, seed: int):
+    """A random stable plant for MPC, its spectral radius about 0.95 at any
+    n (0.9 I + 0.05 N(0, 1) / sqrt(n)), B = 0.1 N(0, 1): (A, B, Q = I,
+    R = 0.1 I, QF = 5 I), numpy float32."""
+    rng = np.random.default_rng(seed)
+    A = 0.9 * np.eye(n) + 0.05 * rng.standard_normal((n, n)) / np.sqrt(n)
+    B = 0.1 * rng.standard_normal((n, m))
+    return tuple(np.asarray(M, dtype=np.float32) for M in
+                 (A, B, np.eye(n), 0.1 * np.eye(m), 5.0 * np.eye(n)))
+
+
+def fold_checksums(dev, iters: int = 40) -> dict:
+    """{case: (SHA-256 prefix of its outputs, the call)} for K2, K1, K2' and
+    K1' (K2 also with g_precision "bf16x3", K1 with c_precision "bf16x4") at
+    config #4's model (n = 12, one chunk of the fold) at T = 30 (d = 120, the
+    narrow tile) and T = 100 (d = 400, the wide one), N = 4096, the default
+    schedules, K2 and K1 warm. Every operand is formed on the host (the QP,
+    the folds, Minv, x0s and U0 from seed 21) and K2' and K1' get the fold as
+    (I, W), whose product the wrapper forms exactly, so that two checkouts
+    whose kernels compute the same bits print the same digests."""
+    import hashlib
+
+    from numpower_tpu_torch.kernels import boxqp_admm, boxqp_fista
+    from numpower_tpu_torch.models import condense, quadrotor12
+    from numpower_tpu_torch.models.condensed import admm_coarse_iters, default_coarse_iters
+
+    A, B = quadrotor12(0.02)
+    n, m = 12, 4
+    Q, R, QF = np.eye(n), 0.1 * np.eye(m), 5.0 * np.eye(n)
+
+    def calls(T):
+        qp = condense(A, B, Q, R, QF, T, device="cpu")
+        d = T * m
+        rho = torch.sqrt(qp.lipschitz * torch.clamp(qp.mu, min=1e-12))
+        Minv = boxqp_admm.minv_factor(qp.H, rho)
+        W = (qp.Sx.T.double() @ qp.SuTQ.T.double()).float()
+        Wc = (qp.Sx.T.double() @ (qp.SuTQ.T.double() @ Minv.T.double())).float()
+        rng = np.random.default_rng(21)
+        x0s = 0.3 * rng.standard_normal((N, n))
+        U0 = np.clip(0.5 * rng.standard_normal((N, d)), LO, HI)
+        t = {k: torch.as_tensor(np.asarray(v), dtype=torch.float32, device=dev).contiguous()
+             for k, v in dict(H=qp.H, Ht=qp.H.T, W=W, Wc=Wc, rminvT=rho * Minv.T, Minv=Minv,
+                              x0s=x0s, U0=U0, lip=qp.lipschitz, rho=rho, eye=np.eye(n)).items()}
+        f_folds = (t["Ht"], t["W"], boxqp_fista._wide_operand(t["Ht"]))
+        a_folds = (t["rminvT"], t["Wc"], boxqp_fista._wide_operand(t["rminvT"]))
+        ci_f, ci_a = default_coarse_iters(qp, iters), admm_coarse_iters(qp, iters)
+        fold = (t["H"], t["eye"], t["W"], t["x0s"], LO, HI)
+        return d, {
+            "K2": lambda: boxqp_fista._fista_mpc_res(*fold, t["lip"], iters, ci_f, t["U0"],
+                                                     "highest", "highest", f_folds),
+            "K2 g bf16x3": lambda: boxqp_fista._fista_mpc_res(
+                *fold, t["lip"], iters, ci_f, t["U0"], "highest", "bf16x3", f_folds),
+            "K1": lambda: boxqp_admm._admm_mpc_res(*fold, t["rho"], iters, ci_a, 1.6, t["Minv"],
+                                                   t["U0"], "s", "highest", a_folds),
+            "K1 c bf16x4": lambda: boxqp_admm._admm_mpc_res(
+                *fold, t["rho"], iters, ci_a, 1.6, t["Minv"], t["U0"], "s", "bf16x4", a_folds),
+            "K2'": lambda: boxqp_fista.fista_mpc(*fold, t["lip"], iters, ci_f),
+            "K1'": lambda: boxqp_admm.admm_mpc(*fold, t["rho"], iters, ci_a, Minv=t["Minv"]),
+        }
+
+    out = {}
+    for T in (30, 100):
+        d, cases = calls(T)
+        for name, call in cases.items():
+            h = hashlib.sha256()
+            for r in call():
+                h.update(r.contiguous().cpu().numpy().tobytes())
+            out[f"{name} d = {d}"] = (h.hexdigest()[:16], call)
+    return out
+
+
+def formation_boxqp_family(dev, smi: str) -> list:
+    """Phase 31: K2, K1, K2' and K1' past n = 32. Each against its plain
+    version and against the same iteration in float64 at the four-quadrotor
+    formation (formation_mpc, n = 48, m = 16) at T = 20 and 30 (N = 4096,
+    all-fp32 and the default schedules, K2 and K1 warm; a ragged N = 1003 at
+    T = 20; K2's g and tail classes and K1's c classes and loop forms at
+    T = 20) and on random stable plants at FOLD_EDGES; then, at each T, the
+    path, its counters zeroed just before it: solve_mpc_boxqp and
+    solve_mpc_boxqp_admm with and without x_ref against float64 (1e-4),
+    MPCController with FISTA, ADMM and FISTA + x_ref for 20 ticks each (the
+    first eager, the replays each bit for bit the eager tick from the same
+    state, their kernel runs counted by torch.profiler after a warm call),
+    and the DP solvers beside K2' and K1' on a one-rank NCCL group; then the
+    times: own (torch.profiler), wrapper and plain of the four kernels, their
+    bounds, and the captured ticks against the 10 ms budget. Returns the
+    formation's entries of the JSON line (both T)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from numpower_tpu_torch.kernels import boxqp_admm, boxqp_fista
+    from numpower_tpu_torch.models import (
+        MPCController, MPCState, condense, gradient_offset, solve_mpc_boxqp,
+        solve_mpc_boxqp_admm,
+    )
+    from numpower_tpu_torch.models.condensed import admm_coarse_iters, default_coarse_iters
+    from numpower_tpu_torch.parallel import (
+        make_mesh, shard_batch, solve_mpc_boxqp_admm_dp, solve_mpc_boxqp_dp,
+    )
+
+    iters = 40
+    plant = formation_mpc(N_FORMATION)
+    A, B = plant[:2]
+    n, m = B.shape
+    rng = np.random.default_rng(SEED_FORM_MPC)
+    x0s = torch.as_tensor(0.3 * rng.standard_normal((N, n)), dtype=torch.float32, device=dev)
+    x_ref = torch.as_tensor(0.2 * rng.standard_normal(n), dtype=torch.float32, device=dev)
+    names = ("fista_mpc_res", "admm_mpc_res", "fista_mpc", "admm_mpc")
+    short = {"fista_mpc_res": "K2", "admm_mpc_res": "K1", "fista_mpc": "K2'", "admm_mpc": "K1'",
+             "fista_boxqp": "K3b", "admm_boxqp": "K3a"}
+    mods = {k: boxqp_fista if k.startswith("fista") else boxqp_admm for k in short}
+    warm_names = ("fista_mpc_res", "admm_mpc_res")
+
+    class Case:
+        """One plant at one horizon: its QP and the kernels' operands, in
+        fp32 and in float64."""
+
+        def __init__(self, plant_, T_):
+            self.T = T_
+            self.qp = qp = condense(*plant_, T_, device=dev)
+            self.n, self.d = qp.Sx.shape[1], qp.H.shape[0]
+            self.rho = torch.sqrt(qp.lipschitz * torch.clamp(qp.mu, min=1e-12))
+            self.Minv = boxqp_admm.minv_factor(qp.H, self.rho)
+            self.ci = {"fista": default_coarse_iters(qp, iters),
+                       "admm": admm_coarse_iters(qp, iters)}
+            r = np.random.default_rng(SEED_FORM_MPC + self.n + T_)
+            self.x0s = x0s if self.n == n else torch.as_tensor(
+                0.3 * r.standard_normal((N, self.n)), dtype=torch.float32, device=dev)
+            self.U0 = torch.as_tensor(np.clip(0.5 * r.standard_normal((N, self.d)), LO, HI),
+                                      dtype=torch.float32, device=dev)
+            self.op = {"fold": (qp.H, qp.Sx.T, qp.SuTQ.T), "lip": qp.lipschitz,
+                       "rho": self.rho, "Minv": self.Minv, "U0": self.U0, "x0s": self.x0s}
+            self.op64 = {k: tuple(t.double() for t in v) if k == "fold" else v.double()
+                         for k, v in self.op.items()}
+
+        def coarse(self, name, schedule):
+            return 0 if schedule == "fp32" else self.ci[name.split("_")[0]]
+
+        def run(self, name, N_, coarse, warm, kernel=True, f64=False, **kw):
+            """Kernel `name` (or its plain version, in float64 with f64) on
+            the first N_ scenarios: its outputs."""
+            op = self.op64 if f64 else self.op
+            xs, U0 = op["x0s"][:N_], op["U0"][:N_] if warm else None
+            fn = getattr(mods[name], name if kernel else f"{name}_reference")
+            if name == "fista_mpc_res":
+                return fn(*op["fold"], xs, LO, HI, op["lip"], iters, coarse, U0, **kw)
+            if name == "admm_mpc_res":
+                return fn(*op["fold"], xs, LO, HI, op["rho"], iters, coarse, Minv=op["Minv"],
+                          U0=U0, **kw)
+            if name == "fista_mpc":
+                return fn(*op["fold"], xs, LO, HI, op["lip"], iters, coarse)
+            return fn(*op["fold"], xs, LO, HI, op["rho"], iters, coarse, Minv=op["Minv"])
+
+    cases = {T_: Case(plant, T_) for T_ in T_FORM_MPC}
+    edges = {(n_e, T_e): Case(stable_mpc_plant(n_e, 2, seed=n_e), T_e) for n_e, T_e in FOLD_EDGES}
+    log(f"phase 31: the formation of {N_FORMATION} quadrotors, n = {n}, m = {m}, N = {N}: "
+        + ", ".join(f"T = {c.T} d = {c.d} kappa {c.qp.kappa:.2f} schedules FISTA "
+                    f"{c.ci['fista']}+{iters - c.ci['fista']}, ADMM {c.ci['admm']}+"
+                    f"{iters - c.ci['admm']}, {-(-c.d // 128)} blocks a cluster"
+                    for c in cases.values())
+        + "; edges (n, d) " + ", ".join(f"({c.n}, {c.d})" for c in edges.values()))
+
+    # -- phase 31: each kernel against its plain version and float64 ---------------
+    def compare(what, case, name, N_, schedule, **kw):
+        """The kernel against its plain version and against the same
+        iteration in float64, by phase 27's rule: within the narrow
+        instances' bounds of its plain version (all-fp32 1e-5, the default
+        schedule 1e-4, the bf16x3 tail 3e-5; residuals 1e-5 or 1e-4 of
+        their size; g 1e-5 of its size) or five floors, and within 1e-4 or
+        four floors of float64, the floor being the plain fp32 version's own
+        distance from float64 (at T = 30, K1''s dual y sits 1.1e-5 from
+        float64 in the plain fp32 version itself, all-fp32). Returns max
+        |d| from the plain version."""
+        coarse, warm = case.coarse(name, schedule), name in warm_names
+        got = case.run(name, N_, coarse, warm, **kw)
+        want = case.run(name, N_, coarse, warm, kernel=False, **kw)
+        exact = case.run(name, N_, coarse, warm, kernel=False, f64=True)
+        tol = max(1e-5 if coarse == 0 else 1e-4,
+                  3e-5 if kw.get("tail_precision") == "bf16x3" else 0.0)
+        dg = 0.0
+        if name in ("fista_mpc", "admm_mpc"):  # g last
+            dg = max_err(got[-1], want[-1]) / want[-1].abs().max().item()
+            got, want, exact = got[:-1], want[:-1], exact[:-1]
+        de = max(max_err(a, b) for a, b in zip(got, want) if a.ndim)
+        floor = max(max_err(b, c) for b, c in zip(want, exact) if b.ndim)
+        de64 = max(max_err(a, c) for a, c in zip(got, exact) if a.ndim)
+        scal = [(abs(a.item() - b.item()), abs(b.item())) for a, b in zip(got, want) if not a.ndim]
+        tol = max(tol, 5 * floor)
+        ok = (de <= tol and dg <= 1e-5 and de64 <= max(1e-4, 4 * floor)
+              and all(dr <= max(1e-5, 1e-4 * size) for dr, size in scal))
+        log(f"{what} {short[name]} {name} {schedule} ({coarse} coarse) {'warm' if warm else 'cold'}"
+            f"{' ' + str(kw) if kw else ''} N={N_}: max|d| {de:.3e} (tol {tol:.3e}), from float64 "
+            f"{de64:.3e} (plain fp32 {floor:.3e}); residuals "
+            + (", ".join(f"{dr:.3e} (size {size:.3e})" for dr, size in scal) or "none")
+            + f"; g relative {dg:.3e}: {'held' if ok else 'FAILED'}")
+        require(ok, f"{what} {short[name]} {schedule} {kw} against plain and float64")
+        return de
+
+    err = dict.fromkeys((T_, k) for T_ in cases for k in names)
+    before = {k: getattr(mods[k], k).launches for k in names}
+    calls = dict.fromkeys(names, 0)
+    for T_, case in cases.items():
+        for N_ in ((N, N_RAGGED) if T_ == T_FORM_MPC[0] else (N,)):
+            for name in names:
+                for schedule in ("fp32", "default"):
+                    de = compare(f"formation d = {case.d}", case, name, N_, schedule)
+                    calls[name] += 1
+                    if N_ == N:
+                        err[T_, name] = max(err[T_, name] or 0.0, de)
+    first = cases[T_FORM_MPC[0]]
+    variants = [("fista_mpc_res", {"g_precision": g}) for g in ("bf16x4", "bf16x3")]
+    variants += [("fista_mpc_res", {"tail_precision": "bf16x3"})]
+    variants += [("admm_mpc_res", {"c_precision": c}) for c in ("bf16x4", "bf16x3")]
+    variants += [("admm_mpc_res", {"form": f}) for f in ("zy", "sp")]
+    for name, kw in variants:
+        compare(f"formation d = {first.d}", first, name, N, "default", **kw)
+        calls[name] += 1
+    for case in edges.values():
+        for name in names:
+            compare(f"edge n = {case.n} d = {case.d}", case, name, N, "default")
+            calls[name] += 1
+    launched = {k: getattr(mods[k], k).launches - before[k] for k in names}
+    require(launched == calls, f"each phase 31 kernel call launched once ({launched}, {calls})")
+
+    # -- phase 31: the path at the formation, counted --------------------------------
+    counters = {k: getattr(mods[k], k) for k in short}
+    A_t, B_t = torch.as_tensor(A, device=dev), torch.as_tensor(B, device=dev)
+    launches, serving, e_path, e_dp = {}, {}, {}, {}
+    for T_, case in cases.items():
+        qp = case.qp
+        for c in counters.values():
+            c.launches = 0
+        res = {"fista": solve_mpc_boxqp(qp, x0s, LO, HI, iters=iters),
+               "fista x_ref": solve_mpc_boxqp(qp, x0s, LO, HI, x_ref=x_ref, iters=iters),
+               "admm": solve_mpc_boxqp_admm(qp, x0s, LO, HI, iters=iters),
+               "admm x_ref": solve_mpc_boxqp_admm(qp, x0s, LO, HI, x_ref=x_ref, iters=iters)}
+        replayed = {}
+        for tick_case, kw, kernel in (("fista", {"solver": "fista"}, "fista_kernel"),
+                                      ("admm", {"solver": "admm"}, "admm_kernel"),
+                                      ("fista x_ref", {"x_ref": x_ref}, "fista_kernel")):
+            ctrl = MPCController(*plant, T_, LO, HI, iters=30, device=dev, **kw)
+            state = ctrl.init(N)
+            u0, state = ctrl.step(state, x0s)  # eager, captured
+            x1 = x0s @ A_t.T + u0 @ B_t.T
+            start = state.U_prev.clone()
+            twins = []
+
+            def ticks(ctrl=ctrl, state=state, x1=x1, start=start, twins=twins):
+                # restartable: kernel_runs may call it again
+                state.U_prev.copy_(start)
+                twins.clear()
+                s, x = state, x1
+                for _ in range(N_TICKS - 1):
+                    twins.append((MPCState(U_prev=s.U_prev.clone(), tick=s.tick), x))
+                    u, s = ctrl.step(s, x)
+                    twins[-1] += (u.clone(), s.U_prev.clone())
+                    x = x @ A_t.T + u @ B_t.T
+                return s, x
+
+            (state, x), replayed[tick_case] = kernel_runs(ticks, kernel, warm=True)
+            serving[T_, tick_case] = (ctrl, twins, state, x)
+        with tempfile.TemporaryDirectory() as tmp:
+            dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                    rank=0, world_size=1)
+            try:
+                mesh = make_mesh((1, 1))
+                xb = shard_batch(x0s, mesh)
+                fold = (qp.H, qp.Sx.T, qp.SuTQ.T, xb, LO, HI)
+                mesh_res = {
+                    "K2'": boxqp_fista.fista_mpc(*fold, qp.lipschitz, iters, case.ci["fista"])[0],
+                    "DP": solve_mpc_boxqp_dp(qp, xb, LO, HI, mesh, iters).U,
+                    "K1'": boxqp_admm.admm_mpc(*fold, case.rho, iters, case.ci["admm"],
+                                               Minv=case.Minv)[0],
+                    "ADMM-DP": solve_mpc_boxqp_admm_dp(qp, xb, LO, HI, mesh, iters=iters).U}
+            finally:
+                dist.destroy_process_group()
+        counted = {short[k]: c.launches for k, c in counters.items()}
+        runs = {"K2": replayed["fista"], "K1": replayed["admm"], "K3b": replayed["fista x_ref"]}
+        launches[T_] = {k: v + runs.get(k, 0) for k, v in counted.items()}
+        log(f"formation path d = {case.d} launches: {launches[T_]} (wrappers {counted}, "
+            f"replayed ticks {runs}, torch.profiler)")
+        require(counted == {"K2": 3, "K1": 3, "K3b": 2, "K3a": 1, "K2'": 1, "K1'": 1}
+                and all(v == N_TICKS - 1 for v in runs.values()),
+                f"every solve and tick of the formation path at d = {case.d} went through the "
+                "kernels")
+
+        # the path's results (after the counters were read) against the same
+        # iteration in float64: 1e-4
+        f64 = case.op64
+        g64 = gradient_offset(qp, x0s, x_ref).double()
+        exact = {
+            "fista": case.run("fista_mpc_res", N, case.ci["fista"], False, kernel=False,
+                              f64=True)[0],
+            "fista x_ref": boxqp_fista.fista_boxqp_reference(f64["fold"][0], g64, LO, HI,
+                                                             f64["lip"], iters, case.ci["fista"]),
+            "admm": case.run("admm_mpc_res", N, case.ci["admm"], False, kernel=False,
+                             f64=True)[0],
+            "admm x_ref": boxqp_admm.admm_boxqp_reference(f64["fold"][0], g64, LO, HI,
+                                                          f64["rho"], iters, case.ci["admm"],
+                                                          Minv=f64["Minv"])[0]}
+        e_path[T_] = {k: max_err(res[k].U, exact[k]) for k in res}
+        e_dp[T_] = {"DP vs K2": max_err(mesh_res["DP"], res["fista"].U),
+                    "DP vs K2'": max_err(mesh_res["DP"], mesh_res["K2'"]),
+                    "ADMM-DP vs K1": max_err(mesh_res["ADMM-DP"], res["admm"].U),
+                    "K1' vs float64": max_err(mesh_res["K1'"], exact["admm"]),
+                    "K2' vs float64": max_err(mesh_res["K2'"], exact["fista"])}
+        log(f"formation path d = {case.d} vs float64 ({N} scenarios, schedules FISTA "
+            f"{case.ci['fista']}, ADMM {case.ci['admm']} coarse): "
+            + ", ".join(f"{k} {v:.3e}" for k, v in e_path[T_].items()) + " (tol 1e-4); DP "
+            + ", ".join(f"{k} {v:.3e}" for k, v in e_dp[T_].items())
+            + " (tol 1e-5, 1e-5, 1e-5, 1e-4, 1e-4)")
+        require(all(v <= 1e-4 for v in e_path[T_].values()),
+                f"the formation's solves at d = {case.d} against float64")
+        dp = e_dp[T_]
+        require(dp["DP vs K2"] <= 1e-5 and dp["DP vs K2'"] <= 1e-5 and dp["ADMM-DP vs K1"] <= 1e-5
+                and dp["K1' vs float64"] <= 1e-4 and dp["K2' vs float64"] <= 1e-4,
+                f"the formation's DP solves at d = {case.d} equal the direct kernels")
+    for (T_, tick_case), (ctrl, twins, state, x) in serving.items():
+        bitwise = True
+        for twin, x_t, u_t, plan_t in twins:
+            u_e, eager, _ = ctrl._step_impl(ctrl.qp, twin, x_t)
+            bitwise = bitwise and torch.equal(u_t, u_e) and torch.equal(plan_t, eager.U_prev)
+        log(f"formation serving {tick_case} (T = {T_}, {N} scenarios, iters 30, "
+            f"{ctrl.coarse_iters} bf16): {N_TICKS} ticks, {len(twins)} replays each bit for bit "
+            f"the eager tick from the same state: {bitwise}; compile_cache_size "
+            f"{ctrl.compile_cache_size()}; |x| {x.abs().max().item():.3e}")
+        require(bitwise and ctrl.compile_cache_size() == 1 and state.tick == N_TICKS
+                and bool(torch.isfinite(x).all()),
+                f"formation {tick_case} T = {T_}: replays bit for bit the eager ticks, one graph")
+
+    # -- phase 31: times ----------------------------------------------------------------
+    entries = []
+    for T_, case in cases.items():
+        spec = boxqp_work(N, n, case.d, T_, case.ci["fista"], case.ci["admm"], iters)
+        for name in names:
+            coarse, warm = case.coarse(name, "default"), name in warm_names
+
+            def kern(case=case, name=name, coarse=coarse, warm=warm):
+                case.run(name, N, coarse, warm)
+
+            def plain(case=case, name=name, coarse=coarse, warm=warm):
+                case.run(name, N, coarse, warm, kernel=False)
+
+            ms = cuda_ms(kern, reps=5, inner=5, warmup=1)
+            plain_ms = cuda_ms(plain, reps=3, inner=2, warmup=1)
+            src, rep, n_bytes, n_ops, tensor_ops = spec[name]
+            entry = kernel_entry(f"{name} (n = {n}, d = {case.d})", src, rep,
+                                 launches[T_][short[name]], err[T_, name], ms, plain_ms,
+                                 n_bytes, n_ops, tensor_ops=tensor_ops)
+            own = log_own(f"formation {short[name]} {name} n = {n} d = {case.d} ({iters} iters, "
+                          f"{coarse} coarse, {N} scenarios, {'warm' if warm else 'cold'}); plain "
+                          f"{plain_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms "
+                          f"({entry['bound_by']})", kern,
+                          "fista_kernel" if name.startswith("fista") else "admm_kernel", ms, smi,
+                          calls=10)
+            share = "not measured" if own[0] is None else \
+                f"{100 * entry['bound_ms'] / (own[0] / 1e3):.1f}% of its own time"
+            log(f"time formation {short[name]} d = {case.d}: wrapper {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms, {share} [{smi}]")
+            entries.append(entry)
+    for (T_, tick_case), (ctrl, _, state, _) in serving.items():
+        holder = [state]
+
+        def tick(ctrl=ctrl, holder=holder):
+            _, holder[0] = ctrl.step(holder[0], x0s)
+
+        t_ms = cuda_ms(tick, reps=5, inner=5)
+        log(f"time formation serving tick {tick_case} (T = {T_}, d = {cases[T_].d}, 30 iters, "
+            f"{N} scenarios, captured): {t_ms:.4f} ms, host enqueue {enqueue_ms(tick, 10):.4f} "
+            f"ms, within the 10 ms budget: {t_ms <= 10.0} [{smi}]")
+    return entries
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5026,8 +5455,9 @@ def main() -> int:
     # 23's group
     wide_k7, wide_al = wide_ilqr_family(dev, smi)
     wide += wide_k7
-    # phase 30 after phase 29, for the same reason
+    # phase 30 after phase 29, for the same reason, and phase 31 after it
     wide += wide_estimation_family(dev, smi)
+    wide += formation_boxqp_family(dev, smi)
     parallel_rest_family(dev, smi, wide_al)
     kernels += wide
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")

@@ -84,10 +84,10 @@ __global__ void __launch_bounds__(kThreads)
   float c[16], s[16], p[16], t[16], acc[16];
   int buf = 0;
   if constexpr (kMode == kAdmmMpcRes) {
-    fold_product<kCPrec>(tile.sm, n, f, c);  // c = x0 @ Wc
+    fold_product<kCPrec>(tile.sm, fold, x0, row0, N, n, d, j_off, f, c);  // c = x0 @ Wc
   } else {
     if constexpr (kMode == kAdmmMpc) {
-      fold_product<kHighest>(tile.sm, n, f, t);  // g = x0 @ W
+      fold_product<kHighest>(tile.sm, fold, x0, row0, N, n, d, j_off, f, t);  // g = x0 @ W
       store_frag(g_out, t, row0, N, d, f, j_off);
     } else {
       load_frag(g_in, row0, N, d, f, t, j_off);
@@ -191,14 +191,15 @@ __global__ void __launch_bounds__(kThreads)
 
 // Launch one instance on the narrow tile (d <= kMaxD; `rMt` the fp32
 // (rho Minv)') or the wide one (kMaxD < d <= kMaxWideD; `rMt` the wrapper's
-// split operand, WideTile).
+// split operand, WideTile), for any n >= 1 (n = 0 on the two-step route):
+// shared memory holds one chunk of the fold (smem_bytes, wide_smem_bytes).
 template <int kMode, int kForm = kFormS, int kCPrec = kHighest>
 int launch_admm(const float* rMt, const float* fold, const float* x0, const float* g,
                 const float* U0, const float* rho, float* z, float* y, float* g_out, float* rp,
                 float* rd, int N, int n, int d, int iters, int coarse, float lo, float hi,
                 float alpha, bool wide, void* stream) {
   const bool needs_x0 = kMode != kAdmmBoxqp;
-  if (N < 1 || n < 0 || n > kMaxN || (needs_x0 && n < 1) || d < 1 ||
+  if (N < 1 || n < 0 || (needs_x0 && n < 1) || d < 1 ||
       d > (wide ? kMaxWideD : kMaxD) || (wide && d <= kMaxD) || iters < 0 || coarse < 0 ||
       coarse > iters)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -79,7 +79,7 @@ __global__ void __launch_bounds__(kThreads)
   if constexpr (kMode == kFistaBoxqp) {
     load_frag(g_in, row0, N, d, f, g, j_off);
   } else {
-    fold_product<kGPrec>(tile.sm, n, f, g);  // g = x0 @ W
+    fold_product<kGPrec>(tile.sm, W, x0, row0, N, n, d, j_off, f, g);  // g = x0 @ W
     if constexpr (kMode == kFistaMpc) store_frag(g_out, g, row0, N, d, f, j_off);
   }
   load_frag(U0, row0, N, d, f, U, j_off);
@@ -134,14 +134,15 @@ __global__ void __launch_bounds__(kThreads)
 
 // Launch one instance on the narrow tile (d <= kMaxD; `Ht` the fp32 H') or
 // the wide one (kMaxD < d <= kMaxWideD; `Ht` the wrapper's split operand,
-// WideTile).
+// WideTile), for any n >= 1 (n = 0 on the two-step route): shared memory
+// holds one chunk of the fold (smem_bytes, wide_smem_bytes).
 template <int kMode, int kTailPrec = kHighest, int kGPrec = kHighest>
 int launch_fista(const float* Ht, const float* W, const float* x0, const float* g,
                  const float* U0, const float* lipschitz, float* U, float* g_out, float* resid,
                  int N, int n, int d, int iters, int coarse, float lo, float hi, bool wide,
                  void* stream) {
   const bool needs_x0 = kMode != kFistaBoxqp;
-  if (N < 1 || n < 0 || n > kMaxN || (needs_x0 && n < 1) || d < 1 ||
+  if (N < 1 || n < 0 || (needs_x0 && n < 1) || d < 1 ||
       d > (wide ? kMaxWideD : kMaxD) || (wide && d <= kMaxD) || iters < 0 || coarse < 0 ||
       coarse > iters)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -39,13 +39,21 @@
 // the tensor cores' fp32 sum is not round-to-nearest, and the corrections
 // (2^-8 to 2^-16 relative) would be cut against the large term.
 //
-// Envelope. The narrow tile takes d <= kMaxD = 128 (M and K of the padded
-// product): shared memory holds A (96 KB), the two B buffers (48 KB), the
-// (n, d) fold of the prediction chain and the tile's x0: 164 KiB at n = 32 of
-// the 227 KiB a block may have, so the kernels need the dynamic
-// shared-memory opt-in. Past d = 128 that layout does not fit (at d = 400
-// A's splits alone take 1.5 MB), and the wide tile below takes
-// 128 < d <= kMaxWideD = 1024, the JAX package's VMEM bound.
+// Envelope. Any state dimension n >= 1; d <= kMaxD = 128 on the narrow tile
+// (M and K of the padded product), 128 < d <= kMaxWideD = 1024 on the wide
+// one below, the JAX package's VMEM bound. The narrow tile's shared memory
+// holds A (96 KB), the two B buffers (48 KB) and one chunk of the (n, d)
+// fold of the prediction chain with the tile's x0: 164 KiB of the 227 KiB a
+// block may have, so the kernels need the dynamic shared-memory opt-in. Past
+// d = 128 that layout does not fit (at d = 400 A's splits alone take
+// 1.5 MB).
+//
+// The fold in chunks. g = x0 @ W (ADMM's c = x0 @ Wc) sums over the n rows
+// of the fold. The kernels stage kFoldRows = 32 rows of it (and the same 32
+// columns of the tile's x0) at a time into one region and add each chunk's
+// terms in k order before the next chunk is staged, so shared memory is
+// sized by min(n, 32) and the sum is the one over all n in order: at
+// n <= 32 there is one chunk, staged with the matrix.
 //
 // Wide tile. A cluster of b = ceil(d / 128) CTAs (b <= 8, the portable
 // cluster size) solves one 32-scenario tile. CTA r owns rows 128r..128r+127
@@ -67,10 +75,11 @@
 //     through distributed shared memory (ld.shared::cluster). Slab s + 1 is
 //     loaded while the tensor cores run slab s; one block barrier a slab.
 // Shared memory: the A ring 2 x 3 x 16 KB, the B ring 2 x 3 x 4 KB, the
-// published slice 2 x 3 x 8 KB, the fold's 128 columns and x0: 188 KiB at
-// n = 32. The launch (launch_wide) asks cudaOccupancyMaxActiveClusters first
-// and refuses a cluster that cannot be scheduled; a CTA leaves only after a
-// last cluster barrier, so no peer reads its shared memory after it exits.
+// published slice 2 x 3 x 8 KB, a chunk of the fold's 128 columns and x0:
+// 188 KiB at any n >= 32. The launch (launch_wide) asks
+// cudaOccupancyMaxActiveClusters first and refuses a cluster that cannot be
+// scheduled; a CTA leaves only after a last cluster barrier, so no peer
+// reads its shared memory after it exits.
 
 #pragma once
 
@@ -84,7 +93,7 @@ namespace boxqp {
 
 constexpr int kTileS = 32;     // scenarios per block: the product's N
 constexpr int kMaxD = 128;     // decision variables per scenario: the product's M and K
-constexpr int kMaxN = 32;      // state dimension of the in-kernel g / c formation
+constexpr int kFoldRows = 32;  // rows of the fold (and columns of x0) staged at once
 constexpr int kThreads = 256;  // two warpgroups of 64 product rows each
 constexpr int kSplits = 3;     // hi, mid, lo
 constexpr int kAElems = kMaxD * kMaxD;  // bf16 elements of one split of A
@@ -109,17 +118,21 @@ __host__ __device__ constexpr int parts(int npasses) {
   return npasses == 1 ? 1 : (npasses == 6 ? 3 : 2);
 }
 
+// Rows of the fold a chunk holds for a fold of n rows: the shared region's.
+__host__ __device__ constexpr int fold_rows(int n) { return n < kFoldRows ? n : kFoldRows; }
+
 // Bytes of dynamic shared memory for a fold of n rows.
 __host__ __device__ inline size_t smem_bytes(int n) {
+  const size_t rows = static_cast<size_t>(fold_rows(n));
   return sizeof(__nv_bfloat16) * (kSplits * static_cast<size_t>(kAElems) + 2 * kSplits * kBElems) +
-         sizeof(float) * (static_cast<size_t>(n) * kMaxD + static_cast<size_t>(n) * kTileS);
+         sizeof(float) * (rows * kMaxD + rows * kTileS);
 }
 
 struct Smem {
   __nv_bfloat16* a;  // kSplits x A, K-major core matrices
   __nv_bfloat16* b;  // 2 buffers x kSplits x B, MN-major core matrices
-  float* w;          // (n, kMaxD) fold of the prediction chain, columns >= d zero
-  float* x0T;        // (n, kTileS) the tile's initial states, transposed
+  float* w;          // (fold_rows(n), kMaxD) a chunk of the fold, columns >= d zero
+  float* x0T;        // (fold_rows(n), kTileS) the chunk's columns of the tile's x0, transposed
 };
 
 __device__ inline Smem carve(unsigned char* base, int n) {
@@ -127,7 +140,7 @@ __device__ inline Smem carve(unsigned char* base, int n) {
   s.a = reinterpret_cast<__nv_bfloat16*>(base);
   s.b = s.a + kSplits * kAElems;
   s.w = reinterpret_cast<float*>(s.b + 2 * kSplits * kBElems);
-  s.x0T = s.w + n * kMaxD;
+  s.x0T = s.w + fold_rows(n) * kMaxD;
   return s;
 }
 
@@ -182,9 +195,26 @@ __device__ __forceinline__ void split_pair(float x0, float x1, uint32_t (&part)[
   }
 }
 
+// Stage chunk k0 / kFoldRows of the fold: rows k0.. of the row-major (n, d)
+// `fold`, the block's columns j0..j0 + 127 (columns >= d as zero), and the
+// same columns k0.. of the tile's rows of the row-major (N, n) `x0` (rows >= N
+// as zero), transposed. No barrier.
+__device__ __forceinline__ void stage_fold_chunk(const Smem& sm, const float* __restrict__ fold,
+                                                 const float* __restrict__ x0, int row0, int N,
+                                                 int n, int d, int j0, int k0) {
+  const int rows = fold_rows(n - k0);
+  for (int i = threadIdx.x; i < rows * kMaxD; i += kThreads) {
+    const int k = k0 + i / kMaxD, j = j0 + i % kMaxD;
+    sm.w[i] = j < d ? fold[k * d + j] : 0.0f;
+  }
+  for (int i = threadIdx.x; i < rows * kTileS; i += kThreads) {
+    const int k = k0 + i / kTileS, row = row0 + i % kTileS;
+    sm.x0T[i] = row < N ? x0[static_cast<size_t>(row) * n + k] : 0.0f;
+  }
+}
+
 // Stage the block's inputs: A = m' in its three splits from the row-major
-// (d, d) `m`, the fold from the row-major (n, d) `fold`, and the tile's rows
-// of the row-major (N, n) `x0` (rows >= N read as zero). Ends with the
+// (d, d) `m`, and the fold's first chunk (stage_fold_chunk). Ends with the
 // writes visible to the tensor cores' (async) proxy and the block synchronised.
 __device__ inline void stage_inputs(const Smem& sm, const float* __restrict__ m,
                                     const float* __restrict__ fold,
@@ -208,15 +238,7 @@ __device__ inline void stage_inputs(const Smem& sm, const float* __restrict__ m,
           make_uint4(part[0][p], part[1][p], part[2][p], part[3][p]);
     }
   }
-  for (int i = threadIdx.x; i < n * kMaxD; i += kThreads) {
-    const int k = i / kMaxD, j = i % kMaxD;
-    sm.w[i] = j < d ? fold[k * d + j] : 0.0f;
-  }
-  for (int i = threadIdx.x; i < n * kTileS; i += kThreads) {
-    const int k = i / kTileS, s = i % kTileS;
-    const int row = row0 + s;
-    sm.x0T[i] = row < N ? x0[static_cast<size_t>(row) * n + k] : 0.0f;
-  }
+  stage_fold_chunk(sm, fold, x0, row0, N, n, d, 0, 0);
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
 }
@@ -245,20 +267,17 @@ __device__ __forceinline__ void store_frag(float* __restrict__ dst, const float 
   }
 }
 
-// out(j, s) = sum_{k < n} x0(s, k) w(k, j) in the class kPrec, as fp32 FMAs
-// straight into the fragment (n <= 32 deep: under 1% of a solve's work). The
-// split classes form x = hi + lo with hi = bf16_rn(x), lo = x - hi (exact in
-// fp32) for both operands and sum hi*hi + hi*lo + lo*hi (kBf16x3), plus
-// lo*lo (kBf16x4), in order over k: the function of the TPU kernels' g and
-// c precision classes.
+// out(j, s) += sum_{k < rows} x0T(k, s) w(k, j) over the staged chunk, in the
+// class kPrec, as fp32 FMAs straight into the fragment. The split classes
+// form x = hi + lo with hi = bf16_rn(x), lo = x - hi (exact in fp32) for both
+// operands and add hi*hi + hi*lo + lo*hi (kBf16x3), plus lo*lo (kBf16x4), in
+// order over k: the function of the TPU kernels' g and c precision classes.
 template <int kPrec>
-__device__ __forceinline__ void fold_product(const Smem& sm, int n, const Frag& f,
-                                             float (&out)[16]) {
+__device__ __forceinline__ void fold_chunk_product(const Smem& sm, int rows, const Frag& f,
+                                                   float (&out)[16]) {
   static_assert(kPrec == kHighest || kPrec == kBf16x3 || kPrec == kBf16x4,
                 "unknown precision class");
-#pragma unroll
-  for (int r = 0; r < 16; ++r) out[r] = 0.0f;
-  for (int k = 0; k < n; ++k) {
+  for (int k = 0; k < rows; ++k) {
     const float wv[2] = {sm.w[k * kMaxD + f.j0], sm.w[k * kMaxD + f.j0 + 8]};
     float xv[8];
 #pragma unroll
@@ -282,6 +301,29 @@ __device__ __forceinline__ void fold_product(const Smem& sm, int n, const Frag& 
         out[r] = v;
       }
     }
+  }
+}
+
+// out(j, s) = sum_{k < n} x0(s, k) fold(k, j) for the fragment's rows
+// j0 + j (j0: the first row a wide CTA owns) and the tile's scenarios, in
+// the class kPrec, for any n: the first chunk is the one the tile staged
+// with its inputs; each later one is staged over it once every thread has
+// added the last (stage, synchronise, add, synchronise before the next), so
+// the terms are added in k order, as one loop over n would add them. The
+// fold is under 1% of a solve's work at n = 48: plain FMAs on the CUDA
+// cores. Every thread of the block calls it.
+template <int kPrec>
+__device__ inline void fold_product(const Smem& sm, const float* __restrict__ fold,
+                                    const float* __restrict__ x0, int row0, int N, int n, int d,
+                                    int j0, const Frag& f, float (&out)[16]) {
+#pragma unroll
+  for (int r = 0; r < 16; ++r) out[r] = 0.0f;
+  fold_chunk_product<kPrec>(sm, fold_rows(n), f, out);
+  for (int k0 = kFoldRows; k0 < n; k0 += kFoldRows) {
+    __syncthreads();  // every thread has added the chunk before
+    stage_fold_chunk(sm, fold, x0, row0, N, n, d, j0, k0);
+    __syncthreads();
+    fold_chunk_product<kPrec>(sm, fold_rows(n - k0), f, out);
   }
 }
 
@@ -441,7 +483,7 @@ struct NarrowTile {
   __device__ int row0() const { return blockIdx.x * kTileS; }
   __device__ int j_off() const { return 0; }
   __device__ int d_loc() const { return d; }
-  // A = m' in its three splits, the fold and the tile's x0 (stage_inputs).
+  // A = m' in its three splits and the fold's first chunk (stage_inputs).
   __device__ void stage(const float* __restrict__ m, const float* __restrict__ fold,
                         const float* __restrict__ x0, int N, int n) const {
     stage_inputs(sm, m, fold, x0, row0(), N, n, d);
@@ -494,10 +536,11 @@ __host__ __device__ constexpr int wide_ctas(int d) { return (d + kTileD - 1) / k
 
 // Bytes of dynamic shared memory of the wide tile for a fold of n rows.
 __host__ __device__ inline size_t wide_smem_bytes(int n) {
+  const size_t rows = static_cast<size_t>(fold_rows(n));
   return sizeof(__nv_bfloat16) *
              (2 * kSplits * static_cast<size_t>(kASlabElems) + 2 * kSplits * kBSlabElems +
               2 * kSplits * kBElems) +
-         sizeof(float) * (static_cast<size_t>(n) * kTileD + static_cast<size_t>(n) * kTileS);
+         sizeof(float) * (rows * kTileD + rows * kTileS);
 }
 
 struct WideTile {
@@ -517,7 +560,7 @@ struct WideTile {
     sm.a = nullptr;
     sm.b = ring_b + 2 * kSplits * kBSlabElems;
     sm.w = reinterpret_cast<float*>(sm.b + 2 * kSplits * kBElems);
-    sm.x0T = sm.w + n * kTileD;
+    sm.x0T = sm.w + fold_rows(n) * kTileD;
     panel = reinterpret_cast<const __nv_bfloat16*>(m) +
             static_cast<size_t>(rank) * kSplits * slabs_pad * kASlabElems;
   }
@@ -525,18 +568,11 @@ struct WideTile {
   __device__ int j_off() const { return kTileD * rank; }
   __device__ int d_loc() const { return d - kTileD * rank; }
 
-  // The fold's columns this CTA owns and the tile's x0; A streams per product.
+  // The first chunk of the fold's columns this CTA owns and of the tile's
+  // x0 (stage_fold_chunk); A streams per product.
   __device__ void stage(const float*, const float* __restrict__ fold,
                         const float* __restrict__ x0, int N, int n) const {
-    const int j0 = j_off(), r0 = row0();
-    for (int i = threadIdx.x; i < n * kTileD; i += kThreads) {
-      const int k = i / kTileD, j = j0 + i % kTileD;
-      sm.w[i] = j < d ? fold[k * d + j] : 0.0f;
-    }
-    for (int i = threadIdx.x; i < n * kTileS; i += kThreads) {
-      const int k = i / kTileS, row = r0 + i % kTileS;
-      sm.x0T[i] = row < N ? x0[static_cast<size_t>(row) * n + k] : 0.0f;
-    }
+    stage_fold_chunk(sm, fold, x0, row0(), N, n, d, j_off(), 0);
     __syncthreads();
   }
 

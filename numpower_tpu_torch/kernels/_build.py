@@ -36,15 +36,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Limits of the box-QP kernels (csrc/boxqp_tile.cuh). TILE_D (kMaxD, kTileD)
 # is the rows of the product one block owns: d <= TILE_D takes the narrow
 # tile, whose block holds the matrix's three bf16 splits, two buffers of the
-# operand's, the fold and x0 in at most 164 KiB of the 227 KiB of shared
-# memory a block may have. TILE_D < d <= MAX_D (kMaxWideD, the JAX package's
-# VMEM bound of d = 1024) takes the wide tile: a cluster of ceil(d / TILE_D)
-# blocks (at most 8, the portable cluster size), the matrix streamed from
-# device memory. MAX_N (kMaxN) bounds the state dimension of the in-kernel
-# g / c formation.
+# operand's and a chunk of the fold with x0 in 164 KiB of the 227 KiB of
+# shared memory a block may have. TILE_D < d <= MAX_D (kMaxWideD, the JAX
+# package's VMEM bound of d = 1024) takes the wide tile: a cluster of
+# ceil(d / TILE_D) blocks (at most 8, the portable cluster size), the matrix
+# streamed from device memory. The state dimension n of the in-kernel g / c
+# formation has no bound: the kernels stage and sum the (n, d) fold
+# FOLD_ROWS (kFoldRows) rows at a time, in order.
 TILE_D = 128
 MAX_D = 1024
-MAX_N = 32
+FOLD_ROWS = 32
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -4,8 +4,8 @@ numpower_tpu/kernels/boxqp_admm.py ``admm_mpc_pallas_res``, K1,
 
 The three kernels are one CUDA C++ template in ``csrc/boxqp_admm.cu`` (its
 note says what bounds it on the H100 and how the design answers that), each
-on the narrow tile (d <= 128) and the wide one (128 < d <= 1024), as the
-FISTA kernels (kernels/boxqp_fista.py): K1
+on the narrow tile (d <= 128) and the wide one (128 < d <= 1024), for any
+state dimension n, as the FISTA kernels (kernels/boxqp_fista.py): K1
 forms c from x0 and both residuals in the kernel, in one of three loop forms
 ("s", "zy", "sp") and with c in one of three precision classes; K3a forms c
 from a given g and returns (z, y); K1' forms g from x0 and returns (z, y, g).
@@ -257,7 +257,7 @@ def admm_boxqp(H, g, lo: float, hi: float, rho, iters: int = 30, coarse_iters: i
     if g.device.type == "cpu":
         return admm_boxqp_reference(H, g, lo, hi, rho, iters, coarse_iters, over_relax,
                                     U0, Minv)
-    device, N, _, d, coarse_iters = _launch_shape(H, g, iters, coarse_iters, n_max=MAX_D)
+    device, N, _, d, coarse_iters = _launch_shape(H, g, iters, coarse_iters)
     rho_t = torch.as_tensor(rho, dtype=torch.float32, device=device).reshape(())
     if Minv is None:
         Minv = minv_factor(H, rho_t)

@@ -9,7 +9,9 @@ on two tiles (``csrc/boxqp_tile.cuh``): one block a 32-scenario tile for
 d <= 128, a cluster of ceil(d / 128) blocks for 128 < d <= 1024, whose
 matrix operand the wrapper splits and lays out once (:func:`_wide_operand`). K2
 forms g = x0 @ W and the residual in the kernel, K3b takes g as given, K2'
-forms g and returns it beside U. This module holds their wrappers,
+forms g and returns it beside U. K2 and K2' take any state dimension n, as
+the JAX kernels do: the kernel sums the (n, d) fold W in chunks of
+``_build.FOLD_ROWS`` = 32 rows, in order. This module holds their wrappers,
 :func:`fista_mpc_res`, :func:`fista_boxqp` and :func:`fista_mpc`, and their
 plain PyTorch versions, :func:`fista_mpc_res_reference`,
 :func:`fista_boxqp_reference` and :func:`fista_mpc_reference`, which compute
@@ -28,7 +30,7 @@ from typing import Optional
 import torch
 
 from numpower_tpu_torch.kernels import _build
-from numpower_tpu_torch.kernels._build import MAX_D, MAX_N, TILE_D
+from numpower_tpu_torch.kernels._build import MAX_D, TILE_D
 from numpower_tpu_torch.kernels.precision import (
     bf16_round, bf16_split3, make_tail_dot, precision_code,
 )
@@ -138,21 +140,21 @@ def _check_operand(name: str, t: torch.Tensor, device: torch.device, shape,
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch_shape(H, x0s, iters: int, coarse_iters: int, n_max: int = MAX_N):
+def _launch_shape(H, x0s, iters: int, coarse_iters: int):
     """(device, N, n, d, coarse_iters) of a launch on x0s's CUDA device, or a
     ValueError for what the kernels do not take: d <= MAX_D = 1024, the JAX
-    package's bound (the narrow tile to TILE_D = 128, the wide one past it).
-    The two-step kernels pass their (N, d) g as x0s, with no bound on its
-    width but d's."""
+    package's bound (the narrow tile to TILE_D = 128, the wide one past it),
+    and any n >= 1, as the JAX kernels fold any state dimension. The
+    two-step kernels pass their (N, d) g as x0s."""
     if x0s.device.type != "cuda":
         raise ValueError(f"x0s is on {x0s.device}: the kernel needs a CUDA tensor")
     if x0s.ndim != 2:
         raise ValueError(f"the kernel takes a batch (N, width), got shape {tuple(x0s.shape)}")
     N, n = x0s.shape
     d = H.shape[0]
-    if not (1 <= d <= MAX_D and 1 <= n <= n_max and N >= 1):
+    if not (1 <= d <= MAX_D and n >= 1 and N >= 1):
         raise ValueError(f"(N, n, d) = ({N}, {n}, {d}) is outside the kernel's "
-                         f"envelope: N >= 1, n <= {n_max}, d <= {MAX_D}")
+                         f"envelope: N >= 1, n >= 1, d <= {MAX_D}")
     if iters < 0 or coarse_iters < 0:
         raise ValueError("iters and coarse_iters must be non-negative")
     return x0s.device, N, n, d, min(coarse_iters, iters)
@@ -338,7 +340,7 @@ def _fista_boxqp(H, g, lo: float, hi: float, lipschitz, iters: int, coarse_iters
             return fista_boxqp_reference(H, g, lo, hi, lipschitz, iters, coarse_iters, U0)
         return _fista_loop(H, g, lo, hi, lipschitz, iters, coarse_iters, U0,
                            make_tail_dot(folds[0], "highest"))
-    device, N, _, d, coarse_iters = _launch_shape(H, g, iters, coarse_iters, n_max=MAX_D)
+    device, N, _, d, coarse_iters = _launch_shape(H, g, iters, coarse_iters)
     Ht, _, wide = (H.T.contiguous(), None, None) if folds is None else folds
     mat = _matrix_operand("H'", Ht, wide, device, d)
     lip = torch.as_tensor(lipschitz, dtype=torch.float32, device=device).reshape(())

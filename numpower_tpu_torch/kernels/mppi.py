@@ -319,10 +319,14 @@ def mppi_pallas(f, cost_rows, x0s, eps_all, us0, *, T: int, iters: int, m: int, 
     component-rows callable (``cost.rows`` of models/mppi.quadratic_mppi_cost,
     which carries the cost's kernel form as ``.kernel`` for the card).
     Returns us (N, T, m), ess (N, iters). sc and interpret have no effect:
-    x0s's device chooses the route. A rows callable without a kernel form
-    runs the plain version on a CPU tensor; on the card :func:`mppi_fused`
-    raises ValueError for it."""
+    x0s's device chooses the route. As the JAX kernel, it raises ValueError
+    unless K = eps_all.shape[2] is a multiple of 128 (:func:`mppi_fused` takes
+    any 1 <= K <= MAX_K). A rows callable without a kernel form runs the
+    plain version on a CPU tensor; on the card :func:`mppi_fused` raises
+    ValueError for it."""
     del sc, interpret
+    if eps_all.shape[2] % 128 != 0:
+        raise ValueError(f"kernel path needs K % 128 == 0, got {eps_all.shape[2]}")
     kw = dict(T=T, iters=iters, m=m, lam=lam, sigma=sigma, u_lo=u_lo, u_hi=u_hi)
     if x0s.device.type == "cpu" and not hasattr(cost_rows, "rows"):
         return mppi_fused_reference(f, cost_rows, x0s, eps_all, us0, **kw)

@@ -94,7 +94,9 @@ def route_mpc_boxqp_admm(device_type: str, d: int, has_x_ref: bool, x0_ndim: int
     with d <= boxqp_admm.MAX_D = 1024, the JAX package's rule on the TPU
     ("pallas" if on_tpu and d <= 1024 and x0s.ndim == 2, admm.py:134-136),
     and plain ADMM otherwise, as that rule does off the TPU or above d =
-    1024; with or without an x_ref. On the kernel route,
+    1024; with or without an x_ref, and for any state dimension n (the fused
+    kernel forms c from x0 for any n, as the JAX kernel does). On the kernel
+    route,
     solve_mpc_boxqp_admm takes the fused kernel for a batch of regulation
     problems and the two-step one (g given) for an x_ref, or for a single x0
     asked for by method="kernel", as the JAX package does (admm.py:149-179).

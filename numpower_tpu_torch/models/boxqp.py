@@ -104,11 +104,14 @@ def route_mpc_boxqp(device_type: str, d: int, has_x_ref: bool, x0_ndim: int,
     ("pallas" if on_tpu and d <= 1024, boxqp.py:156-161; up to d = 128 one
     block a scenario tile, past it a cluster of blocks, csrc/boxqp_tile.cuh),
     and plain FISTA otherwise: on the CPU, as the JAX package does off the
-    TPU, and above d = 1024, as it does above its VMEM bound. On the kernel
-    route, solve_mpc_boxqp takes the fused
-    kernel for a batch of regulation problems and the two-step one (g given)
-    for an x_ref or a single x0, as the JAX package does (boxqp.py:162-197);
-    has_x_ref and x0_ndim choose between the two there, not here.
+    TPU, and above d = 1024, as it does above its VMEM bound. The rule does
+    not look at the state dimension n, and need not: the fused kernels form
+    g from x0 for any n, as the JAX kernels do (csrc/boxqp_tile.cuh sums the
+    fold in chunks of 32 rows). On the kernel route, solve_mpc_boxqp takes
+    the fused kernel for a batch of regulation problems and the two-step one
+    (g given) for an x_ref or a single x0, as the JAX package does
+    (boxqp.py:162-197); has_x_ref and x0_ndim choose between the two there,
+    not here.
 
     The JAX package's names are taken too: "pallas" is "kernel", and "xla"
     is "pg", as its solve_mpc_boxqp runs projected gradient for every name

@@ -206,10 +206,13 @@ def route_mppi(device_type: str, dtype: torch.dtype, cost_fn, samples: int, hori
     """The route of mppi_solve_batched: "pallas" (K13, kernels/mppi.py) or
     "xla" (the plain batched solve).
 
-    "auto" takes the kernel for a float32 tensor on a CUDA device inside its
-    envelope: samples <= MAX_K (1024), horizon * m <= MAX_TM, a cost with a
-    kernel form (quadratic_mppi_cost attaches one) and baseline_mix == 0;
-    "xla" otherwise, a stated route. On the kernel route the plant must be
+    "auto" takes the kernel for a float32 tensor on a CUDA device where the
+    JAX package's route takes its kernel (samples % 128 == 0, a cost with a
+    kernel form, which quadratic_mppi_cost attaches, and baseline_mix == 0;
+    numpower_tpu/models/mppi.py:196-212) inside the kernel's envelope
+    (samples <= MAX_K = 1024, horizon * m <= MAX_TM); "xla" otherwise, a
+    stated route. The kernel's own wrapper (kernels/mppi.mppi_fused) takes
+    any 1 <= samples <= MAX_K. On the kernel route the plant must be
     registered (models/plants.kernel_plant): for a CUDA tensor the kernel's
     wrapper raises ValueError naming the registry otherwise, so a caller with
     its own plant passes method="xla". An explicit "pallas" outside the
@@ -218,15 +221,15 @@ def route_mppi(device_type: str, dtype: torch.dtype, cost_fn, samples: int, hori
     if method not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown method {method!r} (auto|pallas|xla)")
     eligible = (hasattr(cost_fn, "kernel") and hasattr(cost_fn, "rows")
-                and 1 <= samples <= mppi_kernel.MAX_K and horizon * m <= mppi_kernel.MAX_TM
-                and baseline_mix == 0.0)
+                and 1 <= samples <= mppi_kernel.MAX_K and samples % 128 == 0
+                and horizon * m <= mppi_kernel.MAX_TM and baseline_mix == 0.0)
     if method == "auto":
         return "pallas" if device_type == "cuda" and dtype == torch.float32 and eligible else "xla"
     if method == "pallas" and not eligible:
         raise ValueError(
             "the MPPI kernel route needs cost_fn.kernel and cost_fn.rows (see "
-            f"quadratic_mppi_cost), 1 <= samples <= {mppi_kernel.MAX_K}, horizon * m <= "
-            f"{mppi_kernel.MAX_TM} and baseline_mix == 0")
+            f"quadratic_mppi_cost), samples % 128 == 0, 1 <= samples <= {mppi_kernel.MAX_K}, "
+            f"horizon * m <= {mppi_kernel.MAX_TM} and baseline_mix == 0 (got samples={samples})")
     return method
 
 

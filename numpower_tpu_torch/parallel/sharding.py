@@ -52,7 +52,9 @@ def _all_reduce(t: torch.Tensor, op, mesh: Mesh, axes) -> torch.Tensor:
 def _pick_method(qp: CondensedQP, mesh: Mesh, method: str) -> str:
     """The route of a DP solver: "kernel" or "plain" (see the module note);
     the JAX package's "pallas" is "kernel", its "xla" "plain"
-    (sharding.py:41-49, 186-193)."""
+    (sharding.py:41-49, 186-193). "auto" takes the kernels (K2', K1' on each
+    rank) on a CUDA mesh for d <= MAX_D and any state dimension n, as the
+    JAX rule does."""
     method = {"pallas": "kernel", "xla": "plain"}.get(method, method)
     if method == "auto":
         return "kernel" if mesh.device.type == "cuda" and qp.H.shape[0] <= MAX_D else "plain"

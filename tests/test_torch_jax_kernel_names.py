@@ -372,7 +372,7 @@ def test_mppi_pallas_takes_a_bare_rows_callable_on_the_cpu():
     ct = tm.quadratic_mppi_cost(np.eye(2, dtype=np.float32), np.eye(1, dtype=np.float32),
                                 np.eye(2, dtype=np.float32), np.zeros(2, np.float32))
     x0s = torch.zeros(2, 2)
-    eps = torch.zeros(2 * 3, 2, 4)
+    eps = torch.zeros(2 * 3, 2, 128)  # K % 128 == 0, as the JAX kernel needs
     kw = dict(T=3, iters=2, m=1, lam=1.0, sigma=1.0, u_lo=None, u_hi=None)
     got = mppi.mppi_pallas(tm.pendulum_step, lambda x, u, t: ct.rows(x, u, t), x0s, eps,
                            torch.zeros(3), **kw)

@@ -24,6 +24,7 @@ import numpower_tpu.models as jm  # noqa: E402
 import numpower_tpu_torch.models as tm  # noqa: E402
 from numpower_tpu.kernels import mppi as jk  # noqa: E402
 from numpower_tpu.models import mppi as jmppi  # noqa: E402
+from numpower_tpu_torch.kernels import mppi as tk  # noqa: E402
 from numpower_tpu_torch.models import mppi as tmppi  # noqa: E402
 
 # the bench's swing-up cost (bench.py:546-572)
@@ -208,6 +209,31 @@ def test_routes():
         route("cpu", torch.float32, ct, 256, 40, 1, 0.0, method="triton")
     with pytest.raises(ValueError, match="eps_stream"):
         tm.mppi_solve_batched(tm.pendulum_step, _t(_x0s()), ct, T, m=1, eps_stream="philox")
+
+
+@pytest.mark.parametrize("samples", [64, 200])
+def test_kernel_route_needs_samples_a_multiple_of_128_as_jax(samples):
+    """The JAX route takes its kernel only where samples % 128 == 0
+    (numpower_tpu/models/mppi.py:196-212): "auto" on the card takes "xla"
+    off that grid, an explicit "pallas" raises in both packages, and the
+    JAX-named kernel raises for K % 128 != 0 as the JAX kernel does."""
+    cj, ct = _costs()
+    assert tmppi.route_mppi("cuda", torch.float32, ct, samples, T, 1, 0.0) == "xla"
+    with pytest.raises(ValueError, match="samples % 128 == 0"):
+        tmppi.route_mppi("cuda", torch.float32, ct, samples, T, 1, 0.0, method="pallas")
+    x0s, kw = _x0s(), dict(samples=samples, iters=1, m=1)
+    with pytest.raises(ValueError, match="samples % 128 == 0"):
+        tm.mppi_solve_batched(tm.pendulum_step, _t(x0s), ct, T, method="pallas", **kw)
+    with pytest.raises(ValueError, match="samples % 128 == 0"):
+        jm.mppi_solve_batched(jm.pendulum_step, jnp.asarray(x0s), cj, T, jax.random.key(0),
+                              method="pallas", **kw)
+    kern = dict(T=T, iters=1, m=1, lam=1.0, sigma=(1.0,), u_lo=None, u_hi=None)
+    with pytest.raises(ValueError, match="K % 128 == 0"):
+        tk.mppi_pallas(tm.pendulum_step, ct.rows, _t(x0s), torch.zeros(T, N, samples),
+                       torch.zeros(T), **kern)
+    with pytest.raises(ValueError, match="K % 128 == 0"):
+        jk.mppi_pallas(jm.pendulum_step, cj.rows, jnp.asarray(x0s), jnp.zeros((T, N, samples)),
+                       jnp.zeros(T), **kern, interpret=True)
 
 
 # -- the port's twins of the JAX package's statistical tests -------------------

@@ -226,7 +226,7 @@ def test_mppi_solve_batched_launches_once(device, eps_stream):
 def test_mppi_routes(device):
     cost = _cost("pendulum")
     x0s = torch.zeros((4, 2), device=device)
-    kw = dict(samples=64, iters=1, m=1)
+    kw = dict(samples=128, iters=1, m=1)  # on the kernel's route: samples % 128 == 0
     before = mppi_kernel.mppi_fused.launches
     with pytest.raises(ValueError, match="registered"):
         mppi_solve_batched(lambda x, u: pendulum_step(x, u), x0s, cost, 5, **kw)
