@@ -13,7 +13,7 @@ scenarios, controls boxed to +-1, so d = 120 controls per scenario):
    templates (K1, K2, K3a, K3b, K1', K2') must hold HGMMA instructions
    (cuobjdump -sass of the library, counted per instance), and they and
    every instance of K7, K8, K6a/K6b, K14, K13, K5, K11, K12, K9 and K10
-   (the wide K9 and K10 too) compile with no spills (ptxas); the LDS, STS and FFMA counts of each K5 instance are logged;
+   (the wide K9, K10 and K13 too) compile with no spills (ptxas); the LDS, STS and FFMA counts of each K5 instance are logged;
 1. each kernel against its plain PyTorch version on the card at N = 4096:
    cold and warm starts, all-fp32 (max |dU| <= 1e-5) and the default
    bf16 + fp32 schedules (<= 1e-4), residuals within 1e-5;
@@ -354,11 +354,30 @@ sums the fold in chunks of 32 rows), run after phase 30 and before phase 23:
    K2' within 1e-5); own, wrapper, plain and bound times of the four
    kernels at both T and the captured ticks against the 10 ms budget.
 
+K13 past K = 1024 samples and T*m = 1024 (csrc/mppi_wide.cu), run after
+phase 31 and before phase 23:
+
+32. the wide K13 against its plain version on the same eps at iters = 2 (us
+   atol 2e-3, ess rtol 1e-3, ess in [1, K]): the pendulum at N = 256,
+   K = 4096, T = 40; the planar quadrotor (m = 2) at N = 256, K = 2048,
+   T = 50 about its hover thrust; the unicycle at N = 8, K = 1152, T = 640
+   (T*m = 1280, lam = 1e3); the pendulum at N = 16, K = 16384 and at N = 4,
+   K = 16512 (the row of S in an (N, K) scratch); the narrow K13's SHA-256
+   digests at the bench's shape and its envelope against those of the
+   kernel before the wide form (`k13_checksums`, K13_NARROW_DIGESTS); then
+   the path, its counter zeroed just before it: mppi_solve_batched "auto"
+   on the bench's swing-up at K = 4096 (N = 256, T = 40, 8 rounds), one K13
+   launch a call for both eps streams, the median final cost below zero
+   control's and within 5e-2 (relative) of the plain route's; then the wide
+   kernel's device, wrapper, own and plain times, the eps draws, the whole
+   call with its rollouts/s, and the bound (eps bytes over 3.35 TB/s
+   against fp32 operations over 67 TFLOP/s) with its share.
+
 Every kernel's own duration (torch.profiler's CUDA activity, log_own) is
 logged in the times phases (4, 7, 10, 13, 16, 19) beside its wrapper's
 CUDA-event time and host enqueue (the wide tile's in 27, the wide K5, K6a
 and K6b's in 28, the wide K7's in 29, the wide K9's and K10's in 30, the
-formation's K1, K2, K1' and K2' in 31): K1, K2 (4); K5, K6a, K6b (7); K3a, K3b,
+formation's K1, K2, K1' and K2' in 31, the wide K13's in 32): K1, K2 (4); K5, K6a, K6b (7); K3a, K3b,
 K7 and K8 at N = 256 and 4096 (10); K9-K12, K9 also with inputs and K11
 also on the unicycle and the planar quadrotor (13); K13 at the bench's shape
 and, by a direct call, at N = 4096, K14 (16); K1', K2' (19).
@@ -366,7 +385,7 @@ and, by a direct call, at N = 4096, K14 (16); K1', K2' (19).
 The launch counters of each path are zeroed just before it is driven
 (phases 2-3, 6, the path of 8, the path of 9, phase 12, the paths of 14
 and 15, phase 18, the AL-iLQR and particle-filter paths of 23 and the paths
-of 27, 28, 29, 30 and 31) and read just after. A wrapper counts the launches it makes; a
+of 27, 28, 29, 30, 31 and 32) and read just after. A wrapper counts the launches it makes; a
 replayed CUDA graph (the captured serving ticks of phases 3, 8, 27 and 31)
 calls none, so the kernel's
 runs in those ticks are counted from torch.profiler's CUDA activity and
@@ -421,7 +440,7 @@ PLANT_OPS = {"cartpole_step": 28, "pendulum_step": 8, "unicycle_step": 10,
 # (their narrow and wide forms)
 CHECKED_FOR_SPILLS = ("boxqp::", "ilqr_bwd::", "ilqr_fwd::", "smallmat::", "pf_resample::",
                       "mppi::", "riccati::", "ekf::", "ukf::", "kalman_mean::", "rts_mean::",
-                      "kalman_wide::")
+                      "kalman_wide::", "mppi_wide::")
 
 
 def log(msg: str) -> None:
@@ -1707,8 +1726,7 @@ def sampling_family(dev, smi: str) -> list:
     from numpower_tpu_torch.models import (
         condense, double_integrator, first_components, kalman_filter, kalman_filter_batched,
         kalman_smoother, mhe_solve, mppi_solve_batched, particle_filter_batched, pendulum_step,
-        quadratic_mppi_cost, quadrotor12, rollout_nonlinear, solve_mpc_state_constrained,
-        unicycle_step,
+        quadrotor12, rollout_nonlinear, solve_mpc_state_constrained, unicycle_step,
     )
     from numpower_tpu_torch.models.condensed import CondensedQP
     from numpower_tpu_torch.models.mppi import _trajectory_cost
@@ -1721,11 +1739,9 @@ def sampling_family(dev, smi: str) -> list:
         return torch.Generator(device=dev).manual_seed(seed)
 
     # -- phase 14: MPPI at the bench's shape (bench.py:546-572) ----------------
-    cost_p = quadratic_mppi_cost(np.diag([1.0, 0.1]), np.eye(1) * 0.01, np.diag([100.0, 10.0]),
-                                 np.zeros(2))
+    plants = mppi_plants()
+    cost_p, cost_u = plants["pendulum"][3], plants["unicycle"][3]
     x0s = t32(np.random.default_rng(8).uniform(-np.pi, np.pi, (N_MPPI, 2)))
-    cost_u = quadratic_mppi_cost(np.diag([1.0, 1.0, 0.0]), np.eye(2) * 0.01,
-                                 np.diag([50.0, 50.0, 0.0]), np.array([1.0, 1.0, 0.0]))
     x0u = t32(0.3 * np.random.default_rng(9).standard_normal((N_MPPI_SMALL, 3)))
     warm = t32(0.3 * np.random.default_rng(10).standard_normal(T_MPPI))
 
@@ -1981,16 +1997,7 @@ def sampling_family(dev, smi: str) -> list:
         f"{osqp_ms['loose']:.4f} ms, tight {osqp_ms['tight']:.4f} ms; mhe_solve "
         f"{N_MHE_WINDOWS} windows M={M_MHE}: {mhe_ms:.4f} ms [{smi}]")
 
-    # K13: eps read once, x0s, us0, us and ess; per (sample, round, step) the
-    # candidate and its clip, the quadratic stage cost, the coupling, the
-    # plant and the update's weighted term; per (sample, round) the terminal
-    # cost and the softmax
-    n, m_ = 2, 1
-    mppi_bytes = 4 * (IT_MPPI * T_MPPI * m_ * N_MPPI * K_MPPI + N_MPPI * n + T_MPPI * m_
-                      + N_MPPI * T_MPPI * m_ + N_MPPI * IT_MPPI)
-    per_step = 3 * m_ + n + 3 * n * n + 3 * m_ * m_ + 1 + 4 * m_ + PLANT_OPS["pendulum_step"] \
-        + 6 * m_
-    mppi_ops = IT_MPPI * N_MPPI * K_MPPI * (T_MPPI * per_step + 3 * n * n + n + 10)
+    mppi_bytes, mppi_ops = mppi_work(N_MPPI, K_MPPI, T_MPPI, IT_MPPI, 2, 1, "pendulum_step")
     # K14: the cloud read once and written once, the slot boundaries read
     # once; a binary search of log2(N) comparisons per slot
     res_bytes = 4 * (2 * B_PF * N_PF * 2 + B_PF * N_PF)
@@ -5207,6 +5214,236 @@ def formation_boxqp_family(dev, smi: str) -> list:
     return entries
 
 
+# Phase 32: K13 past K = 1024 samples and T*m = 1024 (csrc/mppi_wide.cu). The
+# path: the MPPI bench's pendulum swing-up (bench.py:546-572) at 16 times its
+# samples; the wide kernel's other shapes: (plant, N, K, T, lam, the
+# nominal's start) at iters = 2, the quadrotor about its hover thrust, the
+# unicycle past T*m = 1024 at a high temperature (tests/test_torch_sampling_
+# cuda.py's envelope), and a row past the shared-memory budget (K > 16384,
+# the (N, K) scratch)
+K_WIDE = 4096
+WIDE_CASES = (("pendulum", 256, 4096, 40, 1.0, 0.0),
+              ("planar_quadrotor", 256, 2048, 50, 1.0, 0.5 * 9.81),
+              ("unicycle", 8, 1152, 640, 1e3, 0.0),
+              ("pendulum", 16, 16384, 40, 1.0, 0.0),
+              ("pendulum", 4, 16512, 12, 1.0, 0.0))
+# SHA-256 prefixes of the narrow K13's us and ess (k13_checksums) from the
+# kernel as it was before the wide form was added, on one H100 80GB HBM3
+# (700 W): every narrow launch keeps those bits
+K13_NARROW_DIGESTS = {
+    "bench N = 256 K = 256 T = 40 iters = 8": "70beb9e63f60c926",
+    "envelope pendulum N = 2 K = 1024 T*m = 1024 iters = 2": "f7b38c12a4545eb1",
+    "envelope unicycle N = 2 K = 1024 T*m = 1024 iters = 2": "e655660fa5e4b19a",
+}
+
+
+def mppi_plants() -> dict:
+    """{name: (plant, n, m, its quadratic cost)}: the MPPI bench's pendulum
+    swing-up and the card tests' unicycle and planar quadrotor costs."""
+    from numpower_tpu_torch.models import (
+        pendulum_step, planar_quadrotor_step, quadratic_mppi_cost, unicycle_step,
+    )
+
+    return {
+        "pendulum": (pendulum_step, 2, 1, quadratic_mppi_cost(
+            np.diag([1.0, 0.1]), np.eye(1) * 0.01, np.diag([100.0, 10.0]), np.zeros(2))),
+        "unicycle": (unicycle_step, 3, 2, quadratic_mppi_cost(
+            np.diag([1.0, 1.0, 0.0]), np.eye(2) * 0.01, np.diag([50.0, 50.0, 0.0]),
+            np.array([1.0, 1.0, 0.0]))),
+        "planar_quadrotor": (planar_quadrotor_step, 6, 2, quadratic_mppi_cost(
+            np.eye(6), np.eye(2) * 0.01, np.eye(6) * 10.0, np.zeros(6))),
+    }
+
+
+def mppi_work(N: int, K: int, T_: int, iters: int, n: int, m: int, plant: str) -> tuple:
+    """(bytes, fp32 operations) of one K13 call: eps read once, x0s, us0, us
+    and ess; per (sample, round, step) the candidate and its clip, the
+    quadratic stage cost, the coupling, the plant and the update's weighted
+    term; per (sample, round) the terminal cost and the softmax."""
+    n_bytes = 4 * (iters * T_ * m * N * K + N * n + T_ * m + N * T_ * m + N * iters)
+    per_step = 3 * m + n + 3 * n * n + 3 * m * m + 1 + 4 * m + PLANT_OPS[plant] + 6 * m
+    return n_bytes, iters * N * K * (T_ * per_step + 3 * n * n + n + 10)
+
+
+def k13_checksums(dev) -> dict:
+    """{case: (SHA-256 prefix of us and ess, the call)} for the narrow K13 at
+    the MPPI bench's shape (N = 256, K = 256, T = 40, 8 rounds) and at its
+    envelope (K = 1024, T*m = 1024: the pendulum at T = 1024 and the unicycle
+    at T = 512, N = 2, 2 rounds, lam = 1e3, as tests/test_torch_sampling_cuda.py
+    test_mppi_kernel_at_its_envelope), every operand drawn on the host from
+    numpy's generator of seed 22, so that two checkouts whose narrow kernels
+    compute the same bits print the same digests."""
+    import hashlib
+
+    from numpower_tpu_torch.kernels import mppi
+
+    plants = mppi_plants()
+    rng = np.random.default_rng(22)
+
+    def t32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev).contiguous()
+
+    inputs = {f"bench N = {N_MPPI} K = {K_MPPI} T = {T_MPPI} iters = {IT_MPPI}": (
+        "pendulum", t32(rng.uniform(-np.pi, np.pi, (N_MPPI, 2))),
+        t32(rng.standard_normal((IT_MPPI * T_MPPI, N_MPPI, K_MPPI))), T_MPPI, IT_MPPI, 1.0)}
+    for name, T_ in (("pendulum", 1024), ("unicycle", 512)):
+        _, n, m, _ = plants[name]
+        inputs[f"envelope {name} N = 2 K = 1024 T*m = {T_ * m} iters = 2"] = (
+            name, t32(0.5 * rng.standard_normal((2, n))),
+            t32(rng.standard_normal((2 * T_ * m, 2, 1024))), T_, 2, 1e3)
+    out = {}
+    for case, (name, x0, eps, T_, iters, lam) in inputs.items():
+        f, _, m, cost = plants[name]
+
+        def call(f=f, cost=cost, x0=x0, eps=eps, T_=T_, iters=iters, m=m, lam=lam):
+            return mppi.mppi_fused(f, cost, x0, eps, torch.zeros(T_ * m, device=dev), T=T_,
+                                   iters=iters, m=m, lam=lam, sigma=1.0)
+
+        h = hashlib.sha256()
+        for r in call():
+            h.update(r.contiguous().cpu().numpy().tobytes())
+        out[case] = (h.hexdigest()[:16], call)
+    return out
+
+
+def wide_mppi_family(dev, smi: str) -> list:
+    """Phase 32: K13 past K = 1024 and T*m = 1024 (csrc/mppi_wide.cu). The
+    wide kernel against its plain version on the same eps at iters = 2
+    (WIDE_CASES; us atol 2e-3, ess rtol 1e-3, ess within [1, K], the card
+    tests' bounds), the narrow kernel's digests against the parent's
+    (K13_NARROW_DIGESTS); then the path, its counter zeroed just before it:
+    mppi_solve_batched "auto" on the MPPI bench's swing-up at K = 4096
+    (N = 256, T = 40, 8 rounds), one K13 launch a call for both eps streams,
+    the median final cost below zero control's and within 5e-2 (relative)
+    of the plain route's from the same generator; then the times: the wide
+    kernel's device, wrapper and own time, its plain version, the eps draws,
+    the whole call and its rollouts/s, the bound and its share. Returns the
+    wide kernel's entry of the JSON line."""
+    from numpower_tpu_torch.kernels import _build, mppi
+    from numpower_tpu_torch.models import mppi_solve_batched, rollout_nonlinear
+    from numpower_tpu_torch.models.mppi import _trajectory_cost
+
+    t_phase = time.perf_counter()
+    plants = mppi_plants()
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    # -- phase 32: the wide kernel against its plain version -----------------------
+    err = 0.0
+    for name, N_, K_, T_, lam, u_hover in WIDE_CASES:
+        f, n, m, cost = plants[name]
+        require(not mppi.is_narrow(K_, T_, m), f"{name} K = {K_} T = {T_} takes the wide K13")
+        x0 = torch.as_tensor(0.5 * np.random.default_rng(K_ + T_).standard_normal((N_, n)),
+                             dtype=torch.float32, device=dev)
+        eps = mppi.eps_kernel_layout(gen(K_ + T_), N_, 2, T_, m, K_, 1.0)
+        us0 = torch.full((T_ * m,), u_hover, device=dev)
+        kw = dict(T=T_, iters=2, m=m, lam=lam, sigma=1.0)
+        before = mppi.mppi_fused.launches
+        us, ess = mppi.mppi_fused(f, cost, x0, eps, us0, **kw)
+        torch.cuda.synchronize()
+        require(mppi.mppi_fused.launches == before + 1, f"wide K13 {name} K = {K_}: one launch")
+        us_p, ess_p = mppi.mppi_fused_reference(f, cost.rows, x0, eps, us0, **kw)
+        du = max_err(us, us_p)
+        d_ess = ((ess.double() - ess_p.double()) / ess_p.double()).abs().max().item()
+        in_range = bool(((ess >= 1.0 - 1e-4) & (ess <= K_ * (1 + 1e-4))).all())
+        threads, spt, tiles, row_smem = mppi.wide_plan(K_)
+        log(f"K13 wide {name} N={N_} K={K_} T={T_} (T*m = {T_ * m}) lam={lam:g} iters=2 vs "
+            f"plain: max|dus| {du:.3e} (bound 2e-3), max rel dess {d_ess:.3e} (bound 1e-3), "
+            f"ess in [1, K]: {in_range}; plan {threads} threads x {spt}, {tiles} tiles, row in "
+            f"{'shared memory' if row_smem else 'the (N, K) scratch'}")
+        require(du <= 2e-3 and d_ess <= 1e-3 and in_range, f"wide K13 {name} K = {K_} vs plain")
+        err = max(err, du)
+        del eps, us, ess, us_p, ess_p
+    digests = {case: digest for case, (digest, _) in k13_checksums(dev).items()}
+    for case, digest in digests.items():
+        log(f"K13 narrow digest {case}: {digest} (before the wide form: "
+            f"{K13_NARROW_DIGESTS.get(case)})")
+    require(digests == K13_NARROW_DIGESTS, "every narrow K13 launch gives the parent's bits")
+
+    # -- phase 32: the path, counted --------------------------------------------------
+    f, n, m, cost = plants["pendulum"]
+    x0s = torch.as_tensor(np.random.default_rng(8).uniform(-np.pi, np.pi, (N_MPPI, 2)),
+                          dtype=torch.float32, device=dev)
+    path_kw = dict(samples=K_WIDE, iters=IT_MPPI, m=1)
+    mppi.mppi_fused.launches = 0
+    solves = {}
+    for stream in ("exact", "direct"):
+        before = mppi.mppi_fused.launches
+        solves[stream] = mppi_solve_batched(f, x0s, cost, T_MPPI, gen(0), eps_stream=stream,
+                                            **path_kw)
+        require(mppi.mppi_fused.launches == before + 1,
+                f"mppi_solve_batched K = {K_WIDE} eps_stream={stream}: one K13 launch")
+    launches = mppi.mppi_fused.launches
+    plain = mppi_solve_batched(f, x0s, cost, T_MPPI, gen(0), method="xla", **path_kw)
+    zero = torch.zeros((N_MPPI, T_MPPI, 1), device=dev)
+    cost0 = _trajectory_cost(cost, rollout_nonlinear(f, x0s, zero), zero)
+    rel = relative_cost(solves["exact"].cost, plain.cost)
+    log(f"mppi_solve_batched N={N_MPPI} K={K_WIDE} T={T_MPPI} iters={IT_MPPI} (auto -> wide "
+        f"K13, {launches} launches for 2 calls): median final cost exact "
+        f"{solves['exact'].cost.median().item():.4e}, direct "
+        f"{solves['direct'].cost.median().item():.4e}, plain route "
+        f"{plain.cost.median().item():.4e}, zero control {cost0.median().item():.4e}; exact vs "
+        f"plain route relative cost median {rel.median().item():.3e} (bound 5e-2)")
+    require(launches == 2 and rel.median().item() <= 5e-2
+            and all(bool(torch.isfinite(r.cost).all()) for r in solves.values())
+            and all(r.cost.median().item() < cost0.median().item() for r in solves.values()),
+            f"mppi_solve_batched K = {K_WIDE}: one K13 launch per call, below zero control, "
+            "near the plain route")
+    del solves, plain
+
+    # -- phase 32: times ----------------------------------------------------------------
+    slow = {"reps": 3, "inner": 1, "warmup": 1}
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    eps = mppi.eps_kernel_layout(gen(0), N_MPPI, IT_MPPI, T_MPPI, 1, K_WIDE, 1.0)
+    us0 = torch.zeros(T_MPPI, device=dev)
+    kw = dict(T=T_MPPI, iters=IT_MPPI, m=1, lam=1.0, sigma=1.0)
+    args, held = mppi.kernel_args(f, cost, x0s, eps, us0, **kw)
+    launch = getattr(lib, mppi.kernel_function(K_WIDE, T_MPPI, 1))
+    ms = {"device": cuda_ms(lambda: launch(*args, stream), reps=5, inner=5),
+          "wrapper": cuda_ms(lambda: mppi.mppi_fused(f, cost, x0s, eps, us0, **kw), reps=5,
+                             inner=5),
+          "plain": cuda_ms(lambda: mppi.mppi_fused_reference(f, cost.rows, x0s, eps, us0, **kw),
+                           **slow),
+          "eps_exact": cuda_ms(lambda: mppi.eps_kernel_layout(gen(0), N_MPPI, IT_MPPI, T_MPPI, 1,
+                                                              K_WIDE, 1.0), reps=5, inner=2),
+          "eps_direct": cuda_ms(lambda: mppi.eps_direct_layout(gen(0), N_MPPI, IT_MPPI, T_MPPI,
+                                                               1, K_WIDE, 1.0), reps=5, inner=2),
+          "solve": cuda_ms(lambda: mppi_solve_batched(f, x0s, cost, T_MPPI, gen(0), **path_kw),
+                           reps=5, inner=2),
+          "solve_direct": cuda_ms(lambda: mppi_solve_batched(
+              f, x0s, cost, T_MPPI, gen(0), eps_stream="direct", **path_kw), reps=5, inner=2),
+          "solve_plain": cuda_ms(lambda: mppi_solve_batched(
+              f, x0s, cost, T_MPPI, gen(0), method="xla", **path_kw), **slow)}
+    n_bytes, n_ops = mppi_work(N_MPPI, K_WIDE, T_MPPI, IT_MPPI, n, m, "pendulum_step")
+    entry = kernel_entry(f"mppi_fused_wide (K = {K_WIDE})", "mppi_wide.cu", "mppi.py:112",
+                         launches, err, ms["wrapper"], ms["plain"], n_bytes, n_ops)
+    what = f"K13 wide N={N_MPPI} K={K_WIDE} T={T_MPPI} iters={IT_MPPI}"
+    for _ in range(3):  # a trace late in the process may keep no GPU record (utils_family)
+        own = log_own(what, lambda: mppi.mppi_fused(f, cost, x0s, eps, us0, **kw),
+                      "mppi_wide_kernel", ms["wrapper"], smi, calls=10)
+        if own[0] is not None:
+            break
+    share = f"{100 * entry['bound_ms'] / ms['device']:.1f}% of its device time" + (
+        "" if own[0] is None else f", {100 * entry['bound_ms'] / (own[0] / 1e3):.1f}% of its own")
+    rollouts = N_MPPI * K_WIDE * IT_MPPI
+    inside = ms["eps_exact"] + ms["device"]
+    log(f"time {what}: device {ms['device']:.4f} ms, wrapper {ms['wrapper']:.4f} ms, own "
+        f"{fmt_us(own)}, plain {ms['plain']:.4f} ms; bound {entry['bound_ms']:.4f} ms "
+        f"({entry['bound_by']}; eps {4 * IT_MPPI * T_MPPI * N_MPPI * K_WIDE / 1e9:.3f} GB), "
+        f"{share}; eps draw exact {ms['eps_exact']:.4f} ms, direct {ms['eps_direct']:.4f} ms "
+        f"[{smi}]")
+    log(f"time mppi_solve_batched K={K_WIDE} (auto -> wide K13): exact {ms['solve']:.4f} ms "
+        f"({rollouts / ms['solve'] * 1e3:.4e} rollouts/s), direct {ms['solve_direct']:.4f} ms "
+        f"({rollouts / ms['solve_direct'] * 1e3:.4e} rollouts/s); the plain route "
+        f"{ms['solve_plain']:.4f} ms; outside the eps draw and K13's device time "
+        f"{1.0 - inside / ms['solve']:.1%} [{smi}]")
+    del eps, args, held
+    log(f"phase 32: {time.perf_counter() - t_phase:.1f} s")
+    return [entry]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5455,9 +5692,10 @@ def main() -> int:
     # 23's group
     wide_k7, wide_al = wide_ilqr_family(dev, smi)
     wide += wide_k7
-    # phase 30 after phase 29, for the same reason, and phase 31 after it
+    # phase 30 after phase 29, for the same reason, and phases 31 and 32 after it
     wide += wide_estimation_family(dev, smi)
     wide += formation_boxqp_family(dev, smi)
+    wide += wide_mppi_family(dev, smi)
     parallel_rest_family(dev, smi, wide_al)
     kernels += wide
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")

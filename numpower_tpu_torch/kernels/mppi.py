@@ -1,20 +1,24 @@
 """Fused whole-solve batched MPPI (K13; port of numpower_tpu/kernels/mppi.py
 ``mppi_pallas``).
 
-The kernel is CUDA C++ in ``csrc/mppi.cu`` (its note says what bounds it on
-the H100 and how the design answers that): one block per scenario, a thread
-per sample (up to four per thread past K = 256), all ``iters`` rounds in one
-launch, each round a T-step rollout of every sample through the registered
-plant's device function (``csrc/plants.cuh``), the quadratic stage costs,
-the softmax weights and the effective sample size (ESS), and the nominal
-update. This module holds its wrapper, :func:`mppi_fused`, its plain PyTorch
-version, :func:`mppi_fused_reference` (the kernel's own formulas on (N, K)
-tensors), the host side of a launch (:func:`chunk_plan`,
+The kernel is CUDA C++ in two forms, each with a note that says what bounds
+it on the H100 and how the design answers that. ``csrc/mppi.cu``, the narrow
+K13, takes K <= MAX_K = 1024 samples and T*m <= MAX_TM = 1024 nominal
+entries: one block per scenario, a thread per sample (up to four per thread
+past K = 256), all ``iters`` rounds in one launch, each round a T-step
+rollout of every sample through the registered plant's device function
+(``csrc/plants.cuh``), the quadratic stage costs, the softmax weights and the
+effective sample size (ESS), and the nominal update. ``csrc/mppi_wide.cu``,
+the wide K13, takes every other K >= 1 and T*m <= WIDE_MAX_TM = 32768: the
+same rounds, a block walking its scenario's samples in tiles
+(:func:`wide_plan`). This module holds their wrapper, :func:`mppi_fused`,
+which picks the form by size, its plain PyTorch version,
+:func:`mppi_fused_reference` (the kernels' formulas on (N, K) tensors), the
+host side of a launch (:func:`chunk_plan`, :func:`wide_plan`,
 :func:`packed_constants`, :func:`kernel_args`) and the two layouts of the
-perturbations the kernel consumes. The wrapper
-takes the plain version for a tensor on the CPU only (any plant); for a CUDA
-tensor it launches the kernel or raises, and a plant that is not registered
-raises ValueError.
+perturbations the kernel consumes. The wrapper takes the plain version for a
+tensor on the CPU only (any plant); for a CUDA tensor it launches a kernel or
+raises, and a plant that is not registered raises ValueError.
 
 Layout (the JAX kernel's): x0s (N, n); eps (iters*T*m, N, K), the
 perturbations pre-scaled by sigma, row r = (it*T + t)*m + a, each row
@@ -26,9 +30,10 @@ reads its ``.kernel`` form (Q, R, QF, x_goal as float arrays) and the plain
 version its ``.rows`` form, the JAX package's component-rows callable.
 
 Memory: eps holds iters*T*m*N*K floats, 84 MB at the bench's shape (N = 256,
-K = 256, T = 40, m = 1, 8 rounds) and 1.3 GB at N = 4096; the "exact" layout
-draws it in the plain route's order and transposes it, which holds a second
-copy for a moment.
+K = 256, T = 40, m = 1, 8 rounds), 1.3 GB at N = 4096 or at K = 4096; the
+"exact" layout draws it in the plain route's order and transposes it, which
+holds a second copy for a moment. The wide K13 past K = 16384 also takes an
+(N, K) float scratch.
 """
 
 from __future__ import annotations
@@ -42,9 +47,17 @@ import torch
 from numpower_tpu_torch.kernels import _build
 from numpower_tpu_torch.kernels.boxqp_fista import _check_operand
 
+# The narrow K13's envelope; every other size takes the wide one.
 MAX_K = 1024   # csrc/mppi.cu kMaxK: one block per scenario, at most 4 samples a thread
 MAX_TM = 1024  # csrc/mppi.cu kMaxTM: the nominal in shared memory
-# The kernel's plan (csrc/mppi.cu checks it): threads a block, steps a staged
+# The wide K13 (csrc/mppi_wide.cu checks these): threads a block at most; the
+# most nominal entries T*m (128 KB of shared memory); the bytes of the row of
+# S and w kept in shared memory (K <= 16384; past it the row is a scenario's
+# row of an (N, K) scratch in device memory).
+WIDE_THREADS = 256
+WIDE_MAX_TM = 32768
+WIDE_ROW_BUDGET = 64 * 1024
+# The narrow kernel's plan (csrc/mppi.cu checks it): threads a block, steps a staged
 # chunk, and the bytes of its ring of eps chunks in shared memory when a
 # round's slice stays resident (50 KB: the bench's 48 KB, so that four
 # blocks share a multiprocessor) and when four slots stream it.
@@ -76,6 +89,29 @@ def chunk_plan(K: int, T: int, m: int) -> tuple:
     while tc > 1 and 4 * tc * row > STREAM_BUDGET:
         tc -= 1
     return threads, spt, tc, -(-T // tc), False
+
+
+def is_narrow(K: int, T: int, m: int) -> bool:
+    """Whether a launch of K samples, horizon T and m inputs takes the narrow
+    K13 (csrc/mppi.cu); every other takes the wide one (csrc/mppi_wide.cu)."""
+    return K <= MAX_K and T * m <= MAX_TM
+
+
+@functools.lru_cache(maxsize=None)
+def wide_plan(K: int) -> tuple:
+    """The launch plan of the wide K13 for K samples: (threads, samples a
+    thread, tiles a round, row in shared memory). A block walks its K
+    samples in ceil(K / 1024) tiles of equal size but the last, in order; a
+    thread carries 1 sample of a tile up to 256 a tile, 2 up to 512, else 4,
+    and the threads (whole warps, at most WIDE_THREADS) cover a tile. The
+    row of K floats (S, then w) stays in shared memory where it fits
+    WIDE_ROW_BUDGET. The horizon does not move the plan; kernel_operands
+    checks T*m."""
+    tiles = -(-K // (4 * WIDE_THREADS))
+    per_tile = -(-K // tiles)
+    spt = 1 if per_tile <= 256 else 2 if per_tile <= 512 else 4
+    threads = (-(-per_tile // spt) + 31) // 32 * 32
+    return threads, spt, -(-K // (threads * spt)), 4 * K <= WIDE_ROW_BUDGET
 
 
 def sigma_tuple(sigma, m: int) -> tuple:
@@ -253,9 +289,9 @@ def kernel_operands(f, cost_fn, x0s, eps_all, us0, *, T: int, iters: int, m: int
         raise ValueError(f"the plant is ({plant.n}, {plant.m}), the operands ({n}, {m})")
     if R_ != iters * T * m:
         raise ValueError(f"eps has {R_} rows, expected iters*T*m = {iters * T * m}")
-    if not 1 <= K <= MAX_K or T * m > MAX_TM or T < 1 or iters < 1:
-        raise ValueError(f"K = {K}, T*m = {T * m}: the MPPI kernel takes 1 <= K <= {MAX_K}, "
-                         f"T*m <= {MAX_TM}")
+    if K < 1 or T * m > WIDE_MAX_TM or T < 1 or iters < 1:
+        raise ValueError(f"K = {K}, T*m = {T * m}: the MPPI kernel takes 1 <= K and "
+                         f"T*m <= WIDE_MAX_TM = {WIDE_MAX_TM} (T, iters >= 1)")
     consts = packed_constants(cost_fn, sigma, n, m)
     us0 = torch.as_tensor(us0, dtype=torch.float32, device=device).reshape(T * m).contiguous()
     for name, t, shape in (("x0s", x0s, (N, n)), ("eps", eps_all, (R_, N, K))):
@@ -265,28 +301,43 @@ def kernel_operands(f, cost_fn, x0s, eps_all, us0, *, T: int, iters: int, m: int
     return plant, plant_floats(plant), consts, (x0s, eps_all, us0), outs
 
 
+def kernel_function(K: int, T: int, m: int) -> str:
+    """The library function that launches K13 for K samples, horizon T and m
+    inputs: ``npt_mppi`` (the narrow form) or ``npt_mppi_wide``."""
+    return "npt_mppi" if is_narrow(K, T, m) else "npt_mppi_wide"
+
+
 def kernel_args(f, cost_fn, x0s, eps_all, us0, *, T: int, iters: int, m: int, sigma,
                 lam: float, u_lo=None, u_hi=None) -> tuple:
-    """The arguments of one launch of K13 (``npt_mppi`` but its stream) and
-    the tensors they point to (x0s, eps, us0, us, ess; the outputs last), for
-    the caller to hold while the launch runs."""
+    """The arguments of one launch of K13 (those of :func:`kernel_function`'s
+    function but its stream) and the tensors they point to (x0s, eps, us0,
+    the wide form's scratch where it takes one, us, ess; the outputs last),
+    for the caller to hold while the launch runs."""
     plant, floats, consts, ins, outs = kernel_operands(f, cost_fn, x0s, eps_all, us0, T=T,
                                                       iters=iters, m=m, sigma=sigma)
     N, K = eps_all.shape[1:]
     clip = int(u_lo is not None or u_hi is not None)
     lo = -float("inf") if u_lo is None else float(u_lo)
     hi = float("inf") if u_hi is None else float(u_hi)
-    threads, spt, tc, _, resident = chunk_plan(K, T, m)
-    tensors = (*ins, *outs)
-    args = (plant.plant_id, *floats, ctypes.addressof(consts), *(t.data_ptr() for t in tensors),
-            N, K, T, iters, float(lam), float(1.0 / lam), clip, lo, hi, threads, spt, tc,
-            int(resident))
-    return args, tensors
+    head = (plant.plant_id, *floats, ctypes.addressof(consts))
+    tail = (N, K, T, iters, float(lam), float(1.0 / lam), clip, lo, hi)
+    if is_narrow(K, T, m):
+        threads, spt, tc, _, resident = chunk_plan(K, T, m)
+        tensors = (*ins, *outs)
+        return (*head, *(t.data_ptr() for t in tensors), *tail, threads, spt, tc,
+                int(resident)), tensors
+    threads, spt, _, row_smem = wide_plan(K)
+    scratch = () if row_smem else (torch.empty((N, K), dtype=torch.float32, device=x0s.device),)
+    tensors = (*ins, *scratch, *outs)
+    ptrs = [t.data_ptr() for t in (*ins, *outs)] + [scratch[0].data_ptr() if scratch else None]
+    return (*head, *ptrs, *tail, threads, spt, int(row_smem)), tensors
 
 
 def mppi_fused(f, cost_fn, x0s, eps_all, us0, *, T: int, iters: int, m: int, lam: float,
                sigma, u_lo=None, u_hi=None):
-    """Whole-solve batched MPPI in one kernel launch.
+    """Whole-solve batched MPPI in one kernel launch: the narrow K13 for
+    K <= MAX_K samples and T*m <= MAX_TM, the wide one for any other K >= 1
+    and T*m <= WIDE_MAX_TM (:func:`kernel_function`).
 
     f a registered plant (models/plants.kernel_plant) or a partial of one;
     cost_fn a quadratic cost with ``.kernel`` and ``.rows`` forms
@@ -297,14 +348,15 @@ def mppi_fused(f, cost_fn, x0s, eps_all, us0, *, T: int, iters: int, m: int, lam
     only for the coupling's sigma^-2; u_lo/u_hi an optional box on the
     candidates and the nominal. Returns us (N, T, m) and ess (N, iters).
 
-    On a CPU tensor this is :func:`mppi_fused_reference`. Each kernel launch
-    adds one to ``mppi_fused.launches``."""
+    On a CPU tensor this is :func:`mppi_fused_reference`. Each kernel launch,
+    of either form, adds one to ``mppi_fused.launches``."""
     if x0s.device.type == "cpu":
         return mppi_fused_reference(f, cost_fn.rows, x0s, eps_all, us0, T=T, iters=iters, m=m,
                                     lam=lam, sigma=sigma, u_lo=u_lo, u_hi=u_hi)
     args, tensors = kernel_args(f, cost_fn, x0s, eps_all, us0, T=T, iters=iters, m=m,
                                 sigma=sigma, lam=lam, u_lo=u_lo, u_hi=u_hi)
-    _build.check(_build.launch("npt_mppi", x0s.device, *args), "mppi_fused kernel launch")
+    name = kernel_function(eps_all.shape[2], T, m)
+    _build.check(_build.launch(name, x0s.device, *args), "mppi_fused kernel launch")
     mppi_fused.launches += 1
     return tensors[-2:]
 
@@ -321,7 +373,7 @@ def mppi_pallas(f, cost_rows, x0s, eps_all, us0, *, T: int, iters: int, m: int, 
     Returns us (N, T, m), ess (N, iters). sc and interpret have no effect:
     x0s's device chooses the route. As the JAX kernel, it raises ValueError
     unless K = eps_all.shape[2] is a multiple of 128 (:func:`mppi_fused` takes
-    any 1 <= K <= MAX_K). A rows callable without a kernel form runs the
+    any K >= 1), at any K up to T*m <= WIDE_MAX_TM. A rows callable without a kernel form runs the
     plain version on a CPU tensor; on the card :func:`mppi_fused` raises
     ValueError for it."""
     del sc, interpret

@@ -12,7 +12,8 @@ Every function here takes leading batch dimensions, the port's replacement
 for ``vmap``: the plain route of mppi_solve_batched is the single solve run
 on the whole batch (K samples and N scenarios are batch dimensions of one
 rollout per step). The kernel route runs the whole batched solve in one
-launch of K13 (kernels/mppi.py).
+launch of K13 (kernels/mppi.py), wherever the JAX route takes its kernel
+(samples % 128 == 0, at any number of samples), up to horizon * m = 32768.
 
 Random numbers. Where the JAX package takes a key, the port takes a
 ``torch.Generator`` in the same position (default: one seeded 0 on the
@@ -206,30 +207,33 @@ def route_mppi(device_type: str, dtype: torch.dtype, cost_fn, samples: int, hori
     """The route of mppi_solve_batched: "pallas" (K13, kernels/mppi.py) or
     "xla" (the plain batched solve).
 
-    "auto" takes the kernel for a float32 tensor on a CUDA device where the
-    JAX package's route takes its kernel (samples % 128 == 0, a cost with a
-    kernel form, which quadratic_mppi_cost attaches, and baseline_mix == 0;
-    numpower_tpu/models/mppi.py:196-212) inside the kernel's envelope
-    (samples <= MAX_K = 1024, horizon * m <= MAX_TM); "xla" otherwise, a
-    stated route. The kernel's own wrapper (kernels/mppi.mppi_fused) takes
-    any 1 <= samples <= MAX_K. On the kernel route the plant must be
-    registered (models/plants.kernel_plant): for a CUDA tensor the kernel's
-    wrapper raises ValueError naming the registry otherwise, so a caller with
-    its own plant passes method="xla". An explicit "pallas" outside the
-    envelope raises ValueError; on a CPU tensor it runs the kernel's plain
-    version."""
+    "auto" takes the kernel for a float32 tensor on a CUDA device wherever
+    the JAX package's route takes its kernel (samples % 128 == 0, a cost with
+    a kernel form, which quadratic_mppi_cost attaches, and baseline_mix == 0;
+    numpower_tpu/models/mppi.py:196-212), at any number of samples, up to
+    horizon * m <= WIDE_MAX_TM = 32768 nominal entries (the wide K13's
+    shared memory, csrc/mppi_wide.cu); "xla" otherwise, a stated route.
+    K13 runs its narrow form up to 1024 samples and 1024 entries and its
+    wide form past either. The kernel's own wrapper (kernels/mppi.mppi_fused)
+    takes any samples >= 1. On the kernel route the plant must be registered
+    (models/plants.kernel_plant): for a CUDA tensor the kernel's wrapper
+    raises ValueError naming the registry otherwise, so a caller with its own
+    plant passes method="xla". An explicit "pallas" raises ValueError where
+    the JAX route raises, or past horizon * m = 32768; on a CPU tensor it
+    runs the kernel's plain version."""
     if method not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown method {method!r} (auto|pallas|xla)")
     eligible = (hasattr(cost_fn, "kernel") and hasattr(cost_fn, "rows")
-                and 1 <= samples <= mppi_kernel.MAX_K and samples % 128 == 0
-                and horizon * m <= mppi_kernel.MAX_TM and baseline_mix == 0.0)
+                and samples >= 1 and samples % 128 == 0
+                and horizon * m <= mppi_kernel.WIDE_MAX_TM and baseline_mix == 0.0)
     if method == "auto":
         return "pallas" if device_type == "cuda" and dtype == torch.float32 and eligible else "xla"
     if method == "pallas" and not eligible:
         raise ValueError(
             "the MPPI kernel route needs cost_fn.kernel and cost_fn.rows (see "
-            f"quadratic_mppi_cost), samples % 128 == 0, 1 <= samples <= {mppi_kernel.MAX_K}, "
-            f"horizon * m <= {mppi_kernel.MAX_TM} and baseline_mix == 0 (got samples={samples})")
+            "quadratic_mppi_cost), samples % 128 == 0, "
+            f"horizon * m <= {mppi_kernel.WIDE_MAX_TM} and baseline_mix == 0 "
+            f"(got samples={samples}, horizon * m = {horizon * m})")
     return method
 
 
@@ -246,9 +250,12 @@ def mppi_solve_batched(f, x0s, cost_fn, horizon: int, generator: Optional[torch.
     kernel the very perturbations the plain route draws from the same
     generator state, transposed to the kernel's layout, so kernel == plain to
     fp tolerance; "direct" draws them in the kernel's layout in one call (a
-    different, statistically equivalent stream). The perturbations take
-    iters*T*m*N*K floats of device memory (84 MB at N = K = 256, T = 40,
-    8 rounds). key is the JAX package's name of generator."""
+    different, statistically equivalent stream). "auto" takes the kernel on
+    the card at every samples % 128 == 0 up to horizon * m = 32768 (the
+    narrow K13 up to 1024 samples and 1024 entries, the wide one past).
+    The perturbations take iters*T*m*N*K floats of device memory (84 MB at
+    N = K = 256, T = 40, 8 rounds; 1.3 GB at K = 4096). key is the JAX
+    package's name of generator."""
     x0s = state_tensor(x0s)
     if eps_stream not in ("exact", "direct"):
         raise ValueError(f"unknown eps_stream {eps_stream!r} (exact|direct)")

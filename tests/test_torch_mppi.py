@@ -198,13 +198,16 @@ def test_routes():
     assert route("cuda", torch.float32, ct, 256, 40, 1, 0.0) == "pallas"
     assert route("cpu", torch.float32, ct, 256, 40, 1, 0.0) == "xla"
     assert route("cuda", torch.float64, ct, 256, 40, 1, 0.0) == "xla"
-    assert route("cuda", torch.float32, ct, 2048, 40, 1, 0.0) == "xla"
-    assert route("cuda", torch.float32, ct, 256, 513, 2, 0.0) == "xla"  # T m > 1024
+    # past the narrow K13's K = 1024 and T m = 1024 the wide K13 takes the route
+    assert route("cuda", torch.float32, ct, 2048, 40, 1, 0.0) == "pallas"
+    assert route("cuda", torch.float32, ct, 256, 513, 2, 0.0) == "pallas"  # T m = 1026
     assert route("cuda", torch.float32, ct, 1024, 512, 2, 0.0) == "pallas"
+    assert route("cuda", torch.float32, ct, 256, 16385, 2, 0.0) == "xla"  # T m > 32768
     assert route("cuda", torch.float32, ct, 256, 40, 1, 0.1) == "xla"
     assert route("cuda", torch.float32, lambda x, u, t: x.sum(-1), 256, 40, 1, 0.0) == "xla"
+    assert route("cpu", torch.float32, ct, 2048, 40, 1, 0.0, method="pallas") == "pallas"
     with pytest.raises(ValueError, match="kernel route"):
-        route("cpu", torch.float32, ct, 2048, 40, 1, 0.0, method="pallas")
+        route("cpu", torch.float32, ct, 2048, 16385, 2, 0.0, method="pallas")
     with pytest.raises(ValueError, match="unknown method"):
         route("cpu", torch.float32, ct, 256, 40, 1, 0.0, method="triton")
     with pytest.raises(ValueError, match="eps_stream"):

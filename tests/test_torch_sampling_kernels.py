@@ -99,9 +99,16 @@ def test_kernel_operands_are_checked():
                            m=1, sigma=1.0)
     with pytest.raises(ValueError, match="rows"):
         tk.kernel_operands(tm.pendulum_step, ct, x0s, eps, None, T=T, iters=3, m=1, sigma=1.0)
+    # past the narrow K13's K = 1024 the wide one takes the launch; an empty
+    # sample axis and T m past the wide one's shared memory are refused
+    tk.kernel_operands(tm.pendulum_step, ct, x0s, torch.zeros((2 * T, 2, 1025)),
+                       torch.zeros(T), T=T, iters=2, m=1, sigma=1.0)
     with pytest.raises(ValueError, match="1 <= K"):
-        tk.kernel_operands(tm.pendulum_step, ct, x0s, torch.zeros((2 * T, 2, 1025)), None, T=T,
+        tk.kernel_operands(tm.pendulum_step, ct, x0s, torch.zeros((2 * T, 2, 0)), None, T=T,
                            iters=2, m=1, sigma=1.0)
+    with pytest.raises(ValueError, match="1 <= K"):
+        tk.kernel_operands(tm.pendulum_step, ct, x0s, torch.zeros((2 * 32769, 2, 8)), None,
+                           T=32769, iters=2, m=1, sigma=1.0)
 
 
 @pytest.mark.parametrize("K", [1, 33, 256, 257, 1024])
