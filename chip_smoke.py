@@ -298,7 +298,12 @@ those counts took a warm call first: probes/phase29_order.py):
    (17, 1), (16, 9), (4, 12), (48, 48), (64, 32) (T = 8), at (96, 48) and
    (100, 32) with one shared-memory stage buffer (N = 1003, T = 8) and at
    (128, 64) with its working set in a device workspace (N = 64, T = 4),
-   with and without luu_diags, each shape's form checked; then the path, its counters zeroed just before it:
+   with and without luu_diags, each shape's form checked; the
+   linearization's column-major As, Bs read in place against contiguous
+   copies, bit for bit; the narrow K7's SHA-256 digests (`k7_checksums`:
+   the cartpole bench's (4, 1) and (12, 4), (16, 8)) against those of the
+   kernel before the wide form's redesign (K7_NARROW_DIGESTS); then the
+   path, its counters zeroed just before it:
    ilqr_solve_batched (10 iterations) and al_ilqr_solve_batched (rotors in
    [0, 8], 3 x 4), fused with the plain line search (one K7 launch an
    iteration: 10, 12), costs non-increasing, the first backward pass
@@ -653,6 +658,8 @@ def close(a: torch.Tensor, b: torch.Tensor, rtol: float, atol: float) -> bool:
 # (the box-QP kernels' products)
 HBM_BYTES_PER_S, FP32_FLOP_PER_S, BF16_TENSOR_FLOP_PER_S = (
     H100_SXM.hbm_gbps * 1e9, H100_SXM.fp32_tflops * 1e12, H100_SXM.bf16_tflops * 1e12)
+# the tensor cores' dense TF32 FLOP/s (the same data sheet; the wide K7's products)
+TF32_TENSOR_FLOP_PER_S = 495e12
 # the box-QP templates' device times when their products ran on the fp32 FMA
 # pipes (PERF.md section 6; H100 80GB HBM3, 700 W; warm start, default
 # schedule), logged beside this run's
@@ -664,16 +671,17 @@ FMA_DEVICE_MS = {"K1 form s": "0.2041", "K1 form zy": "0.1944", "K1 form sp": "0
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int, err: float, ms: float,
                  plain_ms: float, n_bytes: float, n_ops: float, library_ms=None,
-                 tensor_ops: float = 0.0) -> dict:
+                 tensor_ops: float = 0.0, tf32_ops: float = 0.0) -> dict:
     """One kernel's entry of the JSON line. bound_ms is the least time the
     card could take for the call that `ms` timed: the largest of its bytes
     (each input read once, each output written once) over the HBM rate, its
-    fp32 operations (`n_ops`) over the fp32 rate and its bf16 tensor-core
-    operations (`tensor_ops`) over the tensor cores' rate, all counted from
-    this run's shapes."""
+    fp32 operations on the CUDA cores (`n_ops`) over the fp32 rate and its
+    tensor-core operations over the tensor cores' rates (`tensor_ops` in
+    bf16, `tf32_ops` in TF32), all counted from this run's shapes."""
     times = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
              "operations": n_ops / FP32_FLOP_PER_S * 1e3,
-             "tensor operations": tensor_ops / BF16_TENSOR_FLOP_PER_S * 1e3}
+             "tensor operations": (tensor_ops / BF16_TENSOR_FLOP_PER_S
+                                   + tf32_ops / TF32_TENSOR_FLOP_PER_S) * 1e3}
     bound_by = max(times, key=times.get)
     return {"name": name, "route": "cuda", "source": "numpower_tpu_torch/csrc/" + source,
             "replaces": "numpower_tpu/kernels/" + replaces, "launches": launches,
@@ -1182,7 +1190,7 @@ def ilqr_family(dev, smi: str) -> list:
         bwd_ptrs = [x.data_ptr() for x in bwd_ts[:4]] + [None] + [x.data_ptr() for x in bwd_ts[4:]]
 
         def bwd_call(keep=bwd_ts):  # the default holds the operands while the call lives
-            return lib.npt_ilqr_backward(*bwd_ptrs, Nb, nb, mb, Tb, None, stream)
+            return lib.npt_ilqr_backward(*bwd_ptrs, Nb, nb, mb, Tb, stream)
 
         f, *weights, alphas_f, x0s_f, xs_nom, us_nom, ks_f, Ks_f = fwd
         plant = kernel_plant(f)
@@ -4266,6 +4274,45 @@ def random_ltv(N: int, T: int, n: int, m: int, dev, seed: int):
             f32(rng.uniform(0.0, 2.0, (N, T, m))))
 
 
+# SHA-256 prefixes of the narrow K7's ks and Ks (k7_checksums) from the kernel
+# before the wide form's redesign for the tensor cores, on one H100 80GB HBM3
+# (700 W): every narrow launch keeps those bits
+K7_NARROW_DIGESTS = {
+    "(n, m) = (4, 1) N = 256 T = 50": "a1d1da216903ef7f",
+    "(n, m) = (4, 1) N = 256 T = 50 luu_diags": "328e6af502405bb2",
+    "(n, m) = (12, 4) N = 1003 T = 13": "c93a41c2643c01ed",
+    "(n, m) = (12, 4) N = 1003 T = 13 luu_diags": "b9f10697caf4c6e4",
+    "(n, m) = (16, 8) N = 1003 T = 13": "ffd6afad5530a753",
+    "(n, m) = (16, 8) N = 1003 T = 13 luu_diags": "732c995734203e8b",
+}
+
+
+def k7_checksums(dev) -> dict:
+    """{case: (SHA-256 prefix of ks and Ks, the call)} for the narrow K7: the
+    cartpole bench's shape (n = 4, m = 1, N = 256, T = 50: bench.py:458,
+    the thread-a-scenario form) and the row form at (12, 4) and its envelope
+    (16, 8) (N = 1003, T = 13), each with and without luu_diags, every
+    operand drawn on the host (random_ltv), so that two checkouts whose
+    narrow kernels compute the same bits print the same digests."""
+    import hashlib
+
+    from numpower_tpu_torch.kernels import ilqr_backward
+
+    out = {}
+    for n_, m_, N_, T_ in ((4, 1, N_ILQR, T_ILQR), (12, 4, N_RAGGED, 13), (16, 8, N_RAGGED, 13)):
+        ops, diags = random_ltv(N_, T_, n_, m_, dev, seed=100 + n_ + m_)
+        for d in (None, diags):
+            def call(ops=ops, d=d):
+                return ilqr_backward.ilqr_backward_fused(*ops, reg=1e-3, luu_diags=d)
+
+            h = hashlib.sha256()
+            for r in call():
+                h.update(r.contiguous().cpu().numpy().tobytes())
+            case = f"(n, m) = ({n_}, {m_}) N = {N_} T = {T_}{' luu_diags' if d is not None else ''}"
+            out[case] = (h.hexdigest()[:16], call)
+    return out
+
+
 def ilqr_backward_work(N: int, T: int, n: int, m: int) -> tuple:
     """(fp32 operations, bytes) of K7's function at (N, T, n, m), counting
     the work it needs and no more (utils/flops.ilqr_backward_cost, the JAX
@@ -4281,6 +4328,18 @@ def ilqr_backward_work(N: int, T: int, n: int, m: int) -> tuple:
     n_bytes = 4 * (N * T * (n * n + n * m + n + m) + 2 * n * n + m * m + N * n
                    + N * T * (m + m * n))
     return N * T * step, n_bytes
+
+
+def ilqr_backward_wide_ops(N: int, T: int, n: int, m: int) -> tuple:
+    """(fp32 operations on the CUDA cores, TF32 tensor-core operations) of
+    the wide K7 at (N, T, n, m), from ilqr_backward_work's count: [W | W2] =
+    Vxx [A | B], A'W, B'W, B'W2, Vxx' = Qxx + Qux'K and, for m <= 32, [k | K]
+    run on the tensor cores in three TF32 passes (3xTF32: hi*hi, hi*lo,
+    lo*hi); Quu's inverse (m^3 / 3), Qx, Qu and Vx' (2n^2 + 4nm) and, past
+    m = 32, the substitutions for [k | K] on the CUDA cores."""
+    total, _ = ilqr_backward_work(N, T, n, m)
+    cuda = N * T * (m ** 3 / 3 + 2 * n * n + 4 * n * m + (2 * m * m * (n + 1) if m > 32 else 0))
+    return cuda, 3 * (total - cuda)
 
 
 def wide_ilqr_family(dev, smi: str) -> list:
@@ -4301,8 +4360,12 @@ def wide_ilqr_family(dev, smi: str) -> list:
     cross-backend bound (rtol 1e-2, atol 1e-3, tests/test_kernels.py:176)
     of backend="vmap" per scenario, and max_violation within its 5e-3
     (tests/test_kernels.py:609), the returned controls in the box; the DP
-    result within 1e-6 of the batched one. Then the times: own
-    (torch.profiler), wrapper and plain at the formation, and the paths'.
+    result within 1e-6 of the batched one. The column-major Jacobians read
+    in place against contiguous copies (bit for bit), and the narrow K7's
+    digests against K7_NARROW_DIGESTS. Then the times: own (torch.profiler),
+    wrapper and plain at the formation, the bound (bytes, and the work on the
+    CUDA cores and on the tensor cores: ilqr_backward_wide_ops; all of it
+    as fp32 logged beside it), and the paths'.
     Returns the wide K7's entry of the JSON line, and the AL-iLQR case that
     phase 23 runs as al_ilqr_solve_dp on its one-rank group (its launches
     are added to the entry there), the one-rank NCCL group this script
@@ -4381,6 +4444,19 @@ def wide_ilqr_family(dev, smi: str) -> list:
     calls = ilqr_backward.ilqr_backward_fused.launches - f0
     require(calls == 2 * len(cases), f"each wide K7 call launched once ({calls})")
     require(held, "the wide K7 against float64")
+    ks_c, Ks_c = ilqr_backward.ilqr_backward_fused(As0.contiguous(), Bs0.contiguous(),
+                                                   *form_ops[2:], reg=1e-3)
+    ks_v, Ks_v = ilqr_backward.ilqr_backward_fused(*form_ops, reg=1e-3)
+    same = bool(torch.equal(ks_c, ks_v) and torch.equal(Ks_c, Ks_v))
+    log(f"K7 wide: the linearization's column-major As, Bs (strides {tuple(As0.stride())}, "
+        f"{tuple(Bs0.stride())}) read in place give the bits of contiguous copies: {same}")
+    require(same, "the wide K7 reads column-major Jacobians in place, bit for bit")
+    del ks_c, Ks_c, ks_v, Ks_v
+    digests = {case: digest for case, (digest, _) in k7_checksums(dev).items()}
+    for case, digest in digests.items():
+        log(f"K7 narrow digest {case}: {digest} (before the wide form's redesign: "
+            f"{K7_NARROW_DIGESTS.get(case)})")
+    require(digests == K7_NARROW_DIGESTS, "every narrow K7 launch gives the parent's bits")
 
     # -- phase 29: the path at the formation, counted ------------------------------
     kw = dict(backend="fused", forward="plain", us_init=HOVER_THRUST)
@@ -4464,21 +4540,36 @@ def wide_ilqr_family(dev, smi: str) -> list:
     wide_call = functools.partial(ilqr_backward.ilqr_backward_fused, *form_ops, reg=1e-3)
     ms = cuda_ms(wide_call, reps=5, inner=3, warmup=1)
     plain_ms = cuda_ms(lambda: ilqr_backward.ilqr_backward_reference(*form_ops, reg=1e-3), **slow)
+    # the bound: bytes against the CUDA cores' and the tensor cores' shares of
+    # the work; all of it as fp32 on the CUDA cores (the first form's bound)
+    # is logged for comparison with the rows before the tensor cores
     ops_k7, bytes_k7 = ilqr_backward_work(N, T_q, n, m)
-    bound = max(ops_k7 / FP32_FLOP_PER_S, bytes_k7 / HBM_BYTES_PER_S) * 1e3
+    cuda_k7, tf32_k7 = ilqr_backward_wide_ops(N, T_q, n, m)
+    bound_by = {"bytes": bytes_k7 / HBM_BYTES_PER_S * 1e3,
+                "CUDA-core operations": cuda_k7 / FP32_FLOP_PER_S * 1e3,
+                "TF32 tensor operations": tf32_k7 / TF32_TENSOR_FLOP_PER_S * 1e3}
+    bound = max(bound_by.values())
+    bound_fp32 = ops_k7 / FP32_FLOP_PER_S * 1e3
     own = log_own(f"K7 wide ilqr_backward formation N={N} T={T_q} (n={n}, m={m})", wide_call,
                   "backward_wide_kernel", ms, smi, calls=10)
-    log(f"time K7 wide ilqr_backward formation N={N} T={T_q}: kernel {ms:.4f} ms "
-        f"({ops_k7 / ms / 1e9:.3f} TFLOP/s of 67 fp32; bound {bound:.4f} ms, "
-        f"{100 * bound / ms:.1f}% of it), plain {plain_ms:.4f} ms; library: none [{smi}]")
+    log(f"time K7 wide ilqr_backward formation N={N} T={T_q}: wrapper {ms:.4f} ms; bound "
+        f"{bound:.4f} ms ({', '.join(f'{k} {v:.4f}' for k, v in bound_by.items())} ms), "
+        f"{100 * bound / ms:.1f}% of it; all as fp32 on the CUDA cores {bound_fp32:.4f} ms, "
+        f"{100 * bound_fp32 / ms:.1f}%; plain {plain_ms:.4f} ms; library: none [{smi}]")
     if own[0] is not None:
-        log(f"time K7 wide own {own[0] / 1e3:.4f} ms: {100 * bound / (own[0] / 1e3):.1f}% of the "
-            f"bound [{smi}]")
+        own_ms = own[0] / 1e3
+        log(f"time K7 wide own {own_ms:.4f} ms: {100 * bound / own_ms:.1f}% of the bound "
+            f"({bound:.4f} ms), {100 * bound_fp32 / own_ms:.1f}% of all as fp32 "
+            f"({bound_fp32:.4f} ms); the wrapper {ms - own_ms:.4f} ms past it (it copies no "
+            f"Jacobian) [{smi}]")
     ops_w, _ = random_ltv(N_w, T_w, n_w, m_w, dev, seed=7)
     ms_w = cuda_ms(lambda: ilqr_backward.ilqr_backward_fused(*ops_w), reps=5, inner=3, warmup=1)
-    flops_w, bytes_w = ilqr_backward_work(N_w, T_w, n_w, m_w)
+    _, bytes_w = ilqr_backward_work(N_w, T_w, n_w, m_w)
+    cuda_w, tf32_w = ilqr_backward_wide_ops(N_w, T_w, n_w, m_w)
+    bound_w = max(bytes_w / HBM_BYTES_PER_S, cuda_w / FP32_FLOP_PER_S,
+                  tf32_w / TF32_TENSOR_FLOP_PER_S) * 1e3
     log(f"time K7 wide workspace form (n, m, N, T) = {ILQR_WORKSPACE_SHAPE}: kernel {ms_w:.4f} ms "
-        f"(bound {max(flops_w / FP32_FLOP_PER_S, bytes_w / HBM_BYTES_PER_S) * 1e3:.4f} ms) [{smi}]")
+        f"(bound {bound_w:.4f} ms) [{smi}]")
     path_ms = {
         "ilqr_solve_batched fused (10 iterations)": cuda_ms(
             lambda: ilqr_solve_batched(f, x0s, Q, R, QF, goal, T_q, iters=10, **kw), **slow),
@@ -4494,7 +4585,7 @@ def wide_ilqr_family(dev, smi: str) -> list:
     torch.cuda.empty_cache()  # the paths' blocks, for the later phases' profiler sessions
     entry = kernel_entry(f"ilqr_backward_fused (wide, n = {n}, m = {m})",
                          "ilqr_backward_wide.cu", "ilqr_backward.py:134", launches, err, ms,
-                         plain_ms, bytes_k7, ops_k7)
+                         plain_ms, bytes_k7, cuda_k7, tf32_ops=tf32_k7)
     return [entry], dict(dp_case, entry=entry)
 
 

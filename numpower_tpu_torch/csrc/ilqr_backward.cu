@@ -60,8 +60,8 @@
 // block-diagonally would waste at least 3/4 of every tile, and cut fp32 to
 // bf16 passes for a chain bound by latency, not by operations.
 //
-// Envelope of these two forms: n <= 16, m <= 8; npt_ilqr_backward launches
-// the wide form (ilqr_backward_wide.cu) for every (n, m) past it. The probe
+// Envelope of these two forms: n <= 16, m <= 8; every (n, m) past it takes
+// the wide form (ilqr_backward_wide.cu, npt_ilqr_backward_wide). The probe
 // probes/ilqr_chain.py times each part of a step (the stamps below are empty
 // here).
 
@@ -650,32 +650,23 @@ cudaError_t launch_row(const float* As, const float* Bs, const float* lxs, const
 inline int bucket_n(int n) { return n <= 4 ? n : n <= 8 ? 8 : n <= 12 ? 12 : 16; }
 inline int bucket_m(int m) { return m <= 1 ? 1 : m <= 2 ? 2 : m <= 4 ? 4 : 8; }
 
-// The wide form (ilqr_backward_wide.cu).
-cudaError_t launch_wide(const float* As, const float* Bs, const float* lxs, const float* lus,
-                        const float* luud, const float* lxx, const float* luu_reg,
-                        const float* lxT, const float* lxxT, float* ks, float* Ks, int N, int n,
-                        int m, int T, float* work, cudaStream_t stream);
-
 }  // namespace ilqr_bwd
 
 // ks (N, T, m) and Ks (N, T, m, n) from As (N, T, n, n), Bs (N, T, n, m),
 // lxs (N, T, n), lus (N, T, m), luud (N, T, m) or null, the shared lxx (n, n)
 // and luu_reg = luu + reg I (m, m), lxT (N, n) and lxxT (n, n), all fp32,
-// row-major contiguous. (n, m) past the narrow envelope (n > 16 or m > 8)
-// runs the wide form, any size; `work` is its device workspace of
-// npt_ilqr_backward_workspace(N, n, m) floats, null where that is 0.
-// Returns the CUDA error code of the launch.
+// row-major contiguous, by the narrow forms (n <= 16 and m <= 8; past them
+// npt_ilqr_backward_wide, ilqr_backward_wide.cu, takes any size). Returns
+// the CUDA error code of the launch.
 extern "C" int npt_ilqr_backward(const float* As, const float* Bs, const float* lxs,
                                  const float* lus, const float* luud, const float* lxx,
                                  const float* luu_reg, const float* lxT, const float* lxxT,
-                                 float* ks, float* Ks, int N, int n, int m, int T, float* work,
+                                 float* ks, float* Ks, int N, int n, int m, int T,
                                  void* stream) {
   using namespace ilqr_bwd;
   if (N < 1 || n < 1 || m < 1 || T < 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n > kMaxN || m > kMaxM)
-    return static_cast<int>(launch_wide(As, Bs, lxs, lus, luud, lxx, luu_reg, lxT, lxxT, ks, Ks,
-                                        N, n, m, T, work, st));
+  if (n > kMaxN || m > kMaxM) return static_cast<int>(cudaErrorInvalidValue);
   switch (bucket_n(n) * 16 + bucket_m(m)) {
 #define NPT_THREAD(NN, MB)                                                                  \
   case NN * 16 + MB:                                                                        \

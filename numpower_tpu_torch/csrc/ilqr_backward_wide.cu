@@ -16,65 +16,84 @@
 // Why the narrow forms stop at (16, 8): they hold a row of Vxx (or a whole
 // scenario) in one lane's registers and factor Quu in every lane's, with
 // loops unrolled to compile-time buckets. At the eight-quadrotor formation
-// (n = 48, m = 16) a scenario's working set is ~13.7k floats.
+// (n = 48, m = 16) a scenario's working set is ~14k floats.
 //
-// Design: riccati_wide.cu's, with runtime (n, m) and rolled loops. One block
-// a scenario. Its working set, WideLayout below, lives in dynamic shared
-// memory: Vxx (and Qxx in its place during a step), the stage M = [A | B]
-// with lx, lu and luu_diag, [W | W2] (Quu^{-1} in its place once read),
-// Qux, [Qu | Qux], [k | K], Quu, Qx and Vx. A step, each phase a loop of the
-// block's threads over work items, a barrier between phases:
-//   1. [W | W2] = Vxx M: an item is a pair of M's slots (2p, 2p + 1) and a
-//      tile of 8 rows; Vxx's row j (its column: Vxx is symmetric) read as
-//      two 16-byte broadcasts, the pair's entries of M's row j as one 8-byte
-//      load, 16 FMAs; then Qx and Qu;
-//   2. M'[W | W2]: an item is a pair of slots and a tile of 8 of M's slots:
-//      A'W + lxx into Vxx's place on and above the diagonal (only Qxx's
-//      upper triangle is read), B'W into Qux and [Qu | Qux], B'W2 + luu_reg
-//      + diag(luu_diag) into Quu;
-//   3. for m <= 32, one warp inverts Quu in its registers (spd_inverse_warp,
-//      buckets MB = 8, 16, 32): the factor's pivots and columns and L^{-1}'s
-//      entries pass by __shfl_sync, with no shared-memory access and no
-//      barrier on the chain; then [k | K] = -Quu^{-1} [Qu | Qux] by (column,
-//      tile of 8 rows), m FMAs deep. Past m = 32 the block factors Quu in
-//      shared memory and substitutes forward and back, right-looking, a warp
-//      a row and its lanes the row's entries, 3m barriers a step;
-//   4. the block stores k and K on consecutive addresses;
-//   5. Vx', and Vxx' = Qxx + Qux'K: an item a column c and a tile of rows
-//      r <= c, written at (r, c) and mirrored at (c, r); no two items touch
-//      an entry another one reads.
-// While a step computes, the next stage is copied into the other of two
-// stage buffers by cp.async, a warp a row, 16 bytes a lane where the rows
-// are 16-byte aligned (n or m a multiple of 4), else 4: M's rows are padded,
-// A's part to a multiple of 8 columns and B's after it, so a broadcast never
-// straddles A and B. Where two buffers do not fit in the 227 KB a block may
-// have, one is copied at the top of each step; where one does not fit
-// either (n ~ 90 at m = n / 2), the same kernel runs with its working set in
-// a device workspace the caller allocates (npt_ilqr_backward_workspace), the
-// stage copied by plain loads and stores. The padding of the tiles and
-// slots is never written: it is read into accumulators whose results are
-// dropped, and the sums over j run to n exactly.
+// What bounds it: at the formation (N = 4096, T = 50) the function needs
+// 566k fp32 operations a scenario-step (the upper triangles of Qxx and
+// Vxx', Quu's half, an m^3 / 3 factor: chip_smoke.ilqr_backward_work),
+// 1.16e11 in all, and moves 3.21 GB (0.96 ms at 3.35 TB/s). In this form
+// the products take 557k of them, on the tensor cores in three TF32 passes
+// (3.42e11 operations, 0.69 ms at 495 TFLOP/s), and the CUDA cores the
+// rest (0.03 ms at 67 TFLOP/s: chip_smoke.ilqr_backward_wide_ops), so the
+// bound is the bytes' 0.96 ms; all of it as fp32 on the CUDA cores, the
+// first form's bound, would take 1.73 ms. The first form of this kernel (probes/
+// ilqr_backward_wide_before.cu) ran the products as fp32 FMAs fed by
+// shared-memory broadcasts, 16 FMAs an item, at 10.4 ms: its phases
+// latency-bound at 16 warps an SM, a warp inverting Quu while the block's
+// other three waited, five barriers a step (PERF.md, section 6).
+//
+// Design. One block a scenario; its working set, WideLayout below, in
+// dynamic shared memory. The three products of a step run on the tensor
+// cores, mma.sync m16n8k8 TF32 in the 3xTF32 split: each operand x = hi +
+// lo, hi = x truncated to TF32, lo = x - hi, and hi*hi into one fp32
+// accumulator, hi*lo + lo*hi into a second, added after the k loop (the
+// tensor cores' sum is not round-to-nearest, and the corrections would be
+// cut against the large term; a single TF32 pass keeps ~3 digits, which
+// the recursion does not hold to 1e-3). A warp's item is a 16 x 16 output
+// block (two n8 tiles sharing the A fragment); where k runs along the rows
+// of both operands (phases 1 and 2) a k-step's fragments come by two
+// ldmatrix.x4 (32-bit words are pairs of b16: lane l gets word l % 4 of
+// row l / 4 of each 8 x 4 block, the TF32 fragment's layout), else by
+// 32-bit loads; the row strides (= 4 mod 8 where k runs along a row, = 8
+// mod 16 where it runs down a column) keep every access of a warp on 32
+// distinct banks. The stage is kept transposed, Mt = [A | B]' (row c the
+// column c of M), so the linearization's column-major Jacobians are copied
+// a column at a time, and both products read Mt with k along its rows. A
+// step:
+//   1. Y = Vxx M (items: 16 rows of Vxx x 16 slots of M), stored as Y'
+//      (slot-major), then Qx, Qu = [lx | lu] + M'Vx on the CUDA cores, a
+//      thread a column of M by 16-byte loads;
+//   2. M'Y, only the blocks the function needs: Quu (the B slots), Qux (B
+//      slots x A slots) and Qxx's upper block triangle (A'W + lxx into
+//      Vxx's place, on and above the diagonal). For m <= 32 warp 0 takes
+//      Quu's blocks and at once inverts Quu in its registers
+//      (spd_inverse_warp: the factor's pivots and columns and L^{-1}'s
+//      entries pass by __shfl_sync) while the block's other warps form
+//      Qux and Qxx: the inverse no longer runs alone;
+//   3. [k | K] = -Quu^{-1} [Qu | Qux] on the tensor cores too, by 16 x 16
+//      blocks, Qu kept as the first column of Qux (past m = 32: the block
+//      factors Quu in shared memory and substitutes forward and back,
+//      right-looking, a warp a row);
+//   4. k and K stored on consecutive addresses; Vx' = Qx + Qux'k, and
+//      Vxx' = Qxx + Qux'K on the tensor cores over Vxx's upper block
+//      triangle, written at (r, c) and mirrored at (c, r): no item reads an
+//      entry another one writes.
+// Four barriers a step (the first form had five). While a step computes,
+// the next stage is copied into the other of two stage buffers by cp.async:
+// 16 bytes a lane where M's columns are contiguous and 16-byte aligned (the
+// linearization's layout), else 4. The wrapper passes As and Bs by their
+// element strides, so neither layout is copied on the way in. (The copy
+// engine, a bulk copy a column completing on the buffer's mbarrier, ran the
+// formation no faster: probes/ilqr_wide_turns.py, PERF.md section 6.)
+// Where two stage buffers do not fit in the 227 KB a block may have, one is
+// copied at the top of each step; where one does not fit either (n ~ 90 at
+// m = n / 2), the same kernel runs with its working set in a device
+// workspace the caller allocates (npt_ilqr_backward_workspace), the stage
+// copied by plain loads and stores. Padding (rows and slots to 16, k to 8)
+// is zeroed once at the block's start and never written: it enters the
+// products as zeros, and their results there are dropped.
 //
 // Why runtime sizes and rolled loops: riccati_wide.cu's unrolled 48-wide
-// instances spilled and took ~3 minutes to compile (PERF.md); here
-// one instance serves every (n, m) of an m bucket. Why the warp's inverse:
-// the first form of this kernel factored Quu a thread a row and
-// substituted a thread a column, chains of ~m^2 dependent
-// shared-memory steps; a right-looking block factor with one FMA an item
-// ran slower still (its many barriers); the warp's inverse cut the factor
-// from ~8.6 to ~1.5 ms of the formation's kernel (probes/ilqr_wide_variants.py,
-// PERF.md section 6). Why its buckets: the inverse's shuffles grow as MB^2,
-// and one MB = 32 instance for every m <= 32 (the probe's mb32_only) ran
-// (48, 16) at N = 4096, T = 50 in 16.83 ms against 10.38, (17, 1) in 5.16
-// against 2.01 and (4, 12) in 5.24 against 2.56 (H100 80GB HBM3, 700 W).
-//
-// What bounds it: at the formation (N = 4096, T = 50) the fp32 operations
-// the function needs (the upper triangles of Qxx and Vxx', Quu's half, an
-// m^3 / 3 factor: chip_smoke.ilqr_backward_work), 566k a scenario-step,
-// 1.16e11 in all (1.73 ms at 67 TFLOP/s), against 3.21 GB of traffic (0.96
-// ms at 3.35 TB/s). Measured there on the H100: 10.4 ms, 17% of that bound,
-// its phases latency-bound at 16 warps an SM (four 53.4 KB blocks); PERF.md,
-// section 6 (chip_smoke.py phase 29).
+// instances spilled and took ~3 minutes to compile (PERF.md); here one
+// instance serves every (n, m) of an m bucket. Why the warp's inverse and
+// its buckets MB = 8, 16, 32: its shuffles grow as MB^2, and one MB = 32
+// instance for every m <= 32 ran the first form's formation 62% slower
+// (probes/ilqr_wide_variants.py). The variants of this form and their times
+// on the H100 are in probes/ilqr_wide_turns.py and PERF.md, section 6.
+// Measured there (H100 80GB HBM3, 700 W) at the formation: 5.88 ms, 16% of
+// the bound (the bytes'; 29% of the first form's all-fp32 bound); by ablation the two large
+// products take ~1.2 ms each and the stage copy ~1.0 ms (both ways of
+// copying alike), with most phases latency-bound at 16 warps an SM.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -83,74 +102,153 @@
 
 namespace ilqr_bwd {
 
-constexpr int kTile = 8;  // rows of an item's register tile
-// Threads a block by n + m: 64 to 32, 128 to 64, 256 past it (at (48, 16)
-// 128 ran 17-31% faster than 256 and 64; at (48, 48) and (64, 32) 256 ran
-// 16-32% faster than 128; at (4, 12) and (17, 1) 64 ran 26-31% faster than
-// 128: probes/ilqr_wide_variants.py, PERF.md section 6).
+// Threads a block by n + m: 64 to 32, 128 to 64, 256 past it.
 constexpr int kWideThreadsSmall = 64;
 constexpr int kWideThreads = 128;
 constexpr int kWideThreadsBig = 256;
 
 __host__ __device__ constexpr int round_up(int x, int q) { return (x + q - 1) / q * q; }
 
+// Element strides of a stage operand (As or Bs): scenario, stage, row, column.
+struct Strides {
+  long long s, t, r, c;
+};
+
 // The working set of one scenario, offsets in floats, every one 16-byte
-// aligned. M's row: A's n entries at 0, B's m at nA; a stage buffer holds M
-// (n rows), then lx, lu, luu_diag.
+// aligned. Slots: M's columns, A's n at 0, B's m at 16 nb; rows of Vxx and
+// slots padded to 16 (the products' m16 blocks), k to 8.
 struct WideLayout {
-  int ldv, nA, ldM, ldk, ldL, oLx, oLu, oLd, stage;
-  int oV, oVx, oQx, oY, oQux, oKK, oXX, oL, oDinv, oStage, floats;
+  int n8, m8, m16, nb, mb, slots, ld, ldr, ldL, oLx, oLu, oLd, stage;
+  int oV, oVx, oQx, oY, oXX, oQi, oR, oL, oDinv, oStage, floats;
   __host__ __device__ WideLayout(int n, int m, int depth) {
-    ldv = round_up(n, kTile);
-    nA = ldv;
-    ldM = nA + round_up(m, kTile);
-    ldk = round_up(n + 1, 4);
-    ldL = m + 1;  // odd: a warp's lanes on a row of L hit distinct banks
-    oLx = n * ldM;
+    n8 = round_up(n, 8);
+    m8 = round_up(m, 8);
+    nb = (n + 15) / 16;
+    mb = (m + 15) / 16;
+    m16 = 16 * mb;
+    slots = 16 * (nb + mb);
+    ld = n8 + 4;         // Vxx, Y', Mt: k along the row, = 4 mod 8
+    // [Qu | Qux] and [k | K]: k down the column, = 8 mod 16, >= n + 1; an
+    // item's 16 columns read past the row's end into the next row (or the
+    // region's 16 floats of padding) only for columns whose results are dropped
+    ldr = (n + 1 + 7) / 16 * 16 + 8;
+    ldL = m + 1;         // odd: a warp's lanes on a row of L hit distinct banks
+    oLx = slots * ld;    // a stage buffer: Mt (slots, ld), lx, lu, luu_diag
     oLu = oLx + round_up(n, 4);
     oLd = oLu + round_up(m, 4);
     stage = oLd + round_up(m, 4);
-    oV = 0;                                    // Vxx, Qxx          (n, ldv)
-    oVx = oV + n * ldv;                        // Vx                (n)
-    oQx = oVx + round_up(n, 4);                // Qx                (n)
-    // [W | W2] (n, ldM), read by phase 2 only; then Quu^{-1} (m, round_up(m,
-    // kTile)) and [k | K] (m, ldk) in its place
-    oY = oQx + round_up(n, 4);
-    const int y = n * ldM, qi = round_up(m * round_up(m, kTile), 4);
-    oXX = oY + qi;
-    oQux = oY + (y > qi + m * ldk ? y : qi + m * ldk);  // Qux     (m, ldv)
-    oKK = oQux + m * ldv;                      // [Qu | Qux], then Y  (m, ldk)
-    oL = oKK + m * ldk;                        // Quu, L by columns (m, ldL)
-    oDinv = oL + round_up(m * ldL, 4);         // 1 / L[a][a]       (m)
+    oV = 0;                                    // Vxx, Qxx in its place   (16 nb, ld)
+    oVx = oV + 16 * nb * ld;                   // Vx, zero past n         (n8)
+    oQx = oVx + n8;                            // Qx                      (n)
+    oY = oQx + round_up(n, 4);                 // Y' (slots, ld); then [k | K] (m16, ldr)
+    const int y = slots * ld, xx = m16 * ldr + 16;
+    oXX = oY;
+    oQi = oY + (y > xx ? y : xx);              // Quu^{-1}, (a, b) at b m16 + a  (m16, m16)
+    oR = oQi + m16 * m16;                      // [Qu | Qux]              (m16, ldr)
+    oL = oR + m16 * ldr + 16;                  // Quu, L by columns       (m, ldL)
+    oDinv = oL + round_up(m * ldL, 4);         // 1 / L[a][a]             (m)
     oStage = oDinv + round_up(m, 4);           // depth stage buffers
     floats = oStage + depth * stage;
   }
 };
 
-// acc0 += row[0:8] x0 and acc1 += row[0:8] x1, the row read once.
-__device__ __forceinline__ void fma_tile2(float (&acc0)[kTile], float (&acc1)[kTile],
-                                          const float* row, float x0, float x1) {
-  const float4 a = *reinterpret_cast<const float4*>(row);
-  const float4 b = *reinterpret_cast<const float4*>(row + 4);
-  const float r[kTile] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// x = hi + lo with hi = x truncated to TF32 (its low 13 bits cleared) and lo
+// = x - hi, exact in fp32; mma.sync reads lo's top 19 bits. Two
+// instructions (cvt.rna.tf32.f32 took more: probes/ilqr_wide_turns.py).
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  hi = x & 0xffffe000u;
+  lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi));
+}
+
+// d += a b, one m16n8k8 TF32 product with an fp32 accumulator.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four 8 x 4 blocks of 32-bit words from shared memory, a lane's row
+// address each (lanes 8i..8i + 7 the rows of block i): lane l receives word
+// l % 4 of row l / 4 of each block. On fp32 data this is the m16n8k8 TF32
+// fragment: one instruction for the four loads of an A fragment, or the
+// four of two B fragments.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// hh += hi(a) hi(b); cr += hi(a) lo(b) + lo(a) hi(b), for the two n8 tiles
+// of an item, from the raw fragments.
+__device__ __forceinline__ void mma3(float (&hh)[2][4], float (&cr)[2][4], const uint32_t (&a)[4],
+                                     const uint32_t (&b)[4]) {
+  uint32_t ah[4], al[4], bh[4], bl[4];
 #pragma unroll
-  for (int q = 0; q < kTile; ++q) {
-    acc0[q] = fmaf(r[q], x0, acc0[q]);
-    acc1[q] = fmaf(r[q], x1, acc1[q]);
+  for (int e = 0; e < 4; ++e) {
+    split_tf32(a[e], ah[e], al[e]);
+    split_tf32(b[e], bh[e], bl[e]);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint32_t bhh[2] = {bh[2 * h], bh[2 * h + 1]}, blh[2] = {bl[2 * h], bl[2 * h + 1]};
+    mma_tf32(cr[h], al, bhh);
+    mma_tf32(cr[h], ah, blh);
+    mma_tf32(hh[h], ah, bhh);
   }
 }
 
-__device__ __forceinline__ void fma_tile(float (&acc)[kTile], const float* row, float x) {
-  const float4 a = *reinterpret_cast<const float4*>(row);
-  const float4 b = *reinterpret_cast<const float4*>(row + 4);
-  acc[0] = fmaf(a.x, x, acc[0]);
-  acc[1] = fmaf(a.y, x, acc[1]);
-  acc[2] = fmaf(a.z, x, acc[2]);
-  acc[3] = fmaf(a.w, x, acc[3]);
-  acc[4] = fmaf(b.x, x, acc[4]);
-  acc[5] = fmaf(b.y, x, acc[5]);
-  acc[6] = fmaf(b.z, x, acc[6]);
-  acc[7] = fmaf(b.w, x, acc[7]);
+// A 16 x 16 output block by one warp: out(r, c) = sum_k A(r, k) B(k, c), k
+// < 8 ksteps, in the 3xTF32 split. kKRow: A(r, k) at A[r lda + k] and B(k,
+// c) at B[c ldb + k] (k along the rows; in shared memory the fragments come
+// by ldmatrix, rows 16-byte aligned); else A(r, k) at A[k lda + r] and B(k,
+// c) at B[k ldb + c], by 32-bit loads. Lane (g, t) = (lane / 4, lane % 4)
+// holds, in out[h], the m16n8 fragment of columns 8h..8h + 7: entry e at
+// row g + 8 (e >> 1), column 8h + 2t + (e & 1). (Even and odd k-steps in two
+// accumulators, to halve the chain of dependent mma.sync, ran the formation
+// slower: more registers at the 128 a thread four blocks an SM allow.)
+template <bool kKRow, bool kShared>
+__device__ __forceinline__ void block16(const float* A, int lda, const float* B, int ldb,
+                                        int ksteps, int lane, float (&out)[2][4]) {
+  const int g = lane / 4, t = lane % 4;
+  float hh[2][4] = {}, cr[2][4] = {};
+  // lane l addresses row l % 8 of block l / 8: A's blocks (rows 0-7, k 0-3),
+  // (8-15, 0-3), (0-7, 4-7), (8-15, 4-7); B's (columns 0-7, k 0-3), (0-7,
+  // 4-7), (8-15, 0-3), (8-15, 4-7)
+  uint32_t pa = 0, pb = 0;
+  if constexpr (kKRow && kShared) {
+    const int blk = lane / 8, r = lane % 8;
+    pa = smem_u32(A + (r + 8 * (blk & 1)) * lda + 4 * (blk >> 1));
+    pb = smem_u32(B + (r + 8 * (blk >> 1)) * ldb + 4 * (blk & 1));
+  }
+  auto at = [](const float* P, int ldp, int row, int k) {
+    return __float_as_uint(kKRow ? P[row * ldp + k] : P[k * ldp + row]);
+  };
+#pragma unroll 2
+  for (int kk = 0; kk < ksteps; ++kk) {
+    uint32_t a[4], b[4];
+    if constexpr (kKRow && kShared) {
+      ldsm_x4(a, pa + 32 * kk);
+      ldsm_x4(b, pb + 32 * kk);
+    } else {
+      const int k0 = 8 * kk + t;
+      a[0] = at(A, lda, g, k0), a[1] = at(A, lda, g + 8, k0);
+      a[2] = at(A, lda, g, k0 + 4), a[3] = at(A, lda, g + 8, k0 + 4);
+      b[0] = at(B, ldb, g, k0), b[1] = at(B, ldb, g, k0 + 4);
+      b[2] = at(B, ldb, 8 + g, k0), b[3] = at(B, ldb, 8 + g, k0 + 4);
+    }
+    mma3(hh, cr, a, b);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[h][e] = hh[h][e] + cr[h][e];
 }
 
 // Quu^{-1} of the SPD Quu (m <= MB <= 32, entry (a, b) at Lq[b * ldL + a])
@@ -213,37 +311,48 @@ __device__ __forceinline__ void copy4(float* dst, const float* src) {
     *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
 }
 
-// `rows` rows of `cols` floats, row-major at src (stride cols), into dst
-// (stride ld, 16-byte-aligned rows): a warp a row, a lane four floats where
-// src's rows are 16-byte aligned, else one.
+// The columns of an (n, cols) matrix at src, entry (j, c) at src[j sr + c
+// sc], as the rows of dst (stride ld, 16-byte aligned): dst[c ld + j]. A
+// warp a column and a lane four floats where the columns are contiguous
+// and 16-byte aligned; a warp a column and a lane a float where they are
+// contiguous but not aligned; else a warp a row of src and a lane a column
+// (a row-major src read along its rows).
 template <bool kShared>
-__device__ __forceinline__ void copy_rows(float* dst, int ld, const float* src, int rows,
-                                          int cols, int warp, int nw, int lane) {
-  if (cols % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
-    for (int r = warp; r < rows; r += nw)
-      for (int c = 4 * lane; c < cols; c += 128) copy4<kShared>(dst + r * ld + c, src + r * cols + c);
+__device__ __forceinline__ void copy_columns(float* dst, int ld, const float* src, int n, int cols,
+                                             long long sr, long long sc, int warp, int nw,
+                                             int lane) {
+  if (sr == 1) {
+    if (n % 4 == 0 && sc % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
+      for (int c = warp; c < cols; c += nw)
+        for (int j = 4 * lane; j < n; j += 128) copy4<kShared>(dst + c * ld + j, src + c * sc + j);
+    } else {
+      for (int c = warp; c < cols; c += nw)
+        for (int j = lane; j < n; j += 32) copy1<kShared>(dst + c * ld + j, src + c * sc + j);
+    }
   } else {
-    for (int r = warp; r < rows; r += nw)
-      for (int c = lane; c < cols; c += 32) copy1<kShared>(dst + r * ld + c, src + r * cols + c);
+    for (int j = warp; j < n; j += nw)
+      for (int c = lane; c < cols; c += 32) copy1<kShared>(dst + c * ld + j, src + j * sr + c * sc);
   }
 }
 
 // kShared: the working set in dynamic shared memory and the stage copied by
-// cp.async; otherwise in `work` (a block's slice of `floats` floats) and
-// copied by plain loads and stores. depth: stage buffers, 2 (the next stage
-// copied during a step) or 1 (copied at its top). MB: 8, 16 or 32, the
-// warp's register inverse of Quu for m <= MB; 0, the block's factor (any m).
-// The shared-memory form's bound keeps 128 registers a thread (four blocks
-// an SM at 128 threads); the workspace form, bound by its memory, takes more.
+// cp.async; otherwise in `work` (a block's slice of
+// `floats` floats) and copied by plain loads and stores. depth: stage
+// buffers, 2 (the next stage copied during a step) or 1 (copied at its top).
+// MB: 8, 16 or 32, the warp's register inverse of Quu for m <= MB; 0, the
+// block's factor (any m). The shared-memory form's bound keeps 128 registers
+// a thread for MB = 16 and 32 (four blocks an SM at 128 threads: the
+// formation's (48, 16)); MB = 8, MB = 0 and the workspace form take more
+// (at 128 they spilled), with fewer blocks an SM.
 template <bool kShared, int MB>
-__global__ void __launch_bounds__(kWideThreadsBig, kShared ? 2 : 1)
+__global__ void __launch_bounds__(kWideThreadsBig, kShared && (MB == 16 || MB == 32) ? 2 : 1)
     backward_wide_kernel(const float* __restrict__ As, const float* __restrict__ Bs,
-                         const float* __restrict__ lxs, const float* __restrict__ lus,
-                         const float* __restrict__ luud, const float* __restrict__ lxx,
-                         const float* __restrict__ luu_reg, const float* __restrict__ lxT,
-                         const float* __restrict__ lxxT, float* __restrict__ ks,
-                         float* __restrict__ Ks, int n, int m, int T, int depth,
-                         float* __restrict__ work) {
+                         Strides sa, Strides sb, const float* __restrict__ lxs,
+                         const float* __restrict__ lus, const float* __restrict__ luud,
+                         const float* __restrict__ lxx, const float* __restrict__ luu_reg,
+                         const float* __restrict__ lxT, const float* __restrict__ lxxT,
+                         float* __restrict__ ks, float* __restrict__ Ks, int n, int m, int T,
+                         int depth, float* __restrict__ work) {
   extern __shared__ __align__(16) float wide_smem[];
   const WideLayout L(n, m, depth);
   const size_t s = blockIdx.x;
@@ -252,23 +361,25 @@ __global__ void __launch_bounds__(kWideThreadsBig, kShared ? 2 : 1)
   float* const Vx = base + L.oVx;
   float* const Qx = base + L.oQx;
   float* const Y = base + L.oY;
-  float* const Qux = base + L.oQux;
-  float* const KK = base + L.oKK;
   float* const XX = base + L.oXX;
+  float* const Qi = base + L.oQi;
+  float* const R = base + L.oR;  // [Qu | Qux]: Qu(a) at R[a ldr], Qux(a, c) at R[a ldr + 1 + c]
   float* const Lq = base + L.oL;
   float* const dinv = base + L.oDinv;
   const int tid = threadIdx.x, nt = blockDim.x, lane = tid % 32, warp = tid / 32, nw = nt / 32;
-  const int nm = n + m, nc = n + 1, ldv = L.ldv, nA = L.nA, ldM = L.ldM, ldk = L.ldk;
-  const int ldL = L.ldL, tilesV = ldv / kTile, tilesM = ldM / kTile, tilesB = (ldM - nA) / kTile;
+  const int g = lane / 4, t4 = lane % 4;
+  const int nc = n + 1, ld = L.ld, ldr = L.ldr, ldL = L.ldL, m8 = L.m8, m16 = L.m16, nb = L.nb;
+  const int mb = L.mb;
+  const int kn = L.n8 / 8, km = m8 / 8, bslot = 16 * nb;  // k-steps over n and m; B's first slot
   const bool has_ld = luud != nullptr;
-  const int pairs = ldM / 2;  // slot pairs of M's rows (A's, then B's)
-  auto slot = [&](int c) { return c < n ? c : nA + (c - n); };  // column c of M in a row
 
-  // Stage `stage` into buffer `buf`: the rows of A and B at their slots.
+  // Stage `stage` into buffer `buf`: A's columns at Mt's rows 0.., B's at
+  // 16 nb.., then lx, lu and luu_diag.
   auto fetch = [&](int stage, float* buf) {
     const size_t st = s * T + stage;
-    copy_rows<kShared>(buf, ldM, As + st * n * n, n, n, warp, nw, lane);
-    copy_rows<kShared>(buf + nA, ldM, Bs + st * n * m, n, m, warp, nw, lane);
+    copy_columns<kShared>(buf, ld, As + s * sa.s + stage * sa.t, n, n, sa.r, sa.c, warp, nw, lane);
+    copy_columns<kShared>(buf + bslot * ld, ld, Bs + s * sb.s + stage * sb.t, n, m, sb.r, sb.c,
+                          warp, nw, lane);
     for (int e = tid; e < n; e += nt) copy1<kShared>(buf + L.oLx + e, lxs + st * n + e);
     for (int e = tid; e < m; e += nt) {
       copy1<kShared>(buf + L.oLu + e, lus + st * m + e);
@@ -278,188 +389,195 @@ __global__ void __launch_bounds__(kWideThreadsBig, kShared ? 2 : 1)
   };
   auto buffer = [&](int t) { return base + L.oStage + (depth == 2 ? (t & 1) : 0) * L.stage; };
 
-  // Vxx = lxxT' (phase 1 reads rows of Vxx as its columns, which gives
-  // lxxT M as the plain version's first step; the later Vxx are symmetric)
+  // Every float of the working set zero (the padding stays so), then Vxx =
+  // lxxT and Vx = lxT
+  for (int e = tid; e < L.floats; e += nt) base[e] = 0.0f;
+  __syncthreads();
   for (int r = warp; r < n; r += nw)
-    for (int c = lane; c < n; c += 32) V[c * ldv + r] = lxxT[r * n + c];
+    for (int c = lane; c < n; c += 32) V[r * ld + c] = lxxT[r * n + c];
   for (int e = tid; e < n; e += nt) Vx[e] = lxT[s * n + e];
-  if (!has_ld)
-    for (int d = 0; d < depth; ++d)
-      for (int e = tid; e < m; e += nt) base[L.oStage + d * L.stage + L.oLd + e] = 0.0f;
   if (T > 0 && depth == 2) fetch(T - 1, buffer(0));
 
   for (int t = 0; t < T; ++t) {
     const int stage = T - 1 - t;
-    float* const M = buffer(t);
+    float* const M = buffer(t);  // Mt: entry (j, c) of M at M[slot(c) ld + j]
     if (depth == 1) fetch(stage, M);  // the buffer's last reader, phase 2, is barriers behind
     if (kShared) __pipeline_wait_prior(0);
     __syncthreads();  // the stage, Vxx and Vx are in place; buffer(t + 1) is read no more
     if (depth == 2 && t + 1 < T) fetch(stage - 1, buffer(t + 1));
     const float* const lx = M + L.oLx;
     const float* const lu = M + L.oLu;
-    const float* const ld = M + L.oLd;
+    const float* const ldg = M + L.oLd;
 
-    // 1. [W | W2] = Vxx M by (pair of slots 2p, 2p + 1 of M's rows, tile of
-    // rows): the rows of Vxx as two 16-byte broadcasts, the pair's entries
-    // as one 8-byte load, 16 FMAs; then Qx and Qu
-    for (int it = tid; it < pairs * tilesV; it += nt) {
-      const int s0 = 2 * (it % pairs), r0 = (it / pairs) * kTile;
-      float a0[kTile] = {}, a1[kTile] = {};
-#pragma unroll 2
-      for (int j = 0; j < n; ++j) {
-        const float2 mj = *reinterpret_cast<const float2*>(M + j * ldM + s0);
-        fma_tile2(a0, a1, V + j * ldv + r0, mj.x, mj.y);
-      }
+    // 1. Y = Vxx M by (16 rows of Vxx, 16 slots), stored as Y' (entry (i,
+    // c) at Y[c ld + i], i < n8: the k range of phase 2); then Qx and Qu
+    for (int it = warp; it < nb * (nb + mb); it += nw) {
+      const int p = it % nb, q = it / nb;
+      float out[2][4];
+      block16<true, kShared>(V + 16 * p * ld, ld, M + 16 * q * ld, ld, kn, lane, out);
 #pragma unroll
-      for (int q = 0; q < kTile; ++q)
-        if (r0 + q < n)
-          *reinterpret_cast<float2*>(Y + (r0 + q) * ldM + s0) = make_float2(a0[q], a1[q]);
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 16 * p + g + 8 * (e >> 1), c = 16 * q + 8 * h + 2 * t4 + (e & 1);
+          if (i < L.n8) Y[c * ld + i] = out[h][e];
+        }
     }
-    for (int c = tid; c < nm; c += nt) {
-      const int sc = slot(c);
-      float acc = 0.0f;
-      for (int j = 0; j < n; ++j) acc = fmaf(M[j * ldM + sc], Vx[j], acc);
+    for (int c = tid; c < n + m; c += nt) {  // a thread a column of M, 16-byte loads
+      const float4* col = reinterpret_cast<const float4*>(M + (c < n ? c : bslot + c - n) * ld);
+      const float4* vx = reinterpret_cast<const float4*>(Vx);
+      float acc[2] = {};
+      for (int j = 0; j < L.n8 / 4; ++j) {
+        const float4 a = col[j], v = vx[j];
+        float& sum = acc[j & 1];
+        sum = fmaf(a.x, v.x, fmaf(a.y, v.y, fmaf(a.z, v.z, fmaf(a.w, v.w, sum))));
+      }
       if (c < n)
-        Qx[c] = lx[c] + acc;
+        Qx[c] = lx[c] + (acc[0] + acc[1]);
       else
-        KK[(c - n) * ldk] = lu[c - n] + acc;
+        R[(c - n) * ldr] = lu[c - n] + (acc[0] + acc[1]);
     }
     __syncthreads();
 
-    // 2. M'[W | W2] by (pair of slots, tile of M's slots), the rows of M as
-    // broadcasts: slots of A (columns c < n) over B's tiles and over A's
-    // tiles on and above the diagonal (A'W + lxx into Vxx's place, its upper
-    // triangle read; B'W into Qux and the right-hand sides), slots of B
-    // (columns n + b) over B's tiles (Quu's column b, with luu_reg and
-    // luu_diag); the slots' padding is computed and dropped
-    auto store = [&](int sc, int k0, const float (&acc)[kTile]) {
-      const int c = sc < nA ? sc : n + (sc - nA);
-      if (sc < nA ? sc >= n : sc - nA >= m) return;  // a padding slot
-#pragma unroll
-      for (int q = 0; q < kTile; ++q) {
-        const int k = k0 + q;
-        if (c < n) {
-          if (k < n) {
-            V[k * ldv + c] = acc[q] + lxx[k * n + c];
-          } else if (k >= nA && k - nA < m) {
-            Qux[(k - nA) * ldv + c] = acc[q];
-            KK[(k - nA) * ldk + 1 + c] = acc[q];
-          }
-        } else if (k - nA < m) {
-          const int a = k - nA, b = c - n;  // Quu[a][b], entry (a, b) of the factor's storage
-          Lq[b * ldL + a] = acc[q] + luu_reg[a * m + b] + (a == b ? ld[b] : 0.0f);
-        }
-      }
-    };
-    const int pairsA = nA / 2, itemsA = pairsA * tilesM, pairsB = (ldM - nA) / 2;
-    for (int it = tid; it < itemsA + pairsB * tilesB; it += nt) {
-      int s0, k0;
-      if (it < itemsA) {
-        s0 = 2 * (it % pairsA);
-        k0 = (it / pairsA) * kTile;
-        if (k0 < nA && k0 > s0 + 1) continue;  // below Qxx's diagonal
+    // 2. M'Y by 16 x 16 blocks: Quu's (B slots x B slots, with luu_reg and
+    // luu_diag, into the factor's storage), Qux's (B slots x A slots) and
+    // Qxx's upper block triangle (A'W + lxx into Vxx's place, c <= c').
+    // For m <= MB warp 0 takes Quu's blocks and inverts Quu in its
+    // registers while the other warps take the rest
+    const int nquu = mb * mb, nqux = mb * nb, items = nquu + nqux + nb * (nb + 1) / 2;
+    auto block = [&](int it) {
+      int p, q, kind;  // kind 0 Quu, 1 Qux, 2 Qxx; (p, q) the row and column blocks
+      if (it < nquu) {
+        kind = 0, p = it % mb, q = it / mb;
+      } else if (it < nquu + nqux) {
+        kind = 1, p = (it - nquu) % mb, q = (it - nquu) / mb;
       } else {
-        const int f = it - itemsA;
-        s0 = nA + 2 * (f % pairsB);
-        k0 = nA + (f / pairsB) * kTile;
+        kind = 2, q = 0;
+        for (p = it - nquu - nqux; p > q; ++q) p -= q + 1;  // (p, q), p <= q, column by column
       }
-      float a0[kTile] = {}, a1[kTile] = {};
-#pragma unroll 2
-      for (int j = 0; j < n; ++j) {
-        const float2 yj = *reinterpret_cast<const float2*>(Y + j * ldM + s0);
-        fma_tile2(a0, a1, M + j * ldM + k0, yj.x, yj.y);
-      }
-      store(s0, k0, a0);
-      store(s0 + 1, k0, a1);
+      const int r0 = (kind == 2 ? 0 : bslot) + 16 * p, c0 = (kind == 0 ? bslot : 0) + 16 * q;
+      float out[2][4];
+      block16<true, kShared>(M + r0 * ld, ld, Y + c0 * ld, ld, kn, lane, out);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 16 * p + g + 8 * (e >> 1), c = 16 * q + 8 * h + 2 * t4 + (e & 1);
+          const float v = out[h][e];
+          if (kind == 0) {
+            if (r < m && c < m)  // Quu[r][c], entry (r, c) of the factor's storage
+              Lq[c * ldL + r] = v + luu_reg[r * m + c] + (r == c ? ldg[c] : 0.0f);
+          } else if (kind == 1) {
+            if (r < m && c < n) R[r * ldr + 1 + c] = v;
+          } else if (c < n && r <= c) {
+            V[r * ld + c] = v + lxx[r * n + c];
+          }
+        }
+    };
+    if (MB > 0 && warp == 0) {
+      for (int it = 0; it < nquu; ++it) block(it);
+      __syncwarp();
+      if constexpr (MB > 0) spd_inverse_warp<MB>(Lq, ldL, m, Qi, m16, lane);
+    } else {
+      const int w = MB > 0 ? warp - 1 : warp, ws = MB > 0 ? nw - 1 : nw;
+      for (int it = (MB > 0 ? nquu : 0) + w; it < items; it += ws) block(it);
     }
     __syncthreads();
 
     if constexpr (MB > 0) {
-      // 3-4 (m <= MB). Quu^{-1} by warp 0 in registers into Y (read no more
-      // this step), then [k | K] = -Quu^{-1} [Qu | Qux] by (column, tile of
-      // rows), Quu^{-1}'s rows (its columns) as broadcasts
-      float* const Qi = Y;
-      const int ldq = round_up(m, kTile);
-      if (warp == 0) spd_inverse_warp<MB>(Lq, ldL, m, Qi, ldq, lane);
-      __syncthreads();
-      const int tilesQ = ldq / kTile;
-      for (int it = tid; it < nc * tilesQ; it += nt) {
-        const int col = it % nc, a0 = (it / nc) * kTile;
-        float acc[kTile] = {};
-        for (int b = 0; b < m; ++b) fma_tile(acc, Qi + b * ldq + a0, KK[b * ldk + col]);
+      // 3. [k | K] = -Quu^{-1} [Qu | Qux] on the tensor cores, by 16 x 16
+      // blocks (rows of Quu^{-1}, columns of [Qu | Qux]), k = b down
+      // Quu^{-1}'s and [Qu | Qux]'s columns; Quu^{-1}'s rows past m are zero,
+      // and so are [k | K]'s
+      const int ncb = (nc + 15) / 16;
+      for (int it = warp; it < mb * ncb; it += nw) {
+        const int p = it % mb, q = it / mb;
+        float out[2][4];
+        block16<false, kShared>(Qi + 16 * p, m16, R + 16 * q, ldr, km, lane, out);
 #pragma unroll
-        for (int q = 0; q < kTile; ++q)
-          if (a0 + q < m) XX[(a0 + q) * ldk + col] = -acc[q];
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int a = 16 * p + g + 8 * (e >> 1), col = 16 * q + 8 * h + 2 * t4 + (e & 1);
+            if (col < nc) XX[a * ldr + col] = -out[h][e];
+          }
       }
       __syncthreads();
     } else {
-    // 3. Quu = L L' in place (entry (i, k) of L at Lq[k * ldL + i]) and the
-    // forward substitution L Y = [Qu | Qux] in KK, right-looking: at pivot j
-    // the block scales column j of L and row j of Y (then final), and after
-    // a barrier a warp takes each row i > j, its lanes the trailing entries
-    // (i, k), j < k <= i, and the row's right-hand sides
-    for (int j = 0; j < m; ++j) {
-      const float inv = rsqrtf(Lq[j * ldL + j]);
-      for (int i = j + 1 + tid; i < m; i += nt) Lq[j * ldL + i] *= inv;
-      for (int col = tid; col < nc; col += nt) KK[j * ldk + col] *= inv;
-      if (tid == 0) dinv[j] = inv;
+      // 3. [Qu | Qux] into XX (the rows past m zero); Quu = L L' in place
+      // (entry (i, k) of L at Lq[k * ldL + i]) and the forward substitution
+      // L Y = XX in place, right-looking: at pivot j the block scales column
+      // j of L and row j of Y (then final), and after a barrier a warp
+      // takes each row i > j, its lanes the trailing entries (i, k), j < k
+      // <= i, and the row's right-hand sides
+      for (int it = tid; it < m16 * nc; it += nt) {
+        const int a = it / nc, col = it % nc;
+        XX[a * ldr + col] = a >= m ? 0.0f : R[a * ldr + col];
+      }
       __syncthreads();
-      for (int i = j + 1 + warp; i < m; i += nw) {
-        const float lij = Lq[j * ldL + i];
-        for (int k = j + 1 + lane; k <= i; k += 32) Lq[k * ldL + i] -= lij * Lq[j * ldL + k];
-        for (int col = lane; col < nc; col += 32) KK[i * ldk + col] -= lij * KK[j * ldk + col];
+      for (int j = 0; j < m; ++j) {
+        const float inv = rsqrtf(Lq[j * ldL + j]);
+        for (int i = j + 1 + tid; i < m; i += nt) Lq[j * ldL + i] *= inv;
+        for (int col = tid; col < nc; col += nt) XX[j * ldr + col] *= inv;
+        if (tid == 0) dinv[j] = inv;
+        __syncthreads();
+        for (int i = j + 1 + warp; i < m; i += nw) {
+          const float lij = Lq[j * ldL + i];
+          for (int k = j + 1 + lane; k <= i; k += 32) Lq[k * ldL + i] -= lij * Lq[j * ldL + k];
+          for (int col = lane; col < nc; col += 32) XX[i * ldr + col] -= lij * XX[j * ldr + col];
+        }
+        __syncthreads();
+      }
+      // the back substitution L' X = Y in place, right-looking from the
+      // last row: at row a, x_a = Y[a] / L[a][a] is final, and a warp a row
+      // q < a takes Y[q] -= L[a][q] x_a; then XX = -X = [k | K]
+      for (int a = m - 1; a >= 0; --a) {
+        const float da = dinv[a];
+        for (int q = warp; q < a; q += nw) {
+          const float laq = Lq[q * ldL + a];
+          for (int col = lane; col < nc; col += 32)
+            XX[q * ldr + col] -= laq * (XX[a * ldr + col] * da);
+        }
+        __syncthreads();
+      }
+      for (int it = tid; it < m * nc; it += nt) {
+        const int a = it / nc, col = it % nc;
+        XX[a * ldr + col] *= -dinv[a];
       }
       __syncthreads();
     }
 
-    // 4. the back substitution L' X = Y, right-looking from the last row: at
-    // row a, x_a = Y[a] / L[a][a] is final; a warp a row q < a takes
-    // Y[q] -= L[a][q] x_a, and the warp of row a stores -x_a into XX, so
-    // that XX = [k | K] = -Quu^{-1} [Qu | Qux]
-    for (int a = m - 1; a >= 0; --a) {
-      const float da = dinv[a];
-      for (int q = warp; q <= a; q += nw) {
-        const float laq = Lq[q * ldL + a];
-        for (int col = lane; col < nc; col += 32) {
-          const float x = KK[a * ldk + col] * da;
-          if (q == a)
-            XX[a * ldk + col] = -x;
-          else
-            KK[q * ldk + col] -= laq * x;
-        }
-      }
-      __syncthreads();
-    }
-    }
+    // 4. k and K stored; Vx' = Qx + Qux'k; Vxx' = Qxx + Qux'K by 16 x 16
+    // blocks of its upper block triangle, k = a down Qux's and K's columns,
+    // written at (r, c) and (c, r) for r <= c
     {
       const size_t st = s * T + stage;
-      for (int a = tid; a < m; a += nt) ks[st * m + a] = XX[a * ldk];
+      for (int a = tid; a < m; a += nt) ks[st * m + a] = XX[a * ldr];
       float* const Kout = Ks + st * m * n;
       for (int a = warp; a < m; a += nw)
-        for (int i = lane; i < n; i += 32) Kout[a * n + i] = XX[a * ldk + 1 + i];
+        for (int i = lane; i < n; i += 32) Kout[a * n + i] = XX[a * ldr + 1 + i];
     }
-
-    // 5. Vx' = Qx + Qux'k, and Vxx' = Qxx + Qux'K by (column c, tile of rows
-    // r <= c), written at (r, c) and (c, r)
     for (int c = tid; c < n; c += nt) {
       float acc = Qx[c];
-      for (int a = 0; a < m; ++a) acc = fmaf(Qux[a * ldv + c], XX[a * ldk], acc);
+      for (int a = 0; a < m; ++a) acc = fmaf(R[a * ldr + 1 + c], XX[a * ldr], acc);
       Vx[c] = acc;
     }
-    for (int it = tid; it < n * tilesV; it += nt) {
-      const int c = it % n, r0 = (it / n) * kTile;
-      if (r0 > c) continue;
-      float acc[kTile] = {};
-      for (int a = 0; a < m; ++a) fma_tile(acc, Qux + a * ldv + r0, XX[a * ldk + 1 + c]);
+    for (int it = warp; it < nb * (nb + 1) / 2; it += nw) {
+      int p = it, q = 0;
+      for (; p > q; ++q) p -= q + 1;
+      float out[2][4];
+      block16<false, kShared>(R + 1 + 16 * p, ldr, XX + 1 + 16 * q, ldr, km, lane, out);
 #pragma unroll
-      for (int q = 0; q < kTile; ++q) {
-        const int r = r0 + q;
-        if (r <= c) {
-          const float v = V[r * ldv + c] + acc[q];
-          V[r * ldv + c] = v;
-          V[c * ldv + r] = v;
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 16 * p + g + 8 * (e >> 1), c = 16 * q + 8 * h + 2 * t4 + (e & 1);
+          if (c < n && r <= c) {
+            const float v = V[r * ld + c] + out[h][e];
+            V[r * ld + c] = v;
+            V[c * ld + r] = v;
+          }
         }
-      }
     }
   }
 }
@@ -489,11 +607,11 @@ inline int wide_threads(int n, int m) {
 }
 
 template <int MB>
-cudaError_t launch_wide_mb(const float* As, const float* Bs, const float* lxs, const float* lus,
-                           const float* luud, const float* lxx, const float* luu_reg,
-                           const float* lxT, const float* lxxT, float* ks, float* Ks, int N,
-                           int n, int m, int T, float* work, int depth, int threads,
-                           cudaStream_t stream) {
+cudaError_t launch_wide_mb(const float* As, const float* Bs, Strides sa, Strides sb,
+                           const float* lxs, const float* lus, const float* luud,
+                           const float* lxx, const float* luu_reg, const float* lxT,
+                           const float* lxxT, float* ks, float* Ks, int N, int n, int m, int T,
+                           float* work, int depth, int threads, cudaStream_t stream) {
   if (depth > 0) {
     const size_t smem = wide_bytes(n, m, depth);
     const cudaError_t err = cudaFuncSetAttribute(backward_wide_kernel<true, MB>,
@@ -501,39 +619,38 @@ cudaError_t launch_wide_mb(const float* As, const float* Bs, const float* lxs, c
                                                  static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     backward_wide_kernel<true, MB><<<N, threads, smem, stream>>>(
-        As, Bs, lxs, lus, luud, lxx, luu_reg, lxT, lxxT, ks, Ks, n, m, T, depth, nullptr);
+        As, Bs, sa, sb, lxs, lus, luud, lxx, luu_reg, lxT, lxxT, ks, Ks, n, m, T, depth, nullptr);
   } else {
     if (work == nullptr) return cudaErrorInvalidValue;
     backward_wide_kernel<false, MB><<<N, threads, 0, stream>>>(
-        As, Bs, lxs, lus, luud, lxx, luu_reg, lxT, lxxT, ks, Ks, n, m, T, 1, work);
+        As, Bs, sa, sb, lxs, lus, luud, lxx, luu_reg, lxT, lxxT, ks, Ks, n, m, T, 1, work);
   }
   return cudaGetLastError();
 }
 
-cudaError_t launch_wide(const float* As, const float* Bs, const float* lxs, const float* lus,
-                        const float* luud, const float* lxx, const float* luu_reg,
-                        const float* lxT, const float* lxxT, float* ks, float* Ks, int N, int n,
-                        int m, int T, float* work, cudaStream_t stream) {
+// The wide form with As and Bs at their element strides.
+cudaError_t launch_wide_strided(const float* As, const float* Bs, Strides sa, Strides sb,
+                                const float* lxs, const float* lus, const float* luud,
+                                const float* lxx, const float* luu_reg, const float* lxT,
+                                const float* lxxT, float* ks, float* Ks, int N, int n, int m,
+                                int T, float* work, cudaStream_t stream) {
   int optin = 0;
   const cudaError_t err = wide_optin_bytes(&optin);
   if (err != cudaSuccess) return err;
   const int depth = wide_shared_depth(n, m, optin), threads = wide_threads(n, m);
-  if (m <= 8)
-    return launch_wide_mb<8>(As, Bs, lxs, lus, luud, lxx, luu_reg, lxT, lxxT, ks, Ks, N, n, m,
-                             T, work, depth, threads, stream);
-  if (m <= 16)
-    return launch_wide_mb<16>(As, Bs, lxs, lus, luud, lxx, luu_reg, lxT, lxxT, ks, Ks, N, n, m,
-                              T, work, depth, threads, stream);
-  if (m <= 32)
-    return launch_wide_mb<32>(As, Bs, lxs, lus, luud, lxx, luu_reg, lxT, lxxT, ks, Ks, N, n, m,
-                              T, work, depth, threads, stream);
-  return launch_wide_mb<0>(As, Bs, lxs, lus, luud, lxx, luu_reg, lxT, lxxT, ks, Ks, N, n, m, T,
-                           work, depth, threads, stream);
+#define NPT_WIDE_MB(MB)                                                                       \
+  launch_wide_mb<MB>(As, Bs, sa, sb, lxs, lus, luud, lxx, luu_reg, lxT, lxxT, ks, Ks, N, n, m, \
+                     T, work, depth, threads, stream)
+  if (m <= 8) return NPT_WIDE_MB(8);
+  if (m <= 16) return NPT_WIDE_MB(16);
+  if (m <= 32) return NPT_WIDE_MB(32);
+  return NPT_WIDE_MB(0);
+#undef NPT_WIDE_MB
 }
 
 }  // namespace ilqr_bwd
 
-// The floats of device workspace npt_ilqr_backward needs for N scenarios at
+// The floats of device workspace npt_ilqr_backward_wide needs for N scenarios at
 // (n, m): 0 where the narrow form (n <= 16 and m <= 8) or the wide form's
 // shared memory takes them, else N times one scenario's working set; -1 on a
 // CUDA error (the current device's attribute unreadable).
@@ -546,7 +663,7 @@ extern "C" long long npt_ilqr_backward_workspace(int N, int n, int m) {
   return static_cast<long long>(N) * WideLayout(n, m, 1).floats;
 }
 
-// The wide form npt_ilqr_backward takes at (n, m) on the current device: 2
+// The wide form npt_ilqr_backward_wide takes at (n, m) on the current device: 2
 // or 1, the stage buffers of the shared-memory form; 0, the workspace form;
 // -1 where the narrow forms take (n, m) or on a CUDA error.
 extern "C" int npt_ilqr_backward_wide_depth(int n, int m) {
@@ -555,4 +672,27 @@ extern "C" int npt_ilqr_backward_wide_depth(int n, int m) {
   int optin = 0;
   if (wide_optin_bytes(&optin) != cudaSuccess) return -1;
   return wide_shared_depth(n, m, optin);
+}
+
+// The wide K7 (n > 16 or m > 8; npt_ilqr_backward takes the narrow forms)
+// with As (N, T, n, n) and Bs (N, T, n, m) at any element strides
+// (scenario, stage, row, column): the linearization's column-major
+// Jacobians (row stride 1) are read in place. The other operands as
+// npt_ilqr_backward's, row-major contiguous; `work` a device workspace of
+// npt_ilqr_backward_workspace(N, n, m) floats, null where that is 0.
+// Returns the CUDA error code of the launch.
+extern "C" int npt_ilqr_backward_wide(const float* As, const float* Bs, const float* lxs,
+                                      const float* lus, const float* luud, const float* lxx,
+                                      const float* luu_reg, const float* lxT, const float* lxxT,
+                                      float* ks, float* Ks, int N, int n, int m, int T,
+                                      float* work, long long sa_s, long long sa_t,
+                                      long long sa_r, long long sa_c, long long sb_s,
+                                      long long sb_t, long long sb_r, long long sb_c,
+                                      void* stream) {
+  using namespace ilqr_bwd;
+  if (N < 1 || n < 1 || m < 1 || T < 0 || (n <= 16 && m <= 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_wide_strided(
+      As, Bs, Strides{sa_s, sa_t, sa_r, sa_c}, Strides{sb_s, sb_t, sb_r, sb_c}, lxs, lus, luud,
+      lxx, luu_reg, lxT, lxxT, ks, Ks, N, n, m, T, work, static_cast<cudaStream_t>(stream)));
 }

@@ -50,6 +50,7 @@ FOLD_ROWS = 32
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # Ht, W, x0, U0, lipschitz, U, resid, N, n, d, iters, coarse, lo, hi, tail_prec,
     # g_prec, stream
@@ -72,7 +73,11 @@ _SIGNATURES = {
     # rMt, g, U0, rho, z, y, N, d, iters, coarse, lo, hi, alpha, stream
     "npt_admm_boxqp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
     # As, Bs, lxs, lus, luud, lxx, luu_reg, lxT, lxxT, ks, Ks, N, n, m, T, work, stream
-    "npt_ilqr_backward": (_P,) * 11 + (_I, _I, _I, _I, _P, _P),
+    "npt_ilqr_backward": (_P,) * 11 + (_I, _I, _I, _I, _P),
+    # the wide K7 (csrc/ilqr_backward_wide.cu): npt_ilqr_backward's arguments with
+    # its device workspace (or null) and As's and Bs's element strides (scenario,
+    # stage, row, column) before the stream
+    "npt_ilqr_backward_wide": (_P,) * 11 + (_I, _I, _I, _I, _P) + (_L,) * 8 + (_P,),
     # plant, 8 plant parameters, Q, R, QF, goal, alphas, x0s, xs_nom, us_nom, ks, Ks,
     # us, xs, costs, N, T, A, xs_rows, stream
     "npt_ilqr_forward": (_I,) + (_F,) * 8 + (_P,) * 13 + (_I, _I, _I, _I, _P),

@@ -129,14 +129,14 @@ def fista_mpc_reference(H, SxT, SuTQT, x0s, lo: float, hi: float, lipschitz,
 
 
 def _check_operand(name: str, t: torch.Tensor, device: torch.device, shape,
-                   dtype: torch.dtype = torch.float32) -> None:
+                   dtype: torch.dtype = torch.float32, contiguous: bool = True) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 

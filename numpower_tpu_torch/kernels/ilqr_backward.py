@@ -8,7 +8,9 @@ bulk asynchronous copies; above, 8 or 16 lanes per scenario, lane i owning
 row i of Vxx, to the narrow envelope (MAX_N, MAX_M); past it, for any (n, m),
 the wide form of ``csrc/ilqr_backward_wide.cu``, one block per scenario with
 its working set in shared memory, or in a device workspace this wrapper
-allocates where that does not fit; the whole T loop in one launch. This
+allocates where that does not fit, its products on the tensor cores
+(3xTF32), As and Bs read at their strides (the linearization's column-major
+Jacobians in place); the whole T loop in one launch. This
 module holds its wrapper, :func:`ilqr_backward_fused`, and its plain PyTorch
 version, :func:`ilqr_backward_reference`, which runs the kernel's recursion
 (not the full form of models/ilqr._backward_pass: the two agree only up to
@@ -131,28 +133,37 @@ def ilqr_backward_fused(As, Bs, lxs, lus, lxx, luu, lxT, lxxT, reg: float = 1e-3
     lxx, luu, lxxT = (torch.as_tensor(x, dtype=torch.float32, device=device) for x in
                       (lxx, luu, lxxT))
     luu_reg = (luu + reg * torch.eye(m, dtype=torch.float32, device=device)).contiguous()
-    As, Bs, lxs, lus, lxT = (x.contiguous() for x in (As, Bs, lxs, lus, lxT))
+    # the wide form reads As and Bs at their element strides, in any layout:
+    # the linearization's column-major Jacobians (models/rollout.
+    # linearize_trajectory) are not copied
+    wide = n > MAX_N or m > MAX_M
+    if not wide:
+        As, Bs = As.contiguous(), Bs.contiguous()
+    lxs, lus, lxT, lxx, lxxT = (x.contiguous() for x in (lxs, lus, lxT, lxx, lxxT))
     operands = [("As", As, (N, T, n, n)), ("Bs", Bs, (N, T, n, m)), ("lxs", lxs, (N, T, n)),
-                ("lus", lus, (N, T, m)), ("lxx", lxx.contiguous(), (n, n)),
-                ("luu", luu_reg, (m, m)), ("lxT", lxT, (N, n)),
-                ("lxxT", lxxT.contiguous(), (n, n))]
+                ("lus", lus, (N, T, m)), ("lxx", lxx, (n, n)), ("luu", luu_reg, (m, m)),
+                ("lxT", lxT, (N, n)), ("lxxT", lxxT, (n, n))]
     if luu_diags is not None:
         luu_diags = luu_diags.contiguous()
         operands.append(("luu_diags", luu_diags, (N, T, m)))
     for name, t, shape in operands:
-        _check_operand(name, t, device, shape)
-    lxx, lxxT = operands[4][1], operands[7][1]
+        _check_operand(name, t, device, shape, contiguous=not (wide and name in ("As", "Bs")))
     ks = torch.empty((N, T, m), dtype=torch.float32, device=device)
     Ks = torch.empty((N, T, m, n), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
-        floats = N * _workspace_floats_per_scenario(device.index, n, m)
-        work = torch.empty(floats, dtype=torch.float32, device=device) if floats else None
         stream = torch.cuda.current_stream(device).cuda_stream
-        code = _build.library().npt_ilqr_backward(
-            As.data_ptr(), Bs.data_ptr(), lxs.data_ptr(), lus.data_ptr(),
-            None if luu_diags is None else luu_diags.data_ptr(), lxx.data_ptr(),
-            luu_reg.data_ptr(), lxT.data_ptr(), lxxT.data_ptr(), ks.data_ptr(), Ks.data_ptr(),
-            N, n, m, T, None if work is None else work.data_ptr(), stream)
+        args = (As.data_ptr(), Bs.data_ptr(), lxs.data_ptr(), lus.data_ptr(),
+                None if luu_diags is None else luu_diags.data_ptr(), lxx.data_ptr(),
+                luu_reg.data_ptr(), lxT.data_ptr(), lxxT.data_ptr(), ks.data_ptr(),
+                Ks.data_ptr(), N, n, m, T)
+        if wide:
+            floats = N * _workspace_floats_per_scenario(device.index, n, m)
+            work = torch.empty(floats, dtype=torch.float32, device=device) if floats else None
+            code = _build.library().npt_ilqr_backward_wide(
+                *args, None if work is None else work.data_ptr(), *As.stride(), *Bs.stride(),
+                stream)
+        else:
+            code = _build.library().npt_ilqr_backward(*args, stream)
     _build.check(code, "ilqr_backward_fused kernel launch")
     ilqr_backward_fused.launches += 1
     return ks, Ks

@@ -57,9 +57,6 @@ def _alpha_current(A: int, N: int):
 
 
 ALPHA_OF = {"before": lambda A, N: (lambda g: (g % (32 * A)) // 32), "current": _alpha_current}
-# npt_ilqr_backward's workspace argument (before the stream): the kernels
-# before their redesign take none; today's take one, null at these shapes
-WORK_ARG = {"before": (), "current": (None,), "repository": (None,)}
 PARTS = {
     "bwd": ["stage wait/issue", "W, W2", "Qu, Quu, Cholesky, k", "Qux, K", "Vx', Vxx'", "prologue",
             "-"],
@@ -89,9 +86,6 @@ def build(variant: str) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = _build._SIGNATURES[name]
         fn.restype = ctypes.c_int
-    if not WORK_ARG[variant]:
-        sig = _build._SIGNATURES["npt_ilqr_backward"]
-        lib.npt_ilqr_backward.argtypes = sig[:-2] + sig[-1:]
     lib.probe_set_stamps.argtypes = (ctypes.c_void_p,)
     lib.probe_set_stamps.restype = ctypes.c_int
     return lib
@@ -189,14 +183,14 @@ def main() -> int:
             ptrs = [0 if t is None else t.data_ptr() for t in bwd]
             stamps = torch.zeros(8 * 64 * N, dtype=torch.int64, device=dev)
 
-            def bwd_call(lib_=lib, work=WORK_ARG[variant]):
+            def bwd_call(lib_=lib):
                 return lib_.npt_ilqr_backward(*ptrs, ks.data_ptr(), Ks.data_ptr(), N, n, m, T,
-                                              *work, stream)
+                                              stream)
 
             row = split(lib, stamps, bwd_call, T, "bwd")
             row["stamped_ms"] = event_ms(bwd_call)
             row["repo_library_ms"] = event_ms(lambda: main_lib.npt_ilqr_backward(
-                *ptrs, ks.data_ptr(), Ks.data_ptr(), N, n, m, T, None, stream))
+                *ptrs, ks.data_ptr(), Ks.data_ptr(), N, n, m, T, stream))
             results[f"{variant} K7 N={N}"] = row
             print(f"[probe] {variant} K7 N={N}: {json.dumps(row)}", flush=True)
 
@@ -249,8 +243,8 @@ def main() -> int:
             if name == "current":
                 continue  # the same kernel as the repository's library, stamps aside
             key = f"K7 bucket n={n} m={m} N={N} T={T} {name} ms"
-            results[key] = event_ms(lambda lib=lib, work=WORK_ARG[name]: lib.npt_ilqr_backward(
-                *ptrs, ks.data_ptr(), Ks.data_ptr(), N, n, m, T, *work, stream))
+            results[key] = event_ms(lambda lib=lib: lib.npt_ilqr_backward(
+                *ptrs, ks.data_ptr(), Ks.data_ptr(), N, n, m, T, stream))
             print(f"[probe] {key}: {results[key]:.4f}", flush=True)
     results["clocks_after"] = subprocess.run(smi_q, capture_output=True, text=True).stdout.strip()
     print(f"[probe] clocks after: {results['clocks_after']}", flush=True)

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Where the wide K7 (csrc/ilqr_backward_wide.cu) spends its time on the card,
-and what its choices gain.
+"""Where the first form of the wide K7 (probes/ilqr_backward_wide_before.cu,
+csrc/ilqr_backward_wide.cu before its redesign for the tensor cores; the
+redesigned form's variants are in probes/ilqr_wide_turns.py) spends its
+time on the card, and what its choices gained.
 
     python probes/ilqr_wide_variants.py [variant ...]   (from the repository root)
 
 Builds the variants named (all where none is), one nvcc each, all at once,
 into build/probes/ilqr_wide/<variant>/:
-  - current: csrc/ilqr_backward_wide.cu as it is;
+  - current: probes/ilqr_backward_wide_before.cu as it is;
   - threads64 / threads128 / threads256: current with 64, 128 or 256
     threads a block at every shape (current picks by n + m);
   - mb32_only: the warp's register inverse of Quu in its MB = 32 instance
@@ -83,12 +85,12 @@ extern "C" int probe_wide(const float* As, const float* Bs, const float* lxs, co
 
 
 def variants(names) -> dict:
-    src = (_build.CSRC / "ilqr_backward_wide.cu").read_text()
+    src = (ROOT / "probes" / "ilqr_backward_wide_before.cu").read_text()
     out = {"current": src + ENTRY % "ilqr_bwd"}
     for name, subs in ABLATIONS.items():
         text = src
         for old, new in subs:
-            assert old in text, f"csrc/ilqr_backward_wide.cu no longer has {old!r}"
+            assert old in text, f"probes/ilqr_backward_wide_before.cu no longer has {old!r}"
             text = text.replace(old, new)
         out[name] = text + ENTRY % "ilqr_bwd"
     return {name: text for name, text in out.items() if not names or name in names}
@@ -132,7 +134,9 @@ def main() -> int:
             continue
         lib = ctypes.CDLL(str(path))
         fn = lib.probe_wide
-        fn.argtypes = _build._SIGNATURES["npt_ilqr_backward"]
+        # npt_ilqr_backward's arguments with the workspace before the stream
+        fn.argtypes = (*_build._SIGNATURES["npt_ilqr_backward"][:-1], ctypes.c_void_p,
+                       ctypes.c_void_p)
         lib.npt_ilqr_backward_workspace.argtypes = (ctypes.c_int,) * 3
         lib.npt_ilqr_backward_workspace.restype = ctypes.c_longlong
         line = []

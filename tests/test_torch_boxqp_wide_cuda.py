@@ -147,6 +147,67 @@ def test_wide_fista_classes_match_plain(device, tail, g, d):
                           tail_precision=tail, g_precision=g)
 
 
+# -- the tile with every wgmma issued by both warpgroups and slab s's passes
+# issued before slab s + 1 loads: the paths' widths, a ragged batch, the
+# cluster's edges ---
+
+@pytest.mark.parametrize("N", [1003, 4096])
+@pytest.mark.parametrize("d", [132, 400, 1024])
+@pytest.mark.parametrize("name", ["fista_mpc_res", "admm_mpc_res", "fista_boxqp", "admm_boxqp",
+                                  "fista_mpc", "admm_mpc"])
+def test_tile_at_the_paths_widths_matches_plain(device, name, d, N):
+    """phase 27's widths (d = 132, 400, 1024: clusters of 2, 4 and 8
+    blocks), the full batch and a ragged one whose last tile is partly past
+    N."""
+    _assert_matches_plain(name, _problem(d, device), N, 0, name in ("fista_mpc_res",
+                                                                    "admm_mpc_res"))
+
+
+@pytest.mark.parametrize("N", [1, 32, 33, 64])
+@pytest.mark.parametrize("d", [384, 512, 513])
+@pytest.mark.parametrize("name", ["fista_mpc_res", "admm_mpc_res"])
+def test_tile_cluster_edges_match_plain(device, name, d, N):
+    """One scenario, a whole tile, one past it and two tiles; the last
+    block's rows all real (d = 384, 512) or all but one past d (513: a
+    warpgroup whose rows are all padding still issues its passes)."""
+    _assert_matches_plain(name, _problem(d, device), N, 0, True)
+
+
+@pytest.mark.parametrize("d", [132, 400, 1024])
+@pytest.mark.parametrize("tail,g", [("bf16x3", "highest"), ("highest", "bf16x4"),
+                                    ("bf16x3", "bf16x3")])
+def test_tile_precision_classes_match_plain(device, tail, g, d):
+    _assert_matches_plain("fista_mpc_res", _problem(d, device), 1003, 20, True,
+                          tail_precision=tail, g_precision=g)
+
+
+@pytest.mark.parametrize("T", [20, 30])
+@pytest.mark.parametrize("name", ["fista_mpc_res", "admm_mpc_res", "fista_mpc", "admm_mpc"])
+def test_tile_at_the_formation_matches_plain(device, name, T):
+    """The four-quadrotor formation's MPC (n = 48, T = 20 and 30: d = 320
+    and 480, phase 31's), its fold in two chunks of the state, against the
+    plain version at the bound of phase 31's narrow runs (1e-4)."""
+    from chip_smoke import formation_mpc
+    from numpower_tpu_torch.models import condense
+
+    A, B, Q, R, QF = formation_mpc(4)
+    qp = condense(A, B, Q, R, QF, T, device=device)
+    rng = np.random.default_rng(T)
+    x0s = torch.as_tensor(0.3 * rng.standard_normal((1003, 48)), dtype=torch.float32,
+                          device=device)
+    fold = (qp.H, qp.Sx.T, qp.SuTQ.T, x0s, -1.0, 1.0)
+    rho = torch.sqrt(qp.lipschitz * torch.clamp(qp.mu, min=1e-12))
+    mod = boxqp_fista if name.startswith("fista") else boxqp_admm
+    step = qp.lipschitz if name.startswith("fista") else rho
+    got = getattr(mod, name)(*fold, step, ITERS, 0)
+    want = getattr(mod, f"{name}_reference")(*fold, step, ITERS, 0)
+    assert _err(got[0], want[0]) <= 1e-4 and bool(torch.isfinite(got[0]).all())
+
+
+def _err(a, b):
+    return (a.double() - b.double()).abs().max().item()
+
+
 def test_past_1024_raises(device):
     p = _problem(200, device)
     big = torch.eye(1025, device=device)
