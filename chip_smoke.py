@@ -274,7 +274,9 @@ run right after phase 27:
 28. a formation of four quadrotor12 plants as one system (n = 48, m = 16,
    Q = I + kron(L_ring, E_pos), R = 0.1 I, QF = 5 I; per-scenario As,
    N = 4096, T = 30; `formation`): K5 against its plain version there, at a
-   ragged N = 1003 and at the edges (17, 1), (32, 8), (48, 48) (T = 8), K6b
+   ragged N = 1003, with A far from the identity (`formation_far`: -As at
+   N = 4096, As O at N = 1003; also against float64) and at the edges
+   (17, 1), (32, 8), (48, 48) (T = 8), K6b
    at the psd route's (4096, 16, 16) x (4096, 16, 48) and at (4096, 48, 48)
    x (4096, 48, 48), K6a at (4096, 48, 48) also against
    torch.linalg.cholesky, n, m or r = 49 raising ValueError; then the
@@ -302,7 +304,10 @@ those counts took a warm call first: probes/phase29_order.py):
    linearization's column-major As, Bs read in place against contiguous
    copies, bit for bit; the narrow K7's SHA-256 digests (`k7_checksums`:
    the cartpole bench's (4, 1) and (12, 4), (16, 8)) against those of the
-   kernel before the wide form's redesign (K7_NARROW_DIGESTS); then the
+   kernel before the wide form's redesign (K7_NARROW_DIGESTS), and the
+   wide K7's (`k7_wide_checksums`: the formation at N = 256, T = 10 and
+   (48, 40) past m = 32) against its bits before its TF32 helpers moved into
+   csrc/tf32_mma.cuh (K7_WIDE_DIGESTS); then the
    path, its counters zeroed just before it:
    ilqr_solve_batched (10 iterations) and al_ilqr_solve_batched (rotors in
    [0, 8], 3 x 4), fused with the plain line search (one K7 launch an
@@ -367,7 +372,7 @@ phase 31 and before phase 23:
    K = 4096, T = 40; the planar quadrotor (m = 2) at N = 256, K = 2048,
    T = 50 about its hover thrust; the unicycle at N = 8, K = 1152, T = 640
    (T*m = 1280, lam = 1e3); the pendulum at N = 16, K = 16384 and at N = 4,
-   K = 16512 (the row of S in an (N, K) scratch); the narrow K13's SHA-256
+   K = 16512 (17 tiles); the narrow K13's SHA-256
    digests at the bench's shape and its envelope against those of the
    kernel before the wide form (`k13_checksums`, K13_NARROW_DIGESTS); then
    the path, its counter zeroed just before it: mppi_solve_batched "auto"
@@ -3974,6 +3979,11 @@ def boxqp_work(N_: int, n: int, d: int, T_: int, ci_f: int, ci_a: int, iters: in
 # on the card), and a ragged N = 1003.
 N_FORMATION, T_EDGE = 4, 8
 RICCATI_WIDE_EDGES = ((17, 1), (32, 8), (48, 48))
+# each wide K5 bucket (NB, MB) at the (n, m) of its upper edge and one inside
+# it: NB in {16, 32, 48} x MB in {8, 16, 32, 48} less the narrow (16, 8);
+# MB = 48 (m > 32) factors S by the block, the others invert it in a warp
+K5_WIDE_SHAPES = ((12, 9), (16, 16), (5, 32), (16, 48), (17, 1), (32, 8), (20, 16), (32, 17),
+                  (25, 48), (33, 8), (48, 16), (40, 32), (48, 48), (48, 33))
 
 
 def formation(k: int, N: int, seed: int = 4):
@@ -3991,6 +4001,25 @@ def formation(k: int, N: int, seed: int = 4):
     As = (np.tile(A, (N, 1, 1)) + 0.01 * rng.standard_normal((N, n, n))).astype(np.float32)
     return (As, B.astype(np.float32), (np.eye(n) + np.kron(ring, E_pos)).astype(np.float32),
             (0.1 * np.eye(m)).astype(np.float32), (5.0 * np.eye(n)).astype(np.float32))
+
+
+# the formation's A taken far from the identity, Q, R, QF and T kept:
+# "negated" -As (the same P, K negated: the float64 reference and the plain
+# version's error are the formation's), "rotated" As O with O a random
+# orthogonal matrix (seed 7). The wide K5's products must hold the plain
+# version's bounds whatever A is, not only near I.
+FAR_FROM_I = ("negated", "rotated")
+
+
+def formation_far(kind: str, k: int, N: int):
+    """formation(k, N) with As replaced by -As ("negated") or As O
+    ("rotated"; O the Q factor of a 12 k x 12 k standard normal from seed
+    7), numpy float32."""
+    As, *rest = formation(k, N)
+    if kind == "negated":
+        return (-As, *rest)
+    O = np.linalg.qr(np.random.default_rng(7).standard_normal((12 * k, 12 * k)))[0]
+    return ((As.astype(np.float64) @ O).astype(np.float32), *rest)
 
 
 def stable_plant(n: int, m: int, N: int, seed: int):
@@ -4012,11 +4041,34 @@ def scaled_err(a: torch.Tensor, b: torch.Tensor, rtol: float, atol: float) -> fl
     return ((a - b).abs() / (atol + rtol * b.abs())).max().item()
 
 
+def riccati_wide_ops(N: int, T_: int, n: int, m: int) -> tuple:
+    """(fp32 operations on the CUDA cores, TF32 tensor-core operations,
+    bytes, all of the function as fp32) of the wide K5 at (N, T, n, m),
+    counting the work the function needs: per scenario-step Y = P [A | B]
+    2n^2 (n + m), A'PA's upper triangle n^2 (n + 1), B'PA 2mn^2, S's half
+    m (m + 1) n, K = S^{-1} B'PA 2m^2 n and P' = Q + A'PA - (B'PA)'K's upper
+    triangle mn (n + 1) on the tensor cores in three TF32 passes (3xTF32),
+    but K past m = 32, whose substitutions (2m^2 n) run on the CUDA cores
+    with S's factor (m^3 / 3). Bytes: As and Bs read, Ks and P0 written once
+    (utils/flops.riccati_fused_cost's) and Q, R, QF. The all-fp32 figure is
+    riccati_fused_cost's count (4n^3 + 4mn^2 + 4m^2 n + m^3 a step), the
+    first form's bound."""
+    tc = (2 * n * n * (n + m) + n * n * (n + 1) + 2 * m * n * n + m * (m + 1) * n
+          + m * n * (n + 1) + (2 * m * m * n if m <= 32 else 0))
+    cuda = m ** 3 / 3 + (2 * m * m * n if m > 32 else 0)
+    cost = riccati_fused_cost(N, T_, n, m)
+    n_bytes = cost.bytes_moved + 4 * (2 * n * n + m * m)
+    return N * T_ * cuda, 3 * N * T_ * tc, n_bytes, cost.flops
+
+
 def wide_riccati_family(dev, smi: str) -> list:
     """Phase 28: K5, K6a and K6b past n = 16. Each wide kernel against its
     plain version on the card: K5 on the formation (N = 4096 and 1003,
-    T = 30) and at the edges (17, 1), (32, 8), (48, 48) (T = T_EDGE), rtol
-    1e-3 / atol 1e-4 on Ks and 1e-3 on P0 (phase 5's); K6b at the psd
+    T = 30), on it with A far from I (FAR_FROM_I: -As at N = 4096, As O at
+    1003; also against float64, within four times the plain fp32 version's
+    distance as the path below) and at the edges (17, 1), (32, 8), (48, 48)
+    (T = T_EDGE), rtol 1e-3 / atol 1e-4 on Ks and 1e-3 on P0 (phase 5's);
+    K6b at the psd
     route's shape (4096, 16, 16) x (4096, 16, 48) and at (4096, 48, 48) x
     (4096, 48, 48), and ragged, rtol 2e-3 / atol 2e-4 with a residual
     |AX - B| <= 2e-3; K6a at (4096, 48, 48) and ragged, 1e-4 of its plain
@@ -4029,8 +4081,10 @@ def wide_riccati_family(dev, smi: str) -> list:
     (rtol 1e-3 / atol 1e-4 on Ks, 1e-3 on P0 and L), or within four times
     the plain fp32 version's own distance where that version cannot hold
     them, both logged. Then the times: own (torch.profiler), wrapper and
-    plain of each kernel, its library call where there is one, and the
-    plain route's. Returns the wide kernels' entries of the JSON line."""
+    plain of each kernel, its library call where there is one, the wide K5's
+    bound (riccati_wide_ops: its products as TF32 tensor operations) and
+    the (48, 48) x 48 K6b's, and the plain route's. Returns the wide
+    kernels' entries of the JSON line."""
     from numpower_tpu_torch.kernels import cholesky, riccati
     from numpower_tpu_torch.models import riccati_scan_per_scenario
     from numpower_tpu_torch.utils.smallmat import cholesky_unrolled, psd_solve_unrolled
@@ -4048,6 +4102,10 @@ def wide_riccati_family(dev, smi: str) -> list:
     f0 = {"riccati": riccati.riccati_batched_fused.launches,
           "psd": cholesky.psd_solve_batched.launches, "chol": cholesky.cholesky_batched.launches}
     cases = [(f"formation N={N_k} T={T}", As[:N_k], Bs[:N_k], costs, T) for N_k in (N, N_RAGGED)]
+    for kind, N_k in zip(FAR_FROM_I, (N, N_RAGGED)):
+        A_far, _, *c_far = formation_far(kind, N_FORMATION, N_k)
+        cases.append((f"formation, A {kind}, N={N_k} T={T}", torch.as_tensor(A_far, device=dev),
+                      Bs[:N_k], [torch.as_tensor(x, device=dev) for x in c_far], T))
     for n_e, m_e in RICCATI_WIDE_EDGES:
         A_e, B_e, *c_e = stable_plant(n_e, m_e, N, seed=n_e + m_e)
         cases.append((f"(n, m) = ({n_e}, {m_e}) N={N} T={T_EDGE}", torch.as_tensor(A_e, device=dev),
@@ -4062,6 +4120,13 @@ def wide_riccati_family(dev, smi: str) -> list:
         require(close(Ks, Ks_p, 1e-3, 1e-4) and close(P0, P0_p, 1e-3, 1e-3),
                 f"K5 wide {what} vs plain")
         err["riccati"] = max(err["riccati"], dk)
+        if ", A " in what:  # far from I: against float64 too, as the path below
+            Ks_64, P0_64 = riccati.riccati_batched_reference(A_k.double(), B_k.double(), *c_k, T_k)
+            e_k = max(scaled_err(Ks, Ks_64, 1e-3, 1e-4), scaled_err(P0, P0_64, 1e-3, 1e-3))
+            e_p = max(scaled_err(Ks_p, Ks_64, 1e-3, 1e-4), scaled_err(P0_p, P0_64, 1e-3, 1e-3))
+            log(f"K5 wide {what} vs float64 (rtol 1e-3, atol 1e-4 on Ks, 1e-3 on P0): scaled "
+                f"{e_k:.3e}; the plain fp32 version's {e_p:.3e}")
+            require(e_k <= max(1.0, 4 * e_p), f"K5 wide {what} vs float64")
     for N_k, dim, r, seed in ((N, m, n, 21), (N, n, n, 22), (N_RAGGED, n, n, 23),
                               (N_RAGGED, 17, 1, 24)):
         a = spd_batch(N_k, dim, seed, dev)
@@ -4087,7 +4152,7 @@ def wide_riccati_family(dev, smi: str) -> list:
     calls = {"riccati": riccati.riccati_batched_fused.launches - f0["riccati"],
              "psd": cholesky.psd_solve_batched.launches - f0["psd"],
              "chol": cholesky.cholesky_batched.launches - f0["chol"]}
-    require(calls == {"riccati": 5, "psd": 4, "chol": 3}, f"each wide kernel launched ({calls})")
+    require(calls == {"riccati": 7, "psd": 4, "chol": 3}, f"each wide kernel launched ({calls})")
     # past the envelope: n = 49, m = 49, r = 49 raise
     over = {
         "K5 n=49": lambda: riccati.riccati_batched_fused(
@@ -4181,34 +4246,49 @@ def wide_riccati_family(dev, smi: str) -> list:
               "chol": cuda_ms(lambda: torch.linalg.cholesky(a48))}
     route_ms = {route: cuda_ms(lambda route=route: riccati_scan_per_scenario(
                     As, Bs, *costs, T, method=route), **slow) for route in ("auto", "psd", "plain")}
-    cost = riccati_fused_cost(N, T, n, m)
+    own = {}
     for key, what, kernel in (
             ("riccati", f"K5 wide riccati formation N={N} T={T} (n={n}, m={m})",
              "riccati_wide_kernel"),
             ("psd", f"K6b wide psd_solve ({N},{m},{m})x({N},{m},{n})", "psd_solve_wide_kernel"),
             ("psd48", f"K6b wide psd_solve ({N},{n},{n})x({N},{n},{n})", "psd_solve_wide_kernel"),
             ("chol", f"K6a wide cholesky ({N},{n},{n})", "cholesky_wide_kernel")):
-        log_own(what, kernel_fns[key], kernel, ms[key], smi, calls=20)
-    log(f"time K5 wide riccati formation N={N} T={T}: kernel {ms['riccati']:.4f} ms "
-        f"({cost.flops / ms['riccati'] / 1e9:.3f} TFLOP/s of 67 fp32; bound "
-        f"{cost.sol_seconds(H100_SXM.hbm_gbps, H100_SXM.fp32_tflops) * 1e3:.4f} ms), plain "
-        f"{plain_ms['riccati']:.4f} ms; library: none [{smi}]")
+        own[key] = log_own(what, kernel_fns[key], kernel, ms[key], smi, calls=20)
+    cuda_k5, tf32_k5, bytes_k5, fp32_k5 = riccati_wide_ops(N, T, n, m)
+    k5 = kernel_entry(f"riccati_batched_fused (wide, n = {n}, m = {m})", "riccati_wide.cu",
+                      "riccati.py:172", launches["riccati"], err["riccati"], ms["riccati"],
+                      plain_ms["riccati"], bytes_k5, cuda_k5, tf32_ops=tf32_k5)
+    psd48 = kernel_entry(f"psd_solve_batched (wide, n = {n}, r = {n})", "cholesky_wide.cu",
+                         "cholesky.py:135", 0, 0.0, ms["psd48"], plain_ms["psd48"],
+                         4 * 3 * N * n * n, N * (n ** 3 / 3 + 2 * n * n * n),
+                         library_ms=lib_ms["psd48"])
+
+    def share(entry, key):
+        t_own = own[key][0]
+        if t_own is None:
+            return "not measured"
+        return f"{100 * entry['bound_ms'] / (t_own / 1e3):.1f}%"
+
+    log(f"time K5 wide riccati formation N={N} T={T}: wrapper {ms['riccati']:.4f} ms, own "
+        f"{fmt_us(own['riccati'])}, plain {plain_ms['riccati']:.4f} ms; bound "
+        f"{k5['bound_ms']:.4f} ms ({k5['bound_by']}: {tf32_k5:.3e} TF32 tensor operations, "
+        f"{cuda_k5:.3e} fp32 on the CUDA cores, {bytes_k5 / 1e6:.1f} MB), {share(k5, 'riccati')} "
+        f"of its own time; all as fp32 on the CUDA cores {fp32_k5 / FP32_FLOP_PER_S * 1e3:.4f} "
+        f"ms; library: none [{smi}]")
     for key, what in (("psd", f"({N},{m},{m})x({N},{m},{n})"),
                       ("psd48", f"({N},{n},{n})x({N},{n},{n})")):
         log(f"time K6b wide psd_solve {what}: kernel {ms[key]:.4f} ms, plain "
             f"{plain_ms[key]:.4f} ms, torch.linalg.cholesky + torch.cholesky_solve "
             f"{lib_ms[key]:.4f} ms [{smi}]")
+    log(f"K6b wide psd_solve ({N},{n},{n})x({N},{n},{n}): bound {psd48['bound_ms']:.4f} ms "
+        f"({psd48['bound_by']}), {share(psd48, 'psd48')} of its own time [{smi}]")
     log(f"time K6a wide cholesky ({N},{n},{n}): kernel {ms['chol']:.4f} ms, plain "
         f"{plain_ms['chol']:.4f} ms, torch.linalg.cholesky {lib_ms['chol']:.4f} ms [{smi}]")
     for route, t_ms in route_ms.items():
         log(f"time riccati_scan_per_scenario formation N={N} T={T} method={route}: "
             f"{t_ms:.4f} ms [{smi}]")
     return [
-        kernel_entry(f"riccati_batched_fused (wide, n = {n}, m = {m})", "riccati_wide.cu",
-                     "riccati.py:172", launches["riccati"], err["riccati"], ms["riccati"],
-                     plain_ms["riccati"],
-                     4 * (N * n * n + N * n * m + 2 * n * n + m * m + N * T * m * n + N * n * n),
-                     cost.flops),
+        k5,
         kernel_entry(f"cholesky_batched (wide, n = {n})", "cholesky_wide.cu", "cholesky.py:107",
                      launches["chol"], err["chol"], ms["chol"], plain_ms["chol"],
                      4 * 2 * N * n * n, N * n ** 3 / 3, library_ms=lib_ms["chol"]),
@@ -4313,6 +4393,59 @@ def k7_checksums(dev) -> dict:
     return out
 
 
+# SHA-256 prefixes of the wide K7's ks and Ks (k7_wide_checksums) from the
+# kernel before its TF32 helpers moved into csrc/tf32_mma.cuh, on one H100
+# 80GB HBM3 (700 W): the wide K7 keeps those bits
+K7_WIDE_DIGESTS = {
+    "formation N = 256 T = 10": "cef6a56858255453",
+    "formation N = 256 T = 10 luu_diags": "5d9504488f2a44c4",
+    "(n, m) = (48, 40) N = 1003 T = 8": "568d42265ad353bd",
+    "(n, m) = (48, 40) N = 1003 T = 8 luu_diags": "9ca2e086614cd817",
+}
+
+
+def k7_wide_checksums(dev) -> dict:
+    """{case: (SHA-256 prefix of ks and Ks, the call)} for the wide K7: the
+    eight-quadrotor formation's first backward pass at a short horizon (N =
+    256, T = 10; the hover controls' rollout and its column-major Jacobians
+    formed on the host) and a random LTV problem past m = 32, where the
+    block factors Quu ((n, m) = (48, 40), N = 1003, T = 8: random_ltv), each
+    with and without luu_diags, every operand formed on the host, so that
+    two checkouts whose wide kernels compute the same bits print the same
+    digests."""
+    import hashlib
+
+    from numpower_tpu_torch.kernels import ilqr_backward
+    from numpower_tpu_torch.models import linearize_trajectory, rollout_nonlinear
+
+    cpu = torch.device("cpu")
+    f, Q, R, QF, goal, x0 = (x if callable(x) else torch.as_tensor(x)
+                             for x in quad_formation(N_QUADS, 256))
+    T_, m_ = 10, R.shape[0]
+    us0 = torch.full((256, T_, m_), HOVER_THRUST)
+    xs0 = rollout_nonlinear(f, x0, us0)
+    As, Bs = linearize_trajectory(f, xs0, us0)
+    form = [As, Bs, 2.0 * (xs0[:, :T_] - goal) @ Q.T, 2.0 * us0 @ R.T, 2.0 * Q, 2.0 * R,
+            2.0 * (xs0[:, T_] - goal) @ QF.T, 2.0 * QF]
+    form = [x.to(dev) for x in form]
+    inputs = {"formation N = 256 T = 10": (
+        form, torch.as_tensor(np.random.default_rng(41).uniform(0.0, 2.0, (256, T_, m_)),
+                              dtype=torch.float32, device=dev))}
+    ops, diags = random_ltv(N_RAGGED, 8, 48, 40, cpu, seed=140)
+    inputs[f"(n, m) = (48, 40) N = {N_RAGGED} T = 8"] = ([x.to(dev) for x in ops], diags.to(dev))
+    out = {}
+    for what, (ops, diags) in inputs.items():
+        for d in (None, diags):
+            def call(ops=ops, d=d):
+                return ilqr_backward.ilqr_backward_fused(*ops, reg=1e-3, luu_diags=d)
+
+            h = hashlib.sha256()
+            for r in call():
+                h.update(r.contiguous().cpu().numpy().tobytes())
+            out[f"{what}{' luu_diags' if d is not None else ''}"] = (h.hexdigest()[:16], call)
+    return out
+
+
 def ilqr_backward_work(N: int, T: int, n: int, m: int) -> tuple:
     """(fp32 operations, bytes) of K7's function at (N, T, n, m), counting
     the work it needs and no more (utils/flops.ilqr_backward_cost, the JAX
@@ -4362,7 +4495,8 @@ def wide_ilqr_family(dev, smi: str) -> list:
     (tests/test_kernels.py:609), the returned controls in the box; the DP
     result within 1e-6 of the batched one. The column-major Jacobians read
     in place against contiguous copies (bit for bit), and the narrow K7's
-    digests against K7_NARROW_DIGESTS. Then the times: own (torch.profiler),
+    digests against K7_NARROW_DIGESTS, and the wide K7's (k7_wide_checksums)
+    against K7_WIDE_DIGESTS. Then the times: own (torch.profiler),
     wrapper and plain at the formation, the bound (bytes, and the work on the
     CUDA cores and on the tensor cores: ilqr_backward_wide_ops; all of it
     as fp32 logged beside it), and the paths'.
@@ -4457,6 +4591,11 @@ def wide_ilqr_family(dev, smi: str) -> list:
         log(f"K7 narrow digest {case}: {digest} (before the wide form's redesign: "
             f"{K7_NARROW_DIGESTS.get(case)})")
     require(digests == K7_NARROW_DIGESTS, "every narrow K7 launch gives the parent's bits")
+    digests = {case: digest for case, (digest, _) in k7_wide_checksums(dev).items()}
+    for case, digest in digests.items():
+        log(f"K7 wide digest {case}: {digest} (before its TF32 helpers moved into "
+            f"csrc/tf32_mma.cuh: {K7_WIDE_DIGESTS.get(case)})")
+    require(digests == K7_WIDE_DIGESTS, "the wide K7 gives the bits it gave before the move")
 
     # -- phase 29: the path at the formation, counted ------------------------------
     kw = dict(backend="fused", forward="plain", us_init=HOVER_THRUST)
@@ -5310,8 +5449,8 @@ def formation_boxqp_family(dev, smi: str) -> list:
 # samples; the wide kernel's other shapes: (plant, N, K, T, lam, the
 # nominal's start) at iters = 2, the quadrotor about its hover thrust, the
 # unicycle past T*m = 1024 at a high temperature (tests/test_torch_sampling_
-# cuda.py's envelope), and a row past the shared-memory budget (K > 16384,
-# the (N, K) scratch)
+# cuda.py's envelope), and K past 16384 (where the first form kept its row of
+# S in an (N, K) scratch)
 K_WIDE = 4096
 WIDE_CASES = (("pendulum", 256, 4096, 40, 1.0, 0.0),
               ("planar_quadrotor", 256, 2048, 50, 1.0, 0.5 * 9.81),
@@ -5354,6 +5493,33 @@ def mppi_work(N: int, K: int, T_: int, iters: int, n: int, m: int, plant: str) -
     n_bytes = 4 * (iters * T_ * m * N * K + N * n + T_ * m + N * T_ * m + N * iters)
     per_step = 3 * m + n + 3 * n * n + 3 * m * m + 1 + 4 * m + PLANT_OPS[plant] + 6 * m
     return n_bytes, iters * N * K * (T_ * per_step + 3 * n * n + n + 10)
+
+
+# the pendulum's rollout step: ~99 instructions a sample, counted on the
+# narrow K13's SASS (csrc/mppi.cu's note; the wide kernel's own step loop
+# was not counted), and the H100 SXM's boost clock (NVIDIA's data sheet,
+# 1.98 GHz; not the clock of the run) with four warp schedulers an SM
+PENDULUM_STEP_INSTRUCTIONS = 99
+H100_BOOST_HZ, H100_SCHEDULERS = 1.98e9, 132 * 4
+
+
+def mppi_issue_floor_ms(N: int, K: int, T_: int, iters: int) -> float:
+    """An estimate of the time the card's warp schedulers take to issue
+    the pendulum's rollout alone: N K T iters sample-steps of
+    PENDULUM_STEP_INSTRUCTIONS (the narrow kernel's count), a warp
+    instruction for 32 samples, one a cycle per scheduler at the data
+    sheet's boost clock. Logged beside the bound (which counts bytes and
+    fp32 operations), not in its place, with the SM clock read after the
+    timed calls."""
+    return (N * K * T_ * iters * PENDULUM_STEP_INSTRUCTIONS / 32
+            / (H100_SCHEDULERS * H100_BOOST_HZ) * 1e3)
+
+
+def sm_clock() -> str:
+    """The card's SM clock now and its maximum, as nvidia-smi reads them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
 
 
 def k13_checksums(dev) -> dict:
@@ -5408,8 +5574,10 @@ def wide_mppi_family(dev, smi: str) -> list:
     the median final cost below zero control's and within 5e-2 (relative)
     of the plain route's from the same generator; then the times: the wide
     kernel's device, wrapper and own time, its plain version, the eps draws,
-    the whole call and its rollouts/s, the bound and its share. Returns the
-    wide kernel's entry of the JSON line."""
+    the whole call and its rollouts/s, the bound and its share, an estimate
+    of the rollout's issue floor (mppi_issue_floor_ms) and the SM clock.
+    Returns the wide kernel's
+    entry of the JSON line."""
     from numpower_tpu_torch.kernels import _build, mppi
     from numpower_tpu_torch.models import mppi_solve_batched, rollout_nonlinear
     from numpower_tpu_torch.models.mppi import _trajectory_cost
@@ -5438,11 +5606,10 @@ def wide_mppi_family(dev, smi: str) -> list:
         du = max_err(us, us_p)
         d_ess = ((ess.double() - ess_p.double()) / ess_p.double()).abs().max().item()
         in_range = bool(((ess >= 1.0 - 1e-4) & (ess <= K_ * (1 + 1e-4))).all())
-        threads, spt, tiles, row_smem = mppi.wide_plan(K_)
+        threads, spt, tiles = mppi.wide_plan(K_)
         log(f"K13 wide {name} N={N_} K={K_} T={T_} (T*m = {T_ * m}) lam={lam:g} iters=2 vs "
             f"plain: max|dus| {du:.3e} (bound 2e-3), max rel dess {d_ess:.3e} (bound 1e-3), "
-            f"ess in [1, K]: {in_range}; plan {threads} threads x {spt}, {tiles} tiles, row in "
-            f"{'shared memory' if row_smem else 'the (N, K) scratch'}")
+            f"ess in [1, K]: {in_range}; plan {threads} threads x {spt}, {tiles} tiles")
         require(du <= 2e-3 and d_ess <= 1e-3 and in_range, f"wide K13 {name} K = {K_} vs plain")
         err = max(err, du)
         del eps, us, ess, us_p, ess_p
@@ -5523,8 +5690,10 @@ def wide_mppi_family(dev, smi: str) -> list:
     log(f"time {what}: device {ms['device']:.4f} ms, wrapper {ms['wrapper']:.4f} ms, own "
         f"{fmt_us(own)}, plain {ms['plain']:.4f} ms; bound {entry['bound_ms']:.4f} ms "
         f"({entry['bound_by']}; eps {4 * IT_MPPI * T_MPPI * N_MPPI * K_WIDE / 1e9:.3f} GB), "
-        f"{share}; eps draw exact {ms['eps_exact']:.4f} ms, direct {ms['eps_direct']:.4f} ms "
-        f"[{smi}]")
+        f"{share}; the rollout's issue floor, an estimate (the narrow kernel's step count at "
+        f"the boost clock) {mppi_issue_floor_ms(N_MPPI, K_WIDE, T_MPPI, IT_MPPI):.4f} ms, "
+        f"the SM clock read after the timed calls {sm_clock()}; eps draw exact "
+        f"{ms['eps_exact']:.4f} ms, direct {ms['eps_direct']:.4f} ms [{smi}]")
     log(f"time mppi_solve_batched K={K_WIDE} (auto -> wide K13): exact {ms['solve']:.4f} ms "
         f"({rollouts / ms['solve'] * 1e3:.4e} rollouts/s), direct {ms['solve_direct']:.4f} ms "
         f"({rollouts / ms['solve_direct'] * 1e3:.4e} rollouts/s); the plain route "

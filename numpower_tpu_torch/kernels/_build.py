@@ -99,10 +99,9 @@ _SIGNATURES = {
     "npt_mppi": (_I,) + (_F,) * 8 + (_P,) * 6 + (_I,) * 4 + (_F, _F, _I, _F, _F) + (_I,) * 4
                 + (_P,),
     # the wide K13 (csrc/mppi_wide.cu): plant, 8 plant parameters, consts (host), x0s,
-    # eps, us0, us, ess, scratch, N, K, T, iters, lam, inv_lam, clip, lo, hi, threads,
-    # spt, row_smem, stream
-    "npt_mppi_wide": (_I,) + (_F,) * 8 + (_P,) * 7 + (_I,) * 4 + (_F, _F, _I, _F, _F)
-                     + (_I,) * 3 + (_P,),
+    # eps, us0, us, ess, N, K, T, iters, lam, inv_lam, clip, lo, hi, threads, spt, stream
+    "npt_mppi_wide": (_I,) + (_F,) * 8 + (_P,) * 6 + (_I,) * 4 + (_F, _F, _I, _F, _F)
+                     + (_I,) * 2 + (_P,),
     # parts, m, out, B, N, n, stream
     "npt_resample_systematic": (_P, _P, _P, _I, _I, _I, _P),
     # n, d

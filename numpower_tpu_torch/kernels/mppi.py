@@ -32,8 +32,7 @@ version its ``.rows`` form, the JAX package's component-rows callable.
 Memory: eps holds iters*T*m*N*K floats, 84 MB at the bench's shape (N = 256,
 K = 256, T = 40, m = 1, 8 rounds), 1.3 GB at N = 4096 or at K = 4096; the
 "exact" layout draws it in the plain route's order and transposes it, which
-holds a second copy for a moment. The wide K13 past K = 16384 also takes an
-(N, K) float scratch.
+holds a second copy for a moment.
 """
 
 from __future__ import annotations
@@ -51,12 +50,9 @@ from numpower_tpu_torch.kernels.boxqp_fista import _check_operand
 MAX_K = 1024   # csrc/mppi.cu kMaxK: one block per scenario, at most 4 samples a thread
 MAX_TM = 1024  # csrc/mppi.cu kMaxTM: the nominal in shared memory
 # The wide K13 (csrc/mppi_wide.cu checks these): threads a block at most; the
-# most nominal entries T*m (128 KB of shared memory); the bytes of the row of
-# S and w kept in shared memory (K <= 16384; past it the row is a scenario's
-# row of an (N, K) scratch in device memory).
+# most nominal entries T*m (128 KB of shared memory).
 WIDE_THREADS = 256
 WIDE_MAX_TM = 32768
-WIDE_ROW_BUDGET = 64 * 1024
 # The narrow kernel's plan (csrc/mppi.cu checks it): threads a block, steps a staged
 # chunk, and the bytes of its ring of eps chunks in shared memory when a
 # round's slice stays resident (50 KB: the bench's 48 KB, so that four
@@ -100,18 +96,17 @@ def is_narrow(K: int, T: int, m: int) -> bool:
 @functools.lru_cache(maxsize=None)
 def wide_plan(K: int) -> tuple:
     """The launch plan of the wide K13 for K samples: (threads, samples a
-    thread, tiles a round, row in shared memory). A block walks its K
-    samples in ceil(K / 1024) tiles of equal size but the last, in order; a
-    thread carries 1 sample of a tile up to 256 a tile, 2 up to 512, else 4,
-    and the threads (whole warps, at most WIDE_THREADS) cover a tile. The
-    row of K floats (S, then w) stays in shared memory where it fits
-    WIDE_ROW_BUDGET. The horizon does not move the plan; kernel_operands
-    checks T*m."""
+    thread, tiles a round). A block walks its K samples in ceil(K / 1024)
+    tiles of equal size but the last, in order, keeping the softmax online
+    over them; a thread carries 1 sample of a tile up to 256 a tile, 2 up
+    to 512, else 4, and the threads (whole warps, at most WIDE_THREADS)
+    cover a tile, whose weights the block holds in shared memory. The
+    horizon does not move the plan; kernel_operands checks T*m."""
     tiles = -(-K // (4 * WIDE_THREADS))
     per_tile = -(-K // tiles)
     spt = 1 if per_tile <= 256 else 2 if per_tile <= 512 else 4
     threads = (-(-per_tile // spt) + 31) // 32 * 32
-    return threads, spt, -(-K // (threads * spt)), 4 * K <= WIDE_ROW_BUDGET
+    return threads, spt, -(-K // (threads * spt))
 
 
 def sigma_tuple(sigma, m: int) -> tuple:
@@ -311,8 +306,8 @@ def kernel_args(f, cost_fn, x0s, eps_all, us0, *, T: int, iters: int, m: int, si
                 lam: float, u_lo=None, u_hi=None) -> tuple:
     """The arguments of one launch of K13 (those of :func:`kernel_function`'s
     function but its stream) and the tensors they point to (x0s, eps, us0,
-    the wide form's scratch where it takes one, us, ess; the outputs last),
-    for the caller to hold while the launch runs."""
+    us, ess; the outputs last), for the caller to hold while the launch
+    runs."""
     plant, floats, consts, ins, outs = kernel_operands(f, cost_fn, x0s, eps_all, us0, T=T,
                                                       iters=iters, m=m, sigma=sigma)
     N, K = eps_all.shape[1:]
@@ -321,16 +316,13 @@ def kernel_args(f, cost_fn, x0s, eps_all, us0, *, T: int, iters: int, m: int, si
     hi = float("inf") if u_hi is None else float(u_hi)
     head = (plant.plant_id, *floats, ctypes.addressof(consts))
     tail = (N, K, T, iters, float(lam), float(1.0 / lam), clip, lo, hi)
+    tensors = (*ins, *outs)
+    ptrs = tuple(t.data_ptr() for t in tensors)
     if is_narrow(K, T, m):
         threads, spt, tc, _, resident = chunk_plan(K, T, m)
-        tensors = (*ins, *outs)
-        return (*head, *(t.data_ptr() for t in tensors), *tail, threads, spt, tc,
-                int(resident)), tensors
-    threads, spt, _, row_smem = wide_plan(K)
-    scratch = () if row_smem else (torch.empty((N, K), dtype=torch.float32, device=x0s.device),)
-    tensors = (*ins, *scratch, *outs)
-    ptrs = [t.data_ptr() for t in (*ins, *outs)] + [scratch[0].data_ptr() if scratch else None]
-    return (*head, *ptrs, *tail, threads, spt, int(row_smem)), tensors
+        return (*head, *ptrs, *tail, threads, spt, tc, int(resident)), tensors
+    threads, spt, _ = wide_plan(K)
+    return (*head, *ptrs, *tail, threads, spt), tensors
 
 
 def mppi_fused(f, cost_fn, x0s, eps_all, us0, *, T: int, iters: int, m: int, lam: float,

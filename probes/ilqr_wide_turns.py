@@ -8,8 +8,9 @@ Builds, one nvcc each, all at once, into build/probes/ilqr_wide_turns/<name>/:
   - before: probes/ilqr_backward_wide_before.cu, the form before the
     redesign (its products as fp32 FMAs; As and Bs row-major contiguous,
     so its wrapper copied the linearization's column-major Jacobians);
-  - current: csrc/ilqr_backward_wide.cu as it is (the products on the tensor
-    cores in 3xTF32, As and Bs read at their strides);
+  - current: csrc/ilqr_backward_wide.cu as it is, csrc/tf32_mma.cuh inlined
+    (the products on the tensor cores in 3xTF32, As and Bs read at their
+    strides);
   - the variants named (all where none is), text substitutions into current
     (VARIANTS): threads64 / threads256 (64 or 256 threads a block at every
     shape; current picks by n + m), depth1 (one stage buffer at every
@@ -104,7 +105,7 @@ VARIANTS = {
          "m16, lane);\n      __syncthreads();\n      // 3. [k | K]")],
     "one_acc": [("mma_tf32(cr[h], al, bhh);\n    mma_tf32(cr[h], ah, blh);",
                  "mma_tf32(hh[h], al, bhh);\n    mma_tf32(hh[h], ah, blh);")],
-    "rna_split": [("  hi = x & 0xffffe000u;\n"
+    "rna_split": [("  hi = (kRound ? x + 0x1000u : x) & 0xffffe000u;\n"
                    "  lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi));",
                    "  asm(\"cvt.rna.tf32.f32 %0, %1;\\n\" : \"=r\"(hi) : "
                    "\"f\"(__uint_as_float(x)));\n"
@@ -133,7 +134,9 @@ WRONG = ("single_pass", "no_p1", "no_matvec", "no_p2", "no_xx", "no_p5", "no_inv
 
 
 def sources(names) -> dict:
-    src = (_build.CSRC / "ilqr_backward_wide.cu").read_text()
+    # the shared TF32 helpers inlined, so that a variant may change them too
+    src = (_build.CSRC / "ilqr_backward_wide.cu").read_text().replace(
+        '#include "tf32_mma.cuh"', (_build.CSRC / "tf32_mma.cuh").read_text())
     out = {"before": (ROOT / "probes" / "ilqr_backward_wide_before.cu").read_text() + ENTRY_BEFORE,
            "current": src + ENTRY}
     for name, subs in VARIANTS.items():

@@ -3,7 +3,8 @@ m > 8, its products on the tensor cores in 3xTF32, As and Bs read at their
 strides) on the card: the linearization's column-major Jacobians against
 contiguous copies of them, bit for bit; the kernel against its plain PyTorch
 version and float64 at chip_smoke.py phase 29's shapes; the narrow K7's bits,
-which the redesign leaves as they were.
+which the redesign leaves as they were, and the wide K7's, which the move of
+its TF32 helpers into csrc/tf32_mma.cuh leaves as they were.
 
 Every test here needs a CUDA device and skips without one (the kernels have
 no CPU mode). The file imports neither jax nor numpower_tpu, so it runs on
@@ -24,8 +25,8 @@ import pytest
 import torch
 
 from chip_smoke import (
-    ILQR_DEPTH1_SHAPES, ILQR_WIDE_EDGES, ILQR_WORKSPACE_SHAPE, K7_NARROW_DIGESTS, k7_checksums,
-    random_ltv, scaled_err,
+    ILQR_DEPTH1_SHAPES, ILQR_WIDE_EDGES, ILQR_WORKSPACE_SHAPE, K7_NARROW_DIGESTS, K7_WIDE_DIGESTS,
+    k7_checksums, k7_wide_checksums, random_ltv, scaled_err,
 )
 from numpower_tpu_torch.kernels import ilqr_backward
 from numpower_tpu_torch.models import linearize_trajectory, planar_quadrotor_step, rollout_nonlinear
@@ -163,3 +164,12 @@ def test_narrow_kernel_is_bit_for_bit_unchanged(device):
     before the wide form's redesign (chip_smoke.K7_NARROW_DIGESTS)."""
     got = {case: digest for case, (digest, _) in k7_checksums(device).items()}
     assert got == K7_NARROW_DIGESTS
+
+
+def test_wide_kernel_keeps_its_bits(device):
+    """The wide form returns the bits it returned before its TF32 helpers
+    moved into csrc/tf32_mma.cuh (chip_smoke.K7_WIDE_DIGESTS): the
+    eight-quadrotor formation at T = 10 and (48, 40), past m = 32, each with
+    and without luu_diags."""
+    got = {case: digest for case, (digest, _) in k7_wide_checksums(device).items()}
+    assert got == K7_WIDE_DIGESTS

@@ -16,6 +16,9 @@ Bounds: us atol 5e-4, ess rtol 1e-3 (tests/test_kernels.py:503-536 of the JAX
 package). The kernel itself runs in tests/test_torch_mppi_wide_cuda.py.
 """
 
+import math
+import re
+
 import numpy as np
 import pytest
 
@@ -98,7 +101,7 @@ def test_wide_k13_past_tm_1024_matches_the_xla_route():
                                  **kw)
     lay = np.asarray(jk.eps_kernel_layout(key, N, iters, T, m, K, jnp.ones(m, jnp.float32)))
     assert tmppi.route_mppi("cuda", torch.float32, ct, K, T, m, 0.0) == "pallas"
-    assert not tk.is_narrow(K, T, m) and tk.wide_plan(K) == (128, 1, 1, True)
+    assert not tk.is_narrow(K, T, m) and tk.wide_plan(K) == (128, 1, 1)
     got = tmppi._mppi_kernel_core(tm.unicycle_step, _t(x0s), ct, _t(lay), T, iters, m, lam=lam)
     assert got.us.shape == (N, T, m) and got.xs.shape == (N, T + 1, 3)
     np.testing.assert_allclose(got.us.numpy(), np.asarray(want.us), rtol=0, atol=BOUND["us"])
@@ -141,31 +144,43 @@ def test_routes_follow_the_jax_rule_past_1024(samples):
         route("cuda", torch.float32, ct, samples, top + 1, 1, 0.0, method="pallas")
 
 
-@pytest.mark.parametrize("K", [1, 33, 128, 1025, 1152, 2048, 4096, 16384, 16385, 100000])
+def _cu_constant(name: str) -> int:
+    """A constant of csrc/mppi_wide.cu, `constexpr <type> name = a * b ...;`."""
+    text = (_build.CSRC / "mppi_wide.cu").read_text()
+    found = re.search(rf"constexpr \w+ {name} = ([0-9 *]+);", text)
+    assert found, f"csrc/mppi_wide.cu has no constant {name}"
+    return math.prod(int(x) for x in found.group(1).split("*"))
+
+
+@pytest.mark.parametrize("K", [1, 31, 32, 33, 128, 255, 256, 257, 511, 512, 513, 1023, 1024, 1025,
+                               1152, 2047, 2048, 3071, 4096, 4097, 16384, 16385, 32768, 100000])
 def test_wide_plan_fits_the_kernels_budgets(K):
-    """The plan csrc/mppi_wide.cu checks: whole warps, at most WIDE_THREADS,
-    1, 2 or 4 samples a thread, tiles that carry every sample and no empty
-    tile; the row in shared memory exactly where 4 K bytes fit its budget,
-    and the block's shared memory within 227 KB at T*m = WIDE_MAX_TM."""
-    threads, spt, tiles, row_smem = tk.wide_plan(K)
+    """The plan csrc/mppi_wide.cu checks, with the .cu's own constants:
+    whole warps within kMaxThreads, 1, 2 or 4 samples a thread (its
+    instances), tiles that carry every sample and no empty tile, and the
+    block's shared memory (the nominal at kMaxTM, the reductions' kRed
+    partials and a tile's weights) within kSmemMax; the module's limits are
+    the .cu's."""
+    assert (_cu_constant("kMaxThreads"), _cu_constant("kMaxTM")) == \
+        (tk.WIDE_THREADS, tk.WIDE_MAX_TM)
+    threads, spt, tiles = tk.wide_plan(K)
     tile = threads * spt
     assert threads % 32 == 0 and 32 <= threads <= tk.WIDE_THREADS and spt in (1, 2, 4)
     assert tiles * tile >= K > (tiles - 1) * tile and tiles == -(-K // 1024)
-    assert row_smem == (4 * K <= tk.WIDE_ROW_BUDGET)
-    smem = 4 * (tk.WIDE_MAX_TM + 3 * 32 + (K if row_smem else 0))
-    assert smem <= 227 * 1024
+    smem = 4 * ((_cu_constant("kMaxTM") + 3) // 4 * 4 + _cu_constant("kRed") + tile)
+    assert smem <= _cu_constant("kSmemMax")
     assert tk.is_narrow(K, 40, 1) == (K <= tk.MAX_K)
 
 
 def test_wide_plan_at_the_slice():
     """The slice's shapes: 4096 samples in four tiles of 256 threads x 4;
     1152 in two tiles of 160 x 4, not one tile of 1024 and a ragged one;
-    16384 the last row in shared memory, 16385 the first in the scratch."""
-    assert tk.wide_plan(4096) == (256, 4, 4, True)
-    assert tk.wide_plan(2048) == (256, 4, 2, True)
-    assert tk.wide_plan(1152) == (160, 4, 2, True)
-    assert tk.wide_plan(16384) == (256, 4, 16, True)
-    assert tk.wide_plan(16385) == (256, 4, 17, False)
+    16384 in 16 whole tiles, 16385 in 17."""
+    assert tk.wide_plan(4096) == (256, 4, 4)
+    assert tk.wide_plan(2048) == (256, 4, 2)
+    assert tk.wide_plan(1152) == (160, 4, 2)
+    assert tk.wide_plan(16384) == (256, 4, 16)
+    assert tk.wide_plan(16385) == (256, 4, 17)
     assert [tk.kernel_function(K, T, m) for K, T, m in
             ((1024, 1024, 1), (1024, 512, 2), (1025, 40, 1), (256, 513, 2), (4096, 40, 1))] == \
         ["npt_mppi", "npt_mppi", "npt_mppi_wide", "npt_mppi_wide", "npt_mppi_wide"]
@@ -173,10 +188,9 @@ def test_wide_plan_at_the_slice():
 
 @pytest.mark.parametrize("K,T,m", [(4096, 40, 1), (128, 640, 2), (16512, 12, 1)])
 def test_kernel_operands_take_the_wide_sizes(K, T, m):
-    """kernel_operands accepts K = 4096 and T*m = 1280 (and a row past the
-    shared-memory budget), and kernel_args lays out the wide launch: one
-    argument a parameter of npt_mppi_wide but the stream, an (N, K) scratch
-    only where the row leaves shared memory."""
+    """kernel_operands accepts K = 4096, T*m = 1280 and K = 16512, and
+    kernel_args lays out the wide launch: one argument a parameter of
+    npt_mppi_wide but the stream, the plan last, no scratch at any K."""
     name = "pendulum" if m == 1 else "unicycle"
     f = tm.pendulum_step if m == 1 else tm.unicycle_step
     n = 2 if m == 1 else 3
@@ -191,13 +205,9 @@ def test_kernel_operands_take_the_wide_sizes(K, T, m):
                                    sigma=1.0, lam=1.0)
     assert tk.kernel_function(K, T, m) == "npt_mppi_wide"
     assert len(args) == len(_build._SIGNATURES["npt_mppi_wide"]) - 1
-    threads, spt, _, row_smem = tk.wide_plan(K)
-    assert args[-3:] == (threads, spt, int(row_smem))
-    assert len(tensors) == 5 + (not row_smem)
-    if not row_smem:
-        assert tensors[3].shape == (N, K) and args[15] == tensors[3].data_ptr()
-    else:
-        assert args[15] is None
+    threads, spt, _ = tk.wide_plan(K)
+    assert args[-2:] == (threads, spt)
+    assert len(tensors) == 5 and args[10:15] == tuple(t.data_ptr() for t in tensors)
 
 
 def test_kernel_operands_refuse_past_the_wide_limit():

@@ -109,12 +109,14 @@ def test_wide_kernel_matches_plain(device, K, opts):
 # (plant, N, K, T, lam): the slice's shapes at two rounds, T*m past 1024
 # (with a high temperature over a long horizon, as
 # tests/test_torch_sampling_cuda.py test_mppi_kernel_at_its_envelope), a last
-# tile mostly empty, one and two samples a thread at T*m past 1024, and rows
-# past the shared-memory budget (the (N, K) scratch)
+# tile mostly empty, K a multiple of no tile, one and two samples a thread at
+# T*m past 1024, and K past 16384, where the first form kept its row of S in
+# an (N, K) scratch ("scratch_*")
 SHAPES = {"pendulum_4096": ("pendulum", 64, 4096, 40, 1.0),
           "quadrotor_2048": ("planar_quadrotor", 32, 2048, 50, 1.0),
           "unicycle_tm_1280": ("unicycle", 8, 1152, 640, 1e3),
           "pendulum_ragged_tile": ("pendulum", 5, 1025, 12, 1.0),
+          "pendulum_4100_ragged": ("pendulum", 6, 4100, 16, 1.0),
           "unicycle_k128_tm_1280": ("unicycle", 4, 128, 640, 1e3),
           "pendulum_k384_tm_1100": ("pendulum", 3, 384, 1100, 1e3),
           "scratch_16512": ("pendulum", 4, 16512, 12, 1.0),
@@ -162,16 +164,50 @@ def test_wide_kernel_takes_misaligned_views(device, which, K):
     assert torch.allclose(ess, ess_p, rtol=1e-3, atol=0)
 
 
-@pytest.mark.parametrize("K", [4096, 16512])
+@pytest.mark.parametrize("K", [4096, 4100, 16512])
 def test_wide_kernel_is_deterministic(device, K):
     """The wide kernel's reductions run in a fixed order: two launches on the
-    same operands give the same bits (the row in shared memory and in the
-    scratch)."""
+    same operands give the same bits (whole tiles, a ragged last tile, 17
+    tiles)."""
     f, m, x0s, eps, us0 = _case("pendulum", 7, K, 24, device, seed=K, iters=3)
     kw = dict(T=24, iters=3, m=m, lam=1.0, sigma=1.0)
     a = mppi_kernel.mppi_fused(f, _cost("pendulum"), x0s, eps, us0, **kw)
     b = mppi_kernel.mppi_fused(f, _cost("pendulum"), x0s, eps, us0, **kw)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _first_round_costs(name, x0s, eps, us0, T, lam):
+    """S of every sample in the first round, on the plain version's
+    arithmetic (the rollout of u_nom + eps through the plant, the stage and
+    terminal costs, the coupling): (N, K)."""
+    f, m = PLANTS[name][0], PLANTS[name][2]
+    rows, inv_sig2 = _cost(name).rows, 1.0  # sigma = 1
+    x = x0s[:, None, :].expand(x0s.shape[0], eps.shape[2], x0s.shape[1])
+    S = torch.zeros(eps.shape[1:], device=x0s.device)
+    for t in range(T):
+        u = [us0[t * m + a] + eps[t * m + a] for a in range(m)]
+        S = S + rows(list(x.unbind(-1)), u, t)
+        S = S + lam * sum((u[a] - us0[t * m + a]) * (inv_sig2 * us0[t * m + a])
+                          for a in range(m))
+        x = f(x, torch.stack(u, dim=-1))
+    return S + rows(list(x.unbind(-1)), None, T)
+
+
+@pytest.mark.parametrize("lam", [1e-2, 1.0])
+@pytest.mark.parametrize("K", [2048, 4100])
+def test_wide_kernel_running_minimum_best_last(device, K, lam):
+    """The samples ordered by their first round's cost, the worst first, so
+    that every tile lowers the running minimum and the last tile holds the
+    best sample: at lam = 1e-2 the rescale of the earlier tiles' sums falls
+    to 0, as the plain version's weights of those samples do."""
+    T = 12
+    f, m, x0s, eps, us0 = _case("pendulum", 5, K, T, device, seed=K + 7, warm=True)
+    S = _first_round_costs("pendulum", x0s, eps[:T * m], us0, T, lam)
+    order = torch.argsort(S, dim=1, descending=True)  # per scenario
+    eps = torch.gather(eps, 2, order[None].expand_as(eps)).contiguous()
+    S = torch.gather(S, 1, order)
+    assert bool((S[:, -1] <= S[:, 0]).all())
+    _run("pendulum", f, x0s, eps, us0, dict(T=T, iters=2, m=m, lam=lam, sigma=1.0))
 
 
 @pytest.mark.parametrize("eps_stream", ["exact", "direct"])
@@ -212,16 +248,16 @@ def test_a_refused_launch_raises(device, monkeypatch):
 
     monkeypatch.setattr(mppi_kernel, "mppi_fused_reference", plain)
     mppi_kernel.mppi_fused(f, _cost("pendulum"), x0s, eps, us0, **kw)  # the kernel, no fallback
-    monkeypatch.setattr(mppi_kernel, "wide_plan", lambda K: (512, 4, 1, True))
+    monkeypatch.setattr(mppi_kernel, "wide_plan", lambda K: (512, 4, 1))
     before = mppi_kernel.mppi_fused.launches
     with pytest.raises(RuntimeError, match="mppi_fused kernel launch: CUDA error"):
         mppi_kernel.mppi_fused(f, _cost("pendulum"), x0s, eps, us0, **kw)
     assert mppi_kernel.mppi_fused.launches == before
-    # the row in a scratch that is not there: refused by the C side
+    # three samples a thread, which no instance carries: refused by the C side
     monkeypatch.undo()
     args, held = mppi_kernel.kernel_args(f, _cost("pendulum"), x0s, eps, us0, **kw)
     args = list(args)
-    args[15], args[-1] = None, 0  # scratch, row_smem
+    args[-1] = 3  # spt
     assert _build.launch("npt_mppi_wide", device, *args) != 0
     del held
 

@@ -10,7 +10,11 @@ from the repository's root, without the conftest (which imports jax):
     python -m pytest --noconftest tests/test_torch_riccati_wide_cuda.py -q
 
 Covered: every K5 bucket (NB in {16, 32, 48} x MB in {8, 16, 32, 48}, less
-the narrow form's (16, 8)) at its edges, N = 1 and a ragged 1003, T = 0; the
+the narrow form's (16, 8)) at its edges, N = 1 and a ragged 1003, T = 0 and
+T = 1; at n = 48 the warp's inverse of S (m <= 32) and the block's factor
+(m > 32); the formation at N = 529, one past a wave of four blocks on each
+of 132 multiprocessors; the formation with A far from the identity (-As,
+As O), also against float64; the
 formation through riccati_scan_per_scenario ("auto": one K5 launch, "psd":
 T K6b launches); K6a at every n = 17..48; K6b across the narrow form's edge
 (n or r = 16 / 17) and at every wide bucket; misaligned and strided
@@ -27,7 +31,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import formation, stable_plant
+from chip_smoke import (FAR_FROM_I, K5_WIDE_SHAPES, formation, formation_far, scaled_err,
+                        stable_plant)
 from numpower_tpu_torch.kernels import cholesky, riccati
 from numpower_tpu_torch.models import riccati_scan_per_scenario
 from numpower_tpu_torch.utils.smallmat import cholesky_unrolled, psd_solve_unrolled
@@ -70,8 +75,7 @@ def _assert_riccati(As, Bs, costs, T):
 
 
 # each wide bucket (NB, MB) at the (n, m) of its upper edge and one inside it
-K5_SHAPES = [(12, 9), (16, 16), (5, 32), (16, 48), (17, 1), (32, 8), (20, 16), (32, 17),
-             (25, 48), (33, 8), (48, 16), (40, 32), (48, 48), (48, 33)]
+K5_SHAPES = list(K5_WIDE_SHAPES)
 
 
 @pytest.mark.parametrize("N", [1003, 1])
@@ -79,6 +83,47 @@ K5_SHAPES = [(12, 9), (16, 16), (5, 32), (16, 48), (17, 1), (32, 8), (20, 16), (
 def test_riccati_wide_every_bucket(device, n, m, N):
     As, Bs, costs = _stable(N, n, m, device, seed=n * 64 + m)
     _assert_riccati(As, Bs, costs, 3 if max(n, m) > 40 else 6)
+
+
+@pytest.mark.parametrize("n,m", K5_SHAPES)
+def test_riccati_wide_one_step(device, n, m):
+    """T = 1: one step from QF, the gains of its only stage."""
+    As, Bs, costs = _stable(257, n, m, device, seed=n * 64 + m + 1)
+    _assert_riccati(As, Bs, costs, 1)
+
+
+# at n = 48: the warp's register inverse of S for m <= 32 (MB = 8, 16, 32)
+# and the block's factor and substitutions past it (MB = 48)
+@pytest.mark.parametrize("m", [1, 8, 9, 16, 17, 31, 32, 33, 40, 47, 48])
+def test_riccati_wide_inverse_and_factor_at_48(device, m):
+    As, Bs, costs = _stable(1003, 48, m, device, seed=4800 + m)
+    _assert_riccati(As, Bs, costs, 4)
+
+
+def test_riccati_wide_formation_past_a_wave(device):
+    """N = 529: a wave of four blocks on each of 132 multiprocessors and one
+    scenario more."""
+    As, B, Q, R, QF = formation(4, 529)
+    _assert_riccati(torch.as_tensor(As, device=device),
+                    torch.as_tensor(B, device=device).expand(529, 48, 16), (Q, R, QF), 30)
+
+
+@pytest.mark.parametrize("kind", FAR_FROM_I)
+def test_riccati_wide_formation_far_from_identity(device, kind):
+    """The formation's Q, R, QF and T = 30 with A far from I (-As, or As
+    times a random orthogonal matrix): the products must hold the plain
+    version's bounds whatever A is, and stay within four times the plain
+    version's own distance from float64 (phase 28's check)."""
+    As, B, Q, R, QF = formation_far(kind, 4, 1003)
+    As = torch.as_tensor(As, device=device)
+    Bs = torch.as_tensor(B, device=device).expand(1003, 48, 16)
+    _assert_riccati(As, Bs, (Q, R, QF), 30)
+    Ks, P0 = riccati.riccati_batched_fused(As, Bs, Q, R, QF, 30)
+    Ks_p, P0_p = riccati.riccati_batched_reference(As, Bs, Q, R, QF, 30)
+    Ks_64, P0_64 = riccati.riccati_batched_reference(As.double(), Bs.double(), Q, R, QF, 30)
+    e_k = max(scaled_err(Ks, Ks_64, 1e-3, 1e-4), scaled_err(P0, P0_64, 1e-3, 1e-3))
+    e_p = max(scaled_err(Ks_p, Ks_64, 1e-3, 1e-4), scaled_err(P0_p, P0_64, 1e-3, 1e-3))
+    assert e_k <= max(1.0, 4 * e_p), (e_k, e_p)
 
 
 @pytest.mark.parametrize("n,m", [(17, 1), (48, 16), (48, 48)])
