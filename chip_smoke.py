@@ -279,7 +279,9 @@ run right after phase 27:
    (17, 1), (32, 8), (48, 48) (T = 8), K6b
    at the psd route's (4096, 16, 16) x (4096, 16, 48) and at (4096, 48, 48)
    x (4096, 48, 48), K6a at (4096, 48, 48) also against
-   torch.linalg.cholesky, n, m or r = 49 raising ValueError; then the
+   torch.linalg.cholesky, n, m or r = 49 raising ValueError, K6b's SHA-256
+   digests at every bucket (`k6b_wide_checksums`) against those of the
+   kernel before its redesign at NB = 16 (K6B_WIDE_DIGESTS); then the
    path, its counters zeroed just before it: riccati_scan_per_scenario by
    "auto" (one K5 launch) and "psd" (30 K6b launches), cholesky_batched of
    the cost-to-go matrices (one K6a launch), against the plain route in
@@ -334,7 +336,10 @@ before phase 23:
    (33, 17), (64, 8), (130, 67) (T = 13), at (300, 40) (N = 256, T = 8)
    and at (4000, 3) with its tile in a device workspace (N = 9, T = 3), each
    shape's form logged; K10 at n = 17, 48, 130 and 300, T = 2 and 50, and
-   at n = 4000; then the path, its counters zeroed just before it:
+   at n = 4000; the SHA-256 digests of the wide K9's forms 1 and 2 and of
+   the wide K10 (`kalman_wide_checksums`) against those of the kernels
+   before K9's form 0 moved to the tensor cores (K9_WIDE_DIGESTS); then the
+   path, its counters zeroed just before it:
    kalman_filter_batched without and with inputs,
    kalman_filter_sqrt_batched and kalman_smoother_batched by "auto" (one
    launch each) against the "xla" route in float64, and ekf_filter_batched
@@ -342,7 +347,9 @@ before phase 23:
    measured by its first 6 components (N = 1024, T = 50; one K11, one K12
    launch) against the kernels' plain versions (phase 11's bounds); own,
    wrapper and plain times of the wide K9, K10 and of K11 and K12 at
-   p = 6, and the entries' times beside the kernels'.
+   p = 6, the wide K9's bound with its products as TF32 tensor operations
+   (`kalman_wide_ops`) and its all-fp32 figure beside it, and the entries'
+   times beside the kernels'.
 
 The box-QP kernels that form g (or c) from x0 past n = 32 (csrc/boxqp_tile.cuh
 sums the fold in chunks of 32 rows), run after phase 30 and before phase 23:
@@ -4061,6 +4068,51 @@ def riccati_wide_ops(N: int, T_: int, n: int, m: int) -> tuple:
     return N * T_ * cuda, 3 * N * T_ * tc, n_bytes, cost.flops
 
 
+# SHA-256 prefixes of the wide K6b's X (k6b_wide_checksums) from the kernel
+# before its redesign at NB = 16, on one H100 80GB HBM3 (700 W): every bucket
+# keeps those bits
+K6B_WIDE_DIGESTS = {
+    "(16, 16) x 48 N = 4096": "823e163881e066c4",
+    "(16, 16) x 17 N = 1003": "0e9017d3072d6cb3",
+    "(1, 1) x 48 N = 1003": "362cdbca3f1ed740",
+    "(8, 8) x 33 N = 1003": "822fdec6314dea16",
+    "(17, 17) x 1 N = 1003": "f61b58d2baa2a1a1",
+    "(24, 24) x 48 N = 1003": "1f7b6f22e261bd91",
+    "(32, 32) x 17 N = 1003": "69ba5219605bb161",
+    "(33, 33) x 32 N = 1003": "29956b5e1b064566",
+    "(40, 40) x 40 N = 1003": "75bee8e429c6b9b8",
+    "(48, 48) x 48 N = 4096": "d3e13d139ccd106f",
+}
+# (n, r, N) of the wide K6b's digests: every bucket of n (16 .. 48) at r from
+# 1 to 48, with the "psd" route's (16, 16) x 48 and (48, 48) x 48 at N = 4096
+K6B_DIGEST_SHAPES = ((16, 48, 4096), (16, 17, 1003), (1, 48, 1003), (8, 33, 1003),
+                     (17, 1, 1003), (24, 48, 1003), (32, 17, 1003), (33, 32, 1003),
+                     (40, 40, 1003), (48, 48, 4096))
+
+
+def k6b_wide_checksums(dev) -> dict:
+    """{case: (SHA-256 prefix of X, the call)} for the wide K6b at
+    K6B_DIGEST_SHAPES, a = M M' + n I and b N(0, 1) drawn on the host
+    (spd_batch), so that two checkouts whose kernels compute the same bits
+    print the same digests."""
+    import hashlib
+
+    from numpower_tpu_torch.kernels import cholesky
+
+    out = {}
+    for n_, r_, N_ in K6B_DIGEST_SHAPES:
+        a = spd_batch(N_, n_, n_ + r_, dev)
+        b = torch.as_tensor(np.random.default_rng(n_ * 64 + r_).standard_normal((N_, n_, r_)),
+                            dtype=torch.float32, device=dev)
+
+        def call(a=a, b=b):
+            return cholesky.psd_solve_batched(a, b)
+
+        out[f"({n_}, {n_}) x {r_} N = {N_}"] = (
+            hashlib.sha256(call().cpu().numpy().tobytes()).hexdigest()[:16], call)
+    return out
+
+
 def wide_riccati_family(dev, smi: str) -> list:
     """Phase 28: K5, K6a and K6b past n = 16. Each wide kernel against its
     plain version on the card: K5 on the formation (N = 4096 and 1003,
@@ -4073,7 +4125,8 @@ def wide_riccati_family(dev, smi: str) -> list:
     (4096, 48, 48), and ragged, rtol 2e-3 / atol 2e-4 with a residual
     |AX - B| <= 2e-3; K6a at (4096, 48, 48) and ragged, 1e-4 of its plain
     version and of torch.linalg.cholesky, exact zeros above the diagonal;
-    wrapper calls at n = 49, m = 49 and r = 49 raising ValueError. Then the
+    K6b's digests at every bucket against K6B_WIDE_DIGESTS; wrapper calls
+    at n = 49, m = 49 and r = 49 raising ValueError. Then the
     path, its counters zeroed just before it: riccati_scan_per_scenario at
     the formation by "auto" (one K5 launch) and by "psd" (T K6b launches),
     cholesky_batched of the 4096 cost-to-go matrices (one K6a launch), each
@@ -4153,6 +4206,11 @@ def wide_riccati_family(dev, smi: str) -> list:
              "psd": cholesky.psd_solve_batched.launches - f0["psd"],
              "chol": cholesky.cholesky_batched.launches - f0["chol"]}
     require(calls == {"riccati": 7, "psd": 4, "chol": 3}, f"each wide kernel launched ({calls})")
+    digests = {case: d for case, (d, _) in k6b_wide_checksums(dev).items()}
+    for case, d in digests.items():
+        log(f"K6b wide {case}: SHA-256 {d} (before its redesign at NB = 16: "
+            f"{K6B_WIDE_DIGESTS.get(case)})")
+    require(digests == K6B_WIDE_DIGESTS, "every wide K6b bucket gives the parent's bits")
     # past the envelope: n = 49, m = 49, r = 49 raise
     over = {
         "K5 n=49": lambda: riccati.riccati_batched_fused(
@@ -4804,6 +4862,91 @@ def held_against(got, plain, f64, rtol: float, atol: float) -> tuple:
     return e_kp <= floor and e_k <= floor, e_kp, e_k, e_p
 
 
+def kalman_wide_ops(N: int, T_: int, n: int, p: int, has_u: bool) -> tuple:
+    """(fp32 operations on the CUDA cores, TF32 tensor-core operations,
+    bytes, all of the function as fp32) of the wide K9 at (N, T, n, p), with
+    inputs or not, in its form 0. A step of a trajectory: the products x A'
+    (2n^2), x_p C' (2pn), v W_t (2pn) and v invL_t' (2p^2) on the tensor
+    cores in three TF32 passes (3xTF32); on the CUDA cores u_t's add (n, with
+    inputs), v = y_t - (p), x = x_p + (n), |alpha|^2 and ll (2p + 2), counted
+    as n + 4p as the all-fp32 figure counts them. Bytes: A, C, W_t, invL_t,
+    cst_t, x0s and y_t read once, xs_f, xs_p and ll written once, u_t read
+    once with inputs."""
+    products = 2 * n * n + 4 * p * n + 2 * p * p
+    cuda = n + 4 * p + (n if has_u else 0)
+    n_bytes = 4 * (n * n + p * n + T_ * (p * n + p * p + 1) + N * n + T_ * N * p
+                   + 2 * T_ * N * n + N + (T_ * N * n if has_u else 0))
+    return N * T_ * cuda, 3 * N * T_ * products, n_bytes, N * T_ * (products + cuda)
+
+
+# SHA-256 prefixes of the wide K9 in forms 1 and 2 and of the wide K10
+# (kalman_wide_checksums) from the kernels before K9's form 0 moved to the
+# tensor cores, on one H100 80GB HBM3 (700 W): those forms keep their bits
+K9_WIDE_DIGESTS = {
+    "K9 (n, p) = (300, 40) N = 256 T = 8 inputs=False": "233148d11ec15437",
+    "K9 (n, p) = (300, 40) N = 256 T = 8 inputs=True": "f50b8ee64f00aa70",
+    "K9 (n, p) = (4000, 3) N = 9 T = 3 inputs=False": "2a0e36fd12470589",
+    "K9 (n, p) = (4000, 3) N = 9 T = 3 inputs=True": "3cf2bcd9236d0982",
+    "K10 n = 17 N = 1003 T = 2": "d6439be1cd81653c",
+    "K10 n = 17 N = 1003 T = 50": "fa74ac4fece56415",
+    "K10 n = 48 N = 1003 T = 2": "611ab2daa0d084d7",
+    "K10 n = 48 N = 1003 T = 50": "8eae410f7384a833",
+    "K10 n = 130 N = 1003 T = 2": "d841ab4eee2fb348",
+    "K10 n = 130 N = 1003 T = 50": "43aee3ff00f4bdc7",
+    "K10 n = 300 N = 1003 T = 2": "d7507fef3ea5aec1",
+    "K10 n = 300 N = 1003 T = 50": "8b44278b3f822808",
+    "K10 n = 4000 N = 9 T = 3": "2aeecb753fff87c0",
+}
+
+
+def kalman_wide_checksums(dev) -> dict:
+    """{case: (SHA-256 prefix of the outputs, the call)} for the wide K9 at
+    KALMAN_WIDE_FAR (form 1 and form 2), without and with inputs, and the
+    wide K10 at RTS_WIDE_SHAPES (N = 1003, 9 past n = 1000), every operand
+    drawn on the host: for K9 A = 0.9 I + 0.05 N(0, 1) / sqrt(n), C and x0
+    N(0, 1) / sqrt(n), W_t 0.1 N(0, 1) / sqrt(p), invL_t N(0, 1) / sqrt(p),
+    logdet_t N(0, 1), y_t and u_t N(0, 1); for K10 phase 30's operands. Two
+    checkouts whose kernels compute the same bits print the same digests."""
+    import hashlib
+
+    from numpower_tpu_torch.kernels import kalman_mean, rts_mean
+
+    def digest(outputs) -> str:
+        h = hashlib.sha256()
+        for x in outputs:
+            h.update(x.contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    t32 = functools.partial(torch.as_tensor, dtype=torch.float32, device=dev)
+    out = {}
+    for n_, p_, N_, T_ in KALMAN_WIDE_FAR:
+        rng = np.random.default_rng(n_ + p_)
+        ops = [t32(0.9 * np.eye(n_) + 0.05 * rng.standard_normal((n_, n_)) / np.sqrt(n_)),
+               t32(rng.standard_normal((p_, n_)) / np.sqrt(n_)),
+               t32(0.1 * rng.standard_normal((T_, p_, n_)) / np.sqrt(p_)),
+               t32(rng.standard_normal((T_, p_, p_)) / np.sqrt(p_)),
+               t32(rng.standard_normal(T_)), t32(rng.standard_normal((N_, n_)) / np.sqrt(n_)),
+               t32(rng.standard_normal((T_, N_, p_))), t32(rng.standard_normal((T_, N_, n_)))]
+        for inputs in (False, True):
+            def call(args=ops if inputs else ops[:7] + [None]):
+                return kalman_mean.kalman_mean_pass(*args)
+
+            out[f"K9 (n, p) = ({n_}, {p_}) N = {N_} T = {T_} inputs={inputs}"] = (
+                digest(call()), call)
+    for n_, T_ in RTS_WIDE_SHAPES:
+        N_ = 9 if n_ > 1000 else N_RAGGED
+        rng = np.random.default_rng(n_ + T_)
+        G = t32(0.5 * rng.standard_normal((T_ - 1, n_, n_)) / np.sqrt(n_))
+        es = t32(rng.standard_normal((T_ - 1, N_, n_)))
+        xl = t32(rng.standard_normal((N_, n_)))
+
+        def call(G=G, es=es, xl=xl):
+            return (rts_mean.rts_mean_pass(G, es, xl),)
+
+        out[f"K10 n = {n_} N = {N_} T = {T_}"] = (digest(call()), call)
+    return out
+
+
 def wide_estimation_family(dev, smi: str) -> list:
     """Phase 30: the wide K9 and K10, and K11/K12 at p = 6. Each wide kernel
     against its plain version and against float64 (held_against: phase 11's
@@ -4811,7 +4954,8 @@ def wide_estimation_family(dev, smi: str) -> list:
     the plain fp32 version's own distance) at the formation with and without
     inputs (N = 4096 and 1003), KALMAN_WIDE_EDGES (N = 4096, T = T_KF_EDGE),
     KALMAN_WIDE_FAR and RTS_WIDE_SHAPES (N = 1003, the workspace shape at
-    N = 9), each launched once, each shape's form logged. Then the path, its
+    N = 9), each launched once, each shape's form logged; the digests of
+    K9's forms 1 and 2 and of K10 against K9_WIDE_DIGESTS. Then the path, its
     counters zeroed just before it: kalman_filter_batched without and with
     inputs, kalman_filter_sqrt_batched and kalman_smoother_batched at the
     formation by "auto" (one launch each), each against its "xla" route in
@@ -4915,6 +5059,12 @@ def wide_estimation_family(dev, smi: str) -> list:
         k10_calls += 1
     calls = (kalman_mean.kalman_mean_pass.launches - k9_0, rts_mean.rts_mean_pass.launches - k10_0)
     require(calls == (k9_calls, k10_calls), f"each wide K9 / K10 call launched once ({calls})")
+    digests = {case: d for case, (d, _) in kalman_wide_checksums(dev).items()}
+    for case, d in digests.items():
+        log(f"{case}: SHA-256 {d} (before K9's form 0 moved to the tensor cores: "
+            f"{K9_WIDE_DIGESTS.get(case)})")
+    require(digests == K9_WIDE_DIGESTS,
+            "the wide K9's forms 1 and 2 and the wide K10 give the bits they gave before")
 
     # -- phase 30: the path at the formation, counted --------------------------------
     f64 = [M.double() for M in (*kf, q["x0s"], q["P0"], q["yss"])]
@@ -5004,21 +5154,22 @@ def wide_estimation_family(dev, smi: str) -> list:
         own[key] = log_own(names[key], fn, kernels[key], ms[key], smi, calls=20)
         log(f"time {names[key]}: wrapper {ms[key]:.4f} ms, plain {plain_ms[key]:.4f} ms [{smi}]")
     # operations and bytes of the wide kernels' functions (each input read
-    # once, each output written once): K9 a step x_p (2n^2, + n with
-    # inputs), v (2pn + p), x (2pn + n), alpha (2p^2), |alpha|^2 and ll (2p + 2)
-    kf_ops = N * T_KF * (2 * n * n + 4 * p * n + 2 * p * p + n + 4 * p)
-    kf_bytes = 4 * (n * n + p * n + T_KF * (p * n + p * p + 1) + N * n + T_KF * N * p
-                    + 2 * T_KF * N * n + N)
+    # once, each output written once): K9's form 0 by kalman_wide_ops (its
+    # products on the tensor cores), with its all-fp32 figure beside it; K10
+    # 2n^2 a trajectory-step on the CUDA cores
+    work = {key: kalman_wide_ops(N, T_KF, n, p, key == "kf_u") for key in ("kf", "kf_u")}
     rts_ops = N * (T_KF - 1) * 2 * n * n
     rts_bytes = 4 * ((T_KF - 1) * n * n + (T_KF - 1) * N * n + N * n + T_KF * N * n)
-    for key, ops, n_bytes in (("kf", kf_ops, kf_bytes),
-                              ("kf_u", kf_ops + N * T_KF * n, kf_bytes + 4 * T_KF * N * n),
-                              ("rts", rts_ops, rts_bytes)):
-        bound = max(ops / FP32_FLOP_PER_S, n_bytes / HBM_BYTES_PER_S) * 1e3
+    work["rts"] = (rts_ops, 0, rts_bytes, rts_ops)
+    for key, (cuda_ops, tf32_ops, n_bytes, fp32_all) in work.items():
+        bound = max(cuda_ops / FP32_FLOP_PER_S, tf32_ops / TF32_TENSOR_FLOP_PER_S,
+                    n_bytes / HBM_BYTES_PER_S) * 1e3
         share = "not measured" if own[key][0] is None else \
             f"{100 * bound / (own[key][0] / 1e3):.1f}% of it by its own time"
-        log(f"time {names[key]}: bound {bound:.4f} ms ({ops / 1e9:.3f} GFLOP, "
-            f"{n_bytes / 1e6:.1f} MB), {share} [{smi}]")
+        log(f"time {names[key]}: bound {bound:.4f} ms ({n_bytes / 1e6:.1f} MB, "
+            f"{tf32_ops / 1e9:.3f} GFLOP TF32, {cuda_ops / 1e9:.3f} GFLOP fp32 on the CUDA "
+            f"cores; all of it as fp32 {fp32_all / 1e9:.3f} GFLOP, "
+            f"{fp32_all / FP32_FLOP_PER_S * 1e3:.4f} ms), {share} [{smi}]")
     entry_ms = {
         "kalman_filter_batched": cuda_ms(
             lambda: kalman_filter_batched(*kf, q["x0s"], q["P0"], q["yss"]), **slow),
@@ -5037,7 +5188,7 @@ def wide_estimation_family(dev, smi: str) -> list:
     return [
         kernel_entry(f"kalman_mean_pass (wide, n = {n}, p = {p})", "kalman_wide.cu",
                      "kalman_batched.py:93", launches["kf"], err["kf"], ms["kf"], plain_ms["kf"],
-                     kf_bytes, kf_ops),
+                     work["kf"][2], work["kf"][0], tf32_ops=work["kf"][1]),
         kernel_entry(f"rts_mean_pass (wide, n = {n})", "kalman_wide.cu", "rts_batched.py:66",
                      launches["rts"], err["rts"], ms["rts"], plain_ms["rts"], rts_bytes, rts_ops),
     ]

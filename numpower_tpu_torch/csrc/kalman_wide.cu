@@ -15,53 +15,74 @@
 //
 // What bounds it. Each step is a chain of small products of a tile of
 // trajectories with matrices every trajectory shares: at the four-quadrotor
-// formation (n = 48, p = 24, N = 4096, T = 50) K9 does N T (2n^2 + 4np +
-// 2p^2 + n + 4p) = 2.15 GFLOP, 32.1 us at the H100's 67 TFLOP/s of fp32,
+// formation (n = 48, p = 24, N = 4096, T = 50) K9's products are N T (2n^2 +
+// 4np + 2p^2) = 2.12 GFLOP, 12.9 us on the tensor cores in three TF32
+// passes (3 x 2.12 GFLOP at 495 TFLOP/s; 32.1 us were it all fp32 at 67),
 // against 99.1 MB of data and outputs (29.6 us at 3.35 TB/s; 138.4 MB and
-// 41.3 us with inputs): operations without inputs, bytes with them. K10 moves
-// 78.6 MB (23.5 us) for 0.92 GFLOP (13.8 us): bytes. One lane a trajectory
-// holding x in registers (the narrow forms) spills past n = 16 and runs
-// every product as n^2 dependent FMAs on one lane. So here:
-//   - a block of 256 threads takes a tile of S trajectories (32, halved
-//     while the block's shared memory does not fit, to 4), and each product
-//     of a step is a tile product over its threads: a thread computes 4
-//     trajectories x 4 output components in registers, over the depth in
-//     quads of 4, from 16-byte shared loads of the tile's rows and of the
-//     matrix (8 loads a 64 FMAs), with rolled loops over runtime n and p:
-//     no bucket, no unrolled 48-wide instance (the lesson of the wide K5
-//     and K7: those spilled and took minutes to compile);
-//   - the tile's x, x_p and v live in shared memory, zero padded to
-//     multiples of 4, each row stride an odd count of 16-byte pieces so that
-//     the eight rows a quarter warp reads meet no bank conflict (a thread's
-//     4 rows are s = st + (S / 4) a, a < 4); A and C (K9) and x0 are copied
-//     once, W_t and invL_t (K9) or G_t' (K10) and the tile's rows of y_t and
-//     u_t (e_t) one step ahead by cp.async into two buffers, while the step
-//     before computes;
-//   - the step's three dependent phases (x_p; v; x and alpha, the last two
-//     products on distinct threads) are split by block barriers, and a
-//     phase stores the state the phase before made (x_p, x_f) as one
-//     contiguous run of S rows, a warp a row;
-//   - each trajectory's ll is reduced over the alpha tiles' partial sums in
-//     a fixed order by one thread, so a run is reproducible bit for bit;
-//   - where the matrices do not fit beside the tile (K9 past about
-//     (120, 60), K10 past n = 160) they are read through L1 (__ldg) instead
-//     (form 1), and where even a tile of 4 trajectories does not fit (n + p
-//     past about 3,500) the tile lives in a device workspace the wrapper
-//     allocates (form 2). No (n, p) is refused for its size.
-// Every sum over the depth runs in ascending order, as one dot product (in
-// blocks of 128 past that depth, each block's sum added in order).
+// 41.3 us with inputs): bytes. K10 moves 78.6 MB (23.5 us) for 0.92 GFLOP
+// (13.8 us): bytes. The recurrence leaves a block no parallelism but its
+// tile's rows and a product's output columns, so a step is a chain of three
+// dependent products, each a few k-steps deep. K9's form 0:
+//   - a block of eight warps takes a tile of 16 trajectories (one m16 row
+//     tile; 2 blocks an SM at N = 4096), and each product of a step runs on
+//     the tensor cores: mma.sync m16n8k8 in the rounded 3xTF32 form of
+//     tf32_mma.cuh (hi rounded to the nearest TF32; each k-step's hi*hi from
+//     a fresh accumulator added in fp32), the A fragment of the tile by
+//     ldmatrix, the matrix's B words by 32-bit shared loads (A, C, invL_t as
+//     rows at a stride of an odd count of 16-byte pieces, W_t depth-major at
+//     a stride of 8 or 24 mod 32: no bank conflict). The algebra is the JAX
+//     kernel's: x_p = x A' + u_t, v = y_t - x_p C', then x = x_p + v W_t
+//     and alpha = v invL_t', the three products in that order;
+//   - each phase's n8 output tiles are spread over the warps, one at a time
+//     a warp: x A' (6 tiles at the formation), then x_p C' (3) beside the
+//     previous step's alpha (3; v in two buffers, so a step's v is read in
+//     the next), then x = x_p + v W_t (6): the step's chain is three
+//     products, the last 3 k-steps deep; a product's k-loop holds no branch
+//     (the next k-step's fragments are loaded before this one's products,
+//     the last one's again), since a branch there put a WARPSYNC before
+//     every ldmatrix and mma.sync;
+//   - x, x_p and v live in shared memory, zero padded to multiples of 8;
+//     A and C are copied once; the last two warps, idle in every phase at
+//     n = 48, issue the step's cp.async copies, one part a phase: W_t (a
+//     step ahead into two buffers, or at the step into one where two do not
+//     fit) beside x A', the tile's rows of y and u of the next step beside
+//     x_p C', invL_t (one buffer, read in the next step) beside v W_t;
+//   - x_f and x_p also go to dense buffers, and one thread stores each as
+//     one bulk copy (cp.async.bulk) after the writers' proxy fence and a
+//     barrier, double buffered (16-byte stores of every thread where the run
+//     is not 16-byte aligned; from the tile, a warp a row, where the dense
+//     buffers do not fit);
+//   - each trajectory's ll is summed over the alpha tiles' row sums, each
+//     reduced by shuffles in a fixed order, so a run is reproducible bit
+//     for bit; the arithmetic is the form's before alpha moved (its means
+//     and ll held the same distances from plain and float64).
+// Where form 0 does not fit in shared memory (K9 past about (140, 70)),
+// forms 1 and 2 keep the CUDA cores' tile products below (kalman_wide_ffma_
+// kernel): a block of 256 threads takes S trajectories (32, halved to 4
+// while its shared memory does not fit), a thread 4 trajectories x 4
+// output components over the depth in quads of 4 from 16-byte shared loads,
+// the matrices read through L1 (form 1), and past n + p of about 3,500 the
+// tile in a device workspace the wrapper allocates (form 2). K10 keeps that
+// design in all three forms (its form 0 with G_t' in shared memory). No
+// (n, p) is refused for its size. In forms 1 and 2 and K10 every sum over
+// the depth runs in ascending order, as one dot product (in blocks of 128
+// past that depth, each block's sum added in order).
 //
-// Measured (H100 80GB HBM3, 700 W; probes/estimation_wide.py at the
-// formation): K9 303 us own (330 with inputs), 10.6% of its operations
-// bound; K10 116 us, 20.3% of its bytes bound. Taken out one at a time from
-// K9's 303 us: the tile products 140 us, the stores of x_f and x_p 65 us,
-// the staged copies 3 us; the rest (epilogues, barriers, ll), ~100 us, is
-// latency: one block of 8 warps an SM at N = 4096. Measured away: a tile
-// summed by 2-4 threads and joined by shuffles (412 us: the shuffles share
-// the shared-memory pipe the products already fill), 96 or 128 threads a
-// block (425, 403 us), tiles of 16 or 8 trajectories (326, 568 us); 512
-// threads gave 286 us, not taken (it halves the registers a thread may
-// hold, which the larger forms use).
+// Measured (H100 80GB HBM3, 700 W; probes/kalman_wide_turns.py at the
+// formation, in turns with the form before, 301-302 us own): K9 form 0
+// 157.3-157.4 us own (161.3-161.4 with inputs, 328.6-328.7 before), 19% of
+// its bytes bound; K10 116 us, 20.3% of its bytes bound. With alpha beside
+// v W_t and the copies on the last warp alone, the same products ran 181-184
+// us: that warp's copies (~3,200 cycles of a ~6,400-cycle step) held the
+// barrier after x A'. Now the copies cost nothing measurable (taken out:
+// 165.3 against 165.8 us by events), alpha ~8 us (no_alpha 158.0); one
+// copying warp instead of two ran as fast (163.9). Earlier forms of this
+// design: every mma.sync replaced by an add ran as fast (the tensor cores
+// cost nothing here); four warps a block, two tiles a warp (245-250 us); the
+// tile kept as its TF32 hi and lo planes (242-245 us, and no room at (130,
+// 67)); the cross terms in two accumulators, or from fresh ones (no faster);
+// the k-loop unrolled 1, 3 or 6 times (within 3%); x_p C' split over two
+// halves of its depth (184 against 173 unsplit).
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -70,18 +91,31 @@
 #include <cstdint>
 
 #include "async_copy.cuh"
+#include "tf32_mma.cuh"
 
 namespace kalman_wide {
 
-constexpr int kMaxTile = 32;  // trajectories a block (S), at most
+constexpr int kMaxTile = 32;  // trajectories a block (S), at most, of forms 1 and 2
 constexpr int kMinTile = 4;   // a thread's 4 rows
-constexpr int kThreads = 256;  // a block's
+constexpr int kThreads = 256;  // a block's, forms 1 and 2
+constexpr int kMmaTile = 16;      // trajectories a block of form 0: one m16 row tile
+constexpr int kMmaThreads = 256;  // form 0's block: eight warps
+constexpr int kMmaWarps = kMmaThreads / 32;
 
 __host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
+__host__ __device__ inline int round8(int x) { return (x + 7) & ~7; }
 
 // A row stride of at least x floats (x a multiple of 4) with an odd count of
 // 16-byte pieces: consecutive rows start in distinct 16-byte bank groups.
 __host__ __device__ inline int odd_stride(int x) { return ((x >> 2) & 1) ? x : x + 4; }
+
+// A row stride of at least x floats (x a multiple of 4) that is 8 or 24 mod
+// 32: the 32-bit loads of an m16n8k8 B fragment from a depth-major matrix
+// (rows k + t and k + t + 4, columns j + g: lane (g, t)) meet no bank conflict.
+__host__ __device__ inline int depth_stride(int x) {
+  while ((x & 31) != 8 && (x & 31) != 24) x += 4;
+  return x;
+}
 
 __host__ __device__ inline int log2_of(int x) {
   int l = 0;
@@ -99,23 +133,55 @@ struct Geo {
   int oA, oC, oW, oL, oG, oX, oXp, oV, oPart, oY, oU, oE;
   int wBuf, lBuf, gBuf, yBuf, uBuf, eBuf;  // floats of one buffer of each staged input
   int floats;                              // the block's floats in all
+  // K9's form 0 alone: W_t's row stride; the dense buffers of x_f and x_p
+  // (oSF, oSP, sBuf floats each), present where `dense`, for the bulk
+  // stores; the buffers of W_t (2: staged a step ahead; 1: at the step)
+  int ldW, oSF, oSP, sBuf, dense, wBufs;
 };
 
-// K9's layout in form `form` (0: matrices and tile in shared memory, the
-// inputs staged; 1: the matrices read through L1; 2: the tile in the
-// workspace, nothing staged) for tiles of S trajectories.
+// K9's layout in form 0 (tensor cores; matrices, tile and inputs in shared
+// memory) for a tile of kMmaTile trajectories: n and p padded to multiples of
+// 8 (the products' k-steps and n8 tiles, zeros past the edges); the tile's
+// x, x_p, v (two buffers: a step's v is read in the next) and the matrices
+// read as rows (A, C, invL_t) at strides of an odd count of 16-byte pieces
+// (ldmatrix's eight rows and the B fragments' 32-bit loads meet no bank
+// conflict), W_t depth-major at depth_stride; invL_t in one buffer (staged
+// in its step's last phase, read in the next step); with `dense` two
+// buffers each of x_f and x_p as dense runs of rows x n.
+inline Geo layout_k9_mma(int n, int p, bool has_u, int w_bufs, int dense) {
+  Geo g{};
+  constexpr int S = kMmaTile;
+  g.n = n, g.p = p, g.nP = round8(n), g.pP = round8(p), g.S = S;
+  g.ldX = odd_stride(g.nP), g.ldV = odd_stride(g.pP);
+  g.ldA = odd_stride(g.nP), g.ldC = odd_stride(g.nP), g.ldL = odd_stride(g.pP);
+  g.ldW = depth_stride(g.nP);
+  g.wBufs = w_bufs, g.dense = dense;
+  int o = 0;
+  g.oA = o, o += g.nP * g.ldA;
+  g.oC = o, o += g.pP * g.ldC;
+  g.wBuf = g.pP * g.ldW, g.oW = o, o += w_bufs * g.wBuf;
+  g.lBuf = g.pP * g.ldL, g.oL = o, o += g.lBuf;
+  g.oX = o, o += S * g.ldX;
+  g.oXp = o, o += S * g.ldX;
+  g.oV = o, o += 2 * S * g.ldV;
+  g.oPart = o, o += (g.pP / 8) * S;
+  g.yBuf = async_copy::slot_floats(S * p), g.oY = o, o += 2 * g.yBuf;
+  g.uBuf = has_u ? async_copy::slot_floats(S * n) : 0, g.oU = o, o += 2 * g.uBuf;
+  g.sBuf = dense ? round4(S * n) : 0;
+  g.oSF = o, o += 2 * g.sBuf;
+  g.oSP = o, o += 2 * g.sBuf;
+  g.floats = o;
+  return g;
+}
+
+// K9's layout in forms 1 (the matrices read through L1, the inputs staged)
+// and 2 (the tile in the workspace, nothing staged) for tiles of S
+// trajectories.
 inline Geo layout_k9(int n, int p, int S, int form, bool has_u) {
   Geo g{};
   g.n = n, g.p = p, g.nP = round4(n), g.pP = round4(p), g.S = S, g.lgST = log2_of(S / 4);
   g.ldX = odd_stride(g.nP), g.ldV = odd_stride(g.pP);
-  g.ldA = odd_stride(g.nP), g.ldC = odd_stride(g.nP), g.ldL = odd_stride(g.pP);
   int o = 0;
-  if (form == 0) {
-    g.oA = o, o += g.nP * g.ldA;
-    g.oC = o, o += g.pP * g.ldC;
-    g.wBuf = g.pP * g.nP, g.oW = o, o += 2 * g.wBuf;  // W_t depth-major: (p, n), stride nP
-    g.lBuf = g.pP * g.ldL, g.oL = o, o += 2 * g.lBuf;
-  }
   g.oX = o, o += S * g.ldX;
   g.oXp = o, o += S * g.ldX;
   g.oV = o, o += S * g.ldV;
@@ -170,6 +236,26 @@ __device__ __forceinline__ void stage_rows(float* dst, int ld, const float* src,
   }
 }
 
+// A thread's share of staging a (rows x cols) row-major matrix from device
+// memory into shared memory at row stride ld, the same shape every step:
+// its first 16-byte piece's Walk formed once, so that a step's copy divides
+// nothing; stage_rows where the rows are not whole 16-byte pieces.
+struct RowStager {
+  Walk w;
+  int rows, cols, ld;
+  __device__ RowStager(int rows_, int cols_, int ld_, int tid, int nthr)
+      : w(tid, nthr, max(1, cols_ >> 2)), rows(rows_), cols(cols_), ld(ld_) {}
+  __device__ void operator()(float* dst, const float* src, int tid, int nthr) const {
+    if ((cols & 3) != 0 || (reinterpret_cast<uintptr_t>(src) & 15u) != 0) {
+      stage_rows(dst, ld, src, rows, cols, tid, nthr);
+      return;
+    }
+    for (Walk v = w; v.r < rows; v.next())
+      __pipeline_memcpy_async(dst + v.r * ld + 4 * v.c,
+                              src + static_cast<size_t>(v.r) * cols + 4 * v.c, 16);
+  }
+};
+
 // rows x n floats of the tile (row stride ld) to the contiguous run at dst:
 // a warp a row, its lanes along it.
 __device__ __forceinline__ void store_rows(float* __restrict__ dst, const float* src, int ld,
@@ -196,15 +282,6 @@ __device__ __forceinline__ float4 ldg4(const float* row, int k, int kmax) {
 // M[4kq + d][4jt .. 4jt+3]. In shared memory (zero padded), or in device
 // memory (rows x cols at stride ld, read through L1 with zeros past the
 // edges).
-struct SharedRows {
-  const float* base;
-  int ld, jt, JT;
-  __device__ void operator()(int kq, float4 (&m)[4]) const {
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      m[c] = *reinterpret_cast<const float4*>(base + (jt + JT * c) * ld + 4 * kq);
-  }
-};
 struct SharedDepth {
   const float* base;
   int ld, jt;
@@ -296,13 +373,305 @@ struct K9Args {
   int N, T;
 };
 
-// The kernels keep room for two blocks an SM (128 registers a thread) in the
-// shared-memory forms, one in the workspace form, whose guarded reads of
-// device memory need more registers (K10's spilled at 128).
+// The bulk copies (the TMA's cp.async.bulk) that take form 0's stores off
+// its threads: a dense run of shared memory to device memory, issued by one
+// thread after every writer's proxy fence and a block barrier, in bulk
+// groups that the issuing thread waits for before a buffer is written again.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_store(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(tf32_mma::smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// the reads of every bulk group but the last kPending done
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kPending) : "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// A product's B operand for one n8 output tile, B(k, c) = m[c sc + k sk]
+// from the tile's first column (in shared memory, zero padded), as lane
+// (g, t)'s words of its fragments: B(8kk + t, g) at q[kk step] and
+// B(8kk + t + 4, g) at q[kk step + off].
+struct BLane {
+  const float* q;
+  int step, off;
+  __device__ BLane(const float* m, int sc, int sk, int g, int t)
+      : q(m + g * sc + t * sk), step(8 * sk), off(4 * sk) {}
+  __device__ void load(uint32_t (&b)[2], int kk) const {
+    b[0] = __float_as_uint(q[kk * step]);
+    b[1] = __float_as_uint(q[kk * step + off]);
+  }
+};
+
+// One k-step of one n8 tile in the rounded 3xTF32 form (tf32_mma.cuh's mma3
+// with kRound, for a tile alone): cr += lo(a) hi(b) + hi(a) lo(b), and hi(a)
+// hi(b) from a fresh accumulator added to hh in fp32.
+__device__ __forceinline__ void mma3_tile(float (&hh)[4], float (&cr)[4], const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4], const uint32_t (&b)[2]) {
+  uint32_t bh[2], bl[2];
+  tf32_mma::split_tf32<true>(b[0], bh[0], bl[0]);
+  tf32_mma::split_tf32<true>(b[1], bh[1], bl[1]);
+  tf32_mma::mma_tf32(cr, al, bh);
+  tf32_mma::mma_tf32(cr, ah, bl);
+  float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  tf32_mma::mma_tf32(part, ah, bh);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) hh[e] += part[e];
+}
+
+// out = the tile's 16 rows (A operand at a_addr, this lane's ldmatrix
+// address: rows lane % 8 + 8 ((lane / 8) % 2), depths 4 (lane / 16)) times
+// one n8 tile of B over `ksteps` k-steps of 8, k ascending. The fragments of
+// k-step kk + 1 are loaded before k-step kk's products (ldmatrix and
+// mma.sync are volatile asm, kept in source order), the last k-step's again
+// at the end: no branch in the loop, since a branch there put a WARPSYNC
+// before every ldmatrix and mma.sync. out[e] is entry (g + 8 (e >> 1),
+// 2t + (e & 1)).
+__device__ __forceinline__ void rows_product(float (&out)[4], uint32_t a_addr, int ksteps,
+                                             const BLane& bl) {
+  float hh[4] = {}, cr[4] = {};
+  uint32_t a[4], b[2];
+  tf32_mma::ldsm_x4(a, a_addr);
+  bl.load(b, 0);
+  for (int kk = 0; kk < ksteps; ++kk) {
+    uint32_t ah[4], al[4];
+    const uint32_t bk[2] = {b[0], b[1]};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tf32_mma::split_tf32<true>(a[e], ah[e], al[e]);
+    const int next = min(kk + 1, ksteps - 1);
+    tf32_mma::ldsm_x4(a, a_addr + 32 * next);
+    bl.load(b, next);
+    mma3_tile(hh, cr, ah, al, bk);
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) out[e] = hh[e] + cr[e];
+}
+
+// K9's form 0: a block of eight warps takes kMmaTile trajectories; the
+// step's three dependent products on the tensor cores, each phase's n8
+// output tiles spread over the warps, one at a time: x A' (phase A), x_p C'
+// and the previous step's alpha = v invL' (phase B), v W_t (phase C); the
+// step's copies issued by the last two warps, idle in every phase at n = 48.
+__global__ void __launch_bounds__(kMmaThreads, 2) kalman_wide_kernel(const K9Args a, const Geo g) {
+  extern __shared__ float4 smem4[];
+  float* const sm = reinterpret_cast<float*>(smem4);
+  constexpr int S = kMmaTile;
+  constexpr int kStagers = 64;  // the last two warps' threads
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;  // the fragments' (g, t)
+  const int n = g.n, p = g.p, N = a.N, T = a.T;
+  const int JA = g.nP >> 3, JB = g.pP >> 3, KA = g.nP >> 3, KB = g.pP >> 3;
+  const int s0 = blockIdx.x * S, rows = min(S, N - s0);
+  const bool has_u = a.us != nullptr, dense = g.dense != 0, two_w = g.wBufs == 2;
+  const int vBuf = S * g.ldV;  // floats of one buffer of v
+  float* const X = sm + g.oX;
+  float* const Xp = sm + g.oXp;
+  float* const part = sm + g.oPart;
+  const float* const Lt = sm + g.oL;
+  // this lane's ldmatrix row address in a tile of row stride ld
+  const int a_row = (lane & 7) + 8 * ((lane >> 3) & 1), a_col = 4 * (lane >> 4);
+  const uint32_t aX = tf32_mma::smem_u32(X + a_row * g.ldX + a_col);
+  const uint32_t aXp = tf32_mma::smem_u32(Xp + a_row * g.ldX + a_col);
+  const uint32_t aV = tf32_mma::smem_u32(sm + g.oV + a_row * g.ldV + a_col);
+
+  for (int e = tid; e < g.floats; e += kMmaThreads) sm[e] = 0.0f;
+  __syncthreads();
+  stage_rows(sm + g.oA, g.ldA, a.A, n, n, tid, kMmaThreads);
+  stage_rows(sm + g.oC, g.ldC, a.C, p, n, tid, kMmaThreads);
+  stage_rows(X, g.ldX, a.x0s + static_cast<size_t>(s0) * n, rows, n, tid, kMmaThreads);
+
+  // the copies are issued by the last two warps alone (the ones the
+  // products leave idle where n <= 48 and p <= 24), spread over the step's
+  // phases: W (phase A), the tile's rows of y and u (B), invL_t (C)
+  const int st = tid - (kMmaThreads - kStagers);
+  const bool stager = st >= 0;
+  // the rows' ll, kept by the last warp's lanes
+  const bool keeps_ll = warp == kMmaWarps - 1 && lane < rows;
+  const RowStager stage_w(p, n, g.ldW, st, kStagers), stage_l(p, p, g.ldL, st, kStagers);
+  auto stage_wt = [&](int t, int b) {  // W_t into buffer b
+    stage_w(sm + g.oW + b * g.wBuf, a.W + static_cast<size_t>(t) * p * n, st, kStagers);
+  };
+  auto stage_yu = [&](int t) {  // the tile's rows of y_t and u_t into buffer t % 2
+    const int b = t & 1;
+    async_copy::copy_run_by_block(sm + g.oY + b * g.yBuf,
+                                  a.ys + (static_cast<size_t>(t) * N + s0) * p, rows * p, st,
+                                  kStagers);
+    if (has_u)
+      async_copy::copy_run_by_block(sm + g.oU + b * g.uBuf,
+                                    a.us + (static_cast<size_t>(t) * N + s0) * n, rows * n, st,
+                                    kStagers);
+  };
+  // rows x n floats of x_f or x_p of step t out: from the dense buffer by one
+  // bulk copy where the run is 16-byte aligned (a bulk group a call, empty
+  // otherwise, so that the waits below count alike), else by 16-byte stores
+  // of every thread; without dense buffers from the tile, a warp a row
+  auto store = [&](float* out, int t, const float* dense_src, const float* tile) {
+    float* const dst = out + (static_cast<size_t>(t) * N + s0) * n;
+    const int bytes = 4 * rows * n;
+    if (!dense) {
+      store_rows(dst, tile, g.ldX, rows, n, tid, kMmaThreads);
+    } else if (((reinterpret_cast<uintptr_t>(dst) | static_cast<uintptr_t>(bytes)) & 15u) == 0) {
+      if (tid == 0) bulk_store(dst, dense_src, bytes), bulk_commit();
+    } else {
+      if (tid == 0) bulk_commit();
+      async_copy::store_run_by_block(dst, dense_src, rows * n, tid, kMmaThreads);
+    }
+  };
+  // a phase's output tile j and its entry e: the trajectory (row) and component
+  auto row_of = [&](int e) { return gq + 8 * (e >> 1); };
+  auto col_of = [&](int j, int e) { return 8 * j + 2 * tq + (e & 1); };
+  // tile j of alpha = v invL' (v in buffer b, invL in its buffer): the rows'
+  // |alpha|^2 over its 8 columns, in a fixed order, into part
+  auto alpha_tile = [&](int j, int b) {
+    float out[4];
+    rows_product(out, aV + 4 * b * vBuf, KB, BLane(Lt + 8 * j * g.ldL, g.ldL, 1, gq, tq));
+    float lo = out[0] * out[0], hi = out[2] * out[2];
+    lo = fmaf(out[1], out[1], lo);
+    hi = fmaf(out[3], out[3], hi);
+    lo = lo + __shfl_xor_sync(0xffffffffu, lo, 1);
+    hi = hi + __shfl_xor_sync(0xffffffffu, hi, 1);
+    lo = lo + __shfl_xor_sync(0xffffffffu, lo, 2);
+    hi = hi + __shfl_xor_sync(0xffffffffu, hi, 2);
+    if (tq == 0) part[j * S + gq] = lo, part[j * S + gq + 8] = hi;
+  };
+  // ll -= 0.5 |alpha|^2 + cst of the step whose squares part holds
+  float ll = 0.0f;
+  auto add_ll = [&](float cst) {
+    float sq = 0.0f;
+    for (int j = 0; j < JB; ++j) sq = sq + part[j * S + lane];
+    ll = ll - 0.5f * sq - cst;
+  };
+
+  // three commit groups a step, in this order: W (phase A), y and u (B),
+  // invL (C); so the step's first wait leaves only the last step's invL in
+  // flight, and the wait before phase B lands it
+  if (stager && two_w) stage_wt(0, 0);
+  __pipeline_commit();
+  if (stager) stage_yu(0);
+  __pipeline_commit();
+  __pipeline_commit();
+  float cst_prev = 0.0f;
+  for (int t = 0; t < T; ++t) {
+    const float cst_t = __ldg(a.cst + t);  // used a step later
+    __pipeline_wait_prior(1);
+    if (dense && tid == 0) bulk_wait_read<2>();  // x_p of step t - 2 has left its buffer
+    __syncthreads();  // step t's inputs landed; step t - 1 done
+    const int wb = two_w ? (t & 1) : 0;
+    const size_t run = static_cast<size_t>(t) * N + s0;  // the tile's first row at step t
+
+    // phase A: x_f of step t - 1 out; W of step t + 1 (two buffers) or t in;
+    // x_p = x A' + u_t
+    if (t > 0) store(a.xf, t - 1, sm + g.oSF + ((t - 1) & 1) * g.sBuf, X);
+    if (stager) {
+      if (!two_w) stage_wt(t, 0);
+      else if (t + 1 < T) stage_wt(t + 1, (t + 1) & 1);
+    }
+    __pipeline_commit();
+    {
+      const float* U = nullptr;
+      if (has_u) {
+        const float* const src = a.us + run * n;
+        U = sm + g.oU + (t & 1) * g.uBuf + async_copy::run_offset(src);
+      }
+      float* const SP = sm + g.oSP + (t & 1) * g.sBuf;
+      for (int j = warp; j < JA; j += kMmaWarps) {
+        float out[4];
+        rows_product(out, aX, KA, BLane(sm + g.oA + 8 * j * g.ldA, g.ldA, 1, gq, tq));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = row_of(e), c = col_of(j, e);
+          const bool real = r < rows && c < n;
+          float v = out[e];
+          if (U != nullptr && real) v = v + U[r * n + c];
+          Xp[r * g.ldX + c] = v;
+          if (dense && real) SP[r * n + c] = v;
+        }
+      }
+    }
+    __pipeline_wait_prior(1);  // invL of step t - 1 landed
+    if (dense) fence_proxy_async();
+    __syncthreads();
+
+    // phase B: x_p out; the rows of y and u of step t + 1 in; v = y_t - x_p
+    // C' into v's buffer t % 2, and alpha of step t - 1 from the other:
+    // x_p C''s JB tiles, then alpha's, as one list over the warps
+    store(a.xp, t, sm + g.oSP + (t & 1) * g.sBuf, Xp);
+    if (stager && t + 1 < T) stage_yu(t + 1);
+    __pipeline_commit();
+    {
+      const float* const src = a.ys + run * p;
+      const float* const Y = sm + g.oY + (t & 1) * g.yBuf + async_copy::run_offset(src);
+      float* const V = sm + g.oV + (t & 1) * vBuf;
+      for (int u = warp; u < (t > 0 ? 2 * JB : JB); u += kMmaWarps) {
+        if (u >= JB) {
+          alpha_tile(u - JB, (t - 1) & 1);
+          continue;
+        }
+        float out[4];
+        rows_product(out, aXp, KA, BLane(sm + g.oC + 8 * u * g.ldC, g.ldC, 1, gq, tq));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = row_of(e), c = col_of(u, e);
+          const float y = (r < rows && c < p) ? Y[r * p + c] : 0.0f;
+          V[r * g.ldV + c] = y - out[e];
+        }
+      }
+    }
+    if (!two_w) __pipeline_wait_prior(1);  // W_t landed
+    if (dense && tid == 0) bulk_wait_read<3>();  // x_f of step t - 2 has left its buffer
+    __syncthreads();
+
+    // phase C: invL_t in; ll of step t - 1; x = x_p + v W_t
+    if (stager) stage_l(sm + g.oL, a.iL + static_cast<size_t>(t) * p * p, st, kStagers);
+    __pipeline_commit();
+    if (t > 0 && keeps_ll) add_ll(cst_prev);
+    {
+      const float* const Wt = sm + g.oW + wb * g.wBuf;
+      float* const SF = sm + g.oSF + (t & 1) * g.sBuf;
+      const uint32_t aVt = aV + 4 * (t & 1) * vBuf;
+      for (int q = warp; q < JA; q += kMmaWarps) {
+        float out[4];
+        rows_product(out, aVt, KB, BLane(Wt + 8 * q, 1, g.ldW, gq, tq));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = row_of(e), c = col_of(q, e);
+          const float v = Xp[r * g.ldX + c] + out[e];
+          X[r * g.ldX + c] = v;
+          if (dense && r < rows && c < n) SF[r * n + c] = v;
+        }
+      }
+    }
+    if (dense) fence_proxy_async();
+    cst_prev = cst_t;
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();  // step T - 1's v and invL in place
+  for (int j = warp; j < JB; j += kMmaWarps) alpha_tile(j, (T - 1) & 1);
+  __syncthreads();
+  if (keeps_ll) {
+    add_ll(cst_prev);
+    a.ll[s0 + lane] = ll;
+  }
+  store(a.xf, T - 1, sm + g.oSF + ((T - 1) & 1) * g.sBuf, X);
+  if (dense && tid == 0) bulk_wait_all();
+}
+
+// K9's forms 1 and 2 (its form 0 is kalman_wide_kernel above). Registers
+// for one block an SM: at two (128 registers a thread) form 1 spilled, and
+// its shared memory holds one or two blocks at the n it takes.
 template <int kForm>
-__global__ void __launch_bounds__(kThreads, kForm == 2 ? 1 : 2)
-    kalman_wide_kernel(const K9Args a, const Geo g) {
-  constexpr bool kMats = kForm == 0, kStage = kForm <= 1;
+__global__ void __launch_bounds__(kThreads, 1)
+    kalman_wide_ffma_kernel(const K9Args a, const Geo g) {
+  constexpr bool kStage = kForm <= 1;
   extern __shared__ float4 smem4[];
   float* const sm = reinterpret_cast<float*>(smem4);
   float* const ar = kStage ? sm : a.ws + static_cast<size_t>(blockIdx.x) * g.floats;
@@ -319,11 +688,7 @@ __global__ void __launch_bounds__(kThreads, kForm == 2 ? 1 : 2)
   // zero padding: only real entries are written from here on
   for (int e = tid; e < g.floats; e += nthr) ar[e] = 0.0f;
   __syncthreads();
-  // A and C (form 0) and the tile's x0 rows, copied with step 0's inputs
-  if constexpr (kMats) {
-    stage_rows(sm + g.oA, g.ldA, a.A, n, n, tid, nthr);
-    stage_rows(sm + g.oC, g.ldC, a.C, p, n, tid, nthr);
-  }
+  // the tile's x0 rows, copied with step 0's inputs
   if constexpr (kStage) {
     stage_rows(X, g.ldX, a.x0s + static_cast<size_t>(s0) * n, rows, n, tid, nthr);
   } else {
@@ -335,12 +700,6 @@ __global__ void __launch_bounds__(kThreads, kForm == 2 ? 1 : 2)
   auto stage = [&](int t) {
     if constexpr (kStage) {
       const int b = t & 1;
-      if constexpr (kMats) {
-        stage_rows(sm + g.oW + b * g.wBuf, g.nP, a.W + static_cast<size_t>(t) * p * n, p, n, tid,
-                   nthr);
-        stage_rows(sm + g.oL + b * g.lBuf, g.ldL, a.iL + static_cast<size_t>(t) * p * p, p, p,
-                   tid, nthr);
-      }
       async_copy::copy_run_by_block(sm + g.oY + b * g.yBuf,
                                     a.ys + (static_cast<size_t>(t) * N + s0) * p, rows * p, tid,
                                     nthr);
@@ -384,10 +743,7 @@ __global__ void __launch_bounds__(kThreads, kForm == 2 ? 1 : 2)
       for (int q = tid; q < (JTn << lgST); q += nthr) {
         const int st = q & (ST - 1), jt = q >> lgST;
         float acc[4][4];
-        if constexpr (kMats)
-          tile_product<false>(acc, X, g.ldX, st, ST, JTn, SharedRows{sm + g.oA, g.ldA, jt, JTn});
-        else
-          tile_product<false>(acc, X, g.ldX, st, ST, JTn, GlobalRows{a.A, n, n, n, jt, JTn});
+        tile_product<false>(acc, X, g.ldX, st, ST, JTn, GlobalRows{a.A, n, n, n, jt, JTn});
 #pragma unroll
         for (int r = 0; r < 4; ++r)
 #pragma unroll
@@ -410,10 +766,7 @@ __global__ void __launch_bounds__(kThreads, kForm == 2 ? 1 : 2)
       for (int q = tid; q < (JTp << lgST); q += nthr) {
         const int st = q & (ST - 1), jt = q >> lgST;
         float acc[4][4];
-        if constexpr (kMats)
-          tile_product<false>(acc, Xp, g.ldX, st, ST, JTn, SharedRows{sm + g.oC, g.ldC, jt, JTp});
-        else
-          tile_product<false>(acc, Xp, g.ldX, st, ST, JTn, GlobalRows{a.C, n, p, n, jt, JTp});
+        tile_product<false>(acc, Xp, g.ldX, st, ST, JTn, GlobalRows{a.C, n, p, n, jt, JTp});
 #pragma unroll
         for (int r = 0; r < 4; ++r)
 #pragma unroll
@@ -436,11 +789,7 @@ __global__ void __launch_bounds__(kThreads, kForm == 2 ? 1 : 2)
         float acc[4][4];
         if (q < tiles_x) {
           const int st = q & (ST - 1), jt = q >> lgST;
-          if constexpr (kMats)
-            tile_product<true>(acc, V, g.ldV, st, ST, JTp,
-                               SharedDepth{sm + g.oW + (t & 1) * g.wBuf, g.nP, jt});
-          else
-            tile_product<true>(acc, V, g.ldV, st, ST, JTp, GlobalDepth{Wt, n, p, n, jt});
+          tile_product<true>(acc, V, g.ldV, st, ST, JTp, GlobalDepth{Wt, n, p, n, jt});
 #pragma unroll
           for (int r = 0; r < 4; ++r)
 #pragma unroll
@@ -450,11 +799,7 @@ __global__ void __launch_bounds__(kThreads, kForm == 2 ? 1 : 2)
             }
         } else {
           const int qq = q - tiles_x, st = qq & (ST - 1), jt = qq >> lgST;
-          if constexpr (kMats)
-            tile_product<false>(acc, V, g.ldV, st, ST, JTp,
-                                SharedRows{sm + g.oL + (t & 1) * g.lBuf, g.ldL, jt, JTp});
-          else
-            tile_product<false>(acc, V, g.ldV, st, ST, JTp, GlobalRows{Lt, p, p, p, jt, JTp});
+          tile_product<false>(acc, V, g.ldV, st, ST, JTp, GlobalRows{Lt, p, p, p, jt, JTp});
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
             float sq = acc[r][0] * acc[r][0];
@@ -479,6 +824,9 @@ struct K10Args {
   int N, T;
 };
 
+// K10 keeps room for two blocks an SM (128 registers a thread) in the
+// shared-memory forms, one in the workspace form, whose guarded reads of
+// device memory need more registers (it spilled at 128).
 template <int kForm>
 __global__ void __launch_bounds__(kThreads, kForm == 2 ? 1 : 2)
     rts_wide_kernel(const K10Args a, const Geo g) {
@@ -560,30 +908,41 @@ inline cudaError_t optin_bytes(int* bytes) {
   return cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
 }
 
-// The form a kernel takes and its tile: form 0 with the largest tile whose
-// block fits the shared memory, else form 1 likewise, else form 2 with the
-// smallest tile.
+// The form a kernel takes, its tile and its block's threads: K10 in form 0
+// with the largest tile whose block fits the shared memory, else form 1
+// likewise, else form 2 with the smallest tile; K9 in form 0 (one tile of
+// kMmaTile) with two buffers of W_t and the dense buffers of its bulk
+// stores where they fit, else with one buffer and none, else in forms 1 and
+// 2 as K10.
 struct Plan {
   int form, S;
   Geo g;
+  int threads;
 };
 
+inline bool fits(const Geo& g, int optin) {
+  return static_cast<size_t>(g.floats) * sizeof(float) <= static_cast<size_t>(optin);
+}
+
 template <class Layout>
-inline Plan plan_of(int optin, Layout layout) {
-  for (int form = 0; form <= 1; ++form)
+inline Plan plan_of(int optin, int first_form, Layout layout) {
+  for (int form = first_form; form <= 1; ++form)
     for (int S = kMaxTile; S >= kMinTile; S /= 2) {
       const Geo g = layout(S, form);
-      if (static_cast<size_t>(g.floats) * sizeof(float) <= static_cast<size_t>(optin))
-        return Plan{form, S, g};
+      if (fits(g, optin)) return Plan{form, S, g, kThreads};
     }
-  return Plan{2, kMinTile, layout(kMinTile, 2)};
+  return Plan{2, kMinTile, layout(kMinTile, 2), kThreads};
 }
 
 inline Plan plan_k9(int optin, int n, int p, bool has_u) {
-  return plan_of(optin, [=](int S, int form) { return layout_k9(n, p, S, form, has_u); });
+  for (const int full : {1, 0}) {
+    const Geo g = layout_k9_mma(n, p, has_u, full ? 2 : 1, full);
+    if (fits(g, optin)) return Plan{0, kMmaTile, g, kMmaThreads};
+  }
+  return plan_of(optin, 1, [=](int S, int form) { return layout_k9(n, p, S, form, has_u); });
 }
 inline Plan plan_k10(int optin, int n) {
-  return plan_of(optin, [=](int S, int form) { return layout_k10(n, S, form); });
+  return plan_of(optin, 0, [=](int S, int form) { return layout_k10(n, S, form); });
 }
 
 
@@ -595,7 +954,7 @@ cudaError_t launch(Kernel kernel, const Plan& plan, const Args& a, int N, cudaSt
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  kernel<<<(N + plan.S - 1) / plan.S, kThreads, smem, stream>>>(a, plan.g);
+  kernel<<<(N + plan.S - 1) / plan.S, plan.threads, smem, stream>>>(a, plan.g);
   return cudaGetLastError();
 }
 
@@ -619,9 +978,9 @@ extern "C" int npt_kalman_mean_wide(const float* A, const float* C, const float*
   const K9Args a{A, C, W, iL, cst, x0s, ys, us, xf, xp, ll, ws, N, T};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (plan.form) {
-    case 0: return static_cast<int>(launch(kalman_wide_kernel<0>, plan, a, N, st));
-    case 1: return static_cast<int>(launch(kalman_wide_kernel<1>, plan, a, N, st));
-    default: return static_cast<int>(launch(kalman_wide_kernel<2>, plan, a, N, st));
+    case 0: return static_cast<int>(launch(kalman_wide_kernel, plan, a, N, st));
+    case 1: return static_cast<int>(launch(kalman_wide_ffma_kernel<1>, plan, a, N, st));
+    default: return static_cast<int>(launch(kalman_wide_ffma_kernel<2>, plan, a, N, st));
   }
 }
 
@@ -647,8 +1006,8 @@ extern "C" int npt_rts_mean_wide(const float* G, const float* es, const float* x
 
 // The plan of the wide K9 at (n, p) (with inputs or not) and of the wide K10
 // at n on the current device: 100 form + tile (form 0: matrices and tile in
-// shared memory; 1: the matrices read through L1; 2: the tile in the
-// workspace); -1 on a CUDA error.
+// shared memory, K9's products on the tensor cores; 1: the matrices read
+// through L1; 2: the tile in the workspace); -1 on a CUDA error.
 extern "C" int npt_kalman_mean_wide_plan(int n, int p, int has_u) {
   using namespace kalman_wide;
   int optin = 0;

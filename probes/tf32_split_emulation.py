@@ -1,12 +1,23 @@
 #!/usr/bin/env python3
-"""The wide K5's arithmetic emulated on the host, to choose its 3xTF32 form
-before a card run: the recursion of csrc/riccati_wide.cu (Y = P [A | B],
-the blocks of [A | B]'Y, S inverted by Gauss-Jordan in fp32, K = S^{-1}
-B'PA, P' = Q + A'PA - (B'PA)'K's upper triangle mirrored) with each product
-as mma.sync m16n8k8 TF32 passes would compute it, against the plain version
-in fp32 and float64 with phase 28's bounds.
+"""The wide K5's and the wide K9's arithmetic emulated on the host, to
+choose their 3xTF32 form before a card run, each product as mma.sync
+m16n8k8 TF32 passes would compute it, against the plain version in fp32 and
+float64:
+  - K5 (csrc/riccati_wide.cu), with phase 28's bounds: Y = P [A | B], the
+    blocks of [A | B]'Y, S inverted by Gauss-Jordan in fp32, K = S^{-1}
+    B'PA, P' = Q + A'PA - (B'PA)'K's upper triangle mirrored;
+  - K9 (csrc/kalman_wide.cu's form 0), with phase 30's bounds (means atol
+    2e-5, ll rtol 2e-4 / atol 2e-3, or four times the plain fp32 version's
+    own distance from float64): x_p = x A' + u_t, v = y_t - x_p C',
+    x = x_p + v W_t, alpha = v invL_t', ll -= 0.5 |alpha|^2 + cst_t, the
+    three dependent products in that order ("split": x_p C' over two halves
+    of its k-steps, v = (y_t - the first) - the second, a form tried and not
+    kept: slower on the card), on the four-quadrotor formation
+    (chip_smoke.quad_estimation: n = 48, p = 24) and on a random stable
+    (130, 67) system (chip_smoke.random_estimation), each with inputs, on
+    N trajectories of T_K9 = 50 steps.
 
-    python probes/tf32_split_emulation.py [N] [rz|rn]   (from the repository root; CPU)
+    python probes/tf32_split_emulation.py [N] [rz|rn] [k5|k9]   (from the repository root; CPU)
 
 The model of a pass: TF32 operands (a float's top 19 bits: truncation where
 the kernel hands mma.sync raw fp32 words), each product exact, the eight
@@ -23,8 +34,9 @@ on its first N scenarios (default 64), and with A far from the identity
 (chip_smoke.formation_far: -As, As O). Prints, per plant and form, max |d|
 of Ks and P0 from the plain fp32 version, the scaled distance from it
 (at most 1 where rtol 1e-3 / atol 1e-4 on Ks and 1e-3 on P0 hold) and the
-scaled distance from float64 beside the plain version's own. ~1-2 minutes
-on a few cores at N = 64.
+scaled distance from float64 beside the plain version's own; for K9 the
+scaled distances of the means and of ll. ~1-2 minutes on a few cores at
+N = 64 for K5, about as long for K9.
 """
 
 from __future__ import annotations
@@ -38,7 +50,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
-from numpower_tpu_torch.kernels import riccati  # noqa: E402
+from numpower_tpu_torch.kernels import kalman_mean, riccati  # noqa: E402
 
 F32, F64 = torch.float32, torch.float64
 ACC = "rz"
@@ -140,11 +152,80 @@ def scaled(Ks, P0, Ks_ref, P0_ref) -> float:
     return max(cs.scaled_err(Ks, Ks_ref, 1e-3, 1e-4), cs.scaled_err(P0, P0_ref, 1e-3, 1e-3))
 
 
+T_K9 = 50
+K9_FORMS = ("truncated", "rounded", "rounded, split")
+
+
+def k9_kernel(A, C, Ws, invLs, logdets, x0s, ys_t, us_t, form):
+    """csrc/kalman_wide.cu's form 0 emulated: each product in the 3xTF32
+    form `form` (", split": x_p C' over two halves of its k-steps), the sums
+    around them in fp32."""
+    split = form.endswith(", split")
+    rounded, fresh, _ = FORMS[form.removesuffix(", split")]
+    n = A.shape[0]
+    cut = 8 * ((-(-n // 8) + 1) // 2)  # the first half's k-steps, of 8
+
+    def mm(x, M):  # x (N, k) @ M (k, c)
+        return product(x[None], M[None].contiguous(), rounded, fresh)[0]
+
+    cst = kalman_mean._step_constants(logdets, ys_t.shape[-1])
+    x, ll = x0s, torch.zeros(x0s.shape[0])
+    xs_f, xs_p = [], []
+    for t in range(ys_t.shape[0]):
+        x_p = mm(x, A.T)
+        if us_t is not None:
+            x_p = x_p + us_t[t]
+        if split and cut < n:
+            v = (ys_t[t] - mm(x_p[:, :cut], C.T[:cut])) - mm(x_p[:, cut:], C.T[cut:])
+        else:
+            v = ys_t[t] - mm(x_p, C.T)
+        x = x_p + mm(v, Ws[t])
+        alpha = mm(v, invLs[t].T)
+        ll = ll - 0.5 * (alpha * alpha).sum(1) - cst[t]
+        xs_f.append(x)
+        xs_p.append(x_p)
+    return torch.stack(xs_f), torch.stack(xs_p), ll
+
+
+def k9_main(N: int) -> None:
+    q = {k: torch.as_tensor(v) for k, v in cs.quad_estimation(cs.N_FORMATION, N, T_K9).items()}
+    systems = {"formation": q,
+               "random (130, 67)": cs.random_estimation(130, 67, N, T_K9, seed=197, dev="cpu")}
+    for what, d in systems.items():
+        ops = cs.kalman_mean_operands(d["A"], d["C"], d["Q"], d["R"], d["P0"], d["x0s"],
+                                      d["yss"], d["B"], d["uss"])
+        plain = kalman_mean.kalman_mean_pass_reference(*ops)
+        f64 = kalman_mean.kalman_mean_pass_reference(*(x.double() for x in ops))
+        e_px = max(cs.scaled_err(plain[k], f64[k], 0.0, 2e-5) for k in range(2))
+        e_pl = cs.scaled_err(plain[2], f64[2], 2e-4, 2e-3)
+        n, p = ops[0].shape[0], ops[1].shape[0]
+        print(f"K9 {what} (n = {n}, p = {p}, N = {N}, T = {T_K9}, with inputs, sums {ACC}): "
+              f"the plain fp32 version from float64, scaled means {e_px:.3f}, ll {e_pl:.3f}",
+              flush=True)
+        for form in K9_FORMS:
+            got = k9_kernel(*ops, form)
+            held = True
+            parts = []
+            for k, (rtol, atol, e_p) in enumerate(((0.0, 2e-5, e_px), (0.0, 2e-5, e_px),
+                                                    (2e-4, 2e-3, e_pl))):
+                ok, e_kp, e_k, _ = cs.held_against(got[k], plain[k], f64[k], rtol, atol)
+                held = held and ok
+                parts.append(f"{('x_f', 'x_p', 'll')[k]} {cs.max_err(got[k], plain[k]):.2e} "
+                             f"(scaled {e_kp:.3f} / {e_k:.3f})")
+            print(f"  {form:10s} max|d| from plain (scaled from plain / float64): "
+                  f"{'; '.join(parts)}: {'held' if held else 'NOT HELD'}", flush=True)
+
+
 def main() -> int:
     global ACC
     N = int(sys.argv[1]) if len(sys.argv) > 1 else 64
     ACC = sys.argv[2] if len(sys.argv) > 2 else "rz"
+    which = sys.argv[3] if len(sys.argv) > 3 else "all"
     torch.set_num_threads(min(8, torch.get_num_threads()))
+    if which in ("k9", "all"):
+        k9_main(N)
+    if which == "k9":
+        return 0
     plants = {"formation": cs.formation(cs.N_FORMATION, N)}
     plants.update({f"A {k}": cs.formation_far(k, cs.N_FORMATION, N) for k in cs.FAR_FROM_I})
     for what, (As, B, Q, R, QF) in plants.items():

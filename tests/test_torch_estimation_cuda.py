@@ -28,7 +28,11 @@ on misaligned operands; K10 at every bucket and past it (n = 17, 48, 130,
 130}, and on misaligned e_t and x_last. The wide K9 and K10 (past n = 16 or
 p = 8, csrc/kalman_wide.cu) are also held to float64 in each of their three
 forms, up to (n, p) = (4000, 3); past the narrow forms C and B are N(0, 1) /
-sqrt(n), which keeps the innovations of order one at any width. Past
+sqrt(n), which keeps the innovations of order one at any width. The wide
+K9's form 0 (its products on the tensor cores) is held to float64 at the
+four-quadrotor formation and at chip_smoke.KALMAN_WIDE_EDGES; its forms 1
+and 2 and the wide K10 to the SHA-256 digests of the kernels before (the
+file imports chip_smoke, so run it from the repository's root). Past
 those horizons the data keep to a regime of order one (X_NOM): from 0.3
 N(0, 1) with only the cart position (or px) measured, the cartpole's and
 the planar quadrotor's unmeasured covariances grow to 13-156 by T = 50-67,
@@ -43,6 +47,10 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import (
+    K9_WIDE_DIGESTS, KALMAN_WIDE_EDGES, N_FORMATION, T_KF_EDGE, held_against, kalman_mean_operands,
+    kalman_wide_checksums, quad_estimation, random_estimation,
+)
 from numpower_tpu_torch.kernels import ekf, kalman_mean, rts_mean, ukf
 from numpower_tpu_torch.models import (
     MPCController, cartpole_step, double_integrator, ekf_filter_batched, first_components,
@@ -397,6 +405,75 @@ def test_rts_mean_wide_forms_match_plain_and_float64(device, n, N, T, form):
     plain = rts_mean.rts_mean_pass_reference(G, es, x_last)
     assert _held(got, plain, rts_mean.rts_mean_pass_reference(G.double(), es.double(),
                                                              x_last.double()), 2e-5)
+
+
+def _assert_held_k9(got, args, what):
+    """chip_smoke phase 30's check of a wide K9 call: xs_f and xs_p within
+    2e-5, ll within rtol 2e-4 / atol 2e-3, of the plain version and of
+    float64, or within four times the plain fp32 version's own distance
+    (chip_smoke.held_against)."""
+    plain = kalman_mean.kalman_mean_pass_reference(*args)
+    f64 = kalman_mean.kalman_mean_pass_reference(*(None if x is None else x.double()
+                                                   for x in args))
+    for k, (rtol, atol) in enumerate(((0.0, 2e-5), (0.0, 2e-5), (2e-4, 2e-3))):
+        held, e_kp, e_k, e_p = held_against(got[k], plain[k], f64[k], rtol, atol)
+        assert held, (what, k, e_kp, e_k, e_p)
+
+
+@pytest.mark.parametrize("inputs", [False, True], ids=["no_inputs", "inputs"])
+@pytest.mark.parametrize("N", [4096, 1003])
+def test_kalman_mean_wide_tensor_core_form_at_the_formation(device, N, inputs):
+    """The wide K9's form 0, its products in rounded 3xTF32 on the tensor
+    cores, at the four-quadrotor formation (chip_smoke phase 30: n = 48,
+    p = 24, T = 50; N = 4096 and a ragged 1003), one launch, against its
+    plain version and float64."""
+    q = {k: torch.as_tensor(v, device=device)
+         for k, v in quad_estimation(N_FORMATION, N, 50).items()}
+    ops = kalman_mean_operands(q["A"], q["C"], q["Q"], q["R"], q["P0"], q["x0s"], q["yss"],
+                               q["B"], q["uss"])
+    args = ops if inputs else ops[:7] + [None]
+    assert kalman_mean.wide_plan(device.index, 48, 24, inputs) == (0, 16)
+    before = kalman_mean.kalman_mean_pass.launches
+    got = kalman_mean.kalman_mean_pass(*args)
+    torch.cuda.synchronize()
+    assert kalman_mean.kalman_mean_pass.launches == before + 1
+    _assert_held_k9(got, args, (N, inputs))
+
+
+@pytest.mark.parametrize("inputs", [False, True], ids=["no_inputs", "inputs"])
+@pytest.mark.parametrize("n,p", KALMAN_WIDE_EDGES)
+def test_kalman_mean_wide_tensor_core_form_at_the_edges(device, n, p, inputs):
+    """The wide K9's form 0 at chip_smoke.KALMAN_WIDE_EDGES (N = 4096, T =
+    13: random stable systems, chip_smoke.random_estimation), one launch,
+    against its plain version and float64."""
+    d = random_estimation(n, p, 4096, T_KF_EDGE, seed=n + p, dev=device)
+    ops = kalman_mean_operands(d["A"], d["C"], d["Q"], d["R"], d["P0"], d["x0s"], d["yss"],
+                               d["B"], d["uss"])
+    args = ops if inputs else ops[:7] + [None]
+    assert kalman_mean.wide_plan(device.index, n, p, inputs)[0] == 0
+    got = kalman_mean.kalman_mean_pass(*args)
+    torch.cuda.synchronize()
+    _assert_held_k9(got, args, (n, p, inputs))
+
+
+@pytest.fixture(scope="module")
+def wide_digests(device):
+    return kalman_wide_checksums(device)
+
+
+@pytest.mark.parametrize("case", sorted(K9_WIDE_DIGESTS))
+def test_wide_kernels_keep_their_bits(wide_digests, case):
+    """The wide K9's forms 1 and 2 and the wide K10 give the SHA-256 digests
+    of the kernels before K9's form 0 moved to the tensor cores
+    (chip_smoke.K9_WIDE_DIGESTS), and a second call the same bits."""
+    digest, call = wide_digests[case]
+    assert digest == K9_WIDE_DIGESTS[case]
+    import hashlib
+
+    h = hashlib.sha256()
+    for x in call():
+        h.update(x.contiguous().cpu().numpy().tobytes())
+    assert h.hexdigest()[:16] == digest
 
 
 @pytest.mark.parametrize("f,n,m", PLANTS, ids=[f.__name__ for f, _, _ in PLANTS])

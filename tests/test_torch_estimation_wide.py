@@ -222,3 +222,38 @@ def test_whole_filter_routes_past_the_auto_envelope(kernel):
     assert te.route_batched(kernel, "cuda", F32, {"n": 6, "p": 5, "m": 2}) == "xla"
     assert te.route_batched(kernel, "cuda", F32, {"n": 6, "p": 6, "m": 2}, "pallas") == "pallas"
     assert ekf.MAX_P == ekf.MAX_N and kalman_mean.MAX_P == 8 and ukf.ukf_batched.launches >= 0
+
+
+@pytest.mark.parametrize("inputs", [False, True], ids=["no_inputs", "inputs"])
+@pytest.mark.parametrize("n,p,formation", [(48, 24, True), (130, 67, False)],
+                         ids=["formation", "n130_p67"])
+def test_kalman_wide_ops_count_the_function(n, p, formation, inputs):
+    """chip_smoke.kalman_wide_ops (phase 30's bound of the wide K9) against a
+    direct count on the plain version at (N, T) = (5, 3): its TF32
+    operations are three passes of every matrix product's flops
+    (torch.utils.flop_counter), its bytes each operand and result once, its
+    all-fp32 figure the products with the CUDA cores' n + 4p (+ n with
+    inputs) a trajectory-step."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    import chip_smoke as cs
+
+    N, T = 5, 3
+    if formation:
+        d = {k: torch.as_tensor(v) for k, v in cs.quad_estimation(4, N, T).items()}
+    else:
+        d = cs.random_estimation(n, p, N, T, seed=1, dev="cpu")
+    ops = cs.kalman_mean_operands(d["A"], d["C"], d["Q"], d["R"], d["P0"], d["x0s"], d["yss"],
+                                  d["B"], d["uss"])
+    args = ops if inputs else ops[:7] + [None]
+    assert (args[0].shape[0], args[1].shape[0]) == (n, p)
+    with FlopCounterMode(display=False) as counter:
+        outputs = kalman_mean.kalman_mean_pass_reference(*args)
+    products = counter.get_total_flops()
+    cst = kalman_mean._step_constants(args[4], p)
+    n_bytes = 4 * sum(x.numel() for x in (*args[:4], cst, *args[5:], *outputs) if x is not None)
+    cuda, tf32, got_bytes, fp32_all = cs.kalman_wide_ops(N, T, n, p, inputs)
+    assert tf32 == 3 * products
+    assert got_bytes == n_bytes
+    assert cuda == N * T * (n + 4 * p + (n if inputs else 0))
+    assert fp32_all == products + cuda

@@ -17,8 +17,9 @@ of 132 multiprocessors; the formation with A far from the identity (-As,
 As O), also against float64; the
 formation through riccati_scan_per_scenario ("auto": one K5 launch, "psd":
 T K6b launches); K6a at every n = 17..48; K6b across the narrow form's edge
-(n or r = 16 / 17) and at every wide bucket; misaligned and strided
-operands; ValueError at n, m or r = 49 and nowhere below.
+(n or r = 16 / 17) and at every wide bucket, and its bits against the
+SHA-256 digests of the kernel before its redesign at NB = 16; misaligned
+and strided operands; ValueError at n, m or r = 49 and nowhere below.
 
 Tolerances as tests/test_torch_riccati_cuda.py: K5 rtol 1e-3 / atol 1e-4 on
 Ks and 1e-3 on P0; K6b rtol 2e-3 / atol 2e-4 and a residual |AX - B| <=
@@ -31,8 +32,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (FAR_FROM_I, K5_WIDE_SHAPES, formation, formation_far, scaled_err,
-                        stable_plant)
+from chip_smoke import (FAR_FROM_I, K5_WIDE_SHAPES, K6B_WIDE_DIGESTS, formation, formation_far,
+                        k6b_wide_checksums, scaled_err, stable_plant)
 from numpower_tpu_torch.kernels import cholesky, riccati
 from numpower_tpu_torch.models import riccati_scan_per_scenario
 from numpower_tpu_torch.utils.smallmat import cholesky_unrolled, psd_solve_unrolled
@@ -220,6 +221,24 @@ def test_psd_solve_wide_matches_plain(device, n, r, N):
     torch.testing.assert_close(X, psd_solve_unrolled(a, b), rtol=2e-3, atol=2e-4)
     sym = torch.tril(a) + torch.tril(a, -1).transpose(1, 2)
     assert (sym @ X - b).abs().max().item() <= 2e-3
+
+
+@pytest.fixture(scope="module")
+def psd_digests(device):
+    return k6b_wide_checksums(device)
+
+
+@pytest.mark.parametrize("case", sorted(K6B_WIDE_DIGESTS))
+def test_psd_solve_wide_keeps_its_bits(psd_digests, case):
+    """Every wide K6b bucket (n = 1 .. 48, r up to 48, the "psd" route's
+    (16, 16) x 48 and (48, 48) x 48 at N = 4096) gives the SHA-256 digest of
+    the kernel before its redesign at NB = 16 (chip_smoke.K6B_WIDE_DIGESTS),
+    and a second call the same bits."""
+    import hashlib
+
+    digest, call = psd_digests[case]
+    assert digest == K6B_WIDE_DIGESTS[case]
+    assert hashlib.sha256(call().cpu().numpy().tobytes()).hexdigest()[:16] == digest
 
 
 @pytest.mark.parametrize("which", ["a", "b", "strided"])
